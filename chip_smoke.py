@@ -1,29 +1,44 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase, as below
+    python3 chip_smoke.py --kernels-only  # phases 1-3 only
 
 Phases, in order; any failure exits non-zero before the last line:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compile the CUDA kernels from `spark_tpu_torch/csrc` (nvcc);
+2. build: compile the CUDA kernels from `spark_tpu_torch/csrc` (nvcc),
+   print each kernel's registers and shared memory, and the shared-memory
+   atomics each kernel's SASS holds (cuobjdump, where the toolkit has it);
 3. kernels: each kernel against its plain PyTorch version on the card at
-   four shapes — (a) 6M rows into 12 slots, 9 int64 rows of mixed signs
+   six shapes — (a) 6M rows into 12 slots, 9 int64 rows of mixed signs
    near +-2^62 (the sums wrap); (b) 6M rows into 1 slot; (c) 4M rows into
    512 slots, 2 int and 2 float64 rows, 1% of the indices out of range;
-   (d) 16M rows into 65,536 slots, 3 int rows. Ints must be equal, floats
-   within rtol 1e-12 of the plain float64 sum (atomics add in another
-   order);
-4. main path: TPC-H SF1 generated with the port's datagen, Q1 and Q6
+   (d) 16M rows into 65,536 slots, 3 int rows; (e) 6M rows into 25 slots,
+   4 int rows; (f) as (e) with one slot more than the private variant's
+   cut-off. Ints must be equal, floats within rtol 1e-12 of the plain
+   float64 sum (another order), and two runs of (c) must give equal float
+   sums. Each shape gives the wrapper's time (`ms`, CUDA events around
+   one call) and the kernels' own device time (`kernel_ms`,
+   torch.profiler);
+4. variants: the private and shared variants of dense_sums_smem timed
+   against each other at the domains around the planner's cut-off, and
+   each checked with float rows, an odd row count and two runs that must
+   agree;
+5. main path: TPC-H SF1 generated with the port's datagen, Q1 and Q6
    through `SparkTpuSession` on the card, compared with the port's pandas
    golden answers; `range(16M).group_by(id % 65536)` with count, sum and
    avg against numpy. Each run starts with the kernel launch counters at
    0 and must launch its kernel. Each query is then run once more per
    operator, and once under torch.profiler for the card's busy share;
    the kernels are timed again on the exact inputs the main path gave
-   them.
+   them (Q1's and Q6's for dense_sums_smem).
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is `{"ok": true, "device": {...}}`. Imports nothing of JAX.
+The line before the last is a JSON object with one entry per kernel and
+main-path input; the last line is `{"ok": true, "device": {...}}`.
+`--kernels-only` ends with one JSON line of the shapes' results instead;
+it reads nothing of the package but the wrapper, its plain version, its
+launch counters and `build`, so it also times another checkout's kernels.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -44,14 +59,21 @@ SF = 1.0
 RANGE_ROWS = 16_000_000
 RANGE_MOD = 65536
 
-KERNEL_META = {
-    "dense_sums_smem": {
-        "replaces": "spark_tpu/execution/pallas_groupby.py:93",
-        "main_path": "q1"},
-    "dense_sums_global": {
-        "replaces": "spark_tpu/execution/pallas_groupby.py:162",
-        "main_path": "range"},
+REPLACES = {
+    "dense_sums_smem": "spark_tpu/execution/pallas_groupby.py:93",
+    "dense_sums_global": "spark_tpu/execution/pallas_groupby.py:162",
 }
+#: (kernel, main-path query whose inputs it is timed on)
+KERNEL_INPUTS = [("dense_sums_smem", "q1"), ("dense_sums_smem", "q6"),
+                 ("dense_sums_global", "range")]
+#: shape (f)'s domain: one slot above the private variant's cut-off
+#: (`dense_groupby.PRIVATE_DOMAIN`, checked in phase 3), fixed here so that
+#: --kernels-only times another checkout's kernels on the same inputs
+ABOVE_CUTOFF = 49
+#: (domain, variant, its neighbour) timed against each other in phase 4
+VARIANT_PAIRS = [(16, "private", "shared"), (32, "private", "shared"),
+                 (48, "private", "shared"), (56, "private", "shared"),
+                 (64, "private", "shared")]
 SOURCE = "spark_tpu_torch/csrc/dense_groupby.cu"
 
 
@@ -75,6 +97,49 @@ def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_ms(fn, reps: int = REPS) -> float:
+    """Median over `reps` calls of `fn` of the device time of the kernels
+    one call launches (every kernel whose name holds "dense_sums", the
+    float combine included), from torch.profiler's CUDA kernel events.
+    Each call runs in a profiler range that ends with a synchronize, and
+    a kernel belongs to the range that holds its midpoint; calls that
+    the profiler saw fewer kernels of than most are left out."""
+    import collections
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            with record_function("chip_smoke_call"):
+                fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    calls = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == "chip_smoke_call"
+                   and e.device_type == torch.autograd.DeviceType.CPU)
+    groups = [[] for _ in calls]
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and "dense_sums" in e.name:
+            mid = (e.time_range.start + e.time_range.end) / 2
+            for g, (start, end) in zip(groups, calls):
+                if start <= mid <= end:
+                    g.append(e.time_range.end - e.time_range.start)
+                    break
+    sizes = collections.Counter(len(g) for g in groups if g)
+    if not sizes:
+        raise RuntimeError(f"the profiler saw no kernel of {len(calls)} "
+                           "calls")
+    usual = sizes.most_common(1)[0][0]
+    full = [sum(g) for g in groups if len(g) == usual]
+    if len(full) < reps // 2:
+        raise RuntimeError(f"the profiler saw all {usual} kernels of only "
+                           f"{len(full)} of {reps} calls")
+    return statistics.median(full) / 1e3
 
 
 def bound_ms(idx, n_rows: int, domain: int) -> tuple:
@@ -125,6 +190,8 @@ def measure(D, idx, ints, floats, domain):
 
     return {
         "ms": time_ms(lambda: D.dense_groupby_sums(idx, ints, floats, domain)),
+        "kernel_ms": kernel_ms(
+            lambda: D.dense_groupby_sums(idx, ints, floats, domain)),
         "plain_ms": time_ms(
             lambda: D.dense_groupby_sums_plain(idx, ints, floats, domain)),
         "library_ms": time_ms(library),
@@ -151,15 +218,43 @@ def phase_build():
     path, seconds, out = D.build(force=True)
     log(f"[build] {path.name} in {seconds:.1f} s")
     for line in out.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
+        if "registers" in line or "smem" in line or "spill" in line \
+                or "Compiling entry" in line:
             log(f"[build]   {line.strip()}")
+    log_shared_atomics(path)
     return D
 
 
-def phase_kernels(D) -> None:
+def log_shared_atomics(path) -> None:
+    """The shared-memory atomic opcodes in each kernel's SASS: a 64-bit
+    int add should be a native ATOMS.ADD.64, a float64 add a CAS loop."""
+    import os
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        log("[build] cuobjdump not found: SASS not read")
+        return
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=120).stdout
+    func = None
+    ops = {}
+    for line in sass.splitlines():
+        if "Function :" in line:
+            func = line.split("Function :")[1].strip()
+            ops[func] = set()
+        elif func and "ATOMS" in line:
+            ops[func].add(next(w for w in line.replace(";", " ").split()
+                               if w.startswith("ATOMS")))
+    for func, found in ops.items():
+        log(f"[build]   sass {func}: "
+            f"{', '.join(sorted(found)) or 'no shared atomics'}")
+
+
+def make_inputs(seed: int):
+    """Generators of seeded inputs on the card."""
     import torch
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(1234)
+    g = torch.Generator(device=dev).manual_seed(seed)
 
     def ints(n, k, big):
         lo, hi = (-(1 << 62), 1 << 62) if big else (-10**6, 10**6)
@@ -178,13 +273,28 @@ def phase_kernels(D) -> None:
             idx = torch.where(drop, torch.full_like(idx, domain + 7), idx)
         return idx
 
+    return ints, floats, index
+
+
+def phase_kernels(D, strict: bool = True) -> list:
+    """Shapes (a)-(f); returns one result per shape. With strict=False
+    float sums that differ between two runs are reported, not fatal."""
+    import torch
+    ints, floats, index = make_inputs(1234)
+    if strict and D.PRIVATE_DOMAIN + 1 != ABOVE_CUTOFF:
+        raise AssertionError(f"shape (f) should sit at the cut-off "
+                             f"{D.PRIVATE_DOMAIN} + 1, not {ABOVE_CUTOFF}")
     shapes = [
         ("a", 6_000_000, 12, lambda n: (ints(n, 9, True), []), 0.0),
         ("b", 6_000_000, 1, lambda n: (ints(n, 9, True), []), 0.0),
         ("c", 4_000_000, 512, lambda n: (ints(n, 2, False), floats(n, 2)),
          0.01),
         ("d", 16_000_000, 65536, lambda n: (ints(n, 3, False), []), 0.0),
+        ("e", 6_000_000, 25, lambda n: (ints(n, 4, True), []), 0.0),
+        ("f", 6_000_000, ABOVE_CUTOFF, lambda n: (ints(n, 4, True), []),
+         0.0),
     ]
+    results = []
     for label, n, domain, rows, oor in shapes:
         idx = index(n, domain, oor)
         ir, fr = rows(n)
@@ -198,13 +308,69 @@ def phase_kernels(D) -> None:
             raise AssertionError(f"shape {label}: {kernel} never launched")
         err = compare_sums(f"shape {label}", got,
                            D.dense_groupby_sums_plain(idx, ir, fr, domain))
+        repeats = None
+        if fr:
+            again = D.dense_groupby_sums(idx, ir, fr, domain)
+            repeats = all(torch.equal(a, b) for a, b in zip(got[1], again[1]))
+            if strict and not repeats:
+                raise AssertionError(f"shape {label}: float sums differ "
+                                     "between two runs")
         t = measure(D, idx, ir, fr, domain)
         b, _ = bound_ms(idx, len(ir) + len(fr), domain)
         log(f"[kernels] ({label}) {kernel} n={n} domain={domain} "
             f"int_rows={len(ir)} float_rows={len(fr)}: match "
-            f"(max_abs_err={err:.3g}) kernel_ms={t['ms']:.4f} "
+            f"(max_abs_err={err:.3g}"
+            + ("" if repeats is None else f", floats repeat: {repeats}")
+            + f") ms={t['ms']:.4f} kernel_ms={t['kernel_ms']:.4f} "
             f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
-            f"bound_ms={b:.4f} launches={launches}")
+            f"bound_ms={b:.4f} share={b / t['kernel_ms']:.3f} "
+            f"launches={launches}")
+        results.append({"shape": label, "kernel": kernel, "n": n,
+                        "domain": domain, "int_rows": len(ir),
+                        "float_rows": len(fr), "bound_ms": b,
+                        "floats_repeat": repeats, **t})
+    return results
+
+
+def phase_variants(D) -> None:
+    """Each variant of dense_sums_smem against its neighbour around the
+    planner's cut-offs (6M rows, 4 int rows near +-2^62, random slots),
+    then each variant with float rows, an odd row count, 1% of the rows
+    dropped and two runs whose float sums must be equal."""
+    import torch
+    ints, floats, index = make_inputs(99)
+    n = 6_000_000
+    ir = ints(n, 4, True)
+    for domain, first, second in VARIANT_PAIRS:
+        idx = index(n, domain)
+        b, _ = bound_ms(idx, len(ir), domain)
+        want = D.dense_groupby_sums_plain(idx, ir, [], domain)
+        times = []
+        for variant in (first, second):
+            plan = D.plan_variant(variant, domain, len(ir), 0)
+            compare_sums(f"{variant} at domain {domain}",
+                         D.run_plan(plan, idx, ir, [], domain), want)
+            times.append(kernel_ms(
+                lambda: D.run_plan(plan, idx, ir, [], domain)))
+        picked = D.plan_launches(domain, len(ir), 0)[0].variant
+        log(f"[variants] domain={domain} {first} kernel_ms={times[0]:.4f} "
+            f"{second} kernel_ms={times[1]:.4f} bound_ms={b:.4f}; "
+            f"the planner picks {picked}")
+    n = 2_000_001
+    fi, ff = ints(n, 1, True), floats(n, 2)
+    for variant, domain in (("private", 20), ("shared", 200)):
+        idx = index(n, domain, 0.01)
+        plan = D.plan_variant(variant, domain, 1, 2)
+        got = D.run_plan(plan, idx, fi, ff, domain)
+        err = compare_sums(f"{variant} with floats", got,
+                           D.dense_groupby_sums_plain(idx, fi, ff, domain))
+        again = D.run_plan(plan, idx, fi, ff, domain)
+        if not all(torch.equal(a, b) for a, b in zip(got[1], again[1])):
+            raise AssertionError(f"{variant}: float sums differ between "
+                                 "two runs")
+        log(f"[variants] {variant} domain={domain} n={n} 1 int + 2 float "
+            f"rows, 1% dropped: match (max_abs_err={err:.3g}), float sums "
+            f"equal in two runs")
 
 
 def phase_main_path(D):
@@ -359,12 +525,11 @@ def breakdown(df) -> str:
 
 
 def kernel_report(D, launches, captured):
-    """One entry per kernel, measured on the inputs its main-path query
-    gave it."""
+    """One entry per kernel and main-path input, measured on the inputs
+    that query gave it."""
     import torch
     entries = []
-    for name, meta in KERNEL_META.items():
-        q = meta["main_path"]
+    for name, q in KERNEL_INPUTS:
         idx, ir, fr, domain = captured[q]
         got = D.dense_groupby_sums(idx, ir, fr, domain)
         torch.cuda.synchronize()
@@ -372,29 +537,34 @@ def kernel_report(D, launches, captured):
                            D.dense_groupby_sums_plain(idx, ir, fr, domain))
         t = measure(D, idx, ir, fr, domain)
         b, by = bound_ms(idx, len(ir) + len(fr), domain)
-        total_launches = sum(launches[k][name] for k in launches)
         log(f"[report] {name} on {q}'s inputs: n={idx.shape[0]} "
             f"domain={domain} int_rows={len(ir)} float_rows={len(fr)} "
-            f"ms={t['ms']:.4f} bound_ms={b:.4f}")
+            f"ms={t['ms']:.4f} kernel_ms={t['kernel_ms']:.4f} "
+            f"bound_ms={b:.4f} share={b / t['kernel_ms']:.3f} "
+            f"launches={launches[q][name]}")
         entries.append({
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": meta["replaces"], "launches": total_launches,
-            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": b, "bound_by": by, "library_ms": t["library_ms"],
+            "replaces": REPLACES[name], "launches": launches[q][name],
+            "max_abs_err": err, "ms": t["ms"], "kernel_ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": b, "bound_by": by,
+            "library_ms": t["library_ms"],
             "shape": {"query": q, "n": int(idx.shape[0]), "domain": domain,
                       "int_rows": len(ir), "float_rows": len(fr)}})
     return entries
 
 
-def main() -> int:
+def main(argv) -> int:
     t_start = time.perf_counter()
+    kernels_only = "--kernels-only" in argv
     try:
         import torch
         smi_line, name = phase_device()
         D = phase_build()
-        phase_kernels(D)
-        launches, captured = phase_main_path(D)
-        entries = kernel_report(D, launches, captured)
+        shapes = phase_kernels(D, strict=not kernels_only)
+        if not kernels_only:
+            phase_variants(D)
+            launches, captured = phase_main_path(D)
+            entries = kernel_report(D, launches, captured)
         if any(m == "jax" or m.startswith(("jax.", "spark_tpu."))
                or m == "spark_tpu" for m in sys.modules):
             raise AssertionError("the JAX package or JAX was imported")
@@ -404,6 +574,9 @@ def main() -> int:
         return 1
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi_line, flush=True)
+    if kernels_only:
+        print(json.dumps({"shapes": shapes}), flush=True)
+        return 0
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -412,4 +585,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -4,17 +4,26 @@ PyTorch version (the counterpart of `spark_tpu/execution/pallas_groupby.py`).
 `dense_groupby_sums(idx, int_rows, float_rows, domain)` returns exact
 per-slot sums: int64 rows summed mod 2^64, float64 rows in float64, and
 rows whose `idx` lies outside [0, domain) dropped. On CUDA tensors it
-launches one of the two kernels in `csrc/dense_groupby.cu`:
+runs the launches that `plan_launches` lays out over the two kernels in
+`csrc/dense_groupby.cu`:
 
 - `dense_sums_smem` for domains of at most 512 slots (int and float
-  rows): a per-block table in shared memory, warp-aggregated atomics;
-  replaces `pallas_groupby._small_kernel`;
+  rows), replacing `pallas_groupby._small_kernel` (:93). The kernel is
+  bound by the bytes it reads, and has two variants, picked by domain:
+  `private` (a thread-private column of shared memory per thread: no
+  atomics, no warp votes) up to PRIVATE_DOMAIN slots, and `shared` (a
+  table per warp with shared-memory atomics for ints and a fixed lane
+  order for floats) above. Each block reduces its tables
+  in a fixed order and float partials are summed in block order by a
+  second kernel, so float sums repeat bit for bit between runs.
 - `dense_sums_global` for 512 < domain <= 2^20 (int rows only): 64-bit
   atomics straight into the output; replaces
-  `pallas_groupby._factored_kernel`.
+  `pallas_groupby._factored_kernel` (:162).
 
-The source file's header says what bounds each kernel on an H100 and how
-the design answers it. On CPU tensors the wrapper runs
+`plan_launches(domain, n_int, n_float)` is plain Python: it picks the
+variant and cuts the rows into launches whose shared memory fits a
+block's 227 KB. The source file's header says what bounds each variant on
+an H100 and how the design answers it. On CPU tensors the wrapper runs
 `dense_groupby_sums_plain` (`index_add_` with out-of-range rows masked),
 the same function the kernels are held against; a CUDA tensor gets the
 kernel or an exception, never the plain version.
@@ -27,11 +36,13 @@ ctypes), so a checkout needs only the CUDA toolkit to run them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
 import threading
 import time
+from dataclasses import dataclass
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
@@ -41,10 +52,21 @@ import torch
 #: them); each wrapper adds one exactly where it launches its kernel
 LAUNCHES = {"dense_sums_smem": 0, "dense_sums_global": 0}
 
-SMEM_DOMAIN = 512          # dense_sums_smem: largest domain
+PRIVATE_DOMAIN = 48        # private variant: largest domain (chip_smoke.py
+                           # phase 4 times it against shared around here)
+SMEM_DOMAIN = 512          # shared variant (and dense_sums_smem): largest
 MAX_DOMAIN = 1 << 20       # dense_sums_global: largest domain
-MAX_ROWS_PER_LAUNCH = 32   # pointer slots per row kind in a launch
-SMEM_TABLE_BUDGET = 96 * 1024  # bytes of per-block table per launch
+MAX_ROWS_PER_LAUNCH = 32   # row pointers in one launch
+SMEM_BUDGET = 227 * 1024   # shared memory one block may use on an H100
+PRIVATE_WARPS = 16         # private: most warps in a block
+PRIVATE_BLOCK_BYTES = 100 * 1024  # private: table bytes aimed at per block
+SHARED_WARPS = 4           # shared: warps per block
+SHARED_WARP_BYTES = 16 * 1024     # shared: most table bytes per warp
+#: largest domain each variant is built for (the planner's cut-offs above
+#: may be lower; `plan_variant` can still lay out any of these)
+VARIANT_MAX_DOMAIN = {"private": 64, "shared": SMEM_DOMAIN,
+                      "global": MAX_DOMAIN}
+_VARIANT_CODE = {"private": 0, "shared": 1}
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "dense_groupby.cu"
@@ -55,6 +77,81 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lib = None
 _lib_lock = threading.Lock()
+
+
+@dataclass(frozen=True)
+class Launch:
+    """One kernel launch: the variant, the int and float rows it sums
+    (positions in the caller's lists), warps per block and the shared
+    memory of one block (both 0 for `global`, which sets its own)."""
+    variant: str
+    ints: range
+    floats: range
+    warps: int
+    smem_bytes: int
+
+
+def smem_bytes(variant: str, domain: int, n_rows: int, warps: int) -> int:
+    """Shared memory of one block; `dense_sums_smem_bytes` in the CUDA
+    source computes the same."""
+    if variant == "private":
+        return warps * domain * 8 + warps * 32 * domain * 8
+    if variant == "shared":
+        return warps * n_rows * domain * 8
+    return 0
+
+
+def plan_variant(variant: str, domain: int, n_int: int, n_float: int
+                 ) -> List[Launch]:
+    """The launches of one variant for `n_int` int rows and `n_float`
+    float rows at this domain, whichever variant `plan_launches` would
+    pick. Rows go in order, ints first, in launches of near-equal size."""
+    if variant not in VARIANT_MAX_DOMAIN:
+        raise ValueError(f"unknown variant {variant!r}")
+    if domain < 1 or domain > VARIANT_MAX_DOMAIN[variant]:
+        raise ValueError(f"{variant} takes domains up to "
+                         f"{VARIANT_MAX_DOMAIN[variant]}, not {domain}")
+    if variant == "global":
+        if n_float:
+            raise ValueError("dense_sums_global takes int rows only")
+        return [Launch("global", range(c, min(c + MAX_ROWS_PER_LAUNCH, n_int)),
+                       range(0), 0, 0)
+                for c in range(0, n_int, MAX_ROWS_PER_LAUNCH)]
+    if variant == "shared":
+        per_launch = min(MAX_ROWS_PER_LAUNCH, SHARED_WARP_BYTES // (8 * domain))
+    else:
+        per_launch = min(PRIVATE_WARPS, PRIVATE_BLOCK_BYTES // (33 * 8 * domain))
+    per_launch = max(1, per_launch)
+    total = n_int + n_float
+    if total == 0:
+        return []
+    chunks = -(-total // per_launch)
+    plan, start = [], 0
+    for c in range(chunks):
+        stop = start + total // chunks + (1 if c < total % chunks else 0)
+        rows = stop - start
+        # private: one warp per row, or per part of a row
+        warps = SHARED_WARPS if variant == "shared" else \
+            rows * (per_launch // rows)
+        plan.append(Launch(
+            variant, range(min(start, n_int), min(stop, n_int)),
+            range(max(start, n_int) - n_int, max(stop, n_int) - n_int),
+            warps, smem_bytes(variant, domain, rows, warps)))
+        start = stop
+    return plan
+
+
+def plan_launches(domain: int, n_int: int, n_float: int) -> List[Launch]:
+    """The launches `dense_groupby_sums` makes on a CUDA tensor: the
+    variant by domain (cut-offs PRIVATE_DOMAIN and SMEM_DOMAIN), then
+    `plan_variant`."""
+    if domain <= PRIVATE_DOMAIN:
+        variant = "private"
+    elif domain <= SMEM_DOMAIN:
+        variant = "shared"
+    else:
+        variant = "global"
+    return plan_variant(variant, domain, n_int, n_float)
 
 
 def _nvcc() -> str:
@@ -100,8 +197,12 @@ def _load():
             lib.dense_sums_smem.argtypes = [
                 ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                 ptrs, ctypes.c_int, ptrs, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
             lib.dense_sums_smem.restype = ctypes.c_int
+            lib.dense_sums_smem_bytes.argtypes = [ctypes.c_int] * 4
+            lib.dense_sums_smem_bytes.restype = ctypes.c_longlong
             lib.dense_sums_global.argtypes = [
                 ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                 ptrs, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
@@ -127,6 +228,17 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, n: int,
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected ({n},)")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """`t`, or a copy of it when its data does not start on an `nbytes`
+    boundary (the kernels load idx as 8-byte pairs, values as 16-byte)."""
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
 
 
 def dense_groupby_sums_plain(idx: torch.Tensor, int_rows: Sequence,
@@ -159,9 +271,9 @@ def dense_groupby_sums(idx: torch.Tensor, int_rows: Sequence,
     needed: that kernel splits int64 values into as few 8-bit limbs as
     each row's width allows, while these kernels add whole int64 values.
 
-    CPU tensors go to `dense_groupby_sums_plain`; CUDA tensors launch
-    `dense_sums_smem` (domain <= 512) or `dense_sums_global` (int rows
-    only, domain <= 2^20)."""
+    CPU tensors go to `dense_groupby_sums_plain`; CUDA tensors run the
+    launches of `plan_launches`: `dense_sums_smem` (domain <= 512) or
+    `dense_sums_global` (int rows only, domain <= 2^20)."""
     if domain < 1 or domain > MAX_DOMAIN:
         raise ValueError(f"domain {domain} outside [1, {MAX_DOMAIN}]")
     if float_rows and domain > SMEM_DOMAIN:
@@ -171,57 +283,71 @@ def dense_groupby_sums(idx: torch.Tensor, int_rows: Sequence,
         return dense_groupby_sums_plain(idx, int_rows, float_rows, domain)
     if not idx.is_cuda:
         raise ValueError(f"dense_groupby_sums: unsupported device {idx.device}")
+    return run_plan(plan_launches(domain, len(int_rows), len(float_rows)),
+                    idx, int_rows, float_rows, domain)
+
+
+def run_plan(plan: Sequence[Launch], idx: torch.Tensor, int_rows: Sequence,
+             float_rows: Sequence, domain: int) -> Tuple[List, List]:
+    """Runs the launches of `plan` (from `plan_launches`, or
+    `plan_variant` to time one variant against another) on CUDA
+    tensors and returns the sums as `dense_groupby_sums` does."""
+    if not idx.is_cuda:
+        raise ValueError(f"run_plan: idx is on {idx.device}, not CUDA")
     n = idx.shape[0] if idx.dim() == 1 else -1
     _check("idx", idx, torch.int32, n, idx.device)
     for k, r in enumerate(int_rows):
         _check(f"int_rows[{k}]", r, torch.int64, n, idx.device)
     for k, r in enumerate(float_rows):
         _check(f"float_rows[{k}]", r, torch.float64, n, idx.device)
+    # ints accumulate with atomics into zeros; every float row that a
+    # launch sums is written whole by its combine kernel
     int_out = torch.zeros((len(int_rows), domain), dtype=torch.int64,
                           device=idx.device)
-    float_out = torch.zeros((len(float_rows), domain), dtype=torch.float64,
-                            device=idx.device)
-    if n > 0 and (int_rows or float_rows):
+    run = n > 0 and bool(plan)
+    float_out = (torch.empty if run else torch.zeros)(
+        (len(float_rows), domain), dtype=torch.float64, device=idx.device)
+    if run:
         lib = _load()
+        idx = _aligned(idx, 8)
+        ints = [_aligned(r, 16) for r in int_rows]
+        floats = [_aligned(r, 16) for r in float_rows]
         with torch.cuda.device(idx.device):
             stream = torch.cuda.current_stream().cuda_stream
-            if domain <= SMEM_DOMAIN:
-                _launch_smem(lib, idx, n, domain, list(int_rows),
-                             list(float_rows), int_out, float_out, stream)
-            else:
-                _launch_global(lib, idx, n, domain, list(int_rows), int_out,
-                               stream)
+            sms = _sm_count(idx.device)
+            for launch in plan:
+                _launch(lib, launch, idx, n, domain, ints, floats, int_out,
+                        float_out, stream, sms)
     return list(int_out.unbind(0)), list(float_out.unbind(0))
 
 
-def _launch_smem(lib, idx, n, domain, int_rows, float_rows, int_out,
-                 float_out, stream) -> None:
-    per_launch = max(1, min(MAX_ROWS_PER_LAUNCH,
-                            SMEM_TABLE_BUDGET // (8 * domain)))
-    kinds = [("i", k) for k in range(len(int_rows))] + \
-        [("f", k) for k in range(len(float_rows))]
-    for c in range(0, len(kinds), per_launch):
-        chunk = kinds[c:c + per_launch]
-        ik = [k for kind, k in chunk if kind == "i"]
-        fk = [k for kind, k in chunk if kind == "f"]
-        ints = [int_rows[k] for k in ik]
-        floats = [float_rows[k] for k in fk]
-        rc = lib.dense_sums_smem(
-            idx.data_ptr(), n, domain, _ptr_array(ints), len(ints),
-            _ptr_array(floats), len(floats),
-            int_out[ik[0]].data_ptr() if ik else None,
-            float_out[fk[0]].data_ptr() if fk else None, stream)
-        if rc != 0:
-            raise RuntimeError(f"dense_sums_smem launch failed: {rc}")
-        LAUNCHES["dense_sums_smem"] += 1
-
-
-def _launch_global(lib, idx, n, domain, int_rows, int_out, stream) -> None:
-    for c in range(0, len(int_rows), MAX_ROWS_PER_LAUNCH):
-        ints = int_rows[c:c + MAX_ROWS_PER_LAUNCH]
+def _launch(lib, launch: Launch, idx, n, domain, int_rows, float_rows,
+            int_out, float_out, stream, sms) -> None:
+    ints = [int_rows[k] for k in launch.ints]
+    if launch.variant == "global":
         rc = lib.dense_sums_global(idx.data_ptr(), n, domain,
                                    _ptr_array(ints), len(ints),
-                                   int_out[c].data_ptr(), stream)
+                                   int_out[launch.ints.start].data_ptr(),
+                                   stream)
         if rc != 0:
             raise RuntimeError(f"dense_sums_global launch failed: {rc}")
         LAUNCHES["dense_sums_global"] += 1
+        return
+    floats = [float_rows[k] for k in launch.floats]
+    # block partials of the float rows: at most as many blocks as the
+    # SMs can hold at once (32 blocks or 2048 threads each)
+    scratch = torch.empty(
+        (sms * min(32, 2048 // (32 * launch.warps)) * len(floats) * domain,),
+        dtype=torch.float64, device=idx.device) if floats else None
+    rc = lib.dense_sums_smem(
+        idx.data_ptr(), n, domain, _ptr_array(ints), len(ints),
+        _ptr_array(floats), len(floats),
+        _VARIANT_CODE[launch.variant], launch.warps,
+        int_out[launch.ints.start].data_ptr() if ints else None,
+        float_out[launch.floats.start].data_ptr() if floats else None,
+        scratch.data_ptr() if floats else None,
+        scratch.numel() if floats else 0, stream)
+    if rc != 0:
+        raise RuntimeError(f"dense_sums_smem ({launch.variant}) launch "
+                           f"failed: {rc}")
+    LAUNCHES["dense_sums_smem"] += 1

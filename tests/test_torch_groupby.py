@@ -65,6 +65,9 @@ CASES = {
     "domain512_with_floats": (3, 5000, 512, 2, 2, False, 0.0),
     "domain2000_factored": (4, 3000, 2000, 2, 0, True, 0.0),
     "out_of_range_dropped": (5, 4000, 64, 2, 1, False, 0.05),
+    "domain25_q5_nations": (9, 5000, 25, 4, 1, True, 0.0),
+    "domain_above_private_cutoff": (10, 5000, D.PRIVATE_DOMAIN + 1, 3, 2,
+                                    False, 0.02),
 }
 
 
@@ -237,10 +240,80 @@ def test_direct_update_modes_match_reference(mode):
                 np.testing.assert_array_equal(p.numpy(), np.asarray(r))
 
 
+PLAN_DOMAINS = [1, 2, 12, 25, D.PRIVATE_DOMAIN, D.PRIVATE_DOMAIN + 1, 512]
+
+
+@pytest.mark.parametrize("domain", PLAN_DOMAINS)
+@pytest.mark.parametrize("n_int,n_float", [(15, 0), (2, 2), (33, 0), (20, 13)])
+def test_plan_covers_each_row_once(domain, n_int, n_float):
+    """Every int and float row lands in exactly one launch, in order, and
+    every launch fits a block's shared memory and pointer slots."""
+    plan = D.plan_launches(domain, n_int, n_float)
+    assert [k for launch in plan for k in launch.ints] == list(range(n_int))
+    assert [k for launch in plan for k in launch.floats] == \
+        list(range(n_float))
+    for launch in plan:
+        rows = len(launch.ints) + len(launch.floats)
+        assert 1 <= rows <= D.MAX_ROWS_PER_LAUNCH
+        assert 0 < launch.smem_bytes <= D.SMEM_BUDGET
+        assert launch.smem_bytes == D.smem_bytes(launch.variant, domain,
+                                                 rows, launch.warps)
+        if launch.variant == "shared":
+            assert launch.warps == D.SHARED_WARPS
+        else:
+            assert launch.warps % rows == 0
+            assert launch.warps <= D.PRIVATE_WARPS
+    if n_int + n_float > D.MAX_ROWS_PER_LAUNCH:
+        assert len(plan) > 1
+    sizes = [len(x.ints) + len(x.floats) for x in plan]
+    assert max(sizes) - min(sizes) <= 1
+
+
+def test_plan_variant_changes_at_cutoffs():
+    def variants(domain, n_float=1):
+        return {launch.variant for launch in D.plan_launches(domain, 4, n_float)}
+
+    assert variants(1) == variants(D.PRIVATE_DOMAIN) == {"private"}
+    assert variants(D.PRIVATE_DOMAIN + 1) == {"shared"}
+    assert variants(D.SMEM_DOMAIN) == {"shared"}
+    assert variants(D.SMEM_DOMAIN + 1, n_float=0) == {"global"}
+    assert D.PRIVATE_DOMAIN <= D.VARIANT_MAX_DOMAIN["private"]
+
+
+@pytest.mark.parametrize("variant", ["private", "shared"])
+def test_every_variant_fits_at_every_domain(variant):
+    """`plan_variant` lays out any domain a variant is built for, at any
+    row count, within the shared-memory budget."""
+    for domain in range(1, D.VARIANT_MAX_DOMAIN[variant] + 1):
+        for n_int, n_float in ((1, 0), (0, 1), (7, 0), (16, 16), (40, 3)):
+            plan = D.plan_variant(variant, domain, n_int, n_float)
+            assert sum(len(x.ints) for x in plan) == n_int
+            assert sum(len(x.floats) for x in plan) == n_float
+            assert all(0 < x.smem_bytes <= D.SMEM_BUDGET for x in plan)
+
+
+def test_plan_rejects_what_no_kernel_takes():
+    assert D.plan_launches(12, 0, 0) == []
+    with pytest.raises(ValueError, match="int rows only"):
+        D.plan_variant("global", 1000, 1, 1)
+    with pytest.raises(ValueError, match="domains up to"):
+        D.plan_variant("shared", D.SMEM_DOMAIN + 1, 1, 0)
+    with pytest.raises(ValueError, match="domains up to"):
+        D.plan_variant("private", D.VARIANT_MAX_DOMAIN["private"] + 1, 1, 0)
+    with pytest.raises(ValueError, match="unknown variant"):
+        D.plan_variant("matmul", 12, 1, 0)
+    with pytest.raises(ValueError, match="not CUDA"):
+        D.run_plan(D.plan_launches(12, 1, 0), torch.zeros(4, dtype=torch.int32),
+                   [torch.ones(4, dtype=torch.int64)], [], 12)
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
-    """Both CUDA kernels against the plain version on the card: ints
-    equal (including wrapping sums), floats within rtol 1e-12."""
+    """Every kernel and variant against the plain version on the card:
+    ints equal (including wrapping sums), floats within rtol 1e-12 and
+    equal bit for bit across two runs; odd row counts and value rows that
+    do not start on a 16-byte boundary included. The CUDA source's own
+    count of a block's shared memory agrees with the planner's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -248,17 +321,42 @@ def test_kernels_match_plain_on_card():
             (1, 100_000, 1, 3, 0, True, 0.0),
             (2, 100_000, 12, 9, 0, True, 0.0),
             (3, 100_000, 512, 2, 2, False, 0.01),
-            (4, 200_000, 65536, 3, 0, True, 0.01)]:
+            (4, 200_000, 65536, 3, 0, True, 0.01),
+            (5, 100_001, 3, 2, 2, True, 0.05),
+            (6, 100_001, 25, 15, 1, True, 0.05),
+            (7, 100_001, D.PRIVATE_DOMAIN + 1, 33, 3, True, 0.05),
+            (8, 3, 12, 2, 1, False, 0.0)]:
         idx, ints, floats = _inputs(seed, n, domain, n_int, n_float, big, oor)
         want = D.dense_groupby_sums_plain(
             torch.from_numpy(idx), [torch.from_numpy(r) for r in ints],
             [torch.from_numpy(r) for r in floats], domain)
-        got = D.dense_groupby_sums(
-            torch.from_numpy(idx).to(dev),
-            [torch.from_numpy(r).to(dev) for r in ints],
-            [torch.from_numpy(r).to(dev) for r in floats], domain)
-        torch.cuda.synchronize()
+        c_idx = torch.from_numpy(idx).to(dev)
+        # every other int row starts 8 bytes into its allocation
+        c_ints = [torch.from_numpy(np.concatenate([[0], r])).to(dev)[1:]
+                  if k % 2 else torch.from_numpy(r).to(dev)
+                  for k, r in enumerate(ints)]
+        c_floats = [torch.from_numpy(r).to(dev) for r in floats]
+        plans = [D.plan_launches(domain, n_int, n_float)]
+        if domain <= D.SMEM_DOMAIN:
+            plans += [D.plan_variant(v, domain, n_int, n_float)
+                      for v in ("private", "shared")
+                      if domain <= D.VARIANT_MAX_DOMAIN[v]]
+        lib = D._load()
+        for plan in plans:
+            for launch in plan:
+                if launch.variant != "global":
+                    rows = len(launch.ints) + len(launch.floats)
+                    assert lib.dense_sums_smem_bytes(
+                        D._VARIANT_CODE[launch.variant], domain, rows,
+                        launch.warps) == launch.smem_bytes
+            got = D.run_plan(plan, c_idx, c_ints, c_floats, domain)
+            again = D.run_plan(plan, c_idx, c_ints, c_floats, domain)
+            torch.cuda.synchronize()
+            for g, w in zip(got[0], want[0]):
+                assert torch.equal(g.cpu(), w)
+            for g, a, w in zip(got[1], again[1], want[1]):
+                assert torch.allclose(g.cpu(), w, rtol=1e-12, atol=0)
+                assert torch.equal(g, a)
+        got = D.dense_groupby_sums(c_idx, c_ints, c_floats, domain)
         for g, w in zip(got[0], want[0]):
             assert torch.equal(g.cpu(), w)
-        for g, w in zip(got[1], want[1]):
-            assert torch.allclose(g.cpu(), w, rtol=1e-12, atol=0)
