@@ -24,14 +24,19 @@ Phases, in order; any failure exits non-zero before the last line:
    against each other at the domains around the planner's cut-off, and
    each checked with float rows, an odd row count and two runs that must
    agree;
-5. main path: TPC-H SF1 generated with the port's datagen, Q1 and Q6
-   through `SparkTpuSession` on the card, compared with the port's pandas
-   golden answers; `range(16M).group_by(id % 65536)` with count, sum and
-   avg against numpy. Each run starts with the kernel launch counters at
-   0 and must launch its kernel. Each query is then run once more per
-   operator, and once under torch.profiler for the card's busy share;
-   the kernels are timed again on the exact inputs the main path gave
-   them (Q1's and Q6's for dense_sums_smem).
+5. main path: TPC-H SF1 generated with the port's datagen, Q1, Q6, Q3
+   and Q5 through `SparkTpuSession` on the card, compared with the port's
+   pandas golden answers; `range(16M).group_by(id % 65536)` with count,
+   sum and avg against numpy. Each run starts with the kernel launch
+   counters at 0 and must launch its kernel (Q3's path has no hand
+   kernel: its aggregate takes the sort path). Each query is then run
+   once more per operator, and once under torch.profiler for the card's
+   busy share; each join reports the kernel it took (hash or sort), its
+   hash-probe steps, whether its unique-build path held, and the query's
+   re-plan attempts. Q3 and Q5 run again under `join.kernelMode=sort`
+   and `=hash` and must give the same Arrow bytes as the default run.
+   The kernels are timed again on the exact inputs the main path gave
+   them (Q1's, Q6's and Q5's for dense_sums_smem).
 
 The line before the last is a JSON object with one entry per kernel and
 main-path input; the last line is `{"ok": true, "device": {...}}`.
@@ -65,7 +70,11 @@ REPLACES = {
 }
 #: (kernel, main-path query whose inputs it is timed on)
 KERNEL_INPUTS = [("dense_sums_smem", "q1"), ("dense_sums_smem", "q6"),
-                 ("dense_sums_global", "range")]
+                 ("dense_sums_smem", "q5"), ("dense_sums_global", "range")]
+#: main-path queries in run order, with the hand kernel each must launch
+QUERY_KERNELS = {"q1": "dense_sums_smem", "q6": "dense_sums_smem",
+                 "q3": None, "q5": "dense_sums_smem"}
+JOIN_MODE = "spark_tpu.sql.join.kernelMode"
 #: shape (f)'s domain: one slot above the private variant's cut-off
 #: (`dense_groupby.PRIVATE_DOMAIN`, checked in phase 3), fixed here so that
 #: --kernels-only times another checkout's kernels on the same inputs
@@ -374,9 +383,10 @@ def phase_variants(D) -> None:
 
 
 def phase_main_path(D):
-    """Q1, Q6 and the range group-by through the session on the card.
-    Returns the per-kernel launch counts of the runs and the kernel
-    inputs each query handed the wrapper (for timing at those shapes)."""
+    """Q1, Q6, Q3, Q5 and the range group-by through the session on the
+    card, and Q3 and Q5 under each join kernel. Returns the per-kernel
+    launch counts of the runs and the kernel inputs each query handed
+    the wrapper (for timing at those shapes)."""
     import numpy as np
     import torch
     import spark_tpu_torch as S
@@ -405,27 +415,34 @@ def phase_main_path(D):
                 f"{time.perf_counter() - t0:.1f} s")
             Q.register_tables(session, path)
             n_lineitem = session.table("lineitem").plan.source.estimated_rows()
-            for q in ("q1", "q6"):
+            results = {}
+            for q, kernel in QUERY_KERNELS.items():
                 current[0] = q
                 for k in D.LAUNCHES:
                     D.LAUNCHES[k] = 0
                 t0 = time.perf_counter()
-                got = Q.QUERIES[q](session).to_pandas()
+                qe = Q.QUERIES[q](session)._qe()
+                results[q] = qe.collect()
                 torch.cuda.synchronize()
                 cold = time.perf_counter() - t0
                 launches[q] = dict(D.LAUNCHES)
-                if launches[q]["dense_sums_smem"] < 1:
-                    raise AssertionError(f"{q} did not launch dense_sums_smem")
+                if kernel is not None and launches[q][kernel] < 1:
+                    raise AssertionError(f"{q} did not launch {kernel}")
                 t0 = time.perf_counter()
                 Q.QUERIES[q](session).to_pandas()
                 torch.cuda.synchronize()
                 warm = time.perf_counter() - t0
-                G.compare(G.normalize_decimals(got), G.GOLDEN[q](path))
-                log(f"[main] {q}: matches golden; {len(got)} rows; "
-                    f"first run {cold:.3f} s, second run {warm:.3f} s "
+                G.compare(G.normalize_decimals(results[q].to_pandas()),
+                          G.GOLDEN[q](path))
+                log(f"[main] {q}: matches golden; {results[q].num_rows} "
+                    f"rows; first run {cold:.3f} s, second run {warm:.3f} s "
                     f"({n_lineitem / warm / 1e6:.2f} M lineitem rows/s); "
-                    f"launches {launches[q]}")
+                    f"launches {launches[q]}; re-plan attempts "
+                    f"{qe.attempts}")
+                if q in ("q3", "q5"):
+                    log(f"[joins] {q}: {describe_joins(qe)}")
                 log(f"[breakdown] {q}: {breakdown(Q.QUERIES[q](session))}")
+            join_kernel_parity(S, Q, path, results)
 
         current[0] = "range"
         for k in D.LAUNCHES:
@@ -464,42 +481,110 @@ def phase_main_path(D):
     return launches, captured
 
 
-def breakdown(df) -> str:
-    """Where one run of `df` spends its time: each physical operator's
-    compute and the Arrow egress, on the host clock with the card
-    synchronised around each; then a second run under torch.profiler for
-    the card's busy time (the union of its kernel and copy intervals)
-    against the run's wall time."""
+def join_kernel_parity(S, Q, path, results) -> None:
+    """Q3 and Q5 again under each join kernel: the Arrow results must
+    equal the default run's, byte for byte."""
     import torch
+    for q in ("q3", "q5"):
+        for mode in ("sort", "hash"):
+            session = S.SparkTpuSession.builder().config(
+                JOIN_MODE, mode).get_or_create()
+            Q.register_tables(session, path)
+            qe = Q.QUERIES[q](session)._qe()
+            t0 = time.perf_counter()
+            got = qe.collect()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            if not got.equals(results[q]):
+                raise AssertionError(f"{q} under join.kernelMode={mode} "
+                                     "differs from the default run")
+            log(f"[joins] {q} kernelMode={mode}: equal to the default "
+                f"run; first run {seconds:.3f} s; {describe_joins(qe)}")
+
+
+def describe_joins(qe) -> str:
+    """Per join of the last run: its tag and type, the kernel it took
+    and why, the hash table's slots and insert and probe steps, whether
+    the unique-build path held, and its output rows."""
+    from spark_tpu_torch.execution.executor import plan_nodes
+    from spark_tpu_torch.plan.physical import JoinExec
+    m = qe.last_metrics
+    parts = []
+    for j in plan_nodes(qe.executed_plan, JoinExec):
+        kernel, reason = j.last_kernel
+        text = f"{j.tag} {j.how} {kernel} ({reason})"
+        if kernel == "hash":
+            text += (f" slots={m[f'join_table_slots_{j.tag}']} "
+                     f"build_steps={m[f'join_build_steps_{j.tag}']} "
+                     f"probe_steps={m[f'join_probe_steps_{j.tag}']}")
+        uniq = "fell back" if j.unique_build is False else "held"
+        text += f" unique-build {uniq}, rows={m.get(f'join_rows_{j.tag}')}"
+        parts.append(text)
+    return "; ".join(parts) + f"; attempts {qe.attempts}"
+
+
+def breakdown(df) -> str:
+    """Where one run of `df` spends its time. The query runs once to let
+    the re-plan loop converge; then the converged plan runs twice with
+    each physical operator timed on the host clock and the card
+    synchronised around it (a node that several parents share runs once,
+    as in the executor), and the second pass is reported: per operator
+    type, each join by its tag, and the Arrow egress after it. A join's
+    payload columns are gathered lazily, by whichever operator reads them
+    first, so that gather time lands there. Then a further run under
+    torch.profiler gives the card's busy time (the union of its kernel
+    and copy intervals) against the run's wall time, and the kernels
+    that took most of it."""
+    import collections
+    import torch
+    from spark_tpu_torch.execution.executor import run_plan
     from spark_tpu_torch.io.sources import _pushed_expression
     from spark_tpu_torch.plan import physical as P
     qe = df._qe()
-    ctx = P.ExecContext(df.session.conf, df.session.device)
-    times = []
+    qe.execute_batch()
 
-    def run(node):
-        inputs = [run(c) for c in node.children]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = node.compute(ctx, inputs)
-        torch.cuda.synchronize()
-        times.append((type(node).__name__, time.perf_counter() - t0))
-        if isinstance(node, P.ScanExec):
-            # the scan's host half alone: Parquet decode with pushdown
+    def timed_pass():
+        ctx = P.ExecContext(df.session.conf, df.session.device)
+        times = collections.defaultdict(float)
+        nodes = collections.Counter()
+        joins = []
+
+        def visit(node, compute):
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
-            node.source._dataset.to_table(
-                columns=list(node.required_columns),
-                filter=_pushed_expression(node.pushed_filters,
-                                          node.source._dataset.schema))
-            times.append(("ScanExec: Parquet read", time.perf_counter() - t0))
-        return out
+            out = compute()
+            torch.cuda.synchronize()
+            name = type(node).__name__
+            seconds = time.perf_counter() - t0
+            times[name] += seconds
+            nodes[name] += 1
+            if isinstance(node, P.JoinExec):
+                joins.append(f"{node.tag} {seconds * 1e3:.1f}")
+            if isinstance(node, P.ScanExec):
+                # the scan's host half alone: Parquet decode with pushdown
+                t0 = time.perf_counter()
+                node.source._dataset.to_table(
+                    columns=list(node.required_columns),
+                    filter=_pushed_expression(node.pushed_filters,
+                                              node.source._dataset.schema))
+                times["ScanExec: Parquet read"] += time.perf_counter() - t0
+            return out
 
-    batch = run(qe.executed_plan)
-    t0 = time.perf_counter()
-    batch.to_arrow()
-    times.append(("egress", time.perf_counter() - t0))
-    total = sum(t for n, t in times if ":" not in n)
-    parts = ", ".join(f"{n} {s * 1e3:.1f} ms" for n, s in times)
+        batch = run_plan(qe.executed_plan, ctx, visit)
+        t0 = time.perf_counter()
+        batch.to_arrow()
+        times["egress"] += time.perf_counter() - t0
+        return times, nodes, joins
+
+    timed_pass()
+    times, nodes, joins = timed_pass()
+    total = sum(t for n, t in times.items() if ":" not in n)
+    parts = ", ".join(
+        f"{n} {s * 1e3:.1f} ms" + (f" ({nodes[n]} nodes)" if nodes[n] > 1
+                                   else "")
+        for n, s in sorted(times.items(), key=lambda kv: -kv[1]))
+    if joins:
+        parts += f"; joins, ms: {', '.join(joins)}"
 
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -508,19 +593,25 @@ def breakdown(df) -> str:
         df.collect()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, end = 0.0, float("-inf")
     for s, e in spans:
         if e > end:
             busy += e - max(s, end)
             end = e
     busy_s = busy / 1e6
+    by_name = collections.defaultdict(float)
+    for e in events:
+        by_name[e.name[:48]] += (e.time_range.end - e.time_range.start) / 1e3
+    top = ", ".join(f"{n} {ms:.2f} ms" for n, ms in
+                    sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
     device = (f"card busy {busy_s * 1e3:.2f} ms of {wall * 1e3:.1f} ms wall "
               f"(idle share {1 - busy_s / wall:.4f}, {len(spans)} device "
-              f"events)" if spans else "card busy time not measured "
-              "(the profiler saw no device events)")
+              f"events; most device time: {top})" if spans else
+              "card busy time not measured (the profiler saw no device "
+              "events)")
     return f"total {total * 1e3:.1f} ms: {parts}; {device}"
 
 
@@ -547,7 +638,7 @@ def kernel_report(D, launches, captured):
             "replaces": REPLACES[name], "launches": launches[q][name],
             "max_abs_err": err, "ms": t["ms"], "kernel_ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": b, "bound_by": by,
-            "library_ms": t["library_ms"],
+            "share": b / t["kernel_ms"], "library_ms": t["library_ms"],
             "shape": {"query": q, "n": int(idx.shape[0]), "domain": domain,
                       "int_rows": len(ir), "float_rows": len(fr)}})
     return entries

@@ -53,27 +53,64 @@ def bucket_capacity(n: int, growth: float = 2.0, floor: int = 8) -> int:
 class Column:
     """One device column: data + optional validity + optional host dictionary.
 
-    `bits` is an optional static value bound: values in [0, 2^bits)."""
+    `bits` is an optional static value bound: values in [0, 2^bits).
 
-    __slots__ = ("data", "validity", "dtype", "dictionary", "bits")
+    `prov` is the provenance of a column a join gathered:
+    ``(base_data, base_validity, idx, present)``, the column being
+    ``base_data[idx]`` with validity ``base_validity[idx] & present``. Such
+    a column is lazy: its data and validity are gathered on first use, and
+    a later join composes its indices through `prov` instead
+    (`execution/join.py gather_columns`). So a chain of joins gathers each
+    payload column once from its base, and a column no operator reads is
+    never gathered."""
+
+    __slots__ = ("_data", "_validity", "dtype", "dictionary", "bits", "prov")
 
     def __init__(self, data, dtype: T.DataType, validity=None,
                  dictionary: Optional[pa.Array] = None,
-                 bits: Optional[int] = None):
-        self.data = data
+                 bits: Optional[int] = None, prov=None):
+        self._data = data
         self.dtype = dtype
-        self.validity = validity  # None means all-valid
+        self._validity = validity  # None means all-valid
         self.dictionary = dictionary  # host pyarrow array for StringType
         self.bits = bits
+        self.prov = prov
+
+    @classmethod
+    def gathered(cls, base_data, base_validity, idx, present,
+                 dtype: T.DataType, dictionary=None) -> "Column":
+        """The lazy column ``base[idx]``, NULL where `present` is False."""
+        return cls(None, dtype, _LAZY, dictionary,
+                   prov=(base_data, base_validity, idx, present))
+
+    @property
+    def data(self):
+        if self._data is None and self.prov is not None:
+            self._data = self.prov[0][self.prov[2]]
+        return self._data
+
+    @property
+    def validity(self):
+        if self._validity is _LAZY:
+            base_valid, idx, present = self.prov[1:]
+            self._validity = present if base_valid is None else \
+                (base_valid[idx] & present)
+        return self._validity
 
     @property
     def capacity(self) -> int:
-        return self.data.shape[0]
+        if self._data is None and self.prov is not None:
+            return self.prov[2].shape[0]
+        return self._data.shape[0]
 
     def __repr__(self) -> str:
         return (f"Column({self.dtype!r}, cap={self.capacity}, "
                 f"nullable={self.validity is not None}, "
                 f"dict={len(self.dictionary) if self.dictionary is not None else None})")
+
+
+#: marks a gathered column's validity as not computed yet
+_LAZY = object()
 
 
 class Batch:

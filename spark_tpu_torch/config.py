@@ -127,3 +127,89 @@ EXCLUDED_RULES = register(
     "spark_tpu.sql.optimizer.excludedRules", "",
     doc="Comma-separated optimizer rule names to skip (the reference's "
         "spark.sql.optimizer.excludedRules); '*' disables every rule.")
+
+JOIN_KERNEL_MODE = register(
+    "spark_tpu.sql.join.kernelMode", "auto",
+    doc="Equi-join match kernel (execution/hash_join.py vs the sorted-"
+        "build binary search in execution/join.py): 'hash' builds a "
+        "power-of-two open-addressing table over the (sorted) build "
+        "keys and probes it with a bounded vectorized loop; 'sort' "
+        "keeps the binary-search path; 'auto' picks hash only for large "
+        "probes over comparatively small builds (join.hashMinProbeRows / "
+        "hashProbeBuildRatio). Results are byte-identical across modes "
+        "(both kernels emit matches in the same sorted-build order).",
+    validator=lambda v: v in ("auto", "hash", "sort"))
+
+JOIN_HASH_LOAD_FACTOR = register(
+    "spark_tpu.sql.join.hashLoadFactor", 0.5,
+    doc="Target load factor for the hash-join table: slots = the "
+        "smallest power of two >= build capacity / loadFactor (clamped "
+        "by join.hashMaxTableSlots). Lower = fewer probe steps, more "
+        "device memory.",
+    validator=lambda v: 0.0 < v <= 0.9)
+
+JOIN_HASH_MAX_PROBE = register(
+    "spark_tpu.sql.join.hashMaxProbe", 64,
+    doc="Bound on linear-probe steps for hash-join build inserts and "
+        "probes. A build whose longest collision cluster exceeds it "
+        "raises the join_hashsat_<tag> flag and the executor runs that "
+        "join again on the sort kernel (correctness never depends on "
+        "the bound).",
+    validator=lambda v: v >= 1)
+
+JOIN_HASH_MAX_SLOTS = register(
+    "spark_tpu.sql.join.hashMaxTableSlots", 1 << 26,
+    doc="Upper bound on hash-join table slots (a device-memory guard: "
+        "~16 bytes per slot). A build capacity that would push the "
+        "effective load factor past 0.7 under this clamp falls back to "
+        "the sort kernel.",
+    validator=lambda v: v >= 16)
+
+JOIN_HASH_MIN_PROBE_ROWS = register(
+    "spark_tpu.sql.join.hashMinProbeRows", 1 << 19,
+    doc="kernelMode=auto: minimum probe-side capacity for the hash "
+        "kernel. Below it the sorted-build binary search wins.")
+
+JOIN_HASH_PROBE_BUILD_RATIO = register(
+    "spark_tpu.sql.join.hashProbeBuildRatio", 4.0,
+    doc="kernelMode=auto: minimum probe/build capacity ratio for the "
+        "hash kernel. The hash table amortizes its build cost over "
+        "probe rows; near-square joins keep the sort path.",
+    validator=lambda v: v >= 0)
+
+RUNTIME_FILTER_ENABLED = register(
+    "spark_tpu.sql.runtimeFilter.enabled", True,
+    doc="Inject runtime join filters: when a join's build side is "
+        "selective, build a device Bloom filter (+ min/max key bounds "
+        "for ordered keys) from the build-side join keys and prune "
+        "probe rows before the join (the InjectRuntimeFilter.scala:1 "
+        "analog). Results are identical on/off.")
+
+RUNTIME_FILTER_CREATION_THRESHOLD = register(
+    "spark_tpu.sql.runtimeFilter.creationSideThreshold", 256 << 20,
+    doc="Max estimated creation-side bytes (rows x 8 x columns, "
+        "pre-filter upper bound) for building a runtime filter; larger "
+        "build sides skip injection.")
+
+RUNTIME_FILTER_SEMI_AWARE = register(
+    "spark_tpu.sql.runtimeFilter.semiAwareCreation", True,
+    doc="When a creation-side descent passes through an equi-join whose "
+        "OTHER side is selective and cheap to recompute, synthesize a "
+        "left-semi join in the creation chain instead of dropping the "
+        "other side's effect (Q5: customer inherits the nation-region "
+        "semi). The synthesized semi only ever NARROWS the creation "
+        "keys toward the true build keys — pruning stays sound.")
+
+RUNTIME_FILTER_FPP = register(
+    "spark_tpu.sql.runtimeFilter.expectedFpp", 0.03,
+    doc="Expected false-positive probability for runtime-filter Bloom "
+        "sketches (sizing follows BloomFilter.optimalNumOfBits). False "
+        "positives only reduce pruning, never correctness.",
+    validator=lambda v: 0.0 < v < 1.0)
+
+ADAPTIVE_ENABLED = register(
+    "spark_tpu.sql.adaptive.enabled", True,
+    doc="Enable the re-plan loop for join and aggregate capacity "
+        "overflows (analog of spark.sql.adaptive.enabled). Disabled, an "
+        "overflow raises instead of re-planning; the unique-build and "
+        "hash-saturation fallbacks run either way.")

@@ -49,9 +49,9 @@ class DataFrame:
     def join(self, other: "DataFrame", how: str = "inner", left_on=None,
              right_on=None, condition: Optional[Expression] = None
              ) -> "DataFrame":
-        """Equi-join on `left_on`/`right_on` key expressions. Plans build;
-        execution raises NotImplementedError until the join operator is
-        ported."""
+        """Equi-join on `left_on`/`right_on` key expressions, with an
+        optional residual `condition` on the joined row. `how` is one of
+        inner, left, right, full, left_semi or left_anti."""
         lk = [_expr(e) for e in (left_on if isinstance(left_on, (list, tuple))
                                  else [left_on])]
         rk = [_expr(e) for e in (right_on if isinstance(right_on, (list, tuple))

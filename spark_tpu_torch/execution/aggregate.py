@@ -6,10 +6,13 @@ When every group key has a statically known small integer domain
 (dictionary-encoded strings -> |dict|, `x % c` -> c, bool -> 2, byte ->
 256), the combined domain is a dense table and aggregation is a
 per-slot sum — no hash table. TPC-H Q1 (two dictionary keys, 12 slots),
-Q6 (no key, 1 slot) and `range(n).group_by(id % m)` take this path, and
-its sums run in the hand-written CUDA kernels of `dense_groupby.py`.
+Q6 (no key, 1 slot), Q5 (`n_name`, 25 slots) and
+`range(n).group_by(id % m)` take this path, and its sums run in the
+hand-written CUDA kernels of `dense_groupby.py`.
 
-The sort-based general strategy (`sort_aggregate`) is not ported yet.
+Keys without such a domain (Q3's `l_orderkey`) take the sort-based
+general strategy, `sort_aggregate`: one stable sort by the keys, then
+per-segment reductions read off prefix sums and segmented scans.
 """
 
 from __future__ import annotations
@@ -255,3 +258,159 @@ def direct_aggregate(key_vecs: Sequence[Vec],
     key_arrays, key_valids = direct_keys(domains, spans, strides,
                                          [v.dtype for v in key_vecs], device)
     return key_arrays, key_valids, accs, cnt > 0
+
+
+def _segmented_scan(values, starts, op):
+    """Inclusive scan of `op` that restarts at every `starts` row
+    (Hillis-Steele doubling: log2(n) whole-column steps)."""
+    n = values.shape[0]
+    shift = 1
+    while shift < n:
+        cur_v, cur_f = values[shift:], starts[shift:]
+        new_v = torch.where(cur_f, cur_v, op(values[:-shift], cur_v))
+        values = torch.cat([values[:shift], new_v])
+        starts = torch.cat([starts[:shift], cur_f | starts[:-shift]])
+        shift *= 2
+    return values
+
+
+_SCAN_OPS = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}
+
+
+def _sorted_segment_reduce(contrib_sorted, reduce: str, starts_rows,
+                           start_pos, end_pos, present):
+    """Per-segment reduce over rows SORTED by segment, without a
+    colliding scatter.
+
+    integer sum: prefix-sum difference csum[end] - ex[start] — int64
+    wraps mod 2^64, so the difference is exact. float sum and min/max:
+    a SEGMENTED scan (reset at `starts_rows`) read at segment ends, so
+    each segment's float error is at the ulp of its own magnitude, not
+    of the whole column's running total. Its add order differs from the
+    JAX package's `associative_scan`, so float sums agree within
+    rounding, not bit for bit. start_pos/end_pos index each segment's
+    first/last sorted row; `present` masks empty segments."""
+    if reduce == "sum" and not contrib_sorted.is_floating_point():
+        csum = torch.cumsum(contrib_sorted, 0)
+        ex = csum - contrib_sorted  # exclusive prefix
+        out = csum[end_pos] - ex[start_pos]
+        return torch.where(present, out, torch.zeros_like(out))
+    scanned = _segmented_scan(contrib_sorted, starts_rows, _SCAN_OPS[reduce])
+    out = scanned[end_pos]
+    if reduce == "sum":
+        out = torch.where(present, out, torch.zeros_like(out))
+    return out
+
+
+def _sort_operand(data):
+    """Ascending-sortable int64 for a key operand in `lax.sort`'s order:
+    floats by the sign flip of their bits, with -0.0 tied to +0.0 and
+    every NaN tied above +inf."""
+    from .join import canon_key_data, order_image
+    if data.dtype == torch.bool:
+        return data.to(torch.int8)
+    return order_image(canon_key_data(data))
+
+
+def sort_aggregate(key_vecs: Sequence[Vec],
+                   contribs: List[List], specs: List[List[AccSpec]],
+                   sel, capacity: int, num_segments: Optional[int] = None
+                   ) -> Tuple[List, List, List, object, object]:
+    """General sort-based aggregation.
+
+    Returns (key_arrays, key_validities, acc_arrays, occupied,
+    total_groups). Groups come out in key order. Groups beyond
+    `num_segments` are dropped — the caller flags
+    `total_groups > num_segments` and the executor runs again with a
+    larger estimate.
+    """
+    num_segments = num_segments or capacity
+    device = sel.device if sel is not None else key_vecs[0].data.device
+    invalid = torch.zeros((capacity,), dtype=torch.int8, device=device) \
+        if sel is None else (~sel).to(torch.int8)
+    operands = [invalid]
+    for vec in key_vecs:
+        data = vec.data
+        if data.dim() == 0:
+            data = data.expand((capacity,))
+        if vec.validity is not None:
+            valid = vec.validity
+            if valid.dim() == 0:
+                valid = valid.expand((capacity,))
+            operands.append((~valid).to(torch.int8))
+            # neutralize data under NULL: two NULL keys must land in ONE
+            # group even when their dead payloads differ
+            data = torch.where(valid, data, torch.zeros_like(data))
+        operands.append(data)
+    # stable passes, least significant operand first
+    perm = torch.arange(capacity, device=device)
+    for op in reversed(operands):
+        _, order = torch.sort(_sort_operand(op)[perm], stable=True)
+        perm = perm[order]
+    sorted_ops = [op[perm] for op in operands]
+    valid_sorted = sorted_ops[0] == 0
+
+    # group starts: first valid row, or any key component differing
+    # from the previous row (IEEE !=, as the reference compares)
+    pos = torch.arange(capacity, device=device)
+    diff = torch.zeros((capacity,), dtype=torch.bool, device=device)
+    for op in sorted_ops[1:]:
+        diff = diff | (op != torch.roll(op, 1))
+    starts = ((pos == 0) | diff) & valid_sorted
+    total_groups = starts.sum()
+    gid = torch.cumsum(starts.to(torch.int64), 0) - 1
+    in_seg = valid_sorted & (gid < num_segments)
+    gid = torch.where(in_seg, gid, torch.full_like(gid, num_segments))
+
+    # per-segment first/last sorted-row positions via non-colliding
+    # scatters into num_segments + 1 slots (the last one drops)
+    drop = torch.full_like(gid, num_segments)
+    sidx = torch.where(starts & in_seg, gid, drop)
+    nxt_gid = torch.cat([gid[1:], gid.new_full((1,), num_segments)])
+    eidx = torch.where(in_seg & (nxt_gid != gid), gid, drop)
+
+    def scatter(idx, values, fill, dtype):
+        out = torch.full((num_segments + 1,), fill, dtype=dtype,
+                         device=device)
+        out[idx] = values
+        return out[:num_segments]
+
+    start_pos = scatter(sidx, pos, 0, torch.int64)
+    end_pos = scatter(eidx, pos, 0, torch.int64)
+    present = scatter(sidx, True, False, torch.bool)
+    occupied_cnt = torch.where(present, end_pos - start_pos + 1,
+                               torch.zeros_like(end_pos))
+
+    accs = []
+    for row_contribs, row_specs in zip(contribs, specs):
+        fn_accs = []
+        for contrib, spec in zip(row_contribs, row_specs):
+            if contrib.dim() == 0:
+                contrib = contrib.expand((capacity,))
+            out = _sorted_segment_reduce(contrib[perm], spec.reduce, starts,
+                                         start_pos, end_pos, present)
+            tdt = T.torch_dtype(spec.np_dtype)
+            if spec.reduce != "sum":
+                out = torch.where(occupied_cnt > 0, out.to(tdt),
+                                  torch.full((num_segments,),
+                                             spec.neutral.item(), dtype=tdt,
+                                             device=device))
+            fn_accs.append(out.to(tdt))
+        accs.append(fn_accs)
+
+    # first-of-group key values into the output slots
+    key_arrays = []
+    key_valids = []
+    first = torch.where(starts, gid, drop)
+    oi = 1
+    for vec in key_vecs:
+        null_sorted = None
+        if vec.validity is not None:
+            null_sorted = sorted_ops[oi] != 0
+            oi += 1
+        data_sorted = sorted_ops[oi]
+        oi += 1
+        key_arrays.append(scatter(first, data_sorted, 0, data_sorted.dtype))
+        key_valids.append(None if null_sorted is None else
+                          scatter(first, ~null_sorted, True, torch.bool))
+    return key_arrays, key_valids, accs, occupied_cnt > 0, total_groups

@@ -1,0 +1,349 @@
+"""Equi-join kernels: sorted-build binary search with many-to-many
+expansion (the port of `spark_tpu/execution/join.py`; reference:
+`SortMergeJoinExec.scala:36`, `HashedRelation.scala:41`).
+
+- the build side is sorted once, stably, invalid rows last;
+- each probe key binary-searches its match *range* [lo, hi)
+  (`torch.searchsorted` left/right), so duplicate build keys are handled;
+- output rows come from a prefix-sum expansion into an output of fixed
+  capacity: output row r maps back to probe row p and to build row
+  lo[p] + (r - off[p]).
+
+`torch.searchsorted` needs one dtype on both sides and has no NaN
+ordering of its own, so both sides search on an order image: an int64
+whose signed order is the join's total order on keys (floats by the sign
+flip of their bits, canonical NaN above +inf, as `lax.sort` orders them).
+
+Output capacity is a per-join parameter. The executor seeds it with the
+probe capacity (exact for FK joins, the TPC-H shape) and, when the row
+total exceeds it, reads the real total from the `join_rows_<tag>`
+metric and runs the query again with a sufficient capacity.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import types as T
+from ..columnar import Batch, Column
+from ..expr import Vec
+
+
+def canon_key_data(data):
+    """One representative per join-equal float key class: -0.0 -> +0.0
+    and every NaN payload -> the canonical NaN. Join keys compare NaN
+    equal to NaN (the reference's/pandas semantics), so the sort order,
+    the search and `==` must all see a single bit pattern per class —
+    applied to BOTH sides before any sort/search/hash. Non-float keys
+    pass through untouched."""
+    if not data.is_floating_point():
+        return data
+    data = torch.where(data == 0, torch.zeros_like(data), data)
+    return torch.where(torch.isnan(data), torch.full_like(data, float("nan")),
+                       data)
+
+
+_I64_MAX = int(np.iinfo(np.int64).max)
+
+
+def order_image(data):
+    """int64 whose signed order is the sort order of `data`: integers
+    widen; floats map their bits so that negatives reverse (NaN with the
+    sign bit clear, the canonical one, lands above +inf)."""
+    if not data.is_floating_point():
+        return data.to(torch.int64)
+    if data.dtype == torch.float64:
+        bits = data.view(torch.int64)
+        return torch.where(bits < 0, bits ^ _I64_MAX, bits)
+    bits = data.to(torch.float32).view(torch.int32)
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+
+
+def _sentinel(dtype: torch.dtype):
+    """The sort order's +max for `dtype`: the invalid-slot filler."""
+    if dtype.is_floating_point:
+        return float("nan")
+    return int(torch.iinfo(dtype).max)
+
+
+def build_sorted(key: Vec, sel) -> Tuple:
+    """Sort build side by key; invalid rows pushed to the end.
+
+    Returns (sorted_keys, perm, num_valid, valid_mask_sorted)."""
+    data = key.data
+    cap = data.shape[0]
+    invalid = torch.zeros((cap,), dtype=torch.int8, device=data.device)
+    if sel is not None:
+        invalid = (~sel).to(torch.int8)
+    if key.validity is not None:
+        invalid = invalid | (~key.validity).to(torch.int8)
+    data = canon_key_data(data)
+    # stable passes, least significant key first: (invalid, key)
+    _, perm = torch.sort(order_image(data), stable=True)
+    _, order = torch.sort(invalid[perm], stable=True)
+    perm = perm[order]
+    valid_s = invalid[perm] == 0
+    n_valid = valid_s.sum()
+    # invalid slots carry arbitrary keys after the valid prefix;
+    # overwrite with the sort order's +max so the array stays globally
+    # sorted (for floats the canonical NaN, which sorts above +inf; a
+    # sentinel run merging into a valid NaN run is fine — match ranges
+    # clip at n_valid)
+    keys_s = torch.where(valid_s, data[perm],
+                         torch.full((), _sentinel(data.dtype),
+                                    dtype=data.dtype, device=data.device))
+    return keys_s, perm, n_valid, valid_s
+
+
+def build_has_duplicates(sorted_keys, valid_sorted):
+    """0-d bool tensor: any two valid build rows share a key (adjacent
+    check on the sorted keys). Drives the unique-build fast path's
+    fallback flag — a table-level property, conservatively True if ANY
+    key repeats. NaN groups with NaN, as it does everywhere join keys
+    compare."""
+    same = sorted_keys[1:] == sorted_keys[:-1]
+    if sorted_keys.is_floating_point():
+        same = same | (torch.isnan(sorted_keys[1:])
+                       & torch.isnan(sorted_keys[:-1]))
+    both = valid_sorted[1:] & valid_sorted[:-1]
+    return (same & both).any()
+
+
+def _search_operands(sorted_keys, probe_data):
+    """(sorted keys, probe keys) in their promoted common dtype, and the
+    order images searchsorted runs on."""
+    pk = canon_key_data(probe_data)
+    common = torch.promote_types(sorted_keys.dtype, pk.dtype)
+    sk = sorted_keys.to(common)
+    pk = pk.to(common)
+    return sk, pk, order_image(sk), order_image(pk)
+
+
+def _keys_equal(a, b):
+    """Join-key equality under the sort's total order: NaN equals NaN;
+    +-0.0 compare equal under IEEE `==`."""
+    eq = a == b
+    if a.is_floating_point() or b.is_floating_point():
+        eq = eq | (torch.isnan(a) & torch.isnan(b))
+    return eq
+
+
+def match_unique(sorted_keys, n_valid, perm, probe_key: Vec, probe_sel):
+    """Unique-build match: each probe row matches at most one build row
+    (the FK->PK shape; reference: HashedRelation.scala keyIsUnique).
+    One search and one build-sized gather; no expansion — probe columns
+    pass through untouched.
+
+    Returns (build_idx, found)."""
+    sk, pk, sk_img, pk_img = _search_operands(sorted_keys, probe_key.data)
+    lo = torch.searchsorted(sk_img, pk_img)
+    lo = lo.clamp(max=sorted_keys.shape[0] - 1)
+    found = _keys_equal(sk[lo], pk) & (lo < n_valid)
+    if probe_key.validity is not None:
+        found = found & probe_key.validity
+    if probe_sel is not None:
+        found = found & probe_sel
+    return perm[lo], found
+
+
+def match_ranges(sorted_keys, n_valid, probe_key: Vec, probe_sel):
+    """Binary-search each probe key's build match range.
+
+    Returns (lo, cnt): build rows [lo, lo+cnt) in sorted order match.
+    cnt is 0 for unmatched/invalid/unselected probe rows."""
+    _, _, sk_img, pk_img = _search_operands(sorted_keys, probe_key.data)
+    lo = torch.minimum(torch.searchsorted(sk_img, pk_img), n_valid)
+    hi = torch.minimum(torch.searchsorted(sk_img, pk_img, right=True),
+                       n_valid)
+    found = hi > lo
+    if probe_key.validity is not None:
+        found = found & probe_key.validity
+    if probe_sel is not None:
+        found = found & probe_sel
+    cnt = torch.where(found, hi - lo, torch.zeros_like(lo))
+    return lo, cnt
+
+
+def expand(lo, cnt_key, cnt_eff, perm, out_cap: int):
+    """Prefix-sum expansion of match ranges into a fixed-capacity output.
+
+    cnt_key[p] = number of key-matched build rows for probe row p;
+    cnt_eff[p] = rows to emit for p (== cnt_key, or max(cnt_key,1) for
+    outer joins that null-extend unmatched probe rows).
+
+    Returns (p, build_idx, is_pair, valid, total):
+      p[r]         probe row of output row r
+      build_idx[r] build row (meaningful when is_pair[r])
+      is_pair[r]   r is a key-matched pair (False => null-extension row)
+      valid[r]     r < total emitted rows
+      total        0-d tensor: rows actually produced (the executor
+                   checks it against out_cap and runs again on overflow)
+    """
+    cap = cnt_eff.shape[0]
+    assert cap < (1 << 30) and perm.shape[0] < (1 << 30), \
+        "expand packs (probe idx, lo) into one int64"
+    dev = cnt_eff.device
+    cnt_eff = cnt_eff.to(torch.int64)
+    off = torch.cumsum(cnt_eff, 0) - cnt_eff  # exclusive prefix sum
+    total = off[-1] + cnt_eff[-1]
+    r = torch.arange(out_cap, dtype=torch.int64, device=dev)
+    # Each emitting probe row owns a contiguous run of output rows
+    # starting at off[p]; probe indices increase across runs. Pack
+    # (probe idx, lo, cnt_key==0) into one int64, scatter it at each
+    # run start (the starts never collide) and forward-fill with a
+    # running max. Slot out_cap catches the rows that emit nothing or
+    # start past the capacity.
+    emitting = (cnt_eff > 0) & (off < out_cap)
+    pidx = torch.arange(cap, dtype=torch.int64, device=dev)
+    zflag = (cnt_key == 0).to(torch.int64)
+    pack = (pidx << 32) | (lo.to(torch.int64) << 1) | zflag
+    tgt = torch.where(emitting, off, torch.full_like(off, out_cap))
+    packs = torch.zeros((out_cap + 1,), dtype=torch.int64, device=dev)
+    packs[tgt] = pack
+    offm = torch.zeros((out_cap + 1,), dtype=torch.int64, device=dev)
+    offm[tgt] = off
+    fill = torch.cummax(packs[:out_cap], 0).values
+    off_run = torch.cummax(offm[:out_cap], 0).values  # start of r's run
+    p = fill >> 32
+    lo_p = (fill >> 1) & 0x3FFFFFFF
+    j = r - off_run
+    # j < cnt_key[p] <=> the run emits pairs (cnt_eff==cnt_key) and not
+    # the cnt_key==0 null-extension run (cnt_eff=1, one row with j=0)
+    is_pair = (fill & 1) == 0
+    build_pos = (lo_p + j).clamp(0, perm.shape[0] - 1)
+    build_idx = perm[build_pos]
+    valid = r < total
+    return p, build_idx, is_pair & valid, valid, total
+
+
+class RuntimeFilter:
+    """A built runtime join filter: Bloom membership over hashed int64
+    keys, plus [lo, hi] value bounds when the key dtype is ordered
+    (numeric/date/timestamp/decimal) — the cheap range rejection that
+    needs two compares instead of k hash probes."""
+
+    def __init__(self, bloom, lo=None, hi=None):
+        self.bloom = bloom
+        self.lo = lo
+        self.hi = hi
+
+
+def _runtime_filter_key(vec: Vec):
+    """(hashed int64 values, validity, ordered) for filter build/probe.
+
+    Dictionary strings map through per-dictionary VALUE hashes, so
+    build and probe sides with independently-built dictionaries hash
+    equal strings equally (codes alone would not). `ordered` marks
+    dtypes whose raw values support min/max bounds."""
+    if vec.dictionary is not None:
+        table = _dict_value_hashes(vec.dictionary)
+        if table.shape[0] == 0:
+            # all-NULL / zero-row string column: validity already masks
+            # every row, so any constant hash is correct
+            return torch.zeros(vec.data.shape, dtype=torch.int64,
+                               device=vec.data.device), vec.validity, False
+        table = table.to(vec.data.device)
+        idx = vec.data.to(torch.int64).clamp(0, table.shape[0] - 1)
+        return table[idx], vec.validity, False
+    ordered = not isinstance(vec.dtype, (T.StringType, T.BooleanType))
+    return vec.data.to(torch.int64), vec.validity, ordered
+
+
+def _dict_value_hashes(dictionary):
+    """Stable 64-bit hash per dictionary VALUE (host): blake2b-64 of the
+    UTF-8 bytes, the JAX package's `parallel/shuffle.py` hash, so both
+    engines build the same filter."""
+    import hashlib
+    hs = np.empty(len(dictionary), dtype=np.int64)
+    for i, s in enumerate(dictionary.to_pylist()):
+        b = (s if s is not None else "\0").encode("utf-8", "surrogatepass")
+        hs[i] = int.from_bytes(
+            hashlib.blake2b(b, digest_size=8).digest(), "little", signed=True)
+    return torch.from_numpy(hs)
+
+
+def build_runtime_filter(build_batch: Batch, key_expr,
+                         expected_items: int, fpp: float = 0.03
+                         ) -> RuntimeFilter:
+    """Build a RuntimeFilter from the build-side key column. NULL keys
+    are excluded (they never equi-match)."""
+    from ..sketch import BloomFilter
+    vec = key_expr.eval(build_batch)
+    hashed, validity, ordered = _runtime_filter_key(vec)
+    mask = build_batch.selection_mask()
+    if validity is not None:
+        mask = mask & validity
+    bloom = BloomFilter.build(hashed, expected_items=expected_items,
+                              fpp=fpp, mask=mask)
+    lo = hi = None
+    if ordered:
+        raw = vec.data
+        bmask = mask
+        if raw.is_floating_point():
+            pos, neg = float("inf"), float("-inf")
+            # a valid NaN build key would poison the bounds (NaN
+            # propagates through min/max and every probe compare goes
+            # False); NaN probe keys fail the range compare and prune
+            bmask = bmask & ~torch.isnan(raw)
+        else:
+            info = torch.iinfo(raw.dtype)
+            pos, neg = int(info.max), int(info.min)
+        lo = torch.where(bmask, raw, torch.full_like(raw, pos)).min()
+        hi = torch.where(bmask, raw, torch.full_like(raw, neg)).max()
+    return RuntimeFilter(bloom, lo, hi)
+
+
+def apply_runtime_filter(filt: RuntimeFilter, probe_batch: Batch,
+                         key_expr):
+    """Per-probe-row keep mask: False is a definite non-match (prune),
+    True is probabilistic (the join still decides). NULL probe keys are
+    pruned — an equi-join never matches them."""
+    vec = key_expr.eval(probe_batch)
+    hashed, validity, ordered = _runtime_filter_key(vec)
+    keep = filt.bloom.might_contain(hashed)
+    if filt.lo is not None and ordered:
+        # range rejection on raw values: an empty build side leaves
+        # lo > hi (the sentinels), which prunes everything — correct
+        # for inner/semi joins
+        keep = keep & (vec.data >= filt.lo) & (vec.data <= filt.hi)
+    if validity is not None:
+        keep = keep & validity
+    return keep
+
+
+def gather_columns(batch: Batch, idx, present,
+                   name_map: Sequence[Tuple[str, str]]
+                   ) -> List[Tuple[str, Column]]:
+    """Columns at idx; validity &= present (rows where the side
+    contributes no value — null-extensions — become NULL).
+
+    The result columns are lazy (`Column.gathered`). Columns that carry
+    provenance compose indices (``base[idx0[idx]]``) instead of
+    gathering already-gathered data: a chain of N joins costs one
+    payload gather per column that is read, instead of N."""
+    out = []
+    composed = {}  # one composition per upstream index/present tensor
+    for src_name, out_name in name_map:
+        col = batch.columns[src_name]
+        if col.prov is not None:
+            base_data, base_valid, idx0, present0 = col.prov
+            if id(idx0) not in composed:
+                composed[id(idx0)] = idx0[idx]
+            idx2 = composed[id(idx0)]
+            if present0 is None:
+                new_present = present
+            else:
+                if id(present0) not in composed:
+                    composed[id(present0)] = present0[idx] & present
+                new_present = composed[id(present0)]
+            out.append((out_name, Column.gathered(
+                base_data, base_valid, idx2, new_present, col.dtype,
+                col.dictionary)))
+            continue
+        out.append((out_name, Column.gathered(
+            col.data, col.validity, idx, present, col.dtype,
+            col.dictionary)))
+    return out

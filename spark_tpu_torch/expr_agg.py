@@ -1,7 +1,7 @@
 """Aggregate functions as declarative accumulator specs.
 
-The port of the `spark_tpu/expr_agg.py` subset the slice needs: COUNT,
-SUM and AVG (reference: DeclarativeAggregate in
+The port of the `spark_tpu/expr_agg.py` subset the slices need: COUNT,
+SUM, AVG, MIN and MAX (reference: DeclarativeAggregate in
 `expressions/aggregate/interfaces.scala`). Each function declares flat
 *accumulator* columns with an associative/commutative reduce kind, an
 ``update`` producing per-row contributions (already neutralized for
@@ -221,6 +221,40 @@ class Avg(AggregateFunction):
             return decimal_avg_halfup(
                 total, safe, 10 ** (out_dt.scale - dt.scale)), cnt > 0
         return total.to(torch.float64) / safe.to(torch.float64), cnt > 0
+
+
+class _MinMax(AggregateFunction):
+    _reduce = "min"
+
+    def result_type(self, schema):
+        return self.child.dtype(schema)
+
+    def accumulators(self, schema):
+        dt = self.child.dtype(schema)
+        return [AccSpec(self._reduce, dt.np_dtype, self._reduce),
+                AccSpec("cnt", np.dtype(np.int64), "sum", width=8)]
+
+    def update(self, batch, sel):
+        v, m = self._eval_child(batch, sel)
+        spec = self.accumulators(batch.schema())[0]
+        x = v.data.to(T.torch_dtype(spec.np_dtype))
+        cnt = torch.ones((batch.capacity,), dtype=torch.int64,
+                         device=batch.device)
+        if m is None:
+            return [x, cnt]
+        return [torch.where(m, x, torch.full_like(x, spec.neutral.item())),
+                torch.where(m, cnt, torch.zeros_like(cnt))]
+
+    def device_finalize(self, accs, schema):
+        return accs[0], accs[1] > 0
+
+
+class Min(_MinMax):
+    _reduce = "min"
+
+
+class Max(_MinMax):
+    _reduce = "max"
 
 
 @dataclass

@@ -7,7 +7,7 @@ from typing import Optional
 
 from . import types as T
 from .expr import ColumnRef, Expression, Literal, date_literal
-from .expr_agg import Avg, Count, Sum
+from .expr_agg import Avg, Count, Max, Min, Sum
 
 
 def col(name: str) -> ColumnRef:
@@ -40,3 +40,11 @@ def count(e="*") -> Count:
     if e is None or (isinstance(e, str) and e == "*"):
         return Count(None)
     return Count(_expr(e))
+
+
+def min(e) -> Min:  # noqa: A001
+    return Min(_expr(e))
+
+
+def max(e) -> Max:  # noqa: A001
+    return Max(_expr(e))

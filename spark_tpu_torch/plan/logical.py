@@ -203,21 +203,27 @@ JOIN_TYPES = ("inner", "left", "right", "full", "left_semi", "left_anti")
 class Join(LogicalPlan):
     """Equi-join on key expression pairs (reference: logical Join +
     ExtractEquiJoinKeys). `condition` is an optional residual non-equi
-    predicate applied post-match. The port plans it but has no join
-    operator yet: physical planning raises NotImplementedError."""
+    predicate applied post-match."""
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
                  left_keys: Sequence[Expression], right_keys: Sequence[Expression],
-                 how: str = "inner", condition: Optional[Expression] = None):
+                 how: str = "inner", condition: Optional[Expression] = None,
+                 null_aware: bool = False):
         if how not in JOIN_TYPES:
             raise AnalysisError(f"unsupported join type {how!r}")
         if len(left_keys) != len(right_keys) or not left_keys:
             raise AnalysisError("join requires matching, non-empty key lists")
+        if null_aware and how != "left_anti":
+            raise AnalysisError("null_aware applies to left_anti only")
         self.children = (left, right)
         self.left_keys = tuple(left_keys)
         self.right_keys = tuple(right_keys)
         self.how = how
         self.condition = condition
+        # SQL NOT IN semantics (null-aware anti-join): any NULL in the
+        # build keys empties the result; a NULL probe key only survives
+        # when the build side is empty
+        self.null_aware = null_aware
 
     @property
     def left(self):
@@ -258,6 +264,7 @@ class Join(LogicalPlan):
         return (f"Join({self.how}, {list(self.left_keys)!r} = "
                 f"{list(self.right_keys)!r}"
                 + (f", cond={self.condition!r}" if self.condition is not None else "")
+                + (", null_aware" if self.null_aware else "")
                 + ")")
 
 

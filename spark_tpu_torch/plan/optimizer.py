@@ -178,7 +178,8 @@ class PruneColumns(Rule):
                         step = step + "_r"
             return Join(self._prune(node.left, ln),
                         self._prune(node.right, rn), node.left_keys,
-                        node.right_keys, node.how, node.condition)
+                        node.right_keys, node.how, node.condition,
+                        node.null_aware)
         if isinstance(node, Sort):
             child_needed = None
             if needed is not None:

@@ -2,11 +2,12 @@
 `spark_tpu/plan/physical.py`; reference: `execution/SparkPlan.scala`).
 
 `compute` runs eagerly on whole Batches of torch tensors; the executor
-walks the tree bottom-up. `simple_string`/`tree_string` match the JAX
-package, so plan-level parity is a string compare. Ported: Range, Scan,
-Project, Filter, HashAggregate (complete mode, dense-domain path), Sort
-and Limit. The planner raises NotImplementedError for operators that are
-not ported yet (joins, windows, exchanges, the sort aggregate).
+walks the tree bottom-up, computing a node that several parents share
+(a runtime filter's creation chain) once. `simple_string`/`tree_string`
+match the JAX package, so plan-level parity is a string compare. Ported:
+Range, Scan, Project, Filter, HashAggregate (complete mode, dense-domain
+and sort paths), Sort, Limit, Join and RuntimeFilter. The planner raises
+for operators that are not ported yet (windows, exchanges, unions).
 """
 
 from __future__ import annotations
@@ -19,21 +20,30 @@ import torch
 from .. import types as T
 from ..columnar import Batch, Column, bucket_capacity
 from ..config import Conf
-from ..expr import AnalysisError, Expression, SortOrder
+from ..expr import AnalysisError, Expression, SortOrder, Vec
 from ..expr_agg import AggExpr
 from ..execution import aggregate as agg_kernels
+from ..execution import join as join_kernels
 from ..execution import sort as sort_kernels
 
 
 class ExecContext:
     """Per-execution state threaded through `compute` calls: the conf,
-    the device every operator's tensors live on, and per-operator
-    metrics."""
+    the device every operator's tensors live on, runtime flags (0-d
+    bool tensors the executor reads after the run, e.g. a join's output
+    overflow) and per-operator metrics."""
 
     def __init__(self, conf: Conf, device):
         self.conf = conf
         self.device = torch.device(device)
+        self.flags: Dict[str, object] = {}
         self.metrics: Dict[str, object] = {}
+
+    def add_flag(self, name: str, value) -> None:
+        if name in self.flags:
+            self.flags[name] = self.flags[name] | value
+        else:
+            self.flags[name] = value
 
     def add_metric(self, name: str, value) -> None:
         self.metrics[name] = value
@@ -184,9 +194,11 @@ class FilterExec(UnaryExec):
 
 class HashAggregateExec(UnaryExec):
     """Group-by aggregate in the `complete` mode (update + reduce +
-    finalize in one node) on the dense-domain path of
-    `execution/aggregate.py`. A plan whose keys have no static domain
-    needs the sort aggregate, which is not ported yet."""
+    finalize in one node). Keys with a small static domain take the
+    dense path of `execution/aggregate.py`; others the sort aggregate,
+    whose output table holds `est_groups` (bucketed) groups and flags
+    ``agg_overflow_<tag>`` when more arrive, for the executor to run
+    again with the real count."""
 
     def __init__(self, child: PhysicalPlan, group_exprs: Sequence[Expression],
                  agg_exprs: Sequence[AggExpr], mode: str = "complete",
@@ -199,6 +211,7 @@ class HashAggregateExec(UnaryExec):
         self.agg_exprs = tuple(agg_exprs)
         self.mode = mode
         self.est_groups = est_groups
+        self.tag = "a0"
 
     def schema(self):
         cs = self.child.schema()
@@ -224,18 +237,29 @@ class HashAggregateExec(UnaryExec):
         nullables = [g.nullable(base) for g in self.group_exprs]
         spans = agg_kernels.key_spans(
             nullables, [d for d in domains if d is not None])
-        if not (all(d is not None for d in domains)
+        if (all(d is not None for d in domains)
                 and int(np.prod(list(spans) or [1])) <= max_domain):
-            raise NotImplementedError(
-                "HashAggregateExec: group keys without a dense static "
-                "domain need the sort aggregate, which is not ported yet")
-
-        key_arrays, key_valids, accs, occupied = \
-            agg_kernels.direct_aggregate(
-                key_vecs, domains, spans, contribs, specs, sel, ctx.device,
-                kernel_mode=str(ctx.conf.get(
-                    "spark_tpu.sql.aggregate.kernelMode")),
-                reuse_count=self._occupancy_reuse(batch))
+            key_arrays, key_valids, accs, occupied = \
+                agg_kernels.direct_aggregate(
+                    key_vecs, domains, spans, contribs, specs, sel,
+                    ctx.device, kernel_mode=str(ctx.conf.get(
+                        "spark_tpu.sql.aggregate.kernelMode")),
+                    reuse_count=self._occupancy_reuse(batch))
+        else:
+            num_segments = batch.capacity
+            if self.est_groups and self.group_exprs:
+                num_segments = min(batch.capacity,
+                                   bucket_capacity(self.est_groups))
+            (key_arrays, key_valids, accs, occupied,
+             total_groups) = agg_kernels.sort_aggregate(
+                key_vecs, contribs, specs, sel, batch.capacity,
+                num_segments=num_segments)
+            if num_segments < batch.capacity:
+                # sized-down output: surface the real group count so the
+                # executor can run again with a larger table on overflow
+                ctx.add_metric(f"agg_groups_{self.tag}", total_groups)
+                ctx.add_flag(f"agg_overflow_{self.tag}",
+                             total_groups > num_segments)
 
         if not self.group_exprs:
             # global aggregate: exactly one output row, always present
@@ -313,3 +337,555 @@ class LimitExec(UnaryExec):
 
     def simple_string(self):
         return f"LimitExec({self.n})"
+
+
+class JoinExec(PhysicalPlan):
+    """General equi-join: sorted-build binary search or a hash table
+    over the sorted build (`execution/join.py`, `execution/hash_join.py`)
+    with prefix-sum expansion. Build side = right child. Supports
+    many-to-many matches, inner/left/right/full outer, semi/anti, and
+    residual (non-equi) conditions for every join type.
+
+    Re-plan state, set by the executor after a run that flagged it
+    (the reference's `AdaptiveSparkPlanExec.scala:64` loop in miniature):
+    `out_cap`, the capacity of the expanded-pair block (None = the probe
+    capacity, exact for FK joins); `unique_build`, the FK->PK fast path
+    (None/True = try it; False after a duplicate build key); and
+    `hash_fallback` (False after the hash table saturated)."""
+
+    #: printed for parity with the JAX package, whose mesh planner also
+    #: picks "broadcast"; one device has only "shuffle"
+    strategy = "shuffle"
+
+    def __init__(self, left: PhysicalPlan, right: PhysicalPlan,
+                 left_keys: Sequence[Expression],
+                 right_keys: Sequence[Expression],
+                 how: str, condition: Optional[Expression],
+                 out_schema: T.Schema):
+        self.children = (left, right)
+        self.left_keys = tuple(left_keys)
+        self.right_keys = tuple(right_keys)
+        self.how = how
+        self.condition = condition
+        self._schema = out_schema
+        self.out_cap: Optional[int] = None
+        self.unique_build: Optional[bool] = None
+        self.hash_fallback: Optional[bool] = None
+        # True for left_semi joins SYNTHESIZED by the runtime-filter rule
+        # to narrow a creation chain (plan/runtime_filter.py): tagged
+        # from a separate counter (cj<n>)
+        self.creation_side = False
+        # SQL NOT IN null-aware anti-join (left_anti only)
+        self.null_aware = False
+        self.tag = "j0"
+        #: (kernel, reason) of the last run, for reports
+        self.last_kernel: Optional[Tuple[str, str]] = None
+
+    @property
+    def left(self):
+        return self.children[0]
+
+    @property
+    def right(self):
+        return self.children[1]
+
+    def schema(self):
+        return self._schema
+
+    def _eval_keys(self, probe_batch, build_batch):
+        def bcast(v: Vec, cap: int) -> Vec:
+            # literal keys (cross join lowers to a constant-key equi-join)
+            if v.data is not None and v.data.dim() == 0:
+                validity = v.validity
+                if validity is not None and validity.dim() == 0:
+                    validity = validity.expand((cap,))
+                return Vec(v.data.expand((cap,)), v.dtype, validity,
+                           v.dictionary)
+            return v
+
+        lvecs = [bcast(k.eval(probe_batch), probe_batch.capacity)
+                 for k in self.left_keys]
+        rvecs = [bcast(k.eval(build_batch), build_batch.capacity)
+                 for k in self.right_keys]
+        lvecs, rvecs = _unify_key_dictionaries(lvecs, rvecs)
+        if len(lvecs) != 1:
+            lk, rk, exact = _pack_key_pair(lvecs, rvecs)
+        else:
+            lk, rk = lvecs[0], rvecs[0]
+            exact = True
+        return lvecs, rvecs, lk, rk, exact
+
+    def _build_name_map(self, probe_batch, build_batch):
+        """(left_names, out_names) with the `_r` collision suffix shared
+        by every join type so one condition expression works for all."""
+        left_names = list(probe_batch.columns.keys())
+        if self.how in ("left_semi", "left_anti"):
+            taken = set(left_names)
+            out_names = list(left_names)
+            for n in build_batch.columns.keys():
+                name = n
+                while name in taken:
+                    name = name + "_r"
+                out_names.append(name)
+                taken.add(name)
+        else:
+            out_names = self._schema.names
+        return left_names, out_names
+
+    def _compute_unique(self, ctx, probe_batch, build_batch,
+                        lvecs, rvecs, lk, keys_s, perm, n_valid, valid_s,
+                        hash_lc=None):
+        """Unique-build fast path: probe-layout output, zero expansion
+        (HashedRelation keyIsUnique analog). Raises join_nonunique_<tag>
+        when the build side has duplicate keys; the executor then runs
+        again with unique_build=False. `hash_lc` is the hash kernel's
+        (lo, cnt) probe result when that kernel ran (the sort kernel's
+        single search `match_unique` otherwise)."""
+        ctx.add_flag(f"join_nonunique_{self.tag}",
+                     join_kernels.build_has_duplicates(keys_s, valid_s))
+        if hash_lc is not None:
+            lo, cnt = hash_lc
+            build_idx = perm[lo.clamp(max=keys_s.shape[0] - 1)]
+            found = cnt > 0
+        else:
+            build_idx, found = join_kernels.match_unique(
+                keys_s, n_valid, perm, lk, probe_batch.selection)
+        psel = probe_batch.selection_mask()
+        if len(lvecs) != 1:
+            # packed keys: verify true equality (a pack collision pair
+            # in the build would have raised the nonunique flag, so the
+            # single candidate is the only possible match)
+            for lvec, rvec in zip(lvecs, rvecs):
+                eq = lvec.data == rvec.data[build_idx]
+                if lvec.validity is not None:
+                    eq = eq & lvec.validity
+                if rvec.validity is not None:
+                    eq = eq & rvec.validity[build_idx]
+                found = found & eq
+
+        left_names, out_names = self._build_name_map(probe_batch,
+                                                     build_batch)
+        n_left = len(left_names)
+        cols: Dict[str, Column] = {}
+        for name, out_name in zip(left_names, out_names[:n_left]):
+            cols[out_name] = probe_batch.columns[name]  # no gather
+        build_name_map = list(zip(build_batch.columns.keys(),
+                                  out_names[n_left:]))
+        for (out_name, col) in join_kernels.gather_columns(
+                build_batch, build_idx, found, build_name_map):
+            cols[out_name] = col
+
+        if self.condition is not None:
+            out_probe = Batch(cols, psel & found, ctx.device)
+            v = self.condition.eval(out_probe)
+            keep = v.data if v.validity is None else (v.data & v.validity)
+            found = found & keep
+            for out_name, col in join_kernels.gather_columns(
+                    build_batch, build_idx, found, build_name_map):
+                cols[out_name] = col
+
+        ctx.add_metric(f"join_rows_{self.tag}",
+                       (psel & found).sum())
+        if self.how == "left_semi":
+            return probe_batch.with_selection(psel & found)
+        if self.how == "left_anti":
+            sel = psel & ~found
+            if self.null_aware:
+                sel = sel & self._null_aware_mask(lvecs[0], build_batch,
+                                                  rvecs[0])
+            return probe_batch.with_selection(sel)
+        if self.how == "left":
+            return Batch(cols, psel, ctx.device)
+        return Batch(cols, psel & found, ctx.device)
+
+    def _null_aware_mask(self, probe_key_vec, build_batch, build_key_vec):
+        """Per-probe-row NOT IN adjustment (SQL three-valued logic): a
+        NULL anywhere in the build keys empties the result; a NULL probe
+        key survives only when the build side is empty."""
+        bsel = build_batch.selection_mask()
+        if build_key_vec.validity is not None:
+            has_null = (bsel & ~build_key_vec.validity).any()
+        else:
+            has_null = torch.zeros((), dtype=torch.bool, device=bsel.device)
+        empty = ~bsel.any()
+        mask = (~has_null).expand((probe_key_vec.data.shape[0],))
+        if probe_key_vec.validity is not None:
+            mask = mask & (probe_key_vec.validity | empty)
+        return mask
+
+    def compute(self, ctx, inputs):
+        import time as _time
+        from ..execution import hash_join as hash_kernels
+        probe_batch, build_batch = inputs
+        lvecs, rvecs, lk, rk, exact = self._eval_keys(probe_batch,
+                                                      build_batch)
+        t_build = _time.perf_counter()
+        keys_s, perm, n_valid, valid_s = join_kernels.build_sorted(
+            rk, build_batch.selection)
+        # kernel choice (join.kernelMode): both kernels return the same
+        # (lo, cnt) sorted-order contract, so everything downstream
+        # (expansion, gathers, output order) is shared and results are
+        # byte-identical across modes
+        self.last_kernel = hash_kernels.kernel_choice(
+            ctx.conf, probe_batch.capacity, build_batch.capacity,
+            self.hash_fallback)
+        hash_lc = None
+        if self.last_kernel[0] == "hash":
+            slots = hash_kernels.table_slots(build_batch.capacity, ctx.conf)
+            max_probe = int(ctx.conf.get(hash_kernels.MAX_PROBE_KEY))
+            # both sides hash under the promoted common dtype
+            hash_dt = torch.promote_types(lk.data.dtype, keys_s.dtype)
+            t_pos, cnt_all, saturated, build_steps = \
+                hash_kernels.build_table(keys_s, valid_s, slots, max_probe,
+                                         hash_dtype=hash_dt)
+            # a cluster longer than the probe bound: run again on sort
+            ctx.add_flag(f"join_hashsat_{self.tag}", saturated)
+            ctx.add_metric(f"join_table_slots_{self.tag}", slots)
+            ctx.add_metric(f"join_build_steps_{self.tag}", build_steps)
+            ctx.add_metric(f"join_build_ms_{self.tag}",
+                           (_time.perf_counter() - t_build) * 1e3)
+            t_probe = _time.perf_counter()
+            lo, cnt, probe_steps = hash_kernels.probe_table(
+                t_pos, cnt_all, keys_s, lk, probe_batch.selection,
+                slots, max_probe, hash_dtype=hash_dt)
+            hash_lc = (lo, cnt)
+            ctx.add_metric(f"join_probe_steps_{self.tag}", probe_steps)
+            ctx.add_metric(f"join_probe_ms_{self.tag}",
+                           (_time.perf_counter() - t_probe) * 1e3)
+        if (self.unique_build is not False
+                and self.how in ("inner", "left", "left_semi",
+                                 "left_anti")):
+            return self._compute_unique(ctx, probe_batch, build_batch,
+                                        lvecs, rvecs, lk, keys_s, perm,
+                                        n_valid, valid_s, hash_lc=hash_lc)
+        if hash_lc is not None:
+            lo, cnt = hash_lc
+        else:
+            lo, cnt = join_kernels.match_ranges(keys_s, n_valid, lk,
+                                                probe_batch.selection)
+        psel = probe_batch.selection_mask()
+        semi_anti = self.how in ("left_semi", "left_anti")
+
+        if semi_anti and exact and self.condition is None:
+            found = cnt > 0
+            if self.how == "left_semi":
+                return probe_batch.with_selection(psel & found)
+            sel = psel & ~found
+            if self.null_aware:
+                sel = sel & self._null_aware_mask(lvecs[0], build_batch,
+                                                  rvecs[0])
+            return probe_batch.with_selection(sel)
+
+        dev = ctx.device
+        probe_cap = probe_batch.capacity
+        build_cap = build_batch.capacity
+        out_cap = self.out_cap if self.out_cap is not None else probe_cap
+        outer_probe = self.how in ("left", "full")
+        zero = torch.zeros_like(cnt)
+        if outer_probe:
+            cnt_eff = torch.where(psel, cnt.clamp(min=1), zero)
+        else:
+            cnt_eff = torch.where(psel, cnt, zero)
+        p, build_idx, is_pair, valid, total = join_kernels.expand(
+            lo, cnt, cnt_eff, perm, out_cap)
+        ctx.add_metric(f"join_rows_{self.tag}", total)
+        ctx.add_flag(f"join_overflow_{self.tag}", total > out_cap)
+
+        pair_pass = is_pair
+        if not exact:
+            # hashed key pack: verify true per-key equality on each pair
+            for lvec, rvec in zip(lvecs, rvecs):
+                eq = lvec.data[p] == rvec.data[build_idx]
+                if lvec.validity is not None:
+                    eq = eq & lvec.validity[p]
+                if rvec.validity is not None:
+                    eq = eq & rvec.validity[build_idx]
+                pair_pass = pair_pass & eq
+
+        # assemble the expanded block: probe columns at p, build at build_idx
+        left_names, out_names = self._build_name_map(probe_batch,
+                                                     build_batch)
+        n_left = len(left_names)
+        cols: Dict[str, Column] = {}
+        for (out_name, col) in join_kernels.gather_columns(
+                probe_batch, p, valid,
+                list(zip(left_names, out_names[:n_left]))):
+            cols[out_name] = col
+        build_name_map = list(zip(build_batch.columns.keys(),
+                                  out_names[n_left:]))
+        for (out_name, col) in join_kernels.gather_columns(
+                build_batch, build_idx, pair_pass, build_name_map):
+            cols[out_name] = col
+
+        if self.condition is not None:
+            out_probe = Batch(cols, valid & pair_pass, dev)
+            v = self.condition.eval(out_probe)
+            keep = v.data if v.validity is None else (v.data & v.validity)
+            pair_pass = pair_pass & keep
+            # pairs dropped by the residual must also null the build side
+            for out_name, col in join_kernels.gather_columns(
+                    build_batch, build_idx, pair_pass, build_name_map):
+                cols[out_name] = col
+
+        # per-probe-row "any pair survived" (drives null-extension +
+        # semi/anti). p is non-decreasing (output rows are emitted in
+        # probe order), so count survivors per p-run with a prefix-sum
+        # difference at run bounds
+        m = (valid & pair_pass).to(torch.int64)
+        csum_m = torch.cumsum(m, 0)
+        ex_m = csum_m - m
+        rpos = torch.arange(out_cap, dtype=torch.int64, device=dev)
+        run_start = (rpos == 0) | (p != torch.roll(p, 1))
+        nxt_p = torch.cat([p[1:], p.new_full((1,), probe_cap)])
+        run_end = nxt_p != p
+        # no `valid` mask: tail rows (r >= total) share the last emitting
+        # row's p, so they extend its run with m=0 — harmless — while
+        # masking would lose that run's end marker entirely
+        drop = torch.full_like(p, probe_cap)
+        sidx_p = torch.where(run_start, p, drop)
+        eidx_p = torch.where(run_end, p, drop)
+
+        def per_probe(idx, values, dtype):
+            out = torch.zeros((probe_cap + 1,), dtype=dtype, device=dev)
+            out[idx] = values
+            return out[:probe_cap]
+
+        pstart = per_probe(sidx_p, rpos, torch.int64)
+        pend = per_probe(eidx_p, rpos, torch.int64)
+        ppresent = per_probe(sidx_p, True, torch.bool)
+        any_pass = ppresent & ((csum_m[pend] - ex_m[pstart]) > 0)
+
+        if semi_anti:
+            if self.how == "left_semi":
+                return probe_batch.with_selection(psel & any_pass)
+            sel = psel & ~any_pass
+            if self.null_aware:
+                sel = sel & self._null_aware_mask(lvecs[0], build_batch,
+                                                  rvecs[0])
+            return probe_batch.with_selection(sel)
+
+        if outer_probe:
+            # keep surviving pairs; for probe rows with none, keep exactly
+            # the first emitted row as a null-extended row
+            off_p = (torch.cumsum(cnt_eff, 0) - cnt_eff)[p]
+            is_first = rpos == off_p
+            null_ext = is_first & ~any_pass[p]
+            sel = valid & (pair_pass | null_ext)
+            # null-extended rows must show NULL build columns even when
+            # they reused a failed pair slot
+            for out_name, col in join_kernels.gather_columns(
+                    build_batch, build_idx, pair_pass & ~null_ext,
+                    build_name_map):
+                cols[out_name] = col
+        else:
+            sel = valid & pair_pass
+
+        if self.how in ("right", "full"):
+            # append build rows no surviving pair touched, null-extended left
+            scatter_b = torch.where(valid & pair_pass, build_idx,
+                                    torch.full_like(build_idx, build_cap))
+            matched_b = torch.zeros((build_cap + 1,), dtype=torch.bool,
+                                    device=dev)
+            matched_b[scatter_b] = True
+            app_sel = build_batch.selection_mask() & ~matched_b[:build_cap]
+            merged: Dict[str, Column] = {}
+            for out_name, col in cols.items():
+                if out_name in out_names[:n_left]:
+                    b_data = torch.zeros((build_cap,), dtype=col.data.dtype,
+                                         device=dev)
+                    b_valid = torch.zeros((build_cap,), dtype=torch.bool,
+                                          device=dev)
+                else:
+                    src = build_batch.columns[
+                        build_name_map[out_names.index(out_name)
+                                       - n_left][0]]
+                    b_data = src.data.to(col.data.dtype)
+                    b_valid = src.validity if src.validity is not None \
+                        else torch.ones((build_cap,), dtype=torch.bool,
+                                        device=dev)
+                a_valid = col.validity if col.validity is not None else \
+                    torch.ones((out_cap,), dtype=torch.bool, device=dev)
+                merged[out_name] = Column(
+                    torch.cat([col.data, b_data]), col.dtype,
+                    torch.cat([a_valid, b_valid]), col.dictionary)
+            return Batch(merged, torch.cat([sel, app_sel]), dev)
+
+        return Batch(cols, sel, dev)
+
+    def simple_string(self):
+        return (f"JoinExec({self.how}, {[repr(k) for k in self.left_keys]} = "
+                f"{[repr(k) for k in self.right_keys]}, "
+                f"cond={self.condition!r}, cap={self.out_cap}, "
+                f"uniq={self.unique_build}, "
+                + ("null_aware, " if self.null_aware else "")
+                # only when the re-plan forced the sort fallback
+                + ("hash_fallback, " if self.hash_fallback is False
+                   else "")
+                + f"strategy={self.strategy})")
+
+
+class RuntimeFilterExec(PhysicalPlan):
+    """Probe-side runtime join filter (reference: the exec side of
+    `InjectRuntimeFilter.scala:1`, with `common/sketch/BloomFilter.java`
+    replaced by `sketch.py`).
+
+    children = (probe_child, creation_plan). The creation plan is the
+    join build side's cheap Project/Filter-over-leaf chain (the same
+    node objects — the tree becomes a DAG, and the executor computes a
+    shared node once). compute() builds a Bloom filter + min/max bounds
+    from the creation keys and narrows the probe batch's selection.
+
+    Dropping this node never changes results (the join re-checks every
+    key)."""
+
+    def __init__(self, child: PhysicalPlan, creation: PhysicalPlan,
+                 probe_key: Expression, build_key: Expression,
+                 est_items: Optional[int] = None, fpp: float = 0.03):
+        self.children = (child, creation)
+        self.probe_key = probe_key
+        self.build_key = build_key
+        self.est_items = est_items
+        self.fpp = fpp
+        self.tag = "rf0"
+
+    @property
+    def creation(self) -> PhysicalPlan:
+        return self.children[1]
+
+    def schema(self):
+        return self.children[0].schema()
+
+    def compute(self, ctx, inputs):
+        import time as _time
+        probe, build = inputs
+        # the planner estimate is pre-filter; the batch capacity is a
+        # tighter bound on insertable rows — don't size the bit array
+        # past it
+        n_items = build.capacity if self.est_items is None else \
+            min(self.est_items, build.capacity)
+        t0 = _time.perf_counter()
+        filt = join_kernels.build_runtime_filter(
+            build, self.build_key, expected_items=max(int(n_items), 8),
+            fpp=self.fpp)
+        build_ms = (_time.perf_counter() - t0) * 1e3
+        keep = join_kernels.apply_runtime_filter(filt, probe,
+                                                 self.probe_key)
+        psel = probe.selection_mask()
+        ctx.add_metric(f"rtf_tested_{self.tag}", psel.sum())
+        ctx.add_metric(f"rtf_pruned_{self.tag}", (psel & ~keep).sum())
+        # host time spent building the filter (kernels are queued, not
+        # awaited: on the card this is launch time)
+        ctx.add_metric(f"rtf_build_ms_{self.tag}", build_ms)
+        return probe.with_selection(psel & keep)
+
+    def simple_string(self):
+        return (f"RuntimeFilterExec({self.probe_key!r} IN "
+                f"bloom({self.build_key!r}), est={self.est_items}, "
+                f"fpp={self.fpp})")
+
+
+def _unify_key_dictionaries(lvecs: List[Vec], rvecs: List[Vec]
+                            ) -> Tuple[List[Vec], List[Vec]]:
+    """Re-encode string join keys onto one shared dictionary per key
+    pair: two independently-encoded string columns assign codes
+    independently, so comparing raw codes is meaningless. The merge
+    happens on host; codes are remapped with a device gather. Non-string
+    keys pass through."""
+    from ..columnar import unify_string_columns
+    out_l, out_r = [], []
+    for lv, rv in zip(lvecs, rvecs):
+        if not isinstance(lv.dtype, T.StringType) and \
+                not isinstance(rv.dtype, T.StringType):
+            out_l.append(lv)
+            out_r.append(rv)
+            continue
+        if lv.dictionary is None or rv.dictionary is None:
+            raise AnalysisError(
+                "string join keys require dictionary-encoded columns")
+        l_data, r_data, merged = unify_string_columns(
+            lv.data, lv.dictionary, rv.data, rv.dictionary)
+        out_l.append(Vec(l_data, T.STRING, lv.validity, merged))
+        out_r.append(Vec(r_data, T.STRING, rv.validity, merged))
+    return out_l, out_r
+
+
+def _key_width(v: Vec) -> Optional[int]:
+    """Bits needed to represent the key's domain, or None when unbounded."""
+    if v.dictionary is not None:
+        n = len(v.dictionary)
+        return max(1, (n - 1).bit_length()) if n > 1 else 1
+    if isinstance(v.dtype, T.BooleanType):
+        return 1
+    if isinstance(v.dtype, T.ByteType):
+        return 8
+    if isinstance(v.dtype, T.ShortType):
+        return 16
+    if isinstance(v.dtype, (T.IntegerType, T.DateType)):
+        return 32
+    return None  # int64/timestamp: full range, cannot pack with others
+
+
+def _unsigned_key(v: Vec, width: int):
+    """Map key values to [0, 2^width) preserving distinctness (bias the
+    sign bit for signed dtypes; dictionary codes are already unsigned)."""
+    data = v.data.to(torch.int64)
+    if v.dictionary is None and not isinstance(v.dtype, T.BooleanType):
+        data = data + (1 << (width - 1))
+    return data
+
+
+def _mix64(x):
+    """splitmix64 finalizer (wrapping 64-bit arithmetic, unsalted)."""
+    from ..sketch import _finalize64
+    return _finalize64(x.to(torch.int64))
+
+
+def _pack_key_pair(lvecs: List[Vec], rvecs: List[Vec]
+                   ) -> Tuple[Vec, Vec, bool]:
+    """Combine multi-key join keys into one int64 key per side.
+
+    Widths are derived JOINTLY per key position (max of the two sides)
+    so both sides share one bit layout. Returns (lk, rk, exact): when the
+    combined widths fit in 63 bits the packing is collision-free
+    (exact=True); otherwise both sides are hash-mixed and the caller MUST
+    re-verify per-key equality on matches."""
+    validity_l = None
+    validity_r = None
+    for lv, rv in zip(lvecs, rvecs):
+        for v in (lv, rv):
+            if not isinstance(v.dtype, (T.IntegralType, T.StringType,
+                                        T.DateType, T.BooleanType,
+                                        T.TimestampType)):
+                raise AnalysisError(
+                    f"multi-key join on {v.dtype!r} unsupported")
+        if lv.validity is not None:
+            validity_l = lv.validity if validity_l is None else \
+                (validity_l & lv.validity)
+        if rv.validity is not None:
+            validity_r = rv.validity if validity_r is None else \
+                (validity_r & rv.validity)
+
+    def kind(v):
+        if v.dictionary is not None:
+            return "dict"
+        return "bool" if isinstance(v.dtype, T.BooleanType) else "int"
+
+    widths = []
+    for lv, rv in zip(lvecs, rvecs):
+        wl, wr = _key_width(lv), _key_width(rv)
+        if wl is None or wr is None or kind(lv) != kind(rv):
+            widths.append(None)  # hash path (+ per-key re-verify)
+        else:
+            widths.append(max(wl, wr))
+    if all(w is not None for w in widths) and sum(widths) <= 63:
+        acc_l = acc_r = 0
+        for lv, rv, w in zip(lvecs, rvecs, widths):
+            acc_l = (acc_l << w) | _unsigned_key(lv, w)
+            acc_r = (acc_r << w) | _unsigned_key(rv, w)
+        return (Vec(acc_l, T.LONG, validity_l),
+                Vec(acc_r, T.LONG, validity_r), True)
+    hl = hr = 0
+    for lv, rv in zip(lvecs, rvecs):
+        hl = _mix64(_mix64(lv.data) ^ hl)
+        hr = _mix64(_mix64(rv.data) ^ hr)
+    return Vec(hl, T.LONG, validity_l), Vec(hr, T.LONG, validity_r), False

@@ -4,8 +4,9 @@
 
 On one device every operator's distribution requirement is already met,
 so the JAX package inserts no exchange there and neither does this
-planner. Logical nodes whose operators are not ported yet raise
-NotImplementedError naming the operator.
+planner. After conversion, runtime join filters are injected
+(`runtime_filter.py`, when `runtimeFilter.enabled`) and every join,
+aggregate and filter node gets the tag its flags and metrics carry.
 """
 
 from __future__ import annotations
@@ -20,7 +21,42 @@ from . import physical as P
 
 
 def plan_physical(plan: L.LogicalPlan, conf: Conf) -> P.PhysicalPlan:
-    return _convert(plan, conf)
+    phys = _convert(plan, conf)
+    from .runtime_filter import ENABLED_KEY, inject_runtime_filters
+    if bool(conf.get(ENABLED_KEY)):
+        phys = inject_runtime_filters(phys, conf)
+    _assign_join_tags(phys)
+    return phys
+
+
+def _assign_join_tags(plan: P.PhysicalPlan) -> None:
+    """Stable per-node tags for the join/aggregate/runtime-filter flags
+    and metrics (the executor's re-plan loop keys on them), numbered in
+    post-order as the JAX package numbers them."""
+    counters = {"j": 0, "cj": 0, "a": 0, "rf": 0}
+    seen = set()  # creation chains are DAG-shared under rf nodes:
+    # tag each node once
+
+    def next_tag(kind: str) -> str:
+        counters[kind] += 1
+        return f"{kind}{counters[kind] - 1}"
+
+    def walk(node):
+        if id(node) in seen:
+            return
+        seen.add(id(node))
+        for c in node.children:
+            walk(c)
+        if isinstance(node, P.JoinExec):
+            # runtime-filter creation semis count apart, so injecting
+            # one never renumbers the real joins
+            node.tag = next_tag("cj" if node.creation_side else "j")
+        elif isinstance(node, P.HashAggregateExec):
+            node.tag = next_tag("a")
+        elif isinstance(node, P.RuntimeFilterExec):
+            node.tag = next_tag("rf")
+
+    walk(plan)
 
 
 def estimate_rows(plan: L.LogicalPlan) -> Optional[int]:
@@ -67,6 +103,9 @@ def _convert(plan: L.LogicalPlan, conf: Conf) -> P.PhysicalPlan:
     if isinstance(plan, L.Limit):
         return P.LimitExec(_convert(plan.child, conf), plan.n)
     if isinstance(plan, L.Join):
-        raise NotImplementedError(
-            "JoinExec is not ported yet (no physical strategy for Join)")
+        exec_ = P.JoinExec(_convert(plan.left, conf), _convert(plan.right, conf),
+                           plan.left_keys, plan.right_keys, plan.how,
+                           plan.condition, plan.schema())
+        exec_.null_aware = plan.null_aware
+        return exec_
     raise AnalysisError(f"no physical strategy for {type(plan).__name__}")

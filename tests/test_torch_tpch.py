@@ -1,13 +1,14 @@
 """The port's main path against the JAX package's, end to end on the CPU.
 
-TPC-H Q1 and Q6 at SF 0.002 run through both engines on the same Parquet
-files: the Arrow results must be equal, both must pass the pandas golden
-answer's tolerance, and the executed plans must print the same tree
-(with the pushed Parquet filters). The dense `range(n).group_by(id % m)`
-path is held against the reference the same way, in each group-by kernel
-mode. The last tests guard the package boundary: importing the port loads
-neither JAX nor the JAX package, and a session never falls back to the
-CPU on its own.
+TPC-H Q1, Q3, Q5 and Q6 at SF 0.002 run through both engines on the same
+Parquet files: the Arrow results must be equal, both must pass the pandas
+golden answer's tolerance, and the executed plans must print the same
+tree (with the pushed Parquet filters and the runtime join filters),
+before the run and after it. Q3 and Q5 give the same bytes under both
+join kernels. The dense `range(n).group_by(id % m)` path is held against
+the reference the same way, in each group-by kernel mode. The last tests
+guard the package boundary: importing the port loads neither JAX nor the
+JAX package, and a session never falls back to the CPU on its own.
 """
 
 import subprocess
@@ -21,12 +22,15 @@ from spark_tpu.tpch import queries as RQ
 from spark_tpu_torch import SparkTpuSession
 from spark_tpu_torch import functions as PF
 from spark_tpu_torch.execution import dense_groupby as D
+from spark_tpu_torch.execution.executor import plan_nodes
+from spark_tpu_torch.plan import physical as P
 from spark_tpu_torch.tpch import golden as G
 from spark_tpu_torch.tpch import queries as PQ
 from spark_tpu_torch.tpch.datagen import write_parquet
 
 SF = 0.002
 KERNEL_MODE = "spark_tpu.sql.aggregate.kernelMode"
+JOIN_MODE = "spark_tpu.sql.join.kernelMode"
 
 
 @pytest.fixture(scope="module")
@@ -49,23 +53,50 @@ def ref_session(session, tpch_path):
     return session
 
 
-@pytest.mark.parametrize("qname", ["q1", "q6"])
+@pytest.mark.parametrize("qname", ["q1", "q3", "q5", "q6"])
 def test_query_arrow_matches_reference(port_session, ref_session, tpch_path,
                                        qname):
-    got = PQ.QUERIES[qname](port_session).collect()
-    want = RQ.QUERIES[qname](ref_session).collect()
+    pqe = PQ.QUERIES[qname](port_session)._qe()
+    rqe = RQ.QUERIES[qname](ref_session)._qe()
+    got, want = pqe.collect(), rqe.collect()
     assert got.schema == want.schema
     assert got.equals(want)
     G.compare(G.normalize_decimals(got.to_pandas()),
               G.GOLDEN[qname](tpch_path))
+    # the re-plan loop and the runtime filters' capacity shrink leave
+    # the same node state behind
+    assert pqe.executed_plan.tree_string() == \
+        rqe.executed_plan.tree_string()
 
 
-@pytest.mark.parametrize("qname", ["q1", "q6"])
-def test_executed_plan_matches_reference(port_session, ref_session, qname):
+@pytest.mark.parametrize("qname,pushed", [
+    ("q1", "pushed=['(l_shipdate"), ("q3", "pushed=['(l_shipdate"),
+    ("q5", "RuntimeFilterExec(c_nationkey IN bloom(n_nationkey)"),
+    ("q6", "pushed=['(l_shipdate")])
+def test_executed_plan_matches_reference(port_session, ref_session, qname,
+                                         pushed):
     got = PQ.QUERIES[qname](port_session)._qe().executed_plan.tree_string()
     want = RQ.QUERIES[qname](ref_session)._qe().executed_plan.tree_string()
     assert got == want
-    assert "pushed=['(l_shipdate" in got
+    assert pushed in got
+
+
+@pytest.mark.parametrize("qname", ["q3", "q5"])
+def test_join_kernels_give_the_same_bytes(tpch_path, qname):
+    """The reference's hash-versus-sort invariant: both kernels emit
+    matches in sorted-build order, so the results are byte-identical."""
+    results = {}
+    for mode in ("sort", "hash", "auto"):
+        s = SparkTpuSession.builder().device("cpu").config(
+            JOIN_MODE, mode).get_or_create()
+        PQ.register_tables(s, tpch_path)
+        qe = PQ.QUERIES[qname](s)._qe()
+        results[mode] = qe.collect()
+        kernels = {j.last_kernel[0] for j in
+                   plan_nodes(qe.executed_plan, P.JoinExec)}
+        assert kernels == ({"sort"} if mode == "auto" else {mode})
+    assert results["hash"].equals(results["sort"])
+    assert results["auto"].equals(results["sort"])
 
 
 @pytest.mark.parametrize("mode", ["auto", "matmul", "scatter"])
@@ -85,23 +116,22 @@ def test_range_group_by_matches_reference(session, mode, m):
     assert got.num_rows == m
 
 
-def test_cpu_runs_never_launch_a_kernel(port_session):
+@pytest.mark.parametrize("qname", ["q1", "q5"])
+def test_cpu_runs_never_launch_a_kernel(port_session, qname):
     before = dict(D.LAUNCHES)
-    PQ.q1(port_session).collect()
+    PQ.QUERIES[qname](port_session).collect()
     assert D.LAUNCHES == before
 
 
-@pytest.mark.parametrize("qname", ["q3", "q5"])
-def test_unported_join_raises_naming_the_operator(port_session, qname):
-    with pytest.raises(NotImplementedError, match="JoinExec"):
-        PQ.QUERIES[qname](port_session).collect()
+def test_group_keys_without_a_domain_take_the_sort_aggregate(
+        port_session, ref_session):
+    def query(s, F):
+        return s.table("lineitem").group_by(F.col("l_orderkey")).agg(
+            F.count(), F.sum(F.col("l_quantity")))
 
-
-def test_group_keys_without_a_domain_raise(port_session):
-    df = port_session.table("lineitem").group_by(PF.col("l_orderkey")) \
-        .agg(PF.count())
-    with pytest.raises(NotImplementedError, match="sort aggregate"):
-        df.collect()
+    got = query(port_session, PF).collect()
+    assert got.equals(query(ref_session, RF).collect())
+    assert got.num_rows > 500
 
 
 def test_import_loads_neither_jax_nor_the_jax_package():
