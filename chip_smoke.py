@@ -18,31 +18,41 @@ Phases, in order; any failure exits non-zero before the last line:
    cut-off. Ints must be equal, floats within rtol 1e-12 of the plain
    float64 sum (another order), and two runs of (c) must give equal float
    sums. Each shape gives the wrapper's time (`ms`, CUDA events around
-   one call) and the kernels' own device time (`kernel_ms`,
-   torch.profiler);
+   one call) and the kernels' own device time (`kernel_ms`, CUDA events
+   around the launches alone, queued behind a spin kernel so that the
+   host's time is not counted);
 4. variants: the private and shared variants of dense_sums_smem timed
    against each other at the domains around the planner's cut-off, and
    each checked with float rows, an odd row count and two runs that must
    agree;
-5. main path: TPC-H SF1 generated with the port's datagen, Q1, Q6, Q3
-   and Q5 through `SparkTpuSession` on the card, compared with the port's
-   pandas golden answers; `range(16M).group_by(id % 65536)` with count,
-   sum and avg against numpy. Each run starts with the kernel launch
-   counters at 0 and must launch its kernel (Q3's path has no hand
-   kernel: its aggregate takes the sort path). Each query is then run
-   once more per operator, and once under torch.profiler for the card's
-   busy share; each join reports the kernel it took (hash or sort), its
-   hash-probe steps, whether its unique-build path held, and the query's
-   re-plan attempts. Q3 and Q5 run again under `join.kernelMode=sort`
-   and `=hash` and must give the same Arrow bytes as the default run.
-   The kernels are timed again on the exact inputs the main path gave
-   them (Q1's, Q6's and Q5's for dense_sums_smem).
+5. main path, DataFrame programs: TPC-H SF1 generated with the port's
+   datagen, Q1, Q6, Q3 and Q5 through `SparkTpuSession` on the card (their
+   golden compare is phase 6's, whose SQL results must equal these);
+   `range(16M).group_by(id % 65536)` with count, sum and avg against
+   numpy. Each run starts with the kernel launch counters at 0 and must
+   launch its kernel (Q3's path has no hand kernel: its aggregate takes
+   the sort path). Each query is then run once more per operator, and
+   once under torch.profiler for the card's busy share; each join
+   reports the kernel it took (hash or sort), its hash-probe steps,
+   whether its unique-build path held, and the query's re-plan attempts.
+   Q3 and Q5 run again under `join.kernelMode=sort` and `=hash` and must
+   give the same Arrow bytes as the default run;
+6. main path, SQL: all 22 TPC-H queries as SQL text through
+   `session.sql` on the same data, each compared with the port's pandas
+   golden answer, and Q1, Q3, Q5 and Q6 with the DataFrame programs'
+   results of phase 5 (columns in the DataFrame's order, Q5's rows by
+   `n_name`). Each query starts with the launch counters at 0 and must
+   launch the kernel `SQL_KERNELS` names; it prints its first and second
+   run's wall times, re-plan attempts, launches, joins and breakdown as
+   phase 5 does. Then the kernels are timed again on the exact inputs
+   each query of phases 5 and 6 gave them.
 
 The line before the last is a JSON object with one entry per kernel and
 main-path input; the last line is `{"ok": true, "device": {...}}`.
 `--kernels-only` ends with one JSON line of the shapes' results instead;
 it reads nothing of the package but the wrapper, its plain version, its
-launch counters and `build`, so it also times another checkout's kernels.
+launch counters, `plan_launches`, `launch_plan` and `build`, so it also
+times another checkout's kernels (one that has `launch_plan`).
 Imports nothing of JAX.
 """
 
@@ -60,6 +70,9 @@ PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_SCALAR_OPS = 67e12      # H100 SXM non-tensor fp32 rate, as the ALU rate
 FLOAT_RTOL = 1e-12
 REPS = 20
+#: spin cycles queued ahead of each kernel_ms sample, about 1 ms at the
+#: H100's 1.98 GHz SM clock
+SPIN_CYCLES = 2_000_000
 SF = 1.0
 RANGE_ROWS = 16_000_000
 RANGE_MOD = 65536
@@ -74,6 +87,16 @@ KERNEL_INPUTS = [("dense_sums_smem", "q1"), ("dense_sums_smem", "q6"),
 #: main-path queries in run order, with the hand kernel each must launch
 QUERY_KERNELS = {"q1": "dense_sums_smem", "q6": "dense_sums_smem",
                  "q3": None, "q5": "dense_sums_smem"}
+#: the hand kernel each TPC-H SQL query must launch at SF1 (None: its
+#: aggregates take the sort path). Q11's and Q22's keyless scalar
+#: subqueries run through dense_sums_smem; Q21 groups by s_name, 10,000
+#: names and a NULL slot, above dense_sums_smem's 512 slots.
+SQL_KERNELS = {f"q{i}": None for i in range(1, 23)}
+SQL_KERNELS.update({q: "dense_sums_smem" for q in (
+    "q1", "q4", "q5", "q6", "q11", "q12", "q14", "q17", "q19", "q22")})
+SQL_KERNELS["q21"] = "dense_sums_global"
+#: the queries whose SQL result must equal the DataFrame program's
+SQL_EQUALS_DATAFRAME = ("q1", "q3", "q5", "q6")
 JOIN_MODE = "spark_tpu.sql.join.kernelMode"
 #: shape (f)'s domain: one slot above the private variant's cut-off
 #: (`dense_groupby.PRIVATE_DOMAIN`, checked in phase 3), fixed here so that
@@ -108,47 +131,53 @@ def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def kernel_ms(fn, reps: int = REPS) -> float:
-    """Median over `reps` calls of `fn` of the device time of the kernels
-    one call launches (every kernel whose name holds "dense_sums", the
-    float combine included), from torch.profiler's CUDA kernel events.
-    Each call runs in a profiler range that ends with a synchronize, and
-    a kernel belongs to the range that holds its midpoint; calls that
-    the profiler saw fewer kernels of than most are left out."""
-    import collections
+def kernel_ms(D, plan, idx, ints, floats, domain, reps: int = REPS) -> float:
+    """Median over `reps` samples of the device time of the launches of
+    `plan` alone (the float combine included), between two CUDA events.
+
+    A spin kernel queued first keeps the card busy while the host
+    enqueues the start event, the launches and the end event, so the
+    host's time between launches is not counted. A sample in which the
+    card had already reached the start event when the end event was
+    enqueued is dropped and the spin doubled. The outputs are allocated
+    once, outside the events, and the sums are not read."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
-    fn()
+    idx, ints, floats = (idx.clone(), [r.clone() for r in ints],
+                         [r.clone() for r in floats])
+    int_out = torch.zeros((len(ints), domain), dtype=torch.int64,
+                          device=idx.device)
+    float_out = torch.empty((len(floats), domain), dtype=torch.float64,
+                            device=idx.device)
+
+    def launch():
+        D.launch_plan(plan, idx, ints, floats, domain, int_out, float_out)
+
+    for _ in range(3):
+        launch()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            with record_function("chip_smoke_call"):
-                fn()
-                torch.cuda.synchronize()
-    events = prof.events()
-    calls = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.name == "chip_smoke_call"
-                   and e.device_type == torch.autograd.DeviceType.CPU)
-    groups = [[] for _ in calls]
-    for e in events:
-        if e.device_type == torch.autograd.DeviceType.CUDA \
-                and "dense_sums" in e.name:
-            mid = (e.time_range.start + e.time_range.end) / 2
-            for g, (start, end) in zip(groups, calls):
-                if start <= mid <= end:
-                    g.append(e.time_range.end - e.time_range.start)
-                    break
-    sizes = collections.Counter(len(g) for g in groups if g)
-    if not sizes:
-        raise RuntimeError(f"the profiler saw no kernel of {len(calls)} "
-                           "calls")
-    usual = sizes.most_common(1)[0][0]
-    full = [sum(g) for g in groups if len(g) == usual]
-    if len(full) < reps // 2:
-        raise RuntimeError(f"the profiler saw all {usual} kernels of only "
-                           f"{len(full)} of {reps} calls")
-    return statistics.median(full) / 1e3
+    cycles, times, dropped = SPIN_CYCLES, [], 0
+    while len(times) < reps:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        launch()
+        end.record()
+        caught_up = start.query()
+        end.synchronize()
+        if not caught_up:
+            times.append(start.elapsed_time(end))
+            continue
+        dropped += 1
+        if dropped > reps:
+            raise RuntimeError(f"the card caught up with the host in "
+                               f"{dropped} samples, spin up to {cycles} "
+                               "cycles")
+        cycles *= 2
+    if dropped:
+        log(f"[timing] kernel_ms dropped {dropped} samples; spin raised to "
+            f"{cycles} cycles")
+    return statistics.median(times)
 
 
 def bound_ms(idx, n_rows: int, domain: int) -> tuple:
@@ -200,7 +229,8 @@ def measure(D, idx, ints, floats, domain):
     return {
         "ms": time_ms(lambda: D.dense_groupby_sums(idx, ints, floats, domain)),
         "kernel_ms": kernel_ms(
-            lambda: D.dense_groupby_sums(idx, ints, floats, domain)),
+            D, D.plan_launches(domain, len(ints), len(floats)), idx, ints,
+            floats, domain),
         "plain_ms": time_ms(
             lambda: D.dense_groupby_sums_plain(idx, ints, floats, domain)),
         "library_ms": time_ms(library),
@@ -359,8 +389,7 @@ def phase_variants(D) -> None:
             plan = D.plan_variant(variant, domain, len(ir), 0)
             compare_sums(f"{variant} at domain {domain}",
                          D.run_plan(plan, idx, ir, [], domain), want)
-            times.append(kernel_ms(
-                lambda: D.run_plan(plan, idx, ir, [], domain)))
+            times.append(kernel_ms(D, plan, idx, ir, [], domain))
         picked = D.plan_launches(domain, len(ir), 0)[0].variant
         log(f"[variants] domain={domain} {first} kernel_ms={times[0]:.4f} "
             f"{second} kernel_ms={times[1]:.4f} bound_ms={b:.4f}; "
@@ -400,7 +429,10 @@ def phase_main_path(D):
     original = D.dense_groupby_sums
 
     def recording(idx, int_rows, float_rows, domain, int_widths=None):
-        captured[current[0]] = (idx, list(int_rows), list(float_rows), domain)
+        kernel = "dense_sums_smem" if domain <= D.SMEM_DOMAIN \
+            else "dense_sums_global"
+        captured[(current[0], kernel)] = (idx, list(int_rows),
+                                          list(float_rows), domain)
         return original(idx, int_rows, float_rows, domain, int_widths)
 
     current = [None]
@@ -432,10 +464,8 @@ def phase_main_path(D):
                 Q.QUERIES[q](session).to_pandas()
                 torch.cuda.synchronize()
                 warm = time.perf_counter() - t0
-                G.compare(G.normalize_decimals(results[q].to_pandas()),
-                          G.GOLDEN[q](path))
-                log(f"[main] {q}: matches golden; {results[q].num_rows} "
-                    f"rows; first run {cold:.3f} s, second run {warm:.3f} s "
+                log(f"[main] {q}: {results[q].num_rows} rows; first run "
+                    f"{cold:.3f} s, second run {warm:.3f} s "
                     f"({n_lineitem / warm / 1e6:.2f} M lineitem rows/s); "
                     f"launches {launches[q]}; re-plan attempts "
                     f"{qe.attempts}")
@@ -443,6 +473,7 @@ def phase_main_path(D):
                     log(f"[joins] {q}: {describe_joins(qe)}")
                 log(f"[breakdown] {q}: {breakdown(Q.QUERIES[q](session))}")
             join_kernel_parity(S, Q, path, results)
+            phase_sql(D, S, G, path, results, launches, current)
 
         current[0] = "range"
         for k in D.LAUNCHES:
@@ -479,6 +510,83 @@ def phase_main_path(D):
     finally:
         D.dense_groupby_sums = original
     return launches, captured
+
+
+def phase_sql(D, S, G, path, df_results, launches, current) -> None:
+    """The 22 TPC-H queries as SQL text on the card: each against the
+    golden answer, Q1/Q3/Q5/Q6 against the DataFrame programs' results,
+    and each must launch the kernel SQL_KERNELS names. A query's
+    launches are kept under `sql <q>`."""
+    import torch
+    from spark_tpu_torch.execution.executor import plan_nodes
+    from spark_tpu_torch.plan.physical import JoinExec
+    from spark_tpu_torch.tpch.queries import register_tables
+    from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
+    session = S.SparkTpuSession.builder().get_or_create()
+    register_tables(session, path)
+    t_phase = time.perf_counter()
+    for q, kernel in SQL_KERNELS.items():
+        label = f"sql {q}"
+        current[0] = label
+        for k in D.LAUNCHES:
+            D.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        qe = session.sql(SQL_QUERIES[q])._qe()
+        got = qe.collect()
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        launches[label] = dict(D.LAUNCHES)
+        if kernel is not None and launches[label][kernel] < 1:
+            raise AssertionError(f"SQL {q} did not launch {kernel}: "
+                                 f"{launches[label]}")
+        t0 = time.perf_counter()
+        session.sql(SQL_QUERIES[q]).collect()
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gold = G.GOLDEN[q](path)
+        golden_s = time.perf_counter() - t0
+        G.compare(G.normalize_decimals(got.to_pandas())[
+            gold.columns.tolist()].reset_index(drop=True), gold)
+        same = ""
+        if q in SQL_EQUALS_DATAFRAME:
+            want = df_results[q]
+            mine = got.select(want.column_names)
+            if q == "q5":
+                mine, want = mine.sort_by("n_name"), want.sort_by("n_name")
+            tables_match(f"SQL {q} against the DataFrame program", mine, want)
+            same = "; equals the DataFrame program's result"
+        log(f"[sql] {q}: matches golden (golden {golden_s:.2f} s){same}; "
+            f"{got.num_rows} rows; first run {cold:.3f} s, second run "
+            f"{warm:.3f} s; launches {launches[label]}; re-plan attempts "
+            f"{qe.attempts}")
+        if plan_nodes(qe.executed_plan, JoinExec):
+            log(f"[joins] sql {q}: {describe_joins(qe)}")
+        log(f"[breakdown] sql {q}: "
+            f"{breakdown(session.sql(SQL_QUERIES[q]))}")
+    log(f"[sql] 22 queries in {time.perf_counter() - t_phase:.1f} s")
+
+
+def tables_match(what, got, want) -> None:
+    """Equal schemas and rows: every column equal, NULLs included, float
+    columns within a relative FLOAT_RTOL."""
+    import numpy as np
+    import pyarrow as pa
+    if got.schema != want.schema or got.num_rows != want.num_rows:
+        raise AssertionError(f"{what}: {got.schema} with {got.num_rows} "
+                             f"rows, expected {want.schema} with "
+                             f"{want.num_rows}")
+    for name, g, w in zip(want.column_names, got.columns, want.columns):
+        if pa.types.is_floating(w.type):
+            gv = g.is_valid().to_numpy(zero_copy_only=False)
+            wv = w.is_valid().to_numpy(zero_copy_only=False)
+            if not (np.array_equal(gv, wv) and np.allclose(
+                    g.to_numpy(zero_copy_only=False)[gv],
+                    w.to_numpy(zero_copy_only=False)[wv],
+                    rtol=FLOAT_RTOL, atol=0.0)):
+                raise AssertionError(f"{what}: column {name} differs")
+        elif not g.equals(w):
+            raise AssertionError(f"{what}: column {name} differs")
 
 
 def join_kernel_parity(S, Q, path, results) -> None:
@@ -538,7 +646,7 @@ def breakdown(df) -> str:
     import collections
     import torch
     from spark_tpu_torch.execution.executor import run_plan
-    from spark_tpu_torch.io.sources import _pushed_expression
+    from spark_tpu_torch.io.sources import ParquetSource, _pushed_expression
     from spark_tpu_torch.plan import physical as P
     qe = df._qe()
     qe.execute_batch()
@@ -560,7 +668,8 @@ def breakdown(df) -> str:
             nodes[name] += 1
             if isinstance(node, P.JoinExec):
                 joins.append(f"{node.tag} {seconds * 1e3:.1f}")
-            if isinstance(node, P.ScanExec):
+            if isinstance(node, P.ScanExec) \
+                    and isinstance(node.source, ParquetSource):
                 # the scan's host half alone: Parquet decode with pushdown
                 t0 = time.perf_counter()
                 node.source._dataset.to_table(
@@ -617,11 +726,14 @@ def breakdown(df) -> str:
 
 def kernel_report(D, launches, captured):
     """One entry per kernel and main-path input, measured on the inputs
-    that query gave it."""
+    that query gave it: the DataFrame programs' of KERNEL_INPUTS, then
+    each SQL query's that launched a kernel."""
     import torch
     entries = []
-    for name, q in KERNEL_INPUTS:
-        idx, ir, fr, domain = captured[q]
+    sql = [(name, label) for label, name in captured
+           if label.startswith("sql ")]
+    for name, q in KERNEL_INPUTS + sql:
+        idx, ir, fr, domain = captured[(q, name)]
         got = D.dense_groupby_sums(idx, ir, fr, domain)
         torch.cuda.synchronize()
         err = compare_sums(f"{name} on {q} inputs", got,

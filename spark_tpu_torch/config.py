@@ -213,3 +213,29 @@ ADAPTIVE_ENABLED = register(
         "overflows (analog of spark.sql.adaptive.enabled). Disabled, an "
         "overflow raises instead of re-planning; the unique-build and "
         "hash-saturation fallbacks run either way.")
+
+CBO_JOIN_REORDER = register(
+    "spark_tpu.sql.cbo.joinReorder", True,
+    doc="Cost-based join reorder (plan/join_reorder.py, the "
+        "CostBasedJoinReorder.scala analog): re-sequence maximal "
+        "regions of inner equi-joins by estimated cost — source row "
+        "counts x filter selectivities (Parquet-footer min/max "
+        "interpolation for ranges when stats.parquetFooter is on), "
+        "left-deep DP minimizing the sum of intermediate sizes. "
+        "Results are identical on/off (only join order changes); off "
+        "restores the frontend order.")
+
+CBO_MAX_RELATIONS = register(
+    "spark_tpu.sql.cbo.maxReorderRelations", 8,
+    doc="Upper bound on relations per reordered join region: the "
+        "left-deep DP enumerates connected subsets (2^n states), so "
+        "larger regions keep the frontend order. The "
+        "spark.sql.cbo.joinReorder.dp.threshold seat.",
+    validator=lambda v: 2 <= v <= 14)
+
+STATS_PARQUET_FOOTER = register(
+    "spark_tpu.sql.stats.parquetFooter", True,
+    doc="Read per-column min/max (and row-group counts) from Parquet "
+        "footers (io/sources.py column_stats), cached per source, for "
+        "the reorder cost model's range selectivities. Reading footers "
+        "touches no row data.")

@@ -308,17 +308,30 @@ def run_plan(plan: Sequence[Launch], idx: torch.Tensor, int_rows: Sequence,
     float_out = (torch.empty if run else torch.zeros)(
         (len(float_rows), domain), dtype=torch.float64, device=idx.device)
     if run:
-        lib = _load()
-        idx = _aligned(idx, 8)
-        ints = [_aligned(r, 16) for r in int_rows]
-        floats = [_aligned(r, 16) for r in float_rows]
-        with torch.cuda.device(idx.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            sms = _sm_count(idx.device)
-            for launch in plan:
-                _launch(lib, launch, idx, n, domain, ints, floats, int_out,
-                        float_out, stream, sms)
+        launch_plan(plan, idx, int_rows, float_rows, domain, int_out,
+                    float_out)
     return list(int_out.unbind(0)), list(float_out.unbind(0))
+
+
+def launch_plan(plan: Sequence[Launch], idx: torch.Tensor,
+                int_rows: Sequence, float_rows: Sequence, domain: int,
+                int_out: torch.Tensor, float_out: torch.Tensor) -> None:
+    """The launches of `plan` alone, into outputs the caller allocated:
+    the kernels add the int sums into `int_out` (int64 [rows, domain]) and
+    write `float_out` (float64 [rows, domain]) whole. `run_plan` checks
+    the inputs and allocates; a timer calls this to see only the
+    kernels."""
+    lib = _load()
+    n = idx.shape[0]
+    idx = _aligned(idx, 8)
+    ints = [_aligned(r, 16) for r in int_rows]
+    floats = [_aligned(r, 16) for r in float_rows]
+    with torch.cuda.device(idx.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        sms = _sm_count(idx.device)
+        for launch in plan:
+            _launch(lib, launch, idx, n, domain, ints, floats, int_out,
+                    float_out, stream, sms)
 
 
 def _launch(lib, launch: Launch, idx, n, domain, int_rows, float_rows,

@@ -2,7 +2,11 @@
 `spark_tpu/execution/executor.py`; reference: `QueryExecution.scala`).
 
 analyzed -> optimized_plan -> executed_plan -> execute_batch -> collect.
-There is no jit stage or compile cache: torch runs every operator
+Before optimization, subtrees marked for statement-scoped
+materialization (WITH-clause views) are replaced by scans of their
+computed tables (`__cached__`), and uncorrelated scalar subqueries run
+and become literals, as in the JAX package. There is no jit stage or
+compile cache: torch runs every operator
 eagerly on the session's device, bottom-up over the physical tree. A
 node that several parents share (a runtime filter's creation chain is
 the same node objects as its join's build side) runs once per attempt.
@@ -26,6 +30,8 @@ from typing import Dict, List, Optional
 import pyarrow as pa
 
 from ..columnar import Batch, bucket_capacity
+from ..expr import Literal
+from ..io.sources import ArrowTableSource
 from ..plan import logical as L
 from ..plan import physical as P
 from ..plan.optimizer import default_optimizer
@@ -158,12 +164,71 @@ class QueryExecution:
             self.phase_times["analysis"] = time.perf_counter() - t0
         return self._analyzed
 
+    def _apply_cache(self, plan: L.LogicalPlan) -> L.LogicalPlan:
+        """Substitute marked subtrees with scans over their materialized
+        tables (reference: CacheManager.useCachedData). A marked subtree
+        not yet computed in this statement is computed on first use.
+        Matching is on the pre-optimization plan fingerprint."""
+        session = self.session
+        if not session._cache_requests:
+            return plan
+        root_fp = session._plan_fingerprint(plan)
+
+        def f(node):
+            fp = session._plan_fingerprint(node)
+            table = session._data_cache.get(fp)
+            if table is None and fp in session._cache_requests \
+                    and fp != root_fp:
+                # first use inside a larger query: compute it now (the
+                # root itself runs on the normal path)
+                table = QueryExecution(
+                    session, session._cache_requests[fp]).collect()
+                session._data_cache[fp] = table
+            if table is not None:
+                return L.Scan(ArrowTableSource("__cached__", table))
+            return None
+
+        # top-down so the largest marked subtree wins
+        return plan.transform_down(f)
+
+    def _resolve_scalar_subqueries(self, plan: L.LogicalPlan
+                                   ) -> L.LogicalPlan:
+        """Run uncorrelated scalar subqueries and substitute their single
+        value as a Literal — before optimization, so the literal takes
+        part in pushdown (reference: PlanSubqueries + ScalarSubquery
+        execution). The value reaches the host with one sync."""
+        def has_subquery(e) -> bool:
+            return isinstance(e, L.ScalarSubqueryExpr) or \
+                any(has_subquery(c) for c in e.children)
+
+        if not any(has_subquery(e) for e in L.iter_expressions(plan)):
+            return plan
+
+        def resolve(node):
+            if not isinstance(node, L.ScalarSubqueryExpr):
+                return node
+            fields = node.plan.schema().fields
+            if len(fields) != 1:
+                raise RuntimeError(
+                    "scalar subquery must return exactly one column")
+            table = QueryExecution(self.session, node.plan).collect()
+            if table.num_rows > 1:
+                raise RuntimeError(
+                    "scalar subquery returned more than one row")
+            val = None if table.num_rows == 0 else \
+                table.column(0)[0].as_py()
+            return Literal(val, fields[0].dtype)
+
+        return L.map_expressions(plan, lambda e: e.transform_up(resolve))
+
     @property
     def optimized_plan(self) -> L.LogicalPlan:
         if self._optimized is None:
             t0 = time.perf_counter()
+            plan = self._resolve_scalar_subqueries(
+                self._apply_cache(self.analyzed))
             self._optimized = default_optimizer(self.session.conf).execute(
-                self.analyzed)
+                plan)
             self.phase_times["optimization"] = time.perf_counter() - t0
         return self._optimized
 
@@ -177,6 +242,19 @@ class QueryExecution:
         return self._executed
 
     def execute_batch(self) -> Batch:
+        session = self.session
+        session._exec_depth += 1
+        try:
+            return self._execute_batch()
+        finally:
+            session._exec_depth -= 1
+            if session._exec_depth == 0:
+                # statement-scoped materializations end with the
+                # outermost execution; the marks stay, so running the
+                # statement again computes a shared view once again
+                session._data_cache.clear()
+
+    def _execute_batch(self) -> Batch:
         root = self.executed_plan
         conf = self.session.conf
         adaptive = bool(conf.get("spark_tpu.sql.adaptive.enabled"))

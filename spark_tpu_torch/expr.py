@@ -23,7 +23,7 @@ from __future__ import annotations
 
 from contextvars import ContextVar
 from dataclasses import dataclass
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pyarrow as pa
@@ -436,6 +436,32 @@ def _div_round_half_up(data, divisor: int):
     return torch.div(adj, divisor, rounding_mode="floor")
 
 
+_INT64_MAX = (1 << 63) - 1
+
+
+def _div_exact_int64(l, r, shift: int):
+    """l * 10^shift / r rounded HALF_UP in int64 arithmetic, for r != 0.
+    Returns (quotient, fits): `fits` marks the rows whose scaled operand
+    stays inside int64, where the quotient is exact; None when 10^|shift|
+    itself exceeds int64."""
+    scale = 10 ** abs(shift)
+    if scale > _INT64_MAX:
+        return None
+    lim = _INT64_MAX // scale
+    if shift >= 0:
+        num, den = l * scale, r
+        fits = (l >= -lim) & (l <= lim) & (r > -_INT64_MAX)
+    else:
+        num, den = l, r * scale
+        fits = (r >= -lim) & (r <= lim) & (l > -_INT64_MAX)
+    q = torch.div(num, den, rounding_mode="trunc")
+    rem = (num - q * den).abs()
+    # |rem| >= |den| / 2, without doubling rem past int64
+    up = rem >= den.abs() - rem
+    sign = torch.where((num < 0) != (den < 0), -1, 1)
+    return q + torch.where(up, sign, 0), fits
+
+
 # ---------------------------------------------------------------------------
 # Arithmetic
 # ---------------------------------------------------------------------------
@@ -517,7 +543,10 @@ class Div(BinaryArithmetic):
     """`/`: true division. Integer/integer -> double (Spark SQL); decimal
     division returns a DECIMAL quotient with scale max(6, s1+p2+1)
     capped at 8 (scaled int64 device representation), HALF_UP-rounded.
-    Division by zero yields NULL (non-ANSI reference behavior)."""
+    Division by zero yields NULL (non-ANSI reference behavior). The JAX
+    package also yields NULL where the scaled dividend or the divisor
+    passes 2^53; the port computes those rows exactly in int64 and
+    yields NULL only past int64."""
 
     op = "/"
 
@@ -553,7 +582,8 @@ class Div(BinaryArithmetic):
             zero = r == 0
             safe_r = torch.where(zero, torch.ones_like(r), r)
             # unscaled_out = l / r * 10^(out.scale + s2 - s1), HALF_UP,
-            # via f64; rows past the 2^53 exactness bound go NULL
+            # via f64 inside the 2^53 exactness bound, as the JAX package
+            # computes it
             shift = out.scale + s2 - s1
             if shift >= 0:
                 l_bound = (1 << 53) // (10 ** shift)
@@ -564,6 +594,14 @@ class Div(BinaryArithmetic):
             q = (l.to(torch.float64) * (10.0 ** shift)
                  / safe_r.to(torch.float64))
             data = (torch.sign(q) * torch.floor(q.abs() + 0.5)).to(torch.int64)
+            int64_path = _div_exact_int64(l, safe_r, shift)
+            if int64_path is not None:
+                # past the bound, where the JAX package gives NULL (at
+                # TPC-H SF 0.3 and above, Q8's mkt_share): the exact
+                # int64 quotient, NULL only where it cannot be formed
+                quotient, fits = int64_path
+                data = torch.where(exact, data, quotient)
+                exact = exact | fits
             extra = ~zero & exact
         else:
             l = cast_vec(lv, T.DOUBLE).data
@@ -681,6 +719,96 @@ class Neg(Expression):
 
     def __repr__(self):
         return f"(-{self.children[0]!r})"
+
+
+# ---------------------------------------------------------------------------
+# Dates (reference: datetimeExpressions.scala)
+# ---------------------------------------------------------------------------
+
+def _floordiv(a, b: int):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _civil_from_days(days):
+    """days-since-epoch -> (year, month, day), branch-free (Howard
+    Hinnant's civil-from-days algorithm, vectorized). Every division
+    floors, as `//` does in the JAX package: `era` is negative before
+    0000-03-01 and torch's default integer division would truncate."""
+    z = days + 719468
+    era = _floordiv(torch.where(z >= 0, z, z - 146096), 146097)
+    doe = z - era * 146097
+    yoe = _floordiv(doe - _floordiv(doe, 1460) + _floordiv(doe, 36524)
+                    - _floordiv(doe, 146096), 365)
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + _floordiv(yoe, 4) - _floordiv(yoe, 100))
+    mp = _floordiv(5 * doy + 2, 153)
+    d = doy - _floordiv(153 * mp + 2, 5) + 1
+    m = torch.where(mp < 10, mp + 3, mp - 9)
+    year = torch.where(m <= 2, y + 1, y)
+    return year, m, d
+
+
+_US_PER_DAY = 86_400_000_000
+
+
+class _ExtractDatePart(Expression):
+    """year/month/day(date) (reference: datetimeExpressions.scala)."""
+
+    _part = "year"
+
+    def __init__(self, child):
+        self.children = (child,)
+
+    def dtype(self, schema):
+        return T.INT
+
+    def eval(self, batch):
+        v = self.children[0].eval(batch)
+        x = v.data.to(torch.int64)
+        if isinstance(v.dtype, T.TimestampType):
+            # microseconds -> days, floored so pre-epoch times are right
+            x = _floordiv(x, _US_PER_DAY)
+        y, m, d = _civil_from_days(x)
+        part = {"year": y, "month": m, "day": d}[self._part]
+        return Vec(part.to(torch.int32), T.INT, v.validity)
+
+    def __repr__(self):
+        return f"{self._part}({self.children[0]!r})"
+
+
+class ExtractYear(_ExtractDatePart):
+    _part = "year"
+
+
+class ExtractMonth(_ExtractDatePart):
+    _part = "month"
+
+
+class ExtractDay(_ExtractDatePart):
+    _part = "day"
+
+
+class DateAdd(Expression):
+    """date_add(date, n): shift by days (reference: DateAdd)."""
+
+    def __init__(self, child, days: Expression):
+        self.children = (child, days)
+
+    def dtype(self, schema):
+        return T.DATE
+
+    def eval(self, batch):
+        v = self.children[0].eval(batch)
+        n = self.children[1].eval(batch)
+        x = v.data
+        if isinstance(v.dtype, T.TimestampType):
+            # like the reference, the timestamp is cast to DATE first
+            x = _floordiv(x.to(torch.int64), _US_PER_DAY)
+        data = x.to(torch.int32) + n.data.to(torch.int32)
+        return Vec(data, T.DATE, _and_valid(v.validity, n.validity))
+
+    def __repr__(self):
+        return f"date_add({self.children[0]!r}, {self.children[1]!r})"
 
 
 # ---------------------------------------------------------------------------
@@ -880,6 +1008,143 @@ class GE(BinaryComparison):
         return l >= r
 
 
+class EqNullSafe(BinaryComparison):
+    """`<=>`: NULL <=> NULL is true, NULL <=> x is false — never returns
+    NULL (reference: EqualNullSafe in predicates.scala)."""
+
+    op = "<=>"
+
+    def nullable(self, schema):
+        return False
+
+    def eval(self, batch: Batch) -> Vec:
+        lv = self.children[0].eval(batch)
+        rv = self.children[1].eval(batch)
+        if isinstance(lv.dtype, T.StringType) or \
+                isinstance(rv.dtype, T.StringType):
+            base = EQ(self.children[0], self.children[1]).eval(batch)
+            both_null = self._both_null(lv, rv, base.data)
+            ok = base.data
+            if base.validity is not None:
+                ok = ok & base.validity
+            return Vec(ok | both_null, T.BOOLEAN)
+        out = T.common_type(lv.dtype, rv.dtype)
+        eq = _align(lv, out) == _align(rv, out)
+        both_valid = _and_valid(lv.validity, rv.validity)
+        if both_valid is not None:
+            eq = eq & both_valid
+        return Vec(eq | self._both_null(lv, rv, eq), T.BOOLEAN)
+
+    @staticmethod
+    def _both_null(lv: Vec, rv: Vec, like):
+        if lv.validity is None or rv.validity is None:
+            return torch.zeros_like(like, dtype=torch.bool)
+        return torch.broadcast_to(~lv.validity & ~rv.validity, like.shape)
+
+    def _cmp(self, l, r):
+        raise AssertionError("EqNullSafe.eval is overridden")
+
+
+def _dictionary_table(dictionary: pa.Array, fn, np_dtype, device):
+    """Host lookup table of `fn(dictionary)`, on the codes' device."""
+    values = fn(dictionary).to_numpy(zero_copy_only=False)
+    return torch.from_numpy(np.asarray(values, dtype=np_dtype)).to(device)
+
+
+def _gather_by_code(table, codes):
+    """table[code] per row. Codes are clamped into the table, as the JAX
+    package clamps them, so padded rows stay in range; an empty table
+    (an all-NULL column) gives zeros, which its validity masks."""
+    if table.shape[0] == 0:
+        return torch.zeros(codes.shape, dtype=table.dtype,
+                           device=codes.device)
+    return table[codes.clamp(0, table.shape[0] - 1).long()]
+
+
+class _DictStringTransform(Expression):
+    """String function as a host-side dictionary rewrite: device codes
+    are remapped once, per-row work is O(1)."""
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    def dtype(self, schema):
+        return T.STRING
+
+    def _transform(self, dictionary: pa.Array) -> pa.Array:
+        raise NotImplementedError
+
+    def eval(self, batch):
+        from .columnar import apply_code_remap, dedupe_dictionary
+        v = self.children[0].eval(batch)
+        if v.dictionary is None:
+            raise AnalysisError(
+                f"{type(self).__name__} requires dictionary-encoded strings")
+        remap, uniq = dedupe_dictionary(self._transform(v.dictionary))
+        return Vec(apply_code_remap(v.data, remap), T.STRING, v.validity,
+                   uniq)
+
+    def __repr__(self):
+        return f"{type(self).__name__.lower()}({self.children[0]!r})"
+
+
+class Upper(_DictStringTransform):
+    def _transform(self, d):
+        return pc.utf8_upper(d)
+
+
+class Lower(_DictStringTransform):
+    def _transform(self, d):
+        return pc.utf8_lower(d)
+
+
+class Trim(_DictStringTransform):
+    def _transform(self, d):
+        return pc.utf8_trim_whitespace(d)
+
+
+class ConcatLit(_DictStringTransform):
+    """concat with string literals around one string column (general
+    column-column concat would need a product dictionary)."""
+
+    def __init__(self, child: Expression, prefix: str = "", suffix: str = ""):
+        super().__init__(child)
+        self.prefix = prefix
+        self.suffix = suffix
+
+    def _transform(self, d):
+        if d.type != pa.string():
+            d = d.cast(pa.string())
+        return pc.binary_join_element_wise(
+            pa.array([self.prefix] * len(d)), d,
+            pa.array([self.suffix] * len(d)), pa.scalar(""))
+
+    def __repr__(self):
+        return (f"concat({self.prefix!r}, {self.children[0]!r}, "
+                f"{self.suffix!r})")
+
+
+class StringLength(Expression):
+    """length(str): a host dictionary lookup table, gathered by code."""
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    def dtype(self, schema):
+        return T.INT
+
+    def eval(self, batch):
+        v = self.children[0].eval(batch)
+        if v.dictionary is None:
+            raise AnalysisError("length requires dictionary-encoded strings")
+        table = _dictionary_table(v.dictionary, pc.utf8_length, np.int32,
+                                  v.data.device)
+        return Vec(_gather_by_code(table, v.data), T.INT, v.validity)
+
+    def __repr__(self):
+        return f"length({self.children[0]!r})"
+
+
 class And(Expression):
     def __init__(self, left, right):
         self.children = (left, right)
@@ -1002,3 +1267,221 @@ class In(Expression):
 
     def __repr__(self):
         return f"({self.children[0]!r} IN {self.values!r})"
+
+
+class Like(Expression):
+    """LIKE with SQL wildcards, evaluated on the host dictionary then
+    gathered by code — O(|dict|) host work regardless of row count."""
+
+    def __init__(self, child: Expression, pattern: str):
+        self.children = (child,)
+        self.pattern = pattern
+
+    def dtype(self, schema):
+        return T.BOOLEAN
+
+    def eval(self, batch):
+        v = self.children[0].eval(batch)
+        if v.dictionary is None:
+            raise AnalysisError(
+                "LIKE requires a dictionary-encoded string column")
+        table = _dictionary_table(
+            v.dictionary, lambda d: pc.match_like(d, self.pattern), np.bool_,
+            v.data.device)
+        return Vec(_gather_by_code(table, v.data), T.BOOLEAN, v.validity)
+
+    def __repr__(self):
+        return f"({self.children[0]!r} LIKE {self.pattern!r})"
+
+
+class Substring(Expression):
+    """substring(col, start, len) on dictionary strings: rewrites the
+    host dictionary, then dedupes it and remaps the device codes, since
+    distinct old values can slice to one new value and group-by and join
+    compare codes directly."""
+
+    def __init__(self, child: Expression, start: int, length: int):
+        self.children = (child,)
+        self.start = start
+        self.length = length
+
+    def dtype(self, schema):
+        return T.STRING
+
+    def eval(self, batch):
+        from .columnar import apply_code_remap, dedupe_dictionary
+        v = self.children[0].eval(batch)
+        if v.dictionary is None:
+            raise AnalysisError(
+                "substring requires dictionary-encoded strings")
+        new_dict = pc.utf8_slice_codeunits(
+            v.dictionary, start=self.start - 1,
+            stop=self.start - 1 + self.length)
+        remap, uniq = dedupe_dictionary(new_dict)
+        return Vec(apply_code_remap(v.data, remap), T.STRING, v.validity,
+                   uniq)
+
+    def __repr__(self):
+        return f"substring({self.children[0]!r},{self.start},{self.length})"
+
+
+def _ones_like_valid(validity):
+    return torch.ones((), dtype=torch.bool, device=validity.device)
+
+
+class Coalesce(Expression):
+    """First non-NULL argument (reference: nullExpressions.scala Coalesce)."""
+
+    def __init__(self, *children: Expression):
+        if not children:
+            raise AnalysisError("coalesce requires at least one argument")
+        self.children = tuple(children)
+
+    def dtype(self, schema):
+        out = self.children[0].dtype(schema)
+        for c in self.children[1:]:
+            out = T.common_type(out, c.dtype(schema))
+        return out
+
+    def nullable(self, schema):
+        return all(c.nullable(schema) for c in self.children)
+
+    def eval(self, batch):
+        out_dtype = self.dtype(batch.schema())
+        if isinstance(out_dtype, T.StringType):
+            return self._eval_string(batch)
+        acc = cast_vec(self.children[0].eval(batch), out_dtype)
+        data, validity = acc.data, acc.validity
+        for c in self.children[1:]:
+            if validity is None:
+                break
+            v = cast_vec(c.eval(batch), out_dtype)
+            vval = v.validity if v.validity is not None else \
+                _ones_like_valid(validity)
+            data = torch.where(validity, data, v.data)
+            validity = validity | torch.broadcast_to(vval, validity.shape)
+        return Vec(data, out_dtype, validity)
+
+    def _eval_string(self, batch):
+        from .columnar import unify_string_columns
+        acc = self.children[0].eval(batch)
+        data, validity, dictionary = acc.data, acc.validity, acc.dictionary
+        for c in self.children[1:]:
+            if validity is None:
+                break
+            v = c.eval(batch)
+            if v.data is None and isinstance(c, Literal) \
+                    and isinstance(c.value, str):
+                # host-scalar string literal -> singleton dictionary
+                v = Vec(torch.zeros(data.shape, dtype=torch.int32,
+                                    device=data.device), T.STRING,
+                        None, pa.array([c.value]))
+            if dictionary is None or v.dictionary is None:
+                raise AnalysisError(
+                    "coalesce on strings requires dictionaries")
+            data, v_data, dictionary = unify_string_columns(
+                data, dictionary, v.data, v.dictionary)
+            vval = v.validity if v.validity is not None else \
+                _ones_like_valid(validity)
+            data = torch.where(validity, data, v_data)
+            validity = validity | torch.broadcast_to(vval, validity.shape)
+        return Vec(data, T.STRING, validity, dictionary)
+
+    def __repr__(self):
+        return f"coalesce({', '.join(repr(c) for c in self.children)})"
+
+
+class CaseWhen(Expression):
+    def __init__(self, branches: Sequence[Tuple[Expression, Expression]],
+                 otherwise: Optional[Expression] = None):
+        self.branches = [(c, v) for c, v in branches]
+        self.otherwise = otherwise
+        flat: List[Expression] = []
+        for c, v in self.branches:
+            flat += [c, v]
+        if otherwise is not None:
+            flat.append(otherwise)
+        self.children = tuple(flat)
+
+    def map_children(self, f):
+        # branches/otherwise are views over `children`; the base
+        # copy-and-replace would leave them pointing at stale nodes
+        # (eval reads self.branches, not self.children)
+        new_kids = [f(c) for c in self.children]
+        n = len(self.branches)
+        branches = [(new_kids[2 * i], new_kids[2 * i + 1]) for i in range(n)]
+        otherwise = new_kids[2 * n] if self.otherwise is not None else None
+        return CaseWhen(branches, otherwise)
+
+    def dtype(self, schema):
+        dts = [v.dtype(schema) for _, v in self.branches]
+        if self.otherwise is not None:
+            dts.append(self.otherwise.dtype(schema))
+        out = dts[0]
+        for d in dts[1:]:
+            out = T.common_type(out, d)
+        return out
+
+    @staticmethod
+    def _true(cond: Expression, batch) -> Any:
+        cv = cond.eval(batch)
+        return cv.data if cv.validity is None else (cv.data & cv.validity)
+
+    def _eval_string(self, batch):
+        """CASE producing strings from LITERAL branches: the branch
+        values become the dictionary and codes select by condition
+        (string columns in branches would need dictionary unification —
+        unsupported)."""
+        def literal_value(v, what):
+            if not (isinstance(v, Literal)
+                    and (v.value is None or isinstance(v.value, str))):
+                raise AnalysisError(
+                    f"CASE with string results supports {what} only")
+            return v.value
+
+        vals = [literal_value(v, "literal branch values")
+                for _c, v in self.branches]
+        vals.append(None if self.otherwise is None else
+                    literal_value(self.otherwise, "a literal ELSE"))
+        dev = batch.device
+        codes = torch.full((batch.capacity,), len(vals) - 1,
+                           dtype=torch.int32, device=dev)
+        for i, (cond, _v) in reversed(list(enumerate(self.branches))):
+            codes = torch.where(self._true(cond, batch),
+                                torch.tensor(i, dtype=torch.int32,
+                                             device=dev), codes)
+        dictionary = pa.array([v if v is not None else "" for v in vals],
+                              type=pa.string())
+        validity = None
+        for nc in (i for i, v in enumerate(vals) if v is None):
+            keep = codes != nc
+            validity = keep if validity is None else (validity & keep)
+        return Vec(codes, T.STRING, validity, dictionary)
+
+    def eval(self, batch):
+        out_dtype = self.dtype(batch.schema())
+        if isinstance(out_dtype, T.StringType):
+            return self._eval_string(batch)
+        dev = batch.device
+        if self.otherwise is not None:
+            acc = cast_vec(self.otherwise.eval(batch), out_dtype)
+            acc_data, acc_val = acc.data, acc.validity
+        else:
+            acc_data = torch.zeros((), dtype=T.torch_dtype(out_dtype.np_dtype),
+                                   device=dev)
+            acc_val = torch.zeros((), dtype=torch.bool, device=dev)
+        for cond, val in reversed(self.branches):
+            cond_true = self._true(cond, batch)
+            vv = cast_vec(val.eval(batch), out_dtype)
+            acc_data = torch.where(cond_true, vv.data, acc_data)
+            if vv.validity is not None or acc_val is not None:
+                one = torch.ones((), dtype=torch.bool, device=dev)
+                vval = vv.validity if vv.validity is not None else one
+                aval = acc_val if acc_val is not None else one
+                acc_val = torch.where(cond_true, vval, aval)
+        if acc_val is not None:
+            acc_val = torch.broadcast_to(acc_val, acc_data.shape)
+        return Vec(acc_data, out_dtype, acc_val)
+
+    def __repr__(self):
+        return f"CASE {self.branches!r} ELSE {self.otherwise!r}"

@@ -257,6 +257,69 @@ class Max(_MinMax):
     _reduce = "max"
 
 
+class _DistinctMarker(AggregateFunction):
+    """agg(DISTINCT x): a planning marker — the optimizer's
+    RewriteDistinctAggregates expands it into the plain aggregate over a
+    (groups, x) dedupe aggregate, the single-distinct case of the
+    reference's `AggUtils.planAggregateWithOneDistinct`. It never reaches
+    physical execution itself."""
+
+    _plain = None  # the aggregate the rewrite applies over the dedupe
+    _label = "?"
+
+    def result_type(self, schema):
+        return self._plain(self.child).result_type(schema)
+
+    def accumulators(self, schema):
+        raise NotImplementedError(
+            f"{self._label}(DISTINCT) must be rewritten before execution")
+
+    def __repr__(self):
+        return f"{self._label}(DISTINCT {self.child!r})"
+
+
+class CountDistinct(_DistinctMarker):
+    _plain = Count
+    _label = "count"
+
+    def result_nullable(self, schema):
+        return False
+
+
+class SumDistinct(_DistinctMarker):
+    _plain = Sum
+    _label = "sum"
+
+
+class AvgDistinct(_DistinctMarker):
+    _plain = Avg
+    _label = "avg"
+
+
+class NotPortedAggregate(AggregateFunction):
+    """An aggregate the SQL parser knows (stddev, variance, corr, first,
+    percentile, collect_list, ...) whose accumulators are not ported
+    yet: analysis raises AnalysisError naming it."""
+
+    def __init__(self, sql_name: str, *args: Expression):
+        self.sql_name = sql_name
+        self.child = args[0] if args else None
+        self.children = tuple(args)
+
+    def result_type(self, schema):
+        from .expr import AnalysisError
+        raise AnalysisError(
+            f"aggregate {self.sql_name.lower()}() is not yet ported to "
+            f"spark_tpu_torch")
+
+    def accumulators(self, schema):
+        return self.result_type(schema)
+
+    def __repr__(self):
+        args = ", ".join(repr(c) for c in self.children)
+        return f"{self.sql_name.lower()}({args})"
+
+
 @dataclass
 class AggExpr:
     """A named aggregate output column (reference: AggregateExpression)."""

@@ -7,10 +7,16 @@ the C++ Arrow/Parquet reader does columnar decode plus predicate and
 column pushdown on the host, then `Batch.from_arrow` dictionary-encodes,
 pads and copies the columns to the device. Tables load whole; the
 chunked iterator is not ported yet.
+
+Sources also report statistics without loading rows: a row estimate,
+per-column min/max (`column_stats`, from Parquet footers, which the join
+reorder's cost model reads) and an identity stamp (`cache_token`, which
+keys statement-scoped materializations).
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 from typing import Optional, Sequence
 
@@ -112,6 +118,18 @@ class TableSource:
     def estimated_rows(self) -> Optional[int]:
         return None
 
+    def column_stats(self) -> Optional[dict]:
+        """Per-column statistics, `{name: {"min", "max", "null_count",
+        "row_groups"}}`, or None when unavailable. Advisory only: min/max
+        bound the whole dataset, so consumers may use them to narrow
+        estimates, never for correctness."""
+        return None
+
+    def cache_token(self):
+        """Identity stamp of the data; None = unknown. Changes whenever
+        the underlying data can differ."""
+        return None
+
 
 def _arrow_schema_to_engine(schema: pa.Schema) -> T.Schema:
     from ..columnar import _ARROW_TO_DTYPE
@@ -144,12 +162,53 @@ def _pushed_expression(pushed_filters, schema: pa.Schema):
     return ae
 
 
+_SOURCE_TOKENS = itertools.count()
+
+
 class ArrowTableSource(TableSource):
     """In-memory table (the reference's LocalRelation / InMemoryRelation)."""
+
+    #: row bound above which in-memory stats are skipped: unlike a
+    #: Parquet footer read, computing them scans whole columns
+    _STATS_MAX_ROWS = 1 << 22
 
     def __init__(self, name: str, table: pa.Table):
         self.name = name
         self.table = table
+        # fresh per-source stamp: re-registering a name builds a new
+        # source object
+        self._cache_token = ("arrow", next(_SOURCE_TOKENS))
+        self._column_stats: Optional[dict] = None
+
+    def cache_token(self):
+        return self._cache_token
+
+    def column_stats(self) -> Optional[dict]:
+        """In-memory analog of the Parquet footer read: one min/max pass
+        per numeric or date column, cached per source; none past
+        _STATS_MAX_ROWS rows."""
+        if self._column_stats is not None:
+            return self._column_stats
+        stats: dict = {}
+        if self.table.num_rows <= self._STATS_MAX_ROWS:
+            for name, col in zip(self.table.column_names,
+                                 self.table.columns):
+                at = col.type
+                if not (pa.types.is_integer(at) or pa.types.is_floating(at)
+                        or pa.types.is_decimal(at) or at == pa.date32()):
+                    continue
+                try:
+                    mm = pc.min_max(col)
+                    lo, hi = mm["min"].as_py(), mm["max"].as_py()
+                except Exception:  # noqa: BLE001 — stats are advisory
+                    continue
+                if lo is None or hi is None:
+                    continue
+                stats[name] = {"min": lo, "max": hi,
+                               "null_count": col.null_count,
+                               "row_groups": 1}
+        self._column_stats = stats
+        return stats
 
     def schema(self) -> T.Schema:
         return _arrow_schema_to_engine(self.table.schema)
@@ -179,6 +238,7 @@ class ParquetSource(TableSource):
         self.path = path
         self.name = name or os.path.basename(path).split(".")[0]
         self._dataset = pa_dataset.dataset(path, format="parquet")
+        self._column_stats: Optional[dict] = None
 
     def schema(self) -> T.Schema:
         return _arrow_schema_to_engine(self._dataset.schema)
@@ -191,6 +251,67 @@ class ParquetSource(TableSource):
             return sum(f.metadata.num_rows for f in self._dataset.get_fragments())
         except Exception:
             return None
+
+    def column_stats(self) -> Optional[dict]:
+        """Per-column min/max and null/row-group counts merged across
+        every fragment's footer row-group statistics (no row data is
+        read). Cached per source. A column missing min/max in any row
+        group is omitted (a partial bound is not a bound)."""
+        if self._column_stats is not None:
+            return self._column_stats
+        stats: dict = {}
+        dropped = set()
+        n_groups = 0
+        try:
+            for frag in self._dataset.get_fragments():
+                md = frag.metadata
+                for rg in range(md.num_row_groups):
+                    n_groups += 1
+                    rgm = md.row_group(rg)
+                    for ci in range(rgm.num_columns):
+                        col = rgm.column(ci)
+                        name = col.path_in_schema
+                        st = col.statistics
+                        if name in dropped:
+                            continue
+                        if st is None or not st.has_min_max:
+                            dropped.add(name)
+                            stats.pop(name, None)
+                            continue
+                        cur = stats.get(name)
+                        nulls = st.null_count if st.has_null_count \
+                            else None
+                        if cur is None:
+                            stats[name] = {"min": st.min, "max": st.max,
+                                           "null_count": nulls,
+                                           "row_groups": 1}
+                        else:
+                            cur["min"] = min(cur["min"], st.min)
+                            cur["max"] = max(cur["max"], st.max)
+                            if nulls is None:
+                                cur["null_count"] = None
+                            elif cur["null_count"] is not None:
+                                cur["null_count"] += nulls
+                            cur["row_groups"] += 1
+        except Exception:  # noqa: BLE001 — stats are advisory
+            self._column_stats = {}
+            return self._column_stats
+        # a column absent from some row group has no dataset-wide bound
+        self._column_stats = {name: st for name, st in stats.items()
+                              if st["row_groups"] == n_groups}
+        return self._column_stats
+
+    def cache_token(self):
+        """(path, per-file (size, mtime_ns)) stamp: rewriting any file in
+        the dataset changes it."""
+        stamps = []
+        try:
+            for f in self._dataset.files:
+                st = os.stat(f)
+                stamps.append((f, st.st_size, st.st_mtime_ns))
+        except OSError:
+            return None
+        return ("parquet", self.path, tuple(stamps))
 
     def load(self, required_columns, pushed_filters, device) -> Batch:
         t = self._dataset.to_table(

@@ -83,12 +83,101 @@ class LeafPlan(LogicalPlan):
     pass
 
 
+class ScalarSubqueryExpr(Expression):
+    """An uncorrelated scalar subquery embedded in an expression
+    (reference: ScalarSubquery in subquery.scala). The executor runs the
+    subplan before optimizing the outer query and substitutes its single
+    value as a Literal."""
+
+    def __init__(self, plan: LogicalPlan):
+        self.plan = plan
+        self.children = ()
+
+    def dtype(self, schema):
+        return self.plan.schema().fields[0].dtype
+
+    def nullable(self, schema):
+        return True  # empty result -> NULL
+
+    def references(self):
+        return set()
+
+    def foldable(self):
+        return False
+
+    def __repr__(self):
+        return "scalar-subquery(...)"
+
+
+def iter_expressions(plan: LogicalPlan):
+    """Yield every expression embedded anywhere in the plan — the single
+    enumeration of expression-bearing slots (keep map_expressions' node
+    cases in sync with this)."""
+    stack = [plan]
+    while stack:
+        n = stack.pop()
+        stack.extend(n.children)
+        if isinstance(n, Project):
+            yield from n.exprs
+        elif isinstance(n, Filter):
+            yield n.condition
+        elif isinstance(n, Join):
+            yield from n.left_keys
+            yield from n.right_keys
+            if n.condition is not None:
+                yield n.condition
+        elif isinstance(n, Aggregate):
+            yield from n.group_exprs
+            for a in n.agg_exprs:
+                yield from a.func.children
+        elif isinstance(n, Sort):
+            for o in n.orders:
+                yield o.child
+
+
 def iter_scans(plan: LogicalPlan):
     """Yield every Scan node."""
     if isinstance(plan, Scan):
         yield plan
     for c in plan.children:
         yield from iter_scans(c)
+
+
+def map_expressions(plan: LogicalPlan, f) -> LogicalPlan:
+    """Rebuild a plan with every embedded expression passed through
+    `f: Expression -> Expression` (used for scalar-subquery substitution;
+    the reference's QueryPlan.transformExpressions). Node cases must
+    mirror iter_expressions."""
+
+    def walk(node: LogicalPlan) -> LogicalPlan:
+        node = node.map_children(walk)
+        if isinstance(node, Project):
+            return Project(node.child, [f(e) for e in node.exprs])
+        if isinstance(node, Filter):
+            return Filter(node.child, f(node.condition))
+        if isinstance(node, Join):
+            return Join(node.left, node.right,
+                        [f(k) for k in node.left_keys],
+                        [f(k) for k in node.right_keys], node.how,
+                        None if node.condition is None
+                        else f(node.condition),
+                        node.null_aware)
+        if isinstance(node, Aggregate):
+            aggs = []
+            for a in node.agg_exprs:
+                func = a.func
+                if func.children:
+                    func = func.with_args([f(c) for c in func.children])
+                aggs.append(type(a)(func, a.out_name))
+            return Aggregate(node.child, [f(g) for g in node.group_exprs],
+                             aggs)
+        if isinstance(node, Sort):
+            return Sort(node.child, [SortOrder(f(o.child), o.ascending,
+                                               o.nulls_first)
+                                     for o in node.orders])
+        return node
+
+    return walk(plan)
 
 
 class Range(LeafPlan):

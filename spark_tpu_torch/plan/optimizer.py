@@ -1,12 +1,12 @@
 """Logical optimizer rules (the port of `spark_tpu/plan/optimizer.py`).
 
-Ported so far: filter combination, filter pushdown through projections
-and into scans, the projection collapse into aggregates, constant
-folding and column pruning — the rules that shape Q1's and Q6's plans
-(reference: `optimizer/Optimizer.scala:42`). The batches keep the JAX
-package's order; RewriteDistinctAggregates, CostBasedJoinReorder and
-RewriteGroupKeyAggregates are not ported yet (none of them rewrites a
-plan of the slice).
+Every rule of the JAX package's default pipeline (reference:
+`optimizer/Optimizer.scala:42`), in its batch order: the distinct-
+aggregate rewrite, filter combination, filter pushdown through
+projections and into scans, the cost-based join reorder
+(`join_reorder.py`), the projection collapse into aggregates, the
+group-key aggregate rewrite, constant folding and column pruning.
+`spark_tpu.sql.optimizer.excludedRules` drops rules by name.
 """
 
 from __future__ import annotations
@@ -15,8 +15,8 @@ from typing import List, Optional, Set
 
 from .. import types as T
 from ..columnar import Batch as ColBatch
-from ..expr import (Alias, And, ColumnRef, Expression, Literal,
-                    structurally_equal)
+from ..expr import (Alias, AnalysisError, And, Cast, ColumnRef, Expression,
+                    Literal, Mul, structurally_equal)
 from .logical import (Aggregate, Filter, Join, Limit, LogicalPlan, Project,
                       Scan, Sort)
 from .rules import Batch, Rule, RuleExecutor
@@ -272,6 +272,163 @@ class CollapseProjectIntoAggregate(Rule):
         return plan.transform_up(f)
 
 
+class RewriteDistinctAggregates(Rule):
+    """count/sum/avg(DISTINCT x) -> the plain aggregate over a
+    (groups, x) dedupe aggregate — the single-distinct case of the
+    reference's `AggUtils.planAggregateWithOneDistinct` (Expand-based
+    mixed plans are not supported; mixing distinct and plain aggregates
+    raises)."""
+
+    name = "RewriteDistinctAggregates"
+    # count(distinct) -> count over a dedupe changes result nullability
+    schema_preserving = False
+
+    def apply(self, plan):
+        from ..expr_agg import (AggExpr, Avg, AvgDistinct, Count,
+                                CountDistinct, Sum, SumDistinct)
+        markers = {CountDistinct: Count, SumDistinct: Sum,
+                   AvgDistinct: Avg}
+
+        def f(node):
+            if not isinstance(node, Aggregate):
+                return node
+            distinct = [a for a in node.agg_exprs
+                        if type(a.func) in markers]
+            if not distinct:
+                return node
+            if len(distinct) != len(node.agg_exprs):
+                raise AnalysisError(
+                    "mixing DISTINCT aggregates with plain aggregates is "
+                    "not supported yet")
+            firsts = [a.func.child for a in distinct]
+            if not all(structurally_equal(firsts[0], e) for e in firsts[1:]):
+                raise AnalysisError(
+                    "multiple DISTINCT aggregates on different expressions "
+                    "are not supported yet")
+            dedup_key = Alias(firsts[0], "__distinct_key")
+            inner = Aggregate(node.child,
+                              list(node.group_exprs) + [dedup_key], [])
+            outer_groups = [ColumnRef(g.name()) for g in node.group_exprs]
+            outer_aggs = [AggExpr(markers[type(a.func)](
+                ColumnRef("__distinct_key")), a.out_name)
+                for a in distinct]
+            return Aggregate(inner, outer_groups, outer_aggs)
+
+        return plan.transform_up(f)
+
+
+class RewriteGroupKeyAggregates(Rule):
+    """sum/min/max/avg OF A GROUP KEY rewrite to post-aggregation
+    arithmetic: within a group every value of the key is identical, so
+    sum(k) = k * count(k), min(k) = max(k) = k, avg(k) = k. This drops
+    whole accumulator rows from the aggregate kernel (the MXU one-hot
+    kernel's cost is linear in limb rows — the headline
+    AggregateBenchmark shape `sum(k) group by k` goes from 4 limb rows
+    to 1). No reference analog: WholeStageCodegen pays per-row cost for
+    these regardless; the columnar formulation makes the rewrite free.
+
+    NULL-key groups stay correct without conditionals: the projected
+    key value is itself NULL exactly for that group, and sum's count
+    factor only multiplies a non-null key."""
+
+    name = "RewriteGroupKeyAggregates"
+    # sum/min/max/avg of a group key become post-aggregation arithmetic
+    # whose nullability follows the key, not the aggregate
+    schema_preserving = False
+
+    def apply(self, plan):
+        from ..expr_agg import AggExpr, Avg, Count, Max, Min, Sum
+
+        def match_group(node, child, child_schema):
+            for g in node.group_exprs:
+                base = g.child if isinstance(g, Alias) else g
+                if structurally_equal(child, g) or \
+                        structurally_equal(child, base):
+                    return g
+                if isinstance(child, ColumnRef) and \
+                        child.name() == g.name():
+                    # a bare name equal to the group ALIAS only means
+                    # the group key when no real child column shadows
+                    # it — group_by(col('a').alias('k')).agg(sum('k'))
+                    # with an actual column k must aggregate column k
+                    try:
+                        child.dtype(child_schema)
+                        resolves_in_child = True
+                    except Exception:
+                        resolves_in_child = False
+                    if not resolves_in_child:
+                        return g
+            return None
+
+        def f(node):
+            if not isinstance(node, Aggregate) or not node.group_exprs:
+                return node
+            child_schema = node.child.schema()
+            hits = {}
+            for a in node.agg_exprs:
+                if not isinstance(a.func, (Sum, Min, Max, Avg)) or \
+                        a.func.child is None:
+                    continue
+                if isinstance(a.func, Avg) and isinstance(
+                        a.func.child.dtype(child_schema), T.DecimalType):
+                    continue  # avg(decimal) shifts scale; keep in agg
+                try:
+                    child_dt = a.func.child.dtype(child_schema)
+                except Exception:
+                    child_dt = None
+                if isinstance(child_dt, T.FractionalType):
+                    # -0.0 == 0.0 land in ONE group yet remain distinct
+                    # values, so the group's key representative is not
+                    # value-faithful: max(k) over {-0.0, 0.0} is 0.0
+                    # but the kept key may be -0.0 (and sum(k) != k*n).
+                    # Found by the differential plan fuzzer (seed class
+                    # 166/284/455); float keys keep the real aggregate.
+                    continue
+                g = match_group(node, a.func.child, child_schema)
+                if g is not None:
+                    hits[a.out_name] = (a, g)
+            if not hits:
+                return node
+
+            remaining = [a for a in node.agg_exprs
+                         if a.out_name not in hits]
+            # one count per distinct summed key expression
+            cnt_names = {}
+            counts = []
+            for out_name, (a, g) in hits.items():
+                if not isinstance(a.func, Sum):
+                    continue
+                key = repr(g)
+                if key not in cnt_names:
+                    cnt_names[key] = f"__gk_cnt{len(cnt_names)}"
+                    counts.append(AggExpr(Count(a.func.child),
+                                          cnt_names[key]))
+            inner = Aggregate(node.child, node.group_exprs,
+                              remaining + counts)
+            out_exprs = [ColumnRef(g.name()) for g in node.group_exprs]
+            for a in node.agg_exprs:
+                hit = hits.get(a.out_name)
+                if hit is None:
+                    out_exprs.append(ColumnRef(a.out_name))
+                    continue
+                _, g = hit
+                keyref = ColumnRef(g.name())
+                want = a.func.result_type(child_schema)
+                if isinstance(a.func, Sum):
+                    e = Mul(keyref, ColumnRef(cnt_names[repr(g)]))
+                    if type(e.dtype(inner.schema())) is not type(want) or \
+                            isinstance(want, T.DecimalType):
+                        e = Cast(e, want)
+                elif isinstance(a.func, Avg):
+                    e = Cast(keyref, want)
+                else:  # min/max of the key is the key
+                    e = keyref
+                out_exprs.append(Alias(e, a.out_name))
+            return Project(inner, out_exprs)
+
+        return plan.transform_up(f)
+
+
 EXCLUDED_RULES_KEY = "spark_tpu.sql.optimizer.excludedRules"
 
 
@@ -285,13 +442,22 @@ def excluded_rule_names(conf) -> Set[str]:
 
 
 def default_optimizer(conf=None) -> RuleExecutor:
+    """`conf` enables the conf-gated batch (cost-based join reorder) and
+    the excludedRules lever; without it the pipeline is the
+    conf-independent rule set."""
+    from .join_reorder import CostBasedJoinReorder
     batches = [
+        Batch("Rewrite", [RewriteDistinctAggregates()], strategy="once"),
         Batch("Filter pushdown", [
             CombineFilters(),
             PushFilterThroughProject(),
             PushFilterIntoScan(),
         ]),
+        # after pushdown (selectivities read the settled Filter chains),
+        # before pruning/collapse (which see the reordered tree)
+        Batch("JoinReorder", [CostBasedJoinReorder(conf)], strategy="once"),
         Batch("Collapse", [CollapseProjectIntoAggregate()]),
+        Batch("KeyAggs", [RewriteGroupKeyAggregates()], strategy="once"),
         Batch("Fold", [ConstantFolding()], strategy="once"),
         Batch("Prune", [PruneColumns()], strategy="once"),
     ]

@@ -4,6 +4,14 @@ of `spark_tpu/session.py`; reference: `SparkSession.scala:83`).
 A session runs on one device: the current CUDA card unless the builder
 asks for another (`SparkTpuSession.builder().device("cpu")`). Without a
 device and without CUDA, building a session raises.
+
+`sql(text)` parses and lowers one SELECT statement (`sql/parser.py`) to
+the same logical plans the DataFrame API builds. A WITH-clause view is
+marked for statement-scoped materialization (`mark_cache`): the first
+query that reaches it computes it once, later references in the same
+statement read the result, and the data is dropped when the outermost
+execution ends. The user-facing `DataFrame.cache()` and a session data
+cache that outlives a statement are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +33,32 @@ class SparkTpuSession:
         self.conf = conf or Conf()
         self.device = resolve_device(device)
         self.catalog: Dict[str, TableSource] = {}
+        # statement-scoped materializations (WITH-clause views), keyed by
+        # plan fingerprint: the marked plans, and the tables computed for
+        # them in the current statement
+        self._cache_requests: Dict[str, L.LogicalPlan] = {}
+        self._data_cache: Dict[str, pa.Table] = {}
+        # nesting depth of running executions (subqueries and
+        # materializations run their own); the outermost one's end ends
+        # the statement
+        self._exec_depth = 0
+
+    # -- statement-scoped materialization ---------------------------------
+
+    @staticmethod
+    def _plan_fingerprint(plan: L.LogicalPlan) -> str:
+        """tree_string + each scan source's identity stamp: a Parquet
+        rewrite or a re-registered table changes the fingerprint, so a
+        materialization never matches stale data."""
+        tokens = [s.source.cache_token() for s in L.iter_scans(plan)]
+        return plan.tree_string() + f"#src{tokens!r}"
+
+    def mark_cache(self, plan: L.LogicalPlan) -> None:
+        """Materialize `plan` once per statement wherever a query reaches
+        it (the executor's `_apply_cache`): the JAX package's
+        `mark_cache(plan, implicit=True)`. A cache that outlives the
+        statement is not ported yet."""
+        self._cache_requests[self._plan_fingerprint(plan)] = plan
 
     # -- builder ------------------------------------------------------------
 
@@ -74,6 +108,12 @@ class SparkTpuSession:
     createDataFrame = create_dataframe
 
     def register_table(self, name: str, source_or_table) -> None:
+        # marks over the replaced table can never match again (its
+        # source stamp is gone): drop them
+        for fp, plan in list(self._cache_requests.items()):
+            if any(s.source.name == name for s in L.iter_scans(plan)):
+                del self._cache_requests[fp]
+                self._data_cache.pop(fp, None)
         if isinstance(source_or_table, TableSource):
             self.catalog[name] = source_or_table
         elif isinstance(source_or_table, pa.Table):
@@ -96,3 +136,9 @@ class SparkTpuSession:
 
     def read_parquet(self, path: str, name: Optional[str] = None) -> DataFrame:
         return DataFrame(self, L.Scan(ParquetSource(path, name)))
+
+    def sql(self, query: str) -> DataFrame:
+        """Parse and lower one SQL statement against the catalog (the
+        reference's `SparkSession.sql:613`)."""
+        from .sql.parser import parse_sql
+        return DataFrame(self, parse_sql(query, self))
