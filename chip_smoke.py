@@ -44,8 +44,22 @@ Phases, in order; any failure exits non-zero before the last line:
    `n_name`). Each query starts with the launch counters at 0 and must
    launch the kernel `SQL_KERNELS` names; it prints its first and second
    run's wall times, re-plan attempts, launches, joins and breakdown as
-   phase 5 does. Then the kernels are timed again on the exact inputs
-   each query of phases 5 and 6 gave them.
+   phase 5 does;
+7. main path, TPC-DS: SF1 generated with the port's datagen (seed 42,
+   2,878,376 store_sales rows), the 21 queries of `tpcds/sql_queries.py`
+   through `session.sql`, each compared with the port's pandas golden
+   and required to launch the kernel `TPCDS_KERNELS` names, with the
+   same `[sql]`, `[joins]` and `[breakdown]` lines as phase 6; the six
+   DataFrame forms must give their SQL text's rows, and q19 and q68 the
+   same Arrow bytes under `join.kernelMode=sort` and `=hash`;
+8. windows at SF1: one DataFrame program computes row_number, rank, lag
+   and a 7-row running sum per customer and a 30-row running max per
+   store over all of store_sales, against pandas, with its wall times
+   and breakdown; a whole-partition float sum over the same rows,
+   partitioned by customer, by store and not at all, must repeat bit
+   for bit.
+Then the kernels are timed again on the exact inputs each query of
+phases 5-7 gave them.
 
 The line before the last is a JSON object with one entry per kernel and
 main-path input; the last line is `{"ok": true, "device": {...}}`.
@@ -97,6 +111,25 @@ SQL_KERNELS.update({q: "dense_sums_smem" for q in (
 SQL_KERNELS["q21"] = "dense_sums_global"
 #: the queries whose SQL result must equal the DataFrame program's
 SQL_EQUALS_DATAFRAME = ("q1", "q3", "q5", "q6")
+TPCDS_SF = 1.0
+#: the hand kernels each TPC-DS query must launch at SF1 (none: its
+#: aggregates take the sort path), from runs on the CPU at SF1: q7 groups
+#: by i_item_id (18,001 slots with the NULL slot), q27's ROLLUP by
+#: (i_item_id, s_state) and i_item_id, then its grand total; q43 by store
+#: (35 slots); q48, q61 (twice) and q96 are keyless
+TPCDS_KERNELS = {f"q{i}": () for i in (
+    1, 3, 7, 19, 27, 42, 43, 48, 52, 55, 59, 61, 63, 65, 68, 73, 79, 89,
+    93, 96, 98)}
+TPCDS_KERNELS.update({q: ("dense_sums_smem",)
+                      for q in ("q43", "q48", "q61", "q96")})
+TPCDS_KERNELS["q7"] = ("dense_sums_global",)
+TPCDS_KERNELS["q27"] = ("dense_sums_global", "dense_sums_smem")
+#: TPC-DS queries with DataFrame forms, which must give the SQL rows
+TPCDS_DATAFRAME = ("q3", "q7", "q42", "q52", "q55", "q96")
+#: TPC-DS queries run under each join kernel, which must agree in bytes
+TPCDS_KERNEL_MATRIX = ("q19", "q68")
+#: the order of the SF1 window program's windows
+WINDOW_ORDER = ("ss_sold_date_sk", "ss_ticket_number", "ss_item_sk")
 JOIN_MODE = "spark_tpu.sql.join.kernelMode"
 #: shape (f)'s domain: one slot above the private variant's cut-off
 #: (`dense_groupby.PRIVATE_DOMAIN`, checked in phase 3), fixed here so that
@@ -431,8 +464,11 @@ def phase_main_path(D):
     def recording(idx, int_rows, float_rows, domain, int_widths=None):
         kernel = "dense_sums_smem" if domain <= D.SMEM_DOMAIN \
             else "dense_sums_global"
-        captured[(current[0], kernel)] = (idx, list(int_rows),
-                                          list(float_rows), domain)
+        # each distinct input shape of a query's calls (q27's ROLLUP
+        # gives dense_sums_global two domains), the last call's data
+        shape = (idx.shape[0], domain, len(int_rows), len(float_rows))
+        captured.setdefault((current[0], kernel), {})[shape] = (
+            idx, list(int_rows), list(float_rows), domain)
         return original(idx, int_rows, float_rows, domain, int_widths)
 
     current = [None]
@@ -507,6 +543,7 @@ def phase_main_path(D):
             f"second run {warm:.3f} s ({RANGE_ROWS / warm / 1e6:.2f} M rows/s);"
             f" launches {launches['range']}")
         log(f"[breakdown] range: {breakdown(df)}")
+        phase_tpcds(D, S, launches, current)
     finally:
         D.dense_groupby_sums = original
     return launches, captured
@@ -517,54 +554,249 @@ def phase_sql(D, S, G, path, df_results, launches, current) -> None:
     golden answer, Q1/Q3/Q5/Q6 against the DataFrame programs' results,
     and each must launch the kernel SQL_KERNELS names. A query's
     launches are kept under `sql <q>`."""
-    import torch
-    from spark_tpu_torch.execution.executor import plan_nodes
-    from spark_tpu_torch.plan.physical import JoinExec
     from spark_tpu_torch.tpch.queries import register_tables
     from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
     session = S.SparkTpuSession.builder().get_or_create()
     register_tables(session, path)
     t_phase = time.perf_counter()
     for q, kernel in SQL_KERNELS.items():
-        label = f"sql {q}"
-        current[0] = label
-        for k in D.LAUNCHES:
-            D.LAUNCHES[k] = 0
-        t0 = time.perf_counter()
-        qe = session.sql(SQL_QUERIES[q])._qe()
-        got = qe.collect()
-        torch.cuda.synchronize()
-        cold = time.perf_counter() - t0
-        launches[label] = dict(D.LAUNCHES)
-        if kernel is not None and launches[label][kernel] < 1:
-            raise AssertionError(f"SQL {q} did not launch {kernel}: "
-                                 f"{launches[label]}")
-        t0 = time.perf_counter()
-        session.sql(SQL_QUERIES[q]).collect()
-        torch.cuda.synchronize()
-        warm = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        gold = G.GOLDEN[q](path)
-        golden_s = time.perf_counter() - t0
-        G.compare(G.normalize_decimals(got.to_pandas())[
-            gold.columns.tolist()].reset_index(drop=True), gold)
-        same = ""
-        if q in SQL_EQUALS_DATAFRAME:
-            want = df_results[q]
-            mine = got.select(want.column_names)
-            if q == "q5":
-                mine, want = mine.sort_by("n_name"), want.sort_by("n_name")
-            tables_match(f"SQL {q} against the DataFrame program", mine, want)
-            same = "; equals the DataFrame program's result"
-        log(f"[sql] {q}: matches golden (golden {golden_s:.2f} s){same}; "
-            f"{got.num_rows} rows; first run {cold:.3f} s, second run "
-            f"{warm:.3f} s; launches {launches[label]}; re-plan attempts "
-            f"{qe.attempts}")
-        if plan_nodes(qe.executed_plan, JoinExec):
-            log(f"[joins] sql {q}: {describe_joins(qe)}")
-        log(f"[breakdown] sql {q}: "
-            f"{breakdown(session.sql(SQL_QUERIES[q]))}")
+        def golden(got, q=q):
+            t0 = time.perf_counter()
+            gold = G.GOLDEN[q](path)
+            seconds = time.perf_counter() - t0
+            G.compare(G.normalize_decimals(got.to_pandas())[
+                gold.columns.tolist()].reset_index(drop=True), gold)
+            if q in SQL_EQUALS_DATAFRAME:
+                want = df_results[q]
+                mine = got.select(want.column_names)
+                if q == "q5":
+                    mine, want = mine.sort_by("n_name"), want.sort_by("n_name")
+                tables_match(f"SQL {q} against the DataFrame program", mine,
+                             want)
+                log(f"[sql] {q}: equals the DataFrame program's result")
+            return seconds
+        run_sql_query(D, session, q, SQL_QUERIES[q], f"sql {q}", kernel,
+                      launches, current, golden)
     log(f"[sql] 22 queries in {time.perf_counter() - t_phase:.1f} s")
+
+def run_sql_query(D, session, q, text, label, kernels, launches, current,
+                  golden):
+    """One SQL query as phase 6 runs it: launch counters at 0, a first
+    and a second run, the golden compare, each kernel of `kernels` (a
+    name, a tuple of names, or None) launched, and the `[sql]`, `[joins]`
+    and `[breakdown]` lines. Returns the first run's result and the
+    second run's wall time."""
+    import torch
+    from spark_tpu_torch.execution.executor import plan_nodes
+    from spark_tpu_torch.plan.physical import JoinExec
+    current[0] = label
+    for k in D.LAUNCHES:
+        D.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    qe = session.sql(text)._qe()
+    got = qe.collect()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches[label] = dict(D.LAUNCHES)
+    if isinstance(kernels, str):
+        kernels = (kernels,)
+    for kernel in kernels or ():
+        if launches[label][kernel] < 1:
+            raise AssertionError(f"{label} did not launch {kernel}: "
+                                 f"{launches[label]}")
+    t0 = time.perf_counter()
+    session.sql(text).collect()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    golden_s = golden(got)
+    log(f"[sql] {label}: matches golden (golden {golden_s:.2f} s); "
+        f"{got.num_rows} rows; first run {cold:.3f} s, second run "
+        f"{warm:.3f} s; launches {launches[label]}; re-plan attempts "
+        f"{qe.attempts}")
+    if plan_nodes(qe.executed_plan, JoinExec):
+        log(f"[joins] {label}: {describe_joins(qe)}")
+    log(f"[breakdown] {label}: {breakdown(session.sql(text))}")
+    return got, warm
+
+
+def phase_tpcds(D, S, launches, current) -> None:
+    """The 21 TPC-DS queries at SF1 on the card, each against its golden
+    and launching the kernel TPCDS_KERNELS names (launches kept under
+    `tpcds <q>`); the DataFrame forms against their SQL rows; q19 and q68
+    under each join kernel; then the window phase over the same data."""
+    from spark_tpu_torch.tpcds import golden as G
+    from spark_tpu_torch.tpcds import queries as Q
+    from spark_tpu_torch.tpcds.datagen import write_parquet
+    from spark_tpu_torch.tpcds.sql_queries import SQL_QUERIES
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = write_parquet(tmp + "/tpcds", TPCDS_SF)
+        log(f"[tpcds] SF{TPCDS_SF} generated in "
+            f"{time.perf_counter() - t0:.1f} s")
+        session = S.SparkTpuSession.builder().get_or_create()
+        Q.register_tables(session, path)
+        results, warm_total = {}, 0.0
+        t_phase = time.perf_counter()
+        for q, kernel in TPCDS_KERNELS.items():
+            def golden(got, q=q):
+                t0 = time.perf_counter()
+                gold = G.GOLDEN[q](path)
+                seconds = time.perf_counter() - t0
+                G.compare(G.normalize_decimals(got.to_pandas())[
+                    gold.columns.tolist()].reset_index(drop=True), gold,
+                    float_atol=1e-4)
+                return seconds
+            results[q], warm = run_sql_query(
+                D, session, q, SQL_QUERIES[q], f"tpcds {q}", kernel,
+                launches, current, golden)
+            warm_total += warm
+        log(f"[tpcds] 21 queries in {time.perf_counter() - t_phase:.1f} s; "
+            f"second runs {warm_total:.3f} s in all")
+        # the runs below are not the queries' own: their kernel inputs
+        # are not reported
+        current[0] = "checks of phase 7"
+        for q in TPCDS_DATAFRAME:
+            got = Q.QUERIES[q](session).collect()
+            tables_match(f"TPC-DS {q}'s DataFrame form against its SQL",
+                         results[q].select(got.column_names), got)
+            log(f"[tpcds] {q} DataFrame form: equal to its SQL text's rows")
+        for q in TPCDS_KERNEL_MATRIX:
+            outs = {}
+            for mode in ("sort", "hash"):
+                s2 = S.SparkTpuSession.builder().config(
+                    JOIN_MODE, mode).get_or_create()
+                Q.register_tables(s2, path)
+                qe = s2.sql(SQL_QUERIES[q])._qe()
+                outs[mode] = qe.collect()
+                log(f"[joins] tpcds {q} kernelMode={mode}: "
+                    f"{describe_joins(qe)}")
+            if not outs["sort"].equals(outs["hash"]):
+                raise AssertionError(f"TPC-DS {q} differs between the sort "
+                                     "and hash join kernels")
+            tables_match(f"TPC-DS {q} under the join kernels",
+                         outs["hash"], results[q])
+            log(f"[tpcds] {q}: the same Arrow bytes under join.kernelMode="
+                "sort and =hash, equal to the default run")
+        phase_window(S, path)
+
+
+def phase_window(S, path) -> None:
+    """Five window functions over all of store_sales at SF1 — the
+    "latest purchases per customer" shape: row_number, rank, lag and a
+    7-row running sum of ss_net_paid per customer, and a 30-row running
+    max of ss_sales_price per store, each ordered by (date, ticket,
+    item) — against pandas; then a whole-partition float sum run twice,
+    whose bits must repeat."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+    import torch
+    from spark_tpu_torch import functions as F
+    from spark_tpu_torch import types as T
+    from spark_tpu_torch.functions import col
+    from spark_tpu_torch.window import Window
+    from spark_tpu_torch.tpcds.queries import register_tables
+    session = S.SparkTpuSession.builder().get_or_create()
+    register_tables(session, path)
+    order = [col(c) for c in WINDOW_ORDER]
+    by_cust = Window.partition_by(col("ss_customer_sk")).order_by(*order)
+    by_store = Window.partition_by(col("ss_store_sk")).order_by(*order) \
+        .rows_between(-29, 0)
+    keys = ["ss_customer_sk", "ss_store_sk", *WINDOW_ORDER]
+
+    def program():
+        return session.table("store_sales").select(
+            *[col(c) for c in keys], col("ss_net_paid"),
+            col("ss_sales_price"),
+            F.row_number().over(by_cust).alias("rn"),
+            F.rank().over(by_cust).alias("rk"),
+            F.lag(col("ss_net_paid")).over(by_cust).alias("prev_paid"),
+            F.sum(col("ss_net_paid")).over(by_cust.rows_between(-6, 0))
+            .alias("paid_7"),
+            F.max(col("ss_sales_price")).over(by_store).alias("max_30"))
+
+    t0 = time.perf_counter()
+    got = program().collect()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    program().collect()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    n = got.num_rows
+
+    # pandas: the same functions over the same rows, money in cents
+    t0 = time.perf_counter()
+    table = pq.read_table(path + "/store_sales.parquet",
+                          columns=keys + ["ss_net_paid", "ss_sales_price"])
+
+    def cents(arr):
+        """Money in integer cents (NULLs as 0: the validity says which)."""
+        return np.round(pc.fill_null(pc.cast(arr, pa.float64()), 0.0)
+                        .to_numpy(zero_copy_only=False) * 100) \
+            .astype(np.int64)
+
+    import pandas as pd
+    pdf = pd.DataFrame({c: table.column(c).to_pandas() for c in keys})
+    pdf["paid"] = cents(table.column("ss_net_paid"))
+    pdf["price"] = cents(table.column("ss_sales_price"))
+    pdf["cust"] = pdf["ss_customer_sk"].fillna(-1).astype(np.int64)
+    pdf = pdf.sort_values(["cust", *WINDOW_ORDER], kind="stable")
+    g = pdf.groupby("cust", sort=False)
+    pdf["rn"] = g.cumcount() + 1
+    key = pdf.groupby(list(WINDOW_ORDER), sort=True).ngroup()
+    pdf["rk"] = key.groupby(pdf["cust"]).rank(method="min").astype(np.int64)
+    pdf["prev_paid"] = g["paid"].shift(1)
+    pdf["paid_7"] = g["paid"].rolling(7, min_periods=1).sum() \
+        .reset_index(level=0, drop=True)
+    # ties keep the file's row order, as the port's stable sort does
+    pdf = pdf.sort_index().sort_values(["ss_store_sk", *WINDOW_ORDER],
+                                       kind="stable")
+    pdf["max_30"] = pdf.groupby("ss_store_sk", sort=False)["price"] \
+        .rolling(30, min_periods=1).max().reset_index(level=0, drop=True)
+    # back to the file's row order, which the port's result keeps
+    pdf = pdf.sort_index()
+    pandas_s = time.perf_counter() - t0
+
+    mine = got
+    for name, want, money in (("rn", pdf["rn"], False),
+                              ("rk", pdf["rk"], False),
+                              ("prev_paid", pdf["prev_paid"], True),
+                              ("paid_7", pdf["paid_7"], True),
+                              ("max_30", pdf["max_30"], True)):
+        arr = mine.column(name)
+        valid = arr.is_valid().to_numpy(zero_copy_only=False)
+        values = cents(arr) if money else \
+            arr.to_numpy(zero_copy_only=False)
+        w = want.to_numpy(dtype=np.float64, na_value=np.nan)
+        if not (np.array_equal(valid, ~np.isnan(w))
+                and np.array_equal(values[valid], w[valid].astype(np.int64))):
+            raise AssertionError(f"window program: column {name} differs "
+                                 "from pandas")
+    log(f"[window] SF{TPCDS_SF} store_sales, {n} rows, five window "
+        f"functions over two specs: match pandas (pandas {pandas_s:.1f} s); "
+        f"first run {cold:.3f} s, second run {warm:.3f} s "
+        f"({n / warm / 1e6:.2f} M rows/s)")
+    log(f"[breakdown] window: {breakdown(program())}")
+
+    # small segments (~29 rows per customer), large ones (one per store)
+    # and one segment of every row, where the order of the adds matters
+    # most
+    for what, keys in (("ss_customer_sk", [col("ss_customer_sk")]),
+                       ("ss_store_sk", [col("ss_store_sk")]),
+                       ("nothing", [])):
+        whole = Window.partition_by(*keys)
+        fsum = session.table("store_sales").select(
+            F.sum(col("ss_net_paid").cast(T.DOUBLE)).over(whole).alias("s"))
+        first, again = fsum.collect(), fsum.collect()
+        if not first.equals(again):
+            raise AssertionError("the whole-partition float window sum over "
+                                 f"partition by {what} differs between two "
+                                 "runs")
+        log(f"[window] sum(double) over partition by {what}: the same bits "
+            f"in two runs ({first.num_rows} rows)")
 
 
 def tables_match(what, got, want) -> None:
@@ -673,7 +905,8 @@ def breakdown(df) -> str:
                 # the scan's host half alone: Parquet decode with pushdown
                 t0 = time.perf_counter()
                 node.source._dataset.to_table(
-                    columns=list(node.required_columns),
+                    columns=None if node.required_columns is None
+                    else list(node.required_columns),
                     filter=_pushed_expression(node.pushed_filters,
                                               node.source._dataset.schema))
                 times["ScanExec: Parquet read"] += time.perf_counter() - t0
@@ -725,15 +958,17 @@ def breakdown(df) -> str:
 
 
 def kernel_report(D, launches, captured):
-    """One entry per kernel and main-path input, measured on the inputs
-    that query gave it: the DataFrame programs' of KERNEL_INPUTS, then
-    each SQL query's that launched a kernel."""
+    """One entry per kernel and main-path input shape, measured on the
+    inputs that query gave it: the DataFrame programs' of KERNEL_INPUTS,
+    then each TPC-H and TPC-DS SQL query's that launched a kernel.
+    `launches` counts all of the query's launches of that kernel."""
     import torch
     entries = []
     sql = [(name, label) for label, name in captured
-           if label.startswith("sql ")]
-    for name, q in KERNEL_INPUTS + sql:
-        idx, ir, fr, domain = captured[(q, name)]
+           if label.startswith(("sql ", "tpcds "))]
+    inputs = [(name, q, x) for name, q in KERNEL_INPUTS + sql
+              for x in captured[(q, name)].values()]
+    for name, q, (idx, ir, fr, domain) in inputs:
         got = D.dense_groupby_sums(idx, ir, fr, domain)
         torch.cuda.synchronize()
         err = compare_sums(f"{name} on {q} inputs", got,

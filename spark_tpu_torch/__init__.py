@@ -7,11 +7,12 @@ a string compare. It imports nothing from `spark_tpu` (that package's
 `__init__` imports JAX) and keeps its own copies of the pure-Python
 pieces it needs.
 
-The main path so far: DataFrame programs (TPC-H Q1 and Q6,
-`range(n).group_by(id % m)`) -> logical plan -> optimizer -> physical
-plan -> Parquet scan with pushdown -> Filter/Project -> HashAggregate on
-the dense-domain path, whose sums run in the hand-written CUDA kernels
-of `execution/dense_groupby.py` -> Sort -> Arrow.
+The main path so far: SQL text (`session.sql`, the 22 TPC-H and 21
+TPC-DS queries) or DataFrame programs -> logical plan -> optimizer ->
+physical plan -> Parquet scan with pushdown -> Filter/Project, joins,
+windows, unions -> HashAggregate, whose dense-domain sums run in the
+hand-written CUDA kernels of `execution/dense_groupby.py` -> Sort ->
+Arrow.
 """
 
 from . import functions

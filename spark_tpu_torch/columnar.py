@@ -251,7 +251,9 @@ def dedupe_dictionary(dictionary: pa.Array):
     if len(uniq) == len(arr):
         return None, arr
     remap = pc.index_in(arr, value_set=uniq).cast(pa.int32())
-    return torch.from_numpy(remap.to_numpy(zero_copy_only=False)), uniq
+    # a writable copy: Arrow's buffer is read-only
+    return torch.from_numpy(remap.to_numpy(zero_copy_only=False).copy()), \
+        uniq
 
 
 def unify_dictionaries(da: pa.Array, db: pa.Array):
@@ -275,7 +277,9 @@ def unify_dictionaries(da: pa.Array, db: pa.Array):
     else:
         merged = da
     remap = pc.index_in(db, value_set=merged).cast(pa.int32())
-    return torch.from_numpy(remap.to_numpy(zero_copy_only=False)), merged
+    # a writable copy: Arrow's buffer is read-only
+    return torch.from_numpy(remap.to_numpy(zero_copy_only=False).copy()), \
+        merged
 
 
 def apply_code_remap(codes, remap):

@@ -1,16 +1,19 @@
 """DataFrame API: a lazy logical-plan holder (the port of the
-`spark_tpu/dataframe.py` subset the slice uses; reference:
+`spark_tpu/dataframe.py` subset the slices use; reference:
 `Dataset.scala:191`). Every method builds a new logical plan; actions
-(`collect`, `to_pandas`) run the QueryExecution pipeline."""
+(`collect`, `to_pandas`) run the QueryExecution pipeline. Window
+functions in `select`/`with_column` become Window nodes below the
+projection; INTERSECT and EXCEPT are a tagged union plus a group-by
+(`set_op_plan`)."""
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import pyarrow as pa
 
 from . import types as T
-from .expr import Alias, AnalysisError, Expression, SortOrder
+from .expr import Alias, AnalysisError, ColumnRef, Expression, SortOrder
 from .expr_agg import AggExpr, AggregateFunction, Count
 from .plan import logical as L
 
@@ -31,7 +34,34 @@ class DataFrame:
         return DataFrame(self.session, plan)
 
     def select(self, *exprs) -> "DataFrame":
-        return self._with(L.Project(self.plan, [_expr(e) for e in exprs]))
+        plan, es = self._extract_windows([_expr(e) for e in exprs])
+        return self._with(L.Project(plan, es))
+
+    def _extract_windows(self, exprs: List[Expression]):
+        """Pull WindowExpr nodes out into Window plan nodes below the
+        projection (the reference's ExtractWindowExpressions analog); the
+        projection then references their output columns. Functions
+        sharing a spec land in ONE Window node (one sort), and output
+        names never collide with existing columns (the projection
+        re-aliases)."""
+        from .window import extract_window_exprs
+        return extract_window_exprs(self.plan, exprs)
+
+    def with_column(self, name: str, e: Expression) -> "DataFrame":
+        exprs: List[Expression] = []
+        replaced = False
+        for n in self.plan.schema().names:
+            if n == name:
+                exprs.append(Alias(_expr(e), name))
+                replaced = True
+            else:
+                exprs.append(ColumnRef(n))
+        if not replaced:
+            exprs.append(Alias(_expr(e), name))
+        plan, exprs = self._extract_windows(exprs)
+        return self._with(L.Project(plan, exprs))
+
+    withColumn = with_column
 
     def filter(self, condition: Expression) -> "DataFrame":
         return self._with(L.Filter(self.plan, condition))
@@ -70,6 +100,61 @@ class DataFrame:
     def limit(self, n: int) -> "DataFrame":
         return self._with(L.Limit(self.plan, n))
 
+    def union(self, other: "DataFrame") -> "DataFrame":
+        return self._with(L.Union(self.plan, other.plan))
+
+    unionAll = union
+
+    def intersect(self, other: "DataFrame") -> "DataFrame":
+        """INTERSECT (distinct): rows present in both sides, NULLs
+        matching NULLs (reference: basicLogicalOperators Intersect ->
+        ReplaceIntersectWithSemiJoin)."""
+        return self._with(set_op_plan(self.plan, other.plan, "left_semi"))
+
+    def except_(self, other: "DataFrame") -> "DataFrame":
+        """EXCEPT (distinct): rows of this side absent from the other
+        (ReplaceExceptWithAntiJoin)."""
+        return self._with(set_op_plan(self.plan, other.plan, "left_anti"))
+
+    subtract = except_
+
+    def exceptAll(self, other: "DataFrame") -> "DataFrame":
+        raise AnalysisError(
+            "EXCEPT ALL (multiset) is not supported; use except_ for "
+            "the DISTINCT form")
+
+    def distinct(self) -> "DataFrame":
+        """Deduplicate rows: an aggregate grouping on every column with no
+        aggregate functions (reference: Dataset.distinct -> Deduplicate ->
+        Aggregate rewrite)."""
+        cols = [ColumnRef(n) for n in self.plan.schema().names]
+        return self._with(L.Aggregate(self.plan, cols, []))
+
+    def drop_duplicates(self, subset: Optional[Sequence[str]] = None
+                        ) -> "DataFrame":
+        """Keep one row per key (an arbitrary one, like the reference's
+        Deduplicate): row_number over a window partitioned on the subset,
+        filtered to 1."""
+        if subset is None:
+            return self.distinct()
+        missing = [n for n in subset if n not in self.plan.schema().names]
+        if missing:
+            raise AnalysisError(f"dropDuplicates: unknown columns {missing}")
+        if set(subset) == set(self.plan.schema().names):
+            return self.distinct()
+        from .window import Window, row_number
+        w = Window.partition_by(*[ColumnRef(n) for n in subset]) \
+            .order_by(ColumnRef(subset[0]))
+        keep_cols = self.plan.schema().names
+        rn = "__rn"
+        while rn in keep_cols:  # never clobber a real column
+            rn = "_" + rn
+        return (self.with_column(rn, row_number().over(w))
+                .filter(ColumnRef(rn) == 1)
+                .select(*[ColumnRef(n) for n in keep_cols]))
+
+    dropDuplicates = drop_duplicates
+
     # -- metadata -----------------------------------------------------------
 
     @property
@@ -93,6 +178,43 @@ class DataFrame:
         return self.collect().to_pandas()
 
     toPandas = to_pandas
+
+
+def set_op_plan(lp: L.LogicalPlan, rp: L.LogicalPlan,
+                how: str) -> L.LogicalPlan:
+    """INTERSECT/EXCEPT (distinct) as a tagged union + group-by: each
+    side contributes a presence flag, one aggregate groups on every
+    column (group keys are NULL-safe and take every dtype), and a filter
+    keeps groups present on the right side(s). Equivalent to the
+    reference's ReplaceIntersectWithSemiJoin / ReplaceExceptWithAntiJoin
+    rewrites."""
+    from .expr import Literal
+    from .expr_agg import Max
+    ls, rs = lp.schema(), rp.schema()
+    if len(ls.fields) != len(rs.fields):
+        raise AnalysisError(
+            f"set operation needs equal column counts "
+            f"({len(ls.fields)} vs {len(rs.fields)})")
+    lnames = ls.names
+    tag_l = L.Project(lp, [ColumnRef(n) for n in lnames]
+                      + [Alias(Literal(1), "__in_l"),
+                         Alias(Literal(0), "__in_r")])
+    # right columns rename to the left's so the union lines up
+    tag_r = L.Project(rp, [Alias(ColumnRef(rn), ln)
+                           for rn, ln in zip(rs.names, lnames)]
+                      + [Alias(Literal(0), "__in_l"),
+                         Alias(Literal(1), "__in_r")])
+    u = L.Union(tag_l, tag_r)
+    g = L.Aggregate(u, [ColumnRef(n) for n in lnames],
+                    [AggExpr(Max(ColumnRef("__in_l")), "__lf"),
+                     AggExpr(Max(ColumnRef("__in_r")), "__rf")])
+    lf = ColumnRef("__lf")
+    rf = ColumnRef("__rf")
+    cond = (lf == Literal(1)) & (rf == Literal(1)) \
+        if how == "left_semi" else \
+        (lf == Literal(1)) & (rf == Literal(0))
+    return L.Project(L.Filter(g, cond),
+                     [ColumnRef(n) for n in lnames])
 
 
 class GroupedData:

@@ -125,8 +125,8 @@ def shrink_caps_from_rtf(root: P.PhysicalPlan,
         # climb from the filter to the join it guards (narrow ops pass)
         for anc in reversed(ancestors):
             if isinstance(anc, (P.ProjectExec, P.FilterExec,
-                                P.RuntimeFilterExec)):
-                continue
+                                P.RuntimeFilterExec, P.ExchangeExec)):
+                continue  # an exchange is the identity on one device
             if isinstance(anc, P.JoinExec):
                 actual = int(metrics.get(f"join_rows_{anc.tag}", 0))
                 new = bucket_capacity(max(2 * surv, actual, 8))

@@ -82,14 +82,21 @@ def sort_permutation(batch: Batch, orders: Sequence[SortOrder]):
     invalid = torch.zeros((cap,), dtype=torch.int8, device=device) \
         if sel is None else (~sel).to(torch.int8)
     operands = [invalid] + sort_operands(batch, orders)
+    n_valid = (invalid == 0).sum().to(torch.int32)
+    return stable_permutation(operands, cap, device), n_valid
+
+
+def stable_permutation(operands: Sequence, cap: int, device):
+    """The permutation that orders rows by the operand tuples
+    lexicographically, ties kept in row order: one stable sort per
+    operand, least significant first (`lax.sort` with `num_keys`)."""
     perm = torch.arange(cap, device=device)
     for op in reversed(operands):
         if op.dim() == 0:
             continue  # a constant key orders nothing
         _, order = torch.sort(op[perm], stable=True)
         perm = perm[order]
-    n_valid = (invalid == 0).sum().to(torch.int32)
-    return perm, n_valid
+    return perm
 
 
 def apply_permutation(batch: Batch, perm, n_valid) -> Batch:

@@ -355,6 +355,14 @@ class Alias(Expression):
         return f"{self.children[0]!r} AS {self._alias}"
 
 
+def plain_column_name(e: Expression) -> Optional[str]:
+    """The column a (possibly aliased) plain reference names, or None for
+    a computed expression."""
+    while isinstance(e, Alias):
+        e = e.child
+    return e.name() if isinstance(e, ColumnRef) else None
+
+
 class SortOrder(Expression):
     """Sort key + direction + null ordering (reference: SortOrder.scala)."""
 

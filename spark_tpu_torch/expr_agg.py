@@ -109,6 +109,16 @@ class AggregateFunction:
     def alias(self, name: str) -> "AggExpr":
         return AggExpr(self, name)
 
+    def over(self, spec) -> "Expression":
+        """sum(x).over(Window.partitionBy(...)) — turn this aggregate into
+        a window expression (pyspark's Column.over)."""
+        from .window import AGG_WINDOW_KINDS, WindowExpr
+        kind = AGG_WINDOW_KINDS.get(type(self).__name__)
+        if kind is None:
+            raise NotImplementedError(
+                f"{type(self).__name__} is not supported over a window")
+        return WindowExpr(kind, self.child, spec)
+
     def _eval_child(self, batch: Batch, sel) -> Tuple[Vec, object]:
         v = self.child.eval(batch)
         m = sel

@@ -1,5 +1,7 @@
 """User-facing expression constructors (the reference's `functions.scala`;
-the subset of `spark_tpu/functions.py` the port supports so far)."""
+the subset of `spark_tpu/functions.py` the port supports so far). The
+window functions return `WindowExpr`s to finish with `.over(spec)`
+(`window.Window` builds specs)."""
 
 from __future__ import annotations
 
@@ -48,3 +50,34 @@ def min(e) -> Min:  # noqa: A001
 
 def max(e) -> Max:  # noqa: A001
     return Max(_expr(e))
+
+
+def abs(e) -> Expression:  # noqa: A001
+    from .expr_fns import Abs
+    return Abs(_expr(e))
+
+
+# window functions (spark_tpu_torch.window has the Window/WindowSpec builders)
+def row_number():
+    from .window import row_number as f
+    return f()
+
+
+def rank():
+    from .window import rank as f
+    return f()
+
+
+def dense_rank():
+    from .window import dense_rank as f
+    return f()
+
+
+def lag(e, offset: int = 1, default=None):
+    from .window import lag as f
+    return f(e, offset, default)
+
+
+def lead(e, offset: int = 1, default=None):
+    from .window import lead as f
+    return f(e, offset, default)

@@ -51,7 +51,8 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 from ..expr import (And, BinaryComparison, ColumnRef, EQ, Expression,
-                    GE, GT, In, IsNull, LE, LT, NE, Not, Or)
+                    GE, GT, In, IsNull, LE, LT, NE, Not, Or,
+                    plain_column_name)
 from . import logical as L
 from .rules import Rule
 
@@ -65,15 +66,6 @@ SEL_EQ = 0.1
 SEL_RANGE = 0.33
 SEL_ISNULL = 0.05
 SEL_DEFAULT = 0.5
-
-
-def _plain_name(e: Expression) -> Optional[str]:
-    from ..expr import Alias
-    while isinstance(e, Alias):
-        e = e.child
-    if isinstance(e, ColumnRef):
-        return e.name()
-    return None
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +189,7 @@ def _leaf_estimate(leaf: L.LogicalPlan, conf) -> Optional[Tuple[int, float]]:
 def _is_region_join(node: L.LogicalPlan) -> bool:
     return (isinstance(node, L.Join) and node.how == "inner"
             and node.condition is None and not node.null_aware
-            and all(_plain_name(k) is not None
+            and all(plain_column_name(k) is not None
                     for k in node.left_keys + node.right_keys))
 
 
@@ -231,7 +223,7 @@ def _flatten(node: L.LogicalPlan, region: _Region) -> None:
         if not region.ok:
             return
         for lk, rk in zip(node.left_keys, node.right_keys):
-            ln, rn = _plain_name(lk), _plain_name(rk)
+            ln, rn = plain_column_name(lk), plain_column_name(rk)
             lo, ro = region.owner_of(ln), region.owner_of(rn)
             if lo is None or ro is None or lo == ro:
                 region.ok = False
@@ -328,7 +320,7 @@ class CostBasedJoinReorder(Rule):
         `_cbo_est_rows` annotation as a difference)."""
         if _is_region_join(node):
             pairs = tuple(sorted(
-                (_plain_name(lk), _plain_name(rk))
+                (plain_column_name(lk), plain_column_name(rk))
                 for lk, rk in zip(node.left_keys, node.right_keys)))
             return ("J",
                     CostBasedJoinReorder._signature(node.left, leaf_index),

@@ -133,6 +133,9 @@ def iter_expressions(plan: LogicalPlan):
         elif isinstance(n, Sort):
             for o in n.orders:
                 yield o.child
+        elif isinstance(n, WindowPlan):
+            for w, _name in n.wexprs:
+                yield from w.children
 
 
 def iter_scans(plan: LogicalPlan):
@@ -175,6 +178,10 @@ def map_expressions(plan: LogicalPlan, f) -> LogicalPlan:
             return Sort(node.child, [SortOrder(f(o.child), o.ascending,
                                                o.nulls_first)
                                      for o in node.orders])
+        if isinstance(node, WindowPlan):
+            return WindowPlan(node.child,
+                              [(w.map_children(f), name)
+                               for w, name in node.wexprs])
         return node
 
     return walk(plan)
@@ -357,6 +364,44 @@ class Join(LogicalPlan):
                 + ")")
 
 
+class WindowPlan(LogicalPlan):
+    """Append window-function columns over ONE shared (partition, order)
+    spec (reference: logical Window in basicLogicalOperators.scala;
+    different specs become separate nodes)."""
+
+    def __init__(self, child: LogicalPlan, wexprs: Sequence[Tuple]):
+        # wexprs: (WindowExpr, out_name) pairs sharing one spec
+        from ..window import WindowExpr
+        if not wexprs:
+            raise AnalysisError("Window requires at least one function")
+        spec0 = wexprs[0][0].spec
+        for w, _ in wexprs:
+            if not isinstance(w, WindowExpr):
+                raise AnalysisError(f"not a window expression: {w!r}")
+            if (tuple(repr(p) for p in w.spec._partition)
+                    != tuple(repr(p) for p in spec0._partition)
+                    or tuple(repr(o) for o in w.spec._order)
+                    != tuple(repr(o) for o in spec0._order)):
+                raise AnalysisError(
+                    "one Window node requires a shared window spec")
+        self.children = (child,)
+        self.wexprs = tuple(wexprs)
+
+    @property
+    def child(self):
+        return self.children[0]
+
+    def schema(self) -> T.Schema:
+        cs = self.child.schema()
+        fields = list(cs.fields)
+        for w, name in self.wexprs:
+            fields.append(T.Field(name, w.dtype(cs), w.nullable(cs)))
+        return T.Schema(fields)
+
+    def simple_string(self):
+        return f"Window({[(repr(w), n) for w, n in self.wexprs]!r})"
+
+
 class Sort(LogicalPlan):
     def __init__(self, child: LogicalPlan, orders: Sequence[SortOrder]):
         self.children = (child,)
@@ -387,3 +432,23 @@ class Limit(LogicalPlan):
 
     def simple_string(self):
         return f"Limit({self.n})"
+
+
+class Union(LogicalPlan):
+    """UNION ALL of two plans with equal column counts; names come from
+    the left side, types widen to their common type."""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan):
+        ls, rs = left.schema(), right.schema()
+        if len(ls) != len(rs):
+            raise AnalysisError("UNION requires same column count")
+        self.children = (left, right)
+
+    def schema(self) -> T.Schema:
+        ls = self.children[0].schema()
+        rs = self.children[1].schema()
+        fields = []
+        for a, b in zip(ls.fields, rs.fields):
+            fields.append(T.Field(a.name, T.common_type(a.dtype, b.dtype),
+                                  a.nullable or b.nullable))
+        return T.Schema(fields)

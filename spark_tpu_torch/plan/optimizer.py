@@ -18,7 +18,7 @@ from ..columnar import Batch as ColBatch
 from ..expr import (Alias, AnalysisError, And, Cast, ColumnRef, Expression,
                     Literal, Mul, structurally_equal)
 from .logical import (Aggregate, Filter, Join, Limit, LogicalPlan, Project,
-                      Scan, Sort)
+                      Scan, Sort, Union)
 from .rules import Batch, Rule, RuleExecutor
 
 
@@ -189,6 +189,9 @@ class PruneColumns(Rule):
             return Sort(self._prune(node.child, child_needed), node.orders)
         if isinstance(node, Limit):
             return Limit(self._prune(node.child, needed), node.n)
+        if isinstance(node, Union):
+            return Union(self._prune(node.children[0], None),
+                         self._prune(node.children[1], None))
         return node.map_children(lambda c: self._prune(c, None))
 
 

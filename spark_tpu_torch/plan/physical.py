@@ -6,12 +6,17 @@ walks the tree bottom-up, computing a node that several parents share
 (a runtime filter's creation chain) once. `simple_string`/`tree_string`
 match the JAX package, so plan-level parity is a string compare. Ported:
 Range, Scan, Project, Filter, HashAggregate (complete mode, dense-domain
-and sort paths), Sort, Limit, Join and RuntimeFilter. The planner raises
-for operators that are not ported yet (windows, exchanges, unions).
+and sort paths), Sort, Window, Limit, Join, RuntimeFilter, Union and the
+single-device Exchange. Each operator states the distribution it needs
+of its children and the partitioning it gives, as in the JAX package
+(reference: `plans/physical/partitioning.scala`), so the planner inserts
+the exchanges that package inserts at mesh size 0; on one device an
+exchange passes its child's batch through. Generate is not ported yet.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -20,11 +25,61 @@ import torch
 from .. import types as T
 from ..columnar import Batch, Column, bucket_capacity
 from ..config import Conf
-from ..expr import AnalysisError, Expression, SortOrder, Vec
+from ..expr import (AnalysisError, Expression, SortOrder, Vec,
+                    plain_column_name)
 from ..expr_agg import AggExpr
 from ..execution import aggregate as agg_kernels
 from ..execution import join as join_kernels
 from ..execution import sort as sort_kernels
+
+
+# ---------------------------------------------------------------------------
+# Partitioning algebra at mesh size 0 (reference: partitioning.scala). On
+# one device every operator's output is one partition, which meets every
+# requirement but a broadcast; the hash and range layouts come with the
+# mesh.
+# ---------------------------------------------------------------------------
+
+class Distribution:
+    pass
+
+
+@dataclass(frozen=True)
+class UnspecifiedDistribution(Distribution):
+    pass
+
+
+@dataclass(frozen=True)
+class AllTuples(Distribution):
+    """All rows co-located in one logical partition."""
+
+
+@dataclass(frozen=True)
+class BroadcastDistribution(Distribution):
+    """Full copy on every partition."""
+
+
+class Partitioning:
+    num_partitions: int = 1
+
+    def satisfies(self, dist: Distribution) -> bool:
+        return isinstance(dist, UnspecifiedDistribution)
+
+
+@dataclass(frozen=True)
+class SinglePartition(Partitioning):
+    num_partitions: int = 1
+
+    def satisfies(self, dist):
+        return not isinstance(dist, BroadcastDistribution)
+
+
+@dataclass(frozen=True)
+class Replicated(Partitioning):
+    num_partitions: int = 1
+
+    def satisfies(self, dist):
+        return isinstance(dist, (UnspecifiedDistribution, BroadcastDistribution))
 
 
 class ExecContext:
@@ -54,6 +109,12 @@ class PhysicalPlan:
 
     def schema(self) -> T.Schema:
         raise NotImplementedError
+
+    def output_partitioning(self) -> Partitioning:
+        return SinglePartition()
+
+    def required_child_distributions(self) -> List[Distribution]:
+        return [UnspecifiedDistribution() for _ in self.children]
 
     def compute(self, ctx: ExecContext, inputs: List[Batch]) -> Batch:
         raise NotImplementedError
@@ -277,6 +338,11 @@ class HashAggregateExec(UnaryExec):
         ctx.add_metric("agg_groups", occupied.sum())
         return Batch(cols, occupied, ctx.device)
 
+    def required_child_distributions(self):
+        if not self.group_exprs:
+            return [AllTuples()]
+        return [UnspecifiedDistribution()]
+
     def _occupancy_reuse(self, batch) -> Optional[Tuple[int, int]]:
         """(i, j) of an accumulator whose contribution equals the
         selection indicator (a count over a never-null child): the
@@ -309,6 +375,9 @@ class SortExec(UnaryExec):
     def schema(self):
         return self.child.schema()
 
+    def required_child_distributions(self):
+        return [AllTuples()]
+
     def compute(self, ctx, inputs):
         batch = inputs[0]
         perm, n_valid = sort_kernels.sort_permutation(batch, self.orders)
@@ -316,6 +385,201 @@ class SortExec(UnaryExec):
 
     def simple_string(self):
         return f"SortExec({[repr(o) for o in self.orders]})"
+
+
+class WindowExec(UnaryExec):
+    """All window functions of one spec over one sorted permutation
+    (reference: execution/window/WindowExec.scala; the functions are the
+    segmented scans of execution/window.py). An empty PARTITION BY needs
+    all rows together."""
+
+    def __init__(self, child: PhysicalPlan, wexprs: Sequence[Tuple],
+                 out_schema: T.Schema):
+        self.children = (child,)
+        self.wexprs = tuple(wexprs)
+        self._schema = out_schema
+
+    def schema(self):
+        return self._schema
+
+    def _spec(self):
+        return self.wexprs[0][0].spec
+
+    def required_child_distributions(self):
+        if not self._spec()._partition:
+            return [AllTuples()]
+        return [UnspecifiedDistribution()]
+
+    def compute(self, ctx, inputs):
+        from ..execution import window as win
+        from ..expr import cast_vec
+        from ..expr_agg import Sum, decimal_avg_halfup
+        from ..window import UNBOUNDED_FOLLOWING, UNBOUNDED_PRECEDING
+        batch = inputs[0]
+        cap = batch.capacity
+        dev = batch.device
+        sel = batch.selection_mask()
+        spec = self._spec()
+
+        def full(op):
+            return op.expand((cap,)) if op.dim() == 0 else op
+
+        p_orders = [SortOrder(p, ascending=True) for p in spec._partition]
+        p_ops = [full(o) for o in sort_kernels.sort_operands(batch,
+                                                             p_orders)]
+        o_ops = [full(o) for o in sort_kernels.sort_operands(
+            batch, list(spec._order))]
+        invalid = (~sel).to(torch.int8)
+        perm = sort_kernels.stable_permutation([invalid] + p_ops + o_ops,
+                                               cap, dev)
+        valid_sorted = invalid[perm] == 0
+        sp_ops = [op[perm] for op in p_ops]
+        so_ops = [op[perm] for op in o_ops]
+
+        starts = win._segment_starts(sp_ops, cap, valid_sorted)
+        gid = torch.cumsum(starts.to(torch.int64), 0) - 1
+        gid = torch.where(valid_sorted, gid, torch.full_like(gid, cap))
+        change = win._peer_change(starts, so_ops, cap)
+        base = self.child.schema()
+
+        new_cols: Dict[str, Column] = dict(batch.columns)
+        for w, name in self.wexprs:
+            out_dtype = w.dtype(base)
+            validity_sorted = None
+            src_dict = None
+            if w.kind == "row_number":
+                vals = win.row_number(starts, cap)
+            elif w.kind == "rank":
+                vals = win.rank(starts, change, cap)
+            elif w.kind == "dense_rank":
+                vals = win.dense_rank(starts, change, cap)
+            elif w.kind in ("lag", "lead"):
+                v = w.arg.eval(batch)
+                if v.dictionary is not None and w.default is not None:
+                    raise AnalysisError(
+                        "lag/lead with a default on a string column is "
+                        "not supported (the default would be written in "
+                        "dictionary-code space)")
+                src_dict = v.dictionary
+                val_s = None if v.validity is None else v.validity[perm]
+                vals, validity_sorted = win.shift_in_segment(
+                    full(v.data)[perm], val_s, gid, w.offset, w.default,
+                    cap)
+            else:
+                if w.arg is None:  # count(*) over (...)
+                    data_s = torch.ones((cap,), dtype=torch.int64,
+                                        device=dev)
+                    val_s = None
+                else:
+                    v = w.arg.eval(batch)
+                    if v.dictionary is not None and w.kind != "count":
+                        # codes are insertion-ordered, not lexicographic:
+                        # min/max/sum over codes would silently corrupt
+                        raise AnalysisError(
+                            f"window {w.kind} over a string column is "
+                            f"not supported")
+                    acc_t = out_dtype if w.kind == "sum" else v.dtype
+                    if w.kind == "avg":
+                        acc_t = Sum(w.arg).result_type(base)
+                    vv = cast_vec(v, acc_t)
+                    data_s = full(vv.data)[perm]
+                    val_s = None if vv.validity is None else \
+                        full(vv.validity)[perm]
+                val_s = valid_sorted if val_s is None else \
+                    (val_s & valid_sorted)
+                frame = w.spec._frame
+                if frame is not None and frame[0] == "range" \
+                        and frame[1] <= UNBOUNDED_PRECEDING \
+                        and frame[2] == 0:
+                    # RANGE UNBOUNDED PRECEDING .. CURRENT ROW is exactly
+                    # the default peer frame: no value arithmetic, so any
+                    # order keys are fine
+                    frame = None
+                kind = "sum" if w.kind == "avg" else w.kind
+                if frame is None:
+                    out, cnt = win.windowed_agg(
+                        kind, data_s, val_s, gid, cap, starts, change,
+                        bool(spec._order), cap)
+                else:
+                    # ROWS/RANGE BETWEEN (WindowExec.scala:36 frames)
+                    if not spec._order:
+                        raise AnalysisError(
+                            "a window frame requires an ORDER BY in "
+                            "its window specification")
+                    range_key = range_key_valid = None
+                    if frame[0] == "range":
+                        range_key, range_key_valid = \
+                            self._range_frame_key(batch, spec, frame, perm,
+                                                  valid_sorted)
+                    lo, hi = win.frame_bounds(
+                        frame, starts, change, cap, bool(spec._order),
+                        n_valid=valid_sorted.sum(),
+                        range_key=range_key,
+                        range_key_valid=range_key_valid)
+                    max_len = None
+                    if frame[0] == "rows" and frame[1] > UNBOUNDED_PRECEDING \
+                            and frame[2] < UNBOUNDED_FOLLOWING:
+                        max_len = min(cap, frame[2] - frame[1] + 1)
+                    out, cnt = win.framed_agg(kind, data_s, val_s, lo, hi,
+                                              cap, max_len=max_len)
+                if w.kind == "avg":
+                    safe = cnt.clamp(min=1)
+                    if isinstance(out_dtype, T.DecimalType):
+                        arg_t = w.arg.dtype(base)
+                        vals = decimal_avg_halfup(
+                            out.to(torch.int64), safe,
+                            10 ** (out_dtype.scale - arg_t.scale))
+                    else:
+                        vals = out.to(torch.float64) / safe
+                elif w.kind == "count":
+                    vals = cnt
+                else:
+                    vals = out
+                if w.kind != "count":
+                    validity_sorted = cnt > 0
+            # back to input row order: perm holds each row once
+            out_t = T.torch_dtype(out_dtype.np_dtype)
+            unsorted = torch.empty((cap,), dtype=out_t, device=dev)
+            unsorted[perm] = vals.to(out_t)
+            validity = None
+            if validity_sorted is not None:
+                validity = torch.empty((cap,), dtype=torch.bool, device=dev)
+                validity[perm] = validity_sorted
+            new_cols[name] = Column(unsorted, out_dtype, validity, src_dict)
+        return Batch(new_cols, batch.selection, dev)
+
+    def _range_frame_key(self, batch, spec, frame, perm, valid_sorted):
+        """Sorted order-key values for a RANGE frame with value-space
+        offsets: exactly one ascending numeric/date order key (the
+        reference's RangeFrame constraint). Keys are sanitized so NULL
+        and filtered rows carry monotone sentinels (see
+        win.sanitize_range_key)."""
+        from ..execution import window as win
+        from ..window import UNBOUNDED_FOLLOWING, UNBOUNDED_PRECEDING
+        _, a, b = frame
+        if a <= UNBOUNDED_PRECEDING and b >= UNBOUNDED_FOLLOWING:
+            return None, None
+        if len(spec._order) != 1:
+            raise AnalysisError(
+                "RANGE BETWEEN with offsets requires exactly one ORDER "
+                "BY key")
+        o = spec._order[0]
+        if not o.ascending:
+            raise AnalysisError(
+                "RANGE BETWEEN with offsets supports ascending order "
+                "keys only")
+        v = o.child.eval(batch)
+        if v.dictionary is not None or isinstance(
+                v.dtype, (T.StringType, T.BooleanType)):
+            raise AnalysisError(
+                "RANGE BETWEEN needs a numeric or date order key")
+        key = v.data[perm]
+        kv = None if v.validity is None else v.validity[perm]
+        key = win.sanitize_range_key(key, kv, valid_sorted, o.nulls_first)
+        return key, kv
+
+    def simple_string(self):
+        return f"WindowExec({[(repr(w), n) for w, n in self.wexprs]})"
 
 
 class LimitExec(UnaryExec):
@@ -327,6 +591,9 @@ class LimitExec(UnaryExec):
 
     def schema(self):
         return self.child.schema()
+
+    def required_child_distributions(self):
+        return [AllTuples()]
 
     def compute(self, ctx, inputs):
         batch = inputs[0]
@@ -391,6 +658,25 @@ class JoinExec(PhysicalPlan):
 
     def schema(self):
         return self._schema
+
+    def _has_column_keys(self) -> bool:
+        """True when some key pair is a plain column on both sides (the
+        pairs a mesh would hash on)."""
+        return any(plain_column_name(l) is not None
+                   and plain_column_name(r) is not None
+                   for l, r in zip(self.left_keys, self.right_keys))
+
+    def required_child_distributions(self):
+        if not self._has_column_keys():
+            if self.how in ("right", "full"):
+                # a replicated build would append its unmatched rows once
+                # per partition: co-locate everything instead
+                return [AllTuples(), AllTuples()]
+            # no hashable key columns (e.g. a cross join's literal keys):
+            # every probe row must see every build row -> replicate build
+            return [UnspecifiedDistribution(), BroadcastDistribution()]
+        # key columns: one partition holds every key
+        return [UnspecifiedDistribution(), UnspecifiedDistribution()]
 
     def _eval_keys(self, probe_batch, build_batch):
         def bcast(v: Vec, cap: int) -> Vec:
@@ -782,6 +1068,81 @@ class RuntimeFilterExec(PhysicalPlan):
         return (f"RuntimeFilterExec({self.probe_key!r} IN "
                 f"bloom({self.build_key!r}), est={self.est_items}, "
                 f"fpp={self.fpp})")
+
+
+class ExchangeExec(UnaryExec):
+    """Repartitioning boundary (reference: BroadcastExchangeExec.scala:78).
+    The planner inserts one where a child's partitioning does not meet
+    its parent's requirement, on one device only the replicated build
+    side of a join without key columns. There every partition is the
+    whole batch, so it passes its child's batch through."""
+
+    def __init__(self, child: PhysicalPlan, partitioning: Partitioning):
+        self.children = (child,)
+        self.partitioning = partitioning
+        #: per-(src,dst) receive block size of a mesh exchange; always
+        #: None on one device, printed as the JAX package prints it
+        self.block_cap: Optional[int] = None
+        self.tag = "e0"
+
+    def schema(self):
+        return self.child.schema()
+
+    def output_partitioning(self):
+        return self.partitioning
+
+    def compute(self, ctx, inputs):
+        return inputs[0]
+
+    def simple_string(self):
+        return f"ExchangeExec({self.partitioning!r}, block={self.block_cap})"
+
+
+class UnionExec(PhysicalPlan):
+    """UNION ALL: the left batch's rows, then the right's. String columns
+    move onto one merged dictionary (the right side's codes remapped);
+    validity is padded to each side's capacity."""
+
+    def __init__(self, left: PhysicalPlan, right: PhysicalPlan,
+                 out_schema: T.Schema):
+        self.children = (left, right)
+        self._schema = out_schema
+
+    def schema(self):
+        return self._schema
+
+    def compute(self, ctx, inputs):
+        from ..columnar import unify_string_columns
+        lb, rb = inputs
+        dev = ctx.device
+        cols = {}
+        for out_f, ln, rn in zip(self._schema.fields, lb.names, rb.names):
+            lc, rc = lb.columns[ln], rb.columns[rn]
+            l_data, r_data = lc.data, rc.data
+            dictionary = None
+            if isinstance(out_f.dtype, T.StringType):
+                # raw right codes under the left dictionary would decode
+                # to the wrong strings: merge the dictionaries, remap
+                if lc.dictionary is None or rc.dictionary is None:
+                    raise AnalysisError(
+                        "UNION of string columns requires dictionaries")
+                l_data, r_data, dictionary = unify_string_columns(
+                    l_data, lc.dictionary, r_data, rc.dictionary)
+            # the raw values at the common type, as the JAX package
+            # concatenates them
+            out_t = T.torch_dtype(out_f.dtype.np_dtype)
+            data = torch.cat([l_data.to(out_t), r_data.to(out_t)])
+            if lc.validity is None and rc.validity is None:
+                validity = None
+            else:
+                lv = lc.validity if lc.validity is not None else \
+                    torch.ones((lb.capacity,), dtype=torch.bool, device=dev)
+                rv = rc.validity if rc.validity is not None else \
+                    torch.ones((rb.capacity,), dtype=torch.bool, device=dev)
+                validity = torch.cat([lv, rv])
+            cols[out_f.name] = Column(data, out_f.dtype, validity, dictionary)
+        sel = torch.cat([lb.selection_mask(), rb.selection_mask()])
+        return Batch(cols, sel, dev)
 
 
 def _unify_key_dictionaries(lvecs: List[Vec], rvecs: List[Vec]

@@ -2,11 +2,15 @@
 `spark_tpu/plan/planner.py` at mesh size 0; reference:
 `SparkPlanner.scala:28`).
 
-On one device every operator's distribution requirement is already met,
-so the JAX package inserts no exchange there and neither does this
-planner. After conversion, runtime join filters are injected
-(`runtime_filter.py`, when `runtimeFilter.enabled`) and every join,
-aggregate and filter node gets the tag its flags and metrics carry.
+After conversion, `ensure_requirements` inserts an exchange wherever a
+child's partitioning does not meet its parent's required distribution
+(reference: `EnsureRequirements.scala:44`), as the JAX package does at
+mesh size 0: there every leaf is one partition, so the only exchange is
+the replicated build side of a join without key columns (a cross join
+lowers to a join on literal keys). Then runtime join filters are
+injected (`runtime_filter.py`, when `runtimeFilter.enabled`) and every
+join, exchange, aggregate and filter node gets the tag its flags and
+metrics carry.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from . import physical as P
 
 
 def plan_physical(plan: L.LogicalPlan, conf: Conf) -> P.PhysicalPlan:
-    phys = _convert(plan, conf)
+    phys = ensure_requirements(_convert(plan, conf))
     from .runtime_filter import ENABLED_KEY, inject_runtime_filters
     if bool(conf.get(ENABLED_KEY)):
         phys = inject_runtime_filters(phys, conf)
@@ -33,7 +37,7 @@ def _assign_join_tags(plan: P.PhysicalPlan) -> None:
     """Stable per-node tags for the join/aggregate/runtime-filter flags
     and metrics (the executor's re-plan loop keys on them), numbered in
     post-order as the JAX package numbers them."""
-    counters = {"j": 0, "cj": 0, "a": 0, "rf": 0}
+    counters = {"j": 0, "cj": 0, "e": 0, "a": 0, "rf": 0}
     seen = set()  # creation chains are DAG-shared under rf nodes:
     # tag each node once
 
@@ -51,6 +55,8 @@ def _assign_join_tags(plan: P.PhysicalPlan) -> None:
             # runtime-filter creation semis count apart, so injecting
             # one never renumbers the real joins
             node.tag = next_tag("cj" if node.creation_side else "j")
+        elif isinstance(node, P.ExchangeExec):
+            node.tag = next_tag("e")
         elif isinstance(node, P.HashAggregateExec):
             node.tag = next_tag("a")
         elif isinstance(node, P.RuntimeFilterExec):
@@ -108,4 +114,38 @@ def _convert(plan: L.LogicalPlan, conf: Conf) -> P.PhysicalPlan:
                            plan.condition, plan.schema())
         exec_.null_aware = plan.null_aware
         return exec_
+    if isinstance(plan, L.WindowPlan):
+        return P.WindowExec(_convert(plan.child, conf), plan.wexprs,
+                            plan.schema())
+    if isinstance(plan, L.Union):
+        return P.UnionExec(_convert(plan.children[0], conf),
+                           _convert(plan.children[1], conf), plan.schema())
     raise AnalysisError(f"no physical strategy for {type(plan).__name__}")
+
+
+def ensure_requirements(plan: P.PhysicalPlan) -> P.PhysicalPlan:
+    """Insert exchanges where a child's partitioning fails its parent's
+    requirement (reference: EnsureRequirements.ensureDistributionAndOrdering:49),
+    the JAX package's rule at mesh size 0. Every child is one partition
+    there, so only a broadcast requirement (the build side of a join
+    without key columns) is ever unmet."""
+    import copy
+    new_children = tuple(ensure_requirements(c) for c in plan.children)
+    if new_children != plan.children:
+        plan = copy.copy(plan)
+        plan.children = new_children
+
+    fixed = []
+    changed = False
+    for child, dist in zip(plan.children, plan.required_child_distributions()):
+        if child.output_partitioning().satisfies(dist):
+            fixed.append(child)
+            continue
+        if not isinstance(dist, P.BroadcastDistribution):
+            raise AnalysisError(f"no exchange meets {dist!r} on one device")
+        changed = True
+        fixed.append(P.ExchangeExec(child, P.Replicated()))
+    if changed:
+        plan = copy.copy(plan)
+        plan.children = tuple(fixed)
+    return plan

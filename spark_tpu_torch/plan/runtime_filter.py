@@ -9,7 +9,8 @@ build-side keys (execution/join.py kernels over sketch.py).
 
 Creation-side extraction follows the reference's
 `extractSelectiveFilterOverScan`: descend from the join's build child
-through joins (into the child the key column originates from), aggregates (through group keys), sorts and limits, until a cheap
+through exchanges, joins (into the child the key column originates
+from), aggregates (through group keys), sorts and limits, until a cheap
 Project/Filter-over-leaf chain evaluates the key. Every descent step
 only ever WIDENS the key set (join outputs, aggregate group keys and
 limits are subsets of their origin columns), so the filter built from
@@ -25,9 +26,8 @@ Injection preconditions:
   (the chain is recomputed for the filter, reference-style).
 
 The planner skips the rule when spark_tpu.sql.runtimeFilter.enabled is
-false. The port plans one device, so a filter wraps the probe child
-itself (the JAX package places it below the probe-side exchange, which
-one device does not have); both engines print the same plans.
+false. A filter goes below the probe side's exchange when it has one,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from __future__ import annotations
 import copy
 from typing import Optional, Tuple
 
-from ..expr import Alias, ColumnRef, Expression
+from ..expr import Alias, ColumnRef, Expression, plain_column_name
 from . import physical as P
 
 ENABLED_KEY = "spark_tpu.sql.runtimeFilter.enabled"
@@ -56,6 +56,7 @@ def estimate_rows_physical(node: P.PhysicalPlan) -> Optional[int]:
     if isinstance(node, P.RangeExec):
         return node.num_rows()
     if isinstance(node, (P.ProjectExec, P.FilterExec, P.SortExec,
+                         P.ExchangeExec, P.WindowExec,
                          P.HashAggregateExec, P.RuntimeFilterExec)):
         return estimate_rows_physical(node.children[0])
     if isinstance(node, P.LimitExec):
@@ -69,14 +70,11 @@ def estimate_rows_physical(node: P.PhysicalPlan) -> Optional[int]:
         if node.how == "inner" and l is not None and r is not None:
             return max(l, r)
         return None
-    return None
-
-
-def _plain_name(e: Expression) -> Optional[str]:
-    while isinstance(e, Alias):
-        e = e.child
-    if isinstance(e, ColumnRef):
-        return e.name()
+    if isinstance(node, P.UnionExec):
+        l = estimate_rows_physical(node.children[0])
+        r = estimate_rows_physical(node.children[1])
+        if l is not None and r is not None:
+            return l + r
     return None
 
 
@@ -127,7 +125,8 @@ def _semi_other(node: P.PhysicalPlan) -> Optional[P.PhysicalPlan]:
     `creation_side` set so the planner tags them in the cj namespace.
     Dropping a Sort/Limit/RuntimeFilter hop only WIDENS the semi's keep
     set — still a superset of the true build keys, so still sound."""
-    while isinstance(node, (P.SortExec, P.LimitExec, P.RuntimeFilterExec)):
+    while isinstance(node, (P.ExchangeExec, P.SortExec, P.LimitExec,
+                            P.RuntimeFilterExec)):
         node = node.children[0]
     if _cheap_chain(node):
         return node
@@ -175,8 +174,8 @@ def _keys_transparent(node: P.PhysicalPlan, target: P.PhysicalPlan,
         return True
     if isinstance(node, P.JoinExec) and node.creation_side:
         return _keys_transparent(node.children[0], target, names)
-    if isinstance(node, (P.SortExec, P.LimitExec, P.RuntimeFilterExec,
-                         P.FilterExec)):
+    if isinstance(node, (P.ExchangeExec, P.SortExec, P.LimitExec,
+                         P.RuntimeFilterExec, P.FilterExec)):
         return _keys_transparent(node.children[0], target, names)
     if isinstance(node, P.ProjectExec):
         for e in node.exprs:
@@ -247,7 +246,7 @@ def _synthesize_semi(join: P.JoinExec, side: str,
     # expr aliased onto a key name over a relation that keeps a
     # same-named physical column) bind the wrong column and build the
     # filter from a non-superset — silently wrong results
-    names = [_plain_name(k) for k in keys_self]
+    names = [plain_column_name(k) for k in keys_self]
     if any(n is None for n in names):
         return None
     self_child = join.left if side == "left" else join.right
@@ -273,7 +272,8 @@ def extract_creation_side(node: P.PhysicalPlan, key: Expression,
     (`runtimeFilter.semiAwareCreation`)."""
     if _cheap_chain(node) and _resolves(key, node.schema()):
         return node, key
-    if isinstance(node, (P.SortExec, P.LimitExec, P.RuntimeFilterExec)):
+    if isinstance(node, (P.ExchangeExec, P.SortExec, P.LimitExec,
+                         P.RuntimeFilterExec)):
         return extract_creation_side(node.children[0], key, semi_aware)
     if isinstance(node, P.FilterExec):
         # descending past the filter widens the key set: still sound
@@ -291,7 +291,7 @@ def extract_creation_side(node: P.PhysicalPlan, key: Expression,
                                          semi_aware)
         return None
     if isinstance(node, P.JoinExec):
-        name = _plain_name(key)
+        name = plain_column_name(key)
         if name is None:
             return None
         left_names = list(node.left.schema().names)
@@ -330,7 +330,7 @@ def extract_creation_side(node: P.PhysicalPlan, key: Expression,
                 return semi
         return sub
     if isinstance(node, P.HashAggregateExec):
-        name = _plain_name(key)
+        name = plain_column_name(key)
         for g in node.group_exprs:
             if g.name() != name:
                 continue
@@ -347,9 +347,9 @@ def extract_creation_side(node: P.PhysicalPlan, key: Expression,
 
 def inject_runtime_filters(plan: P.PhysicalPlan, conf
                            ) -> P.PhysicalPlan:
-    """Bottom-up walk wrapping eligible joins' probe subtrees in
-    RuntimeFilterExec nodes. Tags are assigned by the planner's
-    _assign_join_tags pass afterwards."""
+    """Bottom-up walk wrapping eligible joins' probe subtrees (below
+    their exchange) in RuntimeFilterExec nodes. Tags are assigned by
+    the planner's _assign_join_tags pass afterwards."""
     threshold = int(conf.get(THRESHOLD_KEY))
     fpp = float(conf.get(FPP_KEY))
     # synthesized creation semis are sound only when every shard sees
@@ -372,7 +372,9 @@ def inject_runtime_filters(plan: P.PhysicalPlan, conf
 
 def _try_inject(join: P.JoinExec, threshold: int, fpp: float,
                 semi_aware: bool = False) -> Optional[P.JoinExec]:
-    target, build = join.children
+    probe, build = join.children
+    target = probe.children[0] if isinstance(probe, P.ExchangeExec) \
+        else probe
     if isinstance(target, P.RuntimeFilterExec):
         return None  # one filter per probe side
     for pk, bk in zip(join.left_keys, join.right_keys):
@@ -400,6 +402,11 @@ def _try_inject(join: P.JoinExec, threshold: int, fpp: float,
                                  est_items=bucket_capacity(max(int(rows), 8)),
                                  fpp=fpp)
         new_join = copy.copy(join)
-        new_join.children = (rf, build)
+        if isinstance(probe, P.ExchangeExec):
+            new_ex = copy.copy(probe)
+            new_ex.children = (rf,)
+            new_join.children = (new_ex, build)
+        else:
+            new_join.children = (rf, build)
         return new_join
     return None

@@ -9,12 +9,13 @@ inside arithmetic, extracted into the Aggregate node), WHERE, explicit
 JOIN ... ON and TPC-H-style implicit comma joins (equi-keys are pulled
 out of the WHERE conjunction), GROUP BY (names, aliases, positions),
 HAVING, ORDER BY (names, positions, expressions), LIMIT, subqueries in
-FROM, WITH clauses, and scalar, IN and EXISTS subqueries in WHERE.
+FROM, WITH clauses, scalar, IN and EXISTS subqueries in WHERE, window
+functions (OVER with ROWS/RANGE frames), set operations (UNION ALL,
+INTERSECT, EXCEPT) and grouping sets (ROLLUP, CUBE, GROUPING SETS).
 
 Parsed but not ported yet, each raising AnalysisError that names it:
-window functions (OVER), set operations (UNION ALL, INTERSECT, EXCEPT),
-grouping sets (ROLLUP, CUBE, GROUPING SETS), explode, the aggregates
-other than count/sum/avg/min/max, and DDL/DML commands.
+explode, the aggregates other than count/sum/avg/min/max, and DDL/DML
+commands.
 
 The reference parses with a generated ANTLR grammar + AstBuilder
 (`sql/catalyst/.../parser/SqlBase.g4`, `AstBuilder.scala`); here a Pratt
@@ -578,9 +579,7 @@ class Parser:
         if self.peek(1).kind == "op" and self.peek(1).value == "(":
             e = self.parse_function()
             if self.at_kw("OVER"):
-                raise AnalysisError(
-                    "window functions (OVER) are not yet ported to "
-                    "spark_tpu_torch")
+                return self._parse_over(e)
             if isinstance(e, _RankingCall):
                 raise ParseError(
                     f"{e.kind}() requires an OVER (...) clause")
@@ -727,6 +726,91 @@ class Parser:
                 args.append(self.parse_expr())
         self.expect_op(")")
         return self._scalar_function(name, args)
+
+    def _parse_frame_clause(self):
+        """ROWS|RANGE BETWEEN <bound> AND <bound> (or the single-bound
+        short form `ROWS n PRECEDING`), reference SqlBase.g4
+        windowFrame."""
+        from ..window import (CURRENT_ROW, UNBOUNDED_FOLLOWING,
+                              UNBOUNDED_PRECEDING)
+        kind = "rows" if self.eat_kw("ROWS") else "range"
+        if kind == "range":
+            self.expect_kw("RANGE")
+
+        def bound(default_end=False):
+            if self.eat_kw("UNBOUNDED"):
+                if self.eat_kw("PRECEDING"):
+                    return UNBOUNDED_PRECEDING
+                self.expect_kw("FOLLOWING")
+                return UNBOUNDED_FOLLOWING
+            if self.eat_kw("CURRENT"):
+                self.expect_kw("ROW")
+                return CURRENT_ROW
+            t = self.next()
+            if t.kind != "number":
+                raise ParseError(
+                    f"expected a frame bound at {t.pos}, got {t.value!r}")
+            try:
+                n = int(t.value)
+            except ValueError:
+                raise ParseError(
+                    f"frame bounds must be integers, got {t.value!r} "
+                    f"at {t.pos}") from None
+            if self.eat_kw("PRECEDING"):
+                return -n
+            self.expect_kw("FOLLOWING")
+            return n
+
+        if self.eat_kw("BETWEEN"):
+            start = bound()
+            self.expect_kw("AND")
+            end = bound()
+        else:
+            start = bound()
+            end = CURRENT_ROW
+        return (kind, start, end)
+
+    def _parse_over(self, call: Expression) -> Expression:
+        """fn(...) OVER ([PARTITION BY ...] [ORDER BY ...])."""
+        from ..window import WindowExpr, WindowSpec
+        self.expect_kw("OVER")
+        self.expect_op("(")
+        partition: List[Expression] = []
+        order: List[SortOrder] = []
+        if self.at_kw("PARTITION"):
+            self.next()
+            self.expect_kw("BY")
+            partition.append(self.parse_expr())
+            while self.eat_op(","):
+                partition.append(self.parse_expr())
+        if self.at_kw("ORDER"):
+            self.next()
+            self.expect_kw("BY")
+            while True:
+                e, asc, nf = self.parse_sort_item()
+                order.append(SortOrder(e, ascending=asc, nulls_first=nf))
+                if not self.eat_op(","):
+                    break
+        frame = None
+        if self.at_kw("ROWS", "RANGE"):
+            frame = self._parse_frame_clause()
+        self.expect_op(")")
+        spec = WindowSpec(tuple(partition), tuple(order), frame)
+        if isinstance(call, _RankingCall):
+            if not order:
+                raise ParseError(
+                    f"{call.kind}() requires ORDER BY in its OVER clause")
+            return WindowExpr(call.kind, call.arg, spec,
+                              offset=call.offset, default=call.default)
+        if isinstance(call, _AggCall):
+            from ..window import AGG_WINDOW_KINDS
+            kind = AGG_WINDOW_KINDS.get(type(call.func).__name__)
+            if kind is None:
+                raise ParseError(
+                    f"{type(call.func).__name__} is not supported as a "
+                    f"window function")
+            return WindowExpr(kind, call.func.child, spec)
+        raise ParseError("OVER applies to window or aggregate functions")
 
     def _scalar_function(self, name: str, args: List[Expression]) -> Expression:
         if name in ("SUBSTRING", "SUBSTR") and len(args) == 3:
@@ -1065,13 +1149,21 @@ class Lowerer:
             # (evicted afterwards — no staleness, no unbounded growth)
             self.session.mark_cache(plan)
         if sel.grouping_sets:
-            raise AnalysisError(
-                "grouping sets (ROLLUP, CUBE, GROUPING SETS) are not yet "
-                "ported to spark_tpu_torch")
+            return self._lower_grouping_sets(sel)
         if sel.union_of is not None:
-            raise AnalysisError(
-                f"set operation {sel.set_op.replace('_', ' ').upper()} "
-                f"is not yet ported to spark_tpu_torch")
+            lplan = self.lower(sel.union_of[0])
+            rplan = self.lower(sel.union_of[1])
+            if sel.set_op == "union_all":
+                plan = L.Union(lplan, rplan)
+            else:
+                from ..dataframe import set_op_plan
+                plan = set_op_plan(lplan, rplan,
+                                   "left_semi" if sel.set_op ==
+                                   "intersect" else "left_anti")
+            plan = self._lower_order_limit(sel, plan)
+            if sel.limit is not None:
+                plan = L.Limit(plan, sel.limit)
+            return plan
         plan, remaining, scope = self._lower_from(sel)
         plain = [c for c in remaining if not _contains_subquery(c)]
         subq = [c for c in remaining if _contains_subquery(c)]
@@ -1296,6 +1388,14 @@ class Lowerer:
         has_agg = any(_contains_agg(e) for e, _ in items) or \
             sel.group_by is not None or \
             (sel.having is not None and _contains_agg(sel.having))
+
+        from ..window import contains_window
+        if any(contains_window(e) for e, _ in items):
+            if has_agg:
+                raise AnalysisError(
+                    "window functions with GROUP BY in one SELECT are not "
+                    "supported yet (use a FROM subquery)")
+            plan, items = self._extract_window_items(plan, items)
 
         if sel.distinct and has_agg:
             raise AnalysisError(
@@ -1653,6 +1753,96 @@ class Lowerer:
 
         cond = scope.rewrite(rewrite(c))
         return L.Filter(plan, cond)
+
+    def _lower_grouping_sets(self, sel: _Select) -> L.LogicalPlan:
+        """ROLLUP/CUBE/GROUPING SETS: one aggregate per grouping set,
+        missing keys re-projected as typed NULLs, UNION ALL of the lot
+        (the reference's Expand + single-aggregate plan produces the
+        same relation — `ExpandExec.scala:1`; the union form trades one
+        wide scan for set-count scans but keeps every aggregate on the
+        fast grouped path)."""
+        import copy as _c
+        group_names = [g.name() for g in sel.group_by]
+        if sel.items is None:
+            raise AnalysisError(
+                "grouping analytics need an explicit select list")
+        out_names = []
+        for e, a in sel.items:
+            if a:
+                out_names.append(a)
+            elif isinstance(e, _QualifiedRef):
+                out_names.append(e.col)  # t1.a projects as "a"
+            else:
+                out_names.append(e.name() if hasattr(e, "name")
+                                 else repr(e))
+        # input schema for typed NULL placeholders
+        probe = _c.copy(sel)
+        probe.ctes = None
+        from_plan, _, _ = self._lower_from(probe)
+        from_schema = from_plan.schema()
+
+        plans = []
+        for gset in sel.grouping_sets:
+            sub = _c.copy(sel)
+            sub.grouping_sets = None
+            sub.ctes = None
+            sub.order_by = None
+            sub.limit = None
+            sub.group_by = [ColumnRef(n) for n in gset] or None
+            kept = []   # (expr, alias) | ("__null__", source_col_name)
+            gset_bare = {n.split(".")[-1].lower() for n in gset}
+            for e, a in sel.items:
+                # match plain AND table-qualified refs on the bare name
+                if isinstance(e, ColumnRef):
+                    bare = e._name.split(".")[-1].lower()
+                elif isinstance(e, _QualifiedRef):
+                    bare = e.col.lower()
+                else:
+                    bare = None
+                hit = bare is not None and any(
+                    g.split(".")[-1].lower() == bare
+                    for g in group_names)
+                if hit and bare not in gset_bare:
+                    kept.append(("__null__", bare))
+                else:
+                    kept.append((e, a))
+            sub.items = [k for k in kept
+                         if not isinstance(k[0], str)]
+            p = self.lower(sub)
+            sub_names = p.schema().names
+            exprs = []
+            pos = 0
+            for k, out_name in zip(kept, out_names):
+                if isinstance(k[0], str):  # "__null__" marker
+                    dt = ColumnRef(k[1]).dtype(from_schema)
+                    exprs.append(Alias(Literal(None, dt), out_name))
+                else:
+                    exprs.append(Alias(ColumnRef(sub_names[pos]),
+                                       out_name))
+                    pos += 1
+            plans.append(L.Project(p, exprs))
+        plan = plans[0]
+        for q in plans[1:]:
+            plan = L.Union(plan, q)
+        plan = self._lower_order_limit(sel, plan)
+        if sel.limit is not None:
+            plan = L.Limit(plan, sel.limit)
+        return plan
+
+    def _extract_window_items(self, plan: L.LogicalPlan, items):
+        """Pull WindowExpr nodes into Window plan nodes below the
+        projection (shared with the DataFrame layer: one node — one
+        sort — per distinct spec; collision-safe names)."""
+        from ..window import extract_window_exprs
+        exprs = [Alias(e, a) if a else e for e, a in items]
+        plan, out = extract_window_exprs(plan, exprs)
+        rebuilt = []
+        for (orig_e, a), new_e in zip(items, out):
+            if a and isinstance(new_e, Alias):
+                rebuilt.append((new_e.child, a))
+            else:
+                rebuilt.append((new_e, a))
+        return plan, rebuilt
 
     def _lower_order_limit(self, sel: _Select, plan: L.LogicalPlan,
                            key_rewrite=None) -> L.LogicalPlan:

@@ -18,6 +18,7 @@ from .. import types as T
 from ..expr import (AnalysisError, Coalesce, ConcatLit, DateAdd, Expression,
                     ExtractDay, ExtractMonth, ExtractYear, IsNull,
                     Literal, Lower, Neg, Not, Pmod, StringLength, Trim, Upper)
+from ..expr_fns import Abs
 
 #: NAME -> (builder(args) -> Expression, min_args, max_args)
 REGISTRY: Dict[str, Tuple[Callable, int, int]] = {}
@@ -25,7 +26,7 @@ REGISTRY: Dict[str, Tuple[Callable, int, int]] = {}
 #: functions the JAX package's registry resolves that the port has no
 #: expression for yet (its `expr_fns.py` and `expr_array.py`)
 NOT_YET_PORTED = frozenset("""
-    ABS SQRT CBRT EXP EXPM1 LN LOG10 LOG2 LOG1P LOG POW POWER SIN COS TAN
+    SQRT CBRT EXP EXPM1 LN LOG10 LOG2 LOG1P LOG POW POWER SIN COS TAN
     COT ASIN ACOS ATAN ATAN2 SINH COSH TANH HYPOT DEGREES RADIANS RINT SIGN
     SIGNUM CEIL CEILING FLOOR ROUND FACTORIAL SHIFTLEFT SHIFTRIGHT BIT_COUNT
     GREATEST LEAST NVL IFNULL NVL2 NULLIF IF ISNAN NANVL QUARTER DAYOFWEEK
@@ -69,6 +70,7 @@ def _b(cls):
 
 
 # -- math -------------------------------------------------------------------
+register("ABS", _u(Abs), 1, 1)
 register("PMOD", _b(Pmod), 2, 2)
 register("MOD", lambda a: a[0] % a[1], 2, 2)
 

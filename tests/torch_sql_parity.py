@@ -1,8 +1,9 @@
-"""Shared harness of the `tests/test_torch_sql*.py` parity tests.
+"""Shared harness of the `tests/test_torch_sql*.py` and
+`tests/test_torch_tpcds*.py` parity tests.
 
-Each case gets two fresh sessions, one per package, with the TPC-H
-tables registered under the usual catalog names but read through
-sources named after the case (`lineitem_<tag>`): the JAX package keeps
+Each case gets two fresh sessions, one per package, with the TPC-H (or
+TPC-DS) tables registered under the usual catalog names but read
+through sources named after the case (`lineitem_<tag>`): the JAX package keeps
 per-session state keyed by printed plans, so a plan printed by an
 earlier query must not reach a later case. A SQL text then runs through
 both, and:
@@ -26,12 +27,20 @@ from spark_tpu.io.sources import ParquetSource as RefParquetSource
 from spark_tpu.session import SparkTpuSession as RefSession
 from spark_tpu_torch import SparkTpuSession
 from spark_tpu_torch.io.sources import ParquetSource
+from spark_tpu_torch.tpcds import golden as DSG
+from spark_tpu_torch.tpcds.queries import TABLES as DS_TABLES
+from spark_tpu_torch.tpcds.sql_queries import SQL_QUERIES as DS_QUERIES
 from spark_tpu_torch.tpch import golden as G
 from spark_tpu_torch.tpch.datagen import write_parquet
 from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
 
 TABLES = ("lineitem", "orders", "customer", "supplier", "nation", "region",
           "part", "partsupp")
+
+#: (tables, SQL texts, golden module, golden float atol) of each suite;
+#: TPC-DS's atol is its JAX test's (avg over decimals rounds at scale 6)
+TPCH = (TABLES, SQL_QUERIES, G, 1e-6)
+TPCDS = (DS_TABLES, DS_QUERIES, DSG, 1e-4)
 
 #: relative tolerance of float columns against the JAX package
 FLOAT_RTOL = 1e-12
@@ -43,14 +52,27 @@ def write_data(tmp_path_factory, sf: float) -> str:
     return path
 
 
-def sessions(path: str, tag: str, confs=()):
+def write_tpcds(tmp_path_factory, sf: float) -> str:
+    from spark_tpu_torch.tpcds.datagen import write_parquet as write_ds
+    path = str(tmp_path_factory.mktemp("tpcds_sql") / f"sf{sf}")
+    write_ds(path, sf)
+    return path
+
+
+#: the conf of the TPC-DS parity sweeps: runtime filters off, as the JAX
+#: package's own sweep runs (results are the same on and off; the
+#: kernel-matrix and reorder cases keep them on)
+NO_RUNTIME_FILTERS = (("spark_tpu.sql.runtimeFilter.enabled", False),)
+
+
+def sessions(path: str, tag: str, confs=(), tables=TABLES):
     """(port, reference): fresh sessions over the data at `path`."""
     port = SparkTpuSession.builder().device("cpu").get_or_create()
     ref = RefSession(register_active=False)
     for key, value in confs:
         port.conf.set(key, value)
         ref.conf.set(key, value)
-    for t in TABLES:
+    for t in tables:
         file = os.path.join(path, f"{t}.parquet")
         port.register_table(t, ParquetSource(file, f"{t}_{tag}"))
         ref.register_table(t, RefParquetSource(file, f"{t}_{tag}"))
@@ -73,19 +95,26 @@ def assert_tables_match(got: pa.Table, want: pa.Table) -> None:
             assert g.equals(w), name
 
 
-def check_query(path: str, qname: str, tag: str):
-    """Run TPC-H `qname` as SQL through both packages and hold the port
-    to the reference and the golden. Returns the port's result."""
-    port, ref = sessions(path, tag)
-    pqe = port.sql(SQL_QUERIES[qname])._qe()
-    rqe = ref.sql(SQL_QUERIES[qname])._qe()
+def check_query(path: str, qname: str, tag: str, suite=TPCH, confs=()):
+    """Run `qname` of `suite` (TPC-H unless given) as SQL through both
+    packages and hold the port to the reference and the golden. Returns
+    the port's result."""
+    tables, queries, golden, atol = suite
+    port, ref = sessions(path, tag, confs, tables)
+    pqe = port.sql(queries[qname])._qe()
+    rqe = ref.sql(queries[qname])._qe()
     assert pqe.executed_plan.tree_string() == \
         rqe.executed_plan.tree_string()
     got, want = pqe.collect(), rqe.collect()
     assert_tables_match(got, want)
     assert pqe.executed_plan.tree_string() == \
         rqe.executed_plan.tree_string()
-    gold = G.GOLDEN[qname](path)
-    out = G.normalize_decimals(got.to_pandas())[gold.columns.tolist()]
-    G.compare(out.reset_index(drop=True), gold)
+    check_golden(got, qname, path, suite)
     return got
+
+
+def check_golden(got: pa.Table, qname: str, path: str, suite=TPCH) -> None:
+    _tables, _queries, golden, atol = suite
+    gold = golden.GOLDEN[qname](path)
+    out = golden.normalize_decimals(got.to_pandas())[gold.columns.tolist()]
+    golden.compare(out.reset_index(drop=True), gold, float_atol=atol)
