@@ -239,3 +239,28 @@ STATS_PARQUET_FOOTER = register(
         "footers (io/sources.py column_stats), cached per source, for "
         "the reorder cost model's range selectivities. Reading footers "
         "touches no row data.")
+
+DEVICE_CACHE_BYTES = register(
+    "spark_tpu.sql.io.deviceCacheBytes", 6 << 30,
+    doc="Byte budget for the device-resident table cache "
+        "(io/device_cache.py): loaded scans (post column-prune/filter-"
+        "pushdown) stay in device memory and are reused across queries, "
+        "LRU-evicted past the budget. 0 disables. The storage-memory-"
+        "pool analog of UnifiedMemoryManager.scala:49 + "
+        "CacheManager.scala.")
+
+FUZZ_SEEDS = register(
+    "spark_tpu.sql.fuzz.seeds", 64,
+    doc="Default seed count for the differential plan fuzzer "
+        "(testing/plan_fuzz.py): each seed generates one random "
+        "table set + query and runs it optimizer-on vs -off vs "
+        "per-rule-ablated.",
+    validator=lambda v: v > 0)
+
+FUZZ_MAX_ROWS = register(
+    "spark_tpu.sql.fuzz.maxRows", 40,
+    doc="Max rows per generated fuzz table (testing/plan_fuzz.py); "
+        "small tables keep a CPU campaign tractable while still "
+        "covering nulls, NaN/-0.0 floats, decimals and dictionary "
+        "strings.",
+    validator=lambda v: v > 0)

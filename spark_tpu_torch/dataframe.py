@@ -76,18 +76,65 @@ class DataFrame:
     def agg(self, *aggs) -> "DataFrame":
         return GroupedData(self, []).agg(*aggs)
 
-    def join(self, other: "DataFrame", how: str = "inner", left_on=None,
-             right_on=None, condition: Optional[Expression] = None
-             ) -> "DataFrame":
-        """Equi-join on `left_on`/`right_on` key expressions, with an
-        optional residual `condition` on the joined row. `how` is one of
-        inner, left, right, full, left_semi or left_anti."""
-        lk = [_expr(e) for e in (left_on if isinstance(left_on, (list, tuple))
-                                 else [left_on])]
-        rk = [_expr(e) for e in (right_on if isinstance(right_on, (list, tuple))
-                                 else [right_on])]
-        return self._with(L.Join(self.plan, other.plan, lk, rk, how,
-                                 condition))
+    _JOIN_ALIASES = {
+        "outer": "full", "full_outer": "full", "fullouter": "full",
+        "left_outer": "left", "leftouter": "left",
+        "right_outer": "right", "rightouter": "right",
+        "semi": "left_semi", "leftsemi": "left_semi",
+        "anti": "left_anti", "leftanti": "left_anti",
+    }
+
+    def cross_join(self, other: "DataFrame",
+                   condition: Optional[Expression] = None) -> "DataFrame":
+        """Cartesian product (reference: Dataset.crossJoin), lowered to a
+        constant-key equi-join so the expansion produces |L|x|R| rows."""
+        from .expr import Literal
+        one = Literal(1)
+        return self._with(L.Join(self.plan, other.plan, [one], [one],
+                                 "inner", condition))
+
+    crossJoin = cross_join
+
+    def join(self, other: "DataFrame", on=None, how: str = "inner",
+             left_on=None, right_on=None,
+             condition: Optional[Expression] = None) -> "DataFrame":
+        """Equi-join on the column name(s) `on` (USING semantics) or on
+        `left_on`/`right_on` key expressions, with an optional residual
+        `condition` on the joined row. `how` is one of inner, left,
+        right, full, left_semi, left_anti or cross, or an alias of one
+        (`_JOIN_ALIASES`)."""
+        how = self._JOIN_ALIASES.get(how, how)
+        if how == "cross":
+            return self.cross_join(other, condition)
+        names = None
+        if on is not None:
+            names = [on] if isinstance(on, str) else list(on)
+            lk = [ColumnRef(n) for n in names]
+            rk = [ColumnRef(n) for n in names]
+        else:
+            lk = [_expr(e) for e in (left_on if isinstance(left_on, (list, tuple))
+                                     else [left_on])]
+            rk = [_expr(e) for e in (right_on if isinstance(right_on, (list, tuple))
+                                     else [right_on])]
+        join = L.Join(self.plan, other.plan, lk, rk, how, condition)
+        if names is not None and how not in ("left_semi", "left_anti"):
+            # USING-join semantics (reference Dataset.join(df, usingColumns)):
+            # one output key column, the left one (coalesced with the
+            # right copy for right/full outer), right copies dropped
+            from .expr import Coalesce
+            name_map = join.right_name_map()
+            drop = {name_map[n] for n in names if n in name_map}
+            exprs: List[Expression] = []
+            for n in join.schema().names:
+                if n in drop:
+                    continue
+                if n in names and how in ("right", "full"):
+                    exprs.append(Alias(Coalesce(ColumnRef(n),
+                                                ColumnRef(name_map[n])), n))
+                else:
+                    exprs.append(ColumnRef(n))
+            return self._with(L.Project(join, exprs))
+        return self._with(join)
 
     def sort(self, *orders) -> "DataFrame":
         os = [o if isinstance(o, SortOrder) else

@@ -288,8 +288,12 @@ def _sorted_segment_reduce(contrib_sorted, reduce: str, starts_rows,
     each segment's float error is at the ulp of its own magnitude, not
     of the whole column's running total. Its add order differs from the
     JAX package's `associative_scan`, so float sums agree within
-    rounding, not bit for bit. start_pos/end_pos index each segment's
-    first/last sorted row; `present` masks empty segments."""
+    rounding, not bit for bit. That scan interleaves its halves by adding
+    zero-padded copies, so every float it returns is `x + 0.0`: a -0.0
+    sum, min or max comes out as +0.0, and so it does here (the JAX
+    package's dense path keeps -0.0 for min and max, as the port's
+    does). start_pos/end_pos index each segment's first/last sorted row;
+    `present` masks empty segments."""
     if reduce == "sum" and not contrib_sorted.is_floating_point():
         csum = torch.cumsum(contrib_sorted, 0)
         ex = csum - contrib_sorted  # exclusive prefix
@@ -297,6 +301,8 @@ def _sorted_segment_reduce(contrib_sorted, reduce: str, starts_rows,
         return torch.where(present, out, torch.zeros_like(out))
     scanned = _segmented_scan(contrib_sorted, starts_rows, _SCAN_OPS[reduce])
     out = scanned[end_pos]
+    if out.is_floating_point():
+        out = out + 0.0  # -0.0 -> +0.0, as the JAX package's scan gives
     if reduce == "sum":
         out = torch.where(present, out, torch.zeros_like(out))
     return out

@@ -20,6 +20,14 @@ at most `MAX_ATTEMPTS` times. After a converged run it shrinks the
 output capacity of every join a runtime filter pruned for (the
 reference's `_shrink_caps_from_rtf`), so node state — and the printed
 plan — match the JAX package's after a run.
+
+Two kinds of state outlive an execution, as in the JAX package. Scans
+load once per execution, before the re-plan loop, through the device
+table cache (`io/device_cache.py`), so every attempt and every later
+query over the same data reuses the loaded batches. And the capacities a
+converged run settled on are kept in `session._aqe_caps`, keyed by the
+optimized plan and its sources' identity stamps: the next execution of
+that plan starts from them and skips the re-plan attempts.
 """
 
 from __future__ import annotations
@@ -44,12 +52,19 @@ _REPLAN_FLAGS = ("join_overflow_", "join_nonunique_", "join_hashsat_",
                  "agg_overflow_")
 
 
+#: most plans `session._aqe_caps` keeps (plan strings are large)
+MAX_SAVED_PLANS = 256
+
+
 def run_plan(root: P.PhysicalPlan, ctx: P.ExecContext,
-             visit=None) -> Batch:
+             visit=None, loaded: Optional[Dict[int, Batch]] = None
+             ) -> Batch:
     """Compute `root` bottom-up, each node once however many parents
-    share it. `visit(node, compute)` wraps each node's computation when
-    given (a profiler's seam)."""
-    memo: Dict[int, Batch] = {}
+    share it. `loaded` maps node ids to batches computed already (the
+    scans `load_scans` loaded), which are not computed again.
+    `visit(node, compute)` wraps each node's computation when given (a
+    profiler's seam)."""
+    memo: Dict[int, Batch] = dict(loaded or {})
 
     def run(node: P.PhysicalPlan) -> Batch:
         out = memo.get(id(node))
@@ -79,6 +94,56 @@ def plan_nodes(root: P.PhysicalPlan, kind) -> List:
 
     walk(root)
     return out
+
+
+def load_scans(root: P.PhysicalPlan, conf, device) -> Dict[int, Batch]:
+    """Every ScanExec's batch, loaded once through the device table
+    cache, by node id (a scan that several parents share loads once)."""
+    from ..io.device_cache import load_scan
+    return {id(s): load_scan(s, conf, device)
+            for s in plan_nodes(root, P.ScanExec)}
+
+
+def collect_caps(root: P.PhysicalPlan) -> Dict[str, int]:
+    """Every re-plan state of a converged plan, keyed `kind:tag` (the
+    JAX package's `_collect_caps`): join output capacities, the
+    unique-build and hash fallbacks, exchange blocks and aggregate group
+    estimates."""
+    out: Dict[str, int] = {}
+    for j in plan_nodes(root, P.JoinExec):
+        if j.out_cap is not None:
+            out[f"join:{j.tag}"] = j.out_cap
+        if j.unique_build is False:
+            out[f"uniq:{j.tag}"] = 0
+        if j.hash_fallback is False:
+            out[f"hashfb:{j.tag}"] = 0
+    for e in plan_nodes(root, P.ExchangeExec):
+        if e.block_cap is not None:
+            out[f"exch:{e.tag}"] = e.block_cap
+    for a in plan_nodes(root, P.HashAggregateExec):
+        if a.est_groups:
+            out[f"agg:{a.tag}"] = a.est_groups
+    return out
+
+
+def apply_saved_caps(root: P.PhysicalPlan, caps: Dict[str, int]) -> None:
+    """Set the state `collect_caps` harvested on the nodes of a fresh
+    plan with the same tags (the JAX package's `_apply_saved_caps`)."""
+    joins = {j.tag: j for j in plan_nodes(root, P.JoinExec)}
+    exchanges = {e.tag: e for e in plan_nodes(root, P.ExchangeExec)}
+    aggs = {a.tag: a for a in plan_nodes(root, P.HashAggregateExec)}
+    for key, cap in caps.items():
+        kind, tag = key.split(":", 1)
+        if kind == "join" and tag in joins:
+            joins[tag].out_cap = cap
+        elif kind == "uniq" and tag in joins:
+            joins[tag].unique_build = False
+        elif kind == "hashfb" and tag in joins:
+            joins[tag].hash_fallback = False
+        elif kind == "exch" and tag in exchanges:
+            exchanges[tag].block_cap = cap
+        elif kind == "agg" and tag in aggs:
+            aggs[tag].est_groups = cap
 
 
 def apply_flags(root: P.PhysicalPlan, flags: List[str],
@@ -148,6 +213,9 @@ class QueryExecution:
         self.last_metrics: Dict[str, object] = {}
         #: runs the last execute_batch took (1 + re-plans)
         self.attempts = 0
+        #: per-(batch, rule) optimizer records (`RuleExecutor.trace`);
+        #: None until the optimizer ran for this execution
+        self.rule_trace: Optional[List[Dict]] = None
 
     def _activate_conf(self) -> None:
         from ..expr import set_case_sensitive
@@ -227,8 +295,9 @@ class QueryExecution:
             t0 = time.perf_counter()
             plan = self._resolve_scalar_subqueries(
                 self._apply_cache(self.analyzed))
-            self._optimized = default_optimizer(self.session.conf).execute(
-                plan)
+            optimizer = default_optimizer(self.session.conf)
+            self._optimized = optimizer.execute(plan)
+            self.rule_trace = optimizer.trace()
             self.phase_times["optimization"] = time.perf_counter() - t0
         return self._optimized
 
@@ -254,15 +323,37 @@ class QueryExecution:
                 # statement again computes a shared view once again
                 session._data_cache.clear()
 
+    def _aqe_cache_key(self) -> Optional[str]:
+        """Plan and data identity of the capacities `session._aqe_caps`
+        keeps (the JAX package's key at mesh size 1); None when a scan's
+        source has no identity stamp."""
+        tokens = [s.source.cache_token()
+                  for s in L.iter_scans(self.optimized_plan)]
+        if any(t is None for t in tokens):
+            return None
+        return (self.optimized_plan.tree_string()
+                + f"#mesh1#src{tokens!r}")
+
     def _execute_batch(self) -> Batch:
         root = self.executed_plan
-        conf = self.session.conf
+        session = self.session
+        conf = session.conf
         adaptive = bool(conf.get("spark_tpu.sql.adaptive.enabled"))
+        # seed the capacities an earlier execution of this plan over the
+        # same data converged on: repeated queries skip the re-plans
+        aqe_key = self._aqe_cache_key()
+        saved_caps = session._aqe_caps.get(aqe_key) \
+            if aqe_key is not None else None
+        if saved_caps:
+            apply_saved_caps(root, saved_caps)
+        t0 = time.perf_counter()
+        loaded = load_scans(root, conf, session.device)
+        self.phase_times["ingest"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         overflow: List[str] = []
         for attempt in range(MAX_ATTEMPTS):
-            ctx = P.ExecContext(conf, self.session.device)
-            out = run_plan(root, ctx)
+            ctx = P.ExecContext(conf, session.device)
+            out = run_plan(root, ctx, loaded=loaded)
             overflow = [k for k, v in ctx.flags.items()
                         if k.startswith(_REPLAN_FLAGS) and bool(v)]
             if not overflow:
@@ -286,6 +377,14 @@ class QueryExecution:
             for k, v in ctx.metrics.items()}
         if adaptive:
             shrink_caps_from_rtf(root, self.last_metrics)
+        if aqe_key is not None:
+            # merge, as the JAX package does, and bound the store
+            converged = collect_caps(root)
+            if converged:
+                store = session._aqe_caps
+                store.setdefault(aqe_key, {}).update(converged)
+                while len(store) > MAX_SAVED_PLANS:
+                    store.pop(next(iter(store)))
         self.phase_times["execute"] = time.perf_counter() - t0
         return out
 

@@ -11,7 +11,8 @@ chunked iterator is not ported yet.
 Sources also report statistics without loading rows: a row estimate,
 per-column min/max (`column_stats`, from Parquet footers, which the join
 reorder's cost model reads) and an identity stamp (`cache_token`, which
-keys statement-scoped materializations).
+keys statement-scoped materializations, the device table cache and the
+capacities kept across executions).
 """
 
 from __future__ import annotations

@@ -182,9 +182,16 @@ class ScanExec(LeafExec):
             return full
         return T.Schema([full.field(n) for n in self.required_columns])
 
-    def compute(self, ctx, inputs):
+    def load(self, device) -> Batch:
+        """This scan's batch, read from its source onto `device`."""
         return self.source.load(self.required_columns, self.pushed_filters,
-                                ctx.device)
+                                device)
+
+    def compute(self, ctx, inputs):
+        # the executor loads scans before it runs the plan; a plan run
+        # on its own (a profiler's pass) loads through the cache here
+        from ..io.device_cache import load_scan
+        return load_scan(self, ctx.conf, ctx.device)
 
     def simple_string(self):
         cols = "*" if self.required_columns is None else \

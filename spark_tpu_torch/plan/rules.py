@@ -2,15 +2,16 @@
 `spark_tpu/plan/rules.py`; reference: `catalyst/rules/RuleExecutor.scala`
 with per-rule effectiveness tracking a la `QueryPlanningTracker.scala:93`).
 
-The JAX package's plan-integrity validator and rule tracer hooks are not
-ported yet.
+`RuleExecutor.timings` keeps one record per (batch, rule) in the order
+rules first ran; `QueryExecution.rule_trace` reads it. The JAX package's
+plan-integrity validator is not ported yet.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from .logical import LogicalPlan
 
@@ -37,6 +38,8 @@ class Batch:
 
 @dataclass
 class RuleTiming:
+    batch: str
+    rule: str
     total_ns: int = 0
     invocations: int = 0
     effective: int = 0
@@ -45,7 +48,8 @@ class RuleTiming:
 class RuleExecutor:
     def __init__(self, batches: Sequence[Batch]):
         self.batches = list(batches)
-        self.timings: Dict[str, RuleTiming] = {}
+        #: (batch name, rule name) -> timing, in first-application order
+        self.timings: Dict[Tuple[str, str], RuleTiming] = {}
 
     def execute(self, plan: LogicalPlan) -> LogicalPlan:
         for batch in self.batches:
@@ -62,7 +66,10 @@ class RuleExecutor:
                 elapsed_ns = time.perf_counter_ns() - t0
                 effective = (new_plan is not plan
                              and not new_plan.same_result(plan))
-                t = self.timings.setdefault(rule.name, RuleTiming())
+                t = self.timings.get((batch.name, rule.name))
+                if t is None:
+                    t = self.timings[(batch.name, rule.name)] = \
+                        RuleTiming(batch.name, rule.name)
                 t.total_ns += elapsed_ns
                 t.invocations += 1
                 if effective:
@@ -77,3 +84,12 @@ class RuleExecutor:
                     f"batch {batch.name!r} did not converge in "
                     f"{batch.max_iterations} iterations")
         return plan
+
+    def trace(self) -> List[Dict]:
+        """One record per (batch, rule) in first-application order:
+        `{"batch", "rule", "invocations", "effective", "ms"}`, the JAX
+        package's `rule_trace` payload."""
+        return [{"batch": t.batch, "rule": t.rule,
+                 "invocations": t.invocations, "effective": t.effective,
+                 "ms": round(t.total_ns / 1e6, 3)}
+                for t in self.timings.values()]

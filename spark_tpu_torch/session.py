@@ -42,6 +42,9 @@ class SparkTpuSession:
         # materializations run their own); the outermost one's end ends
         # the statement
         self._exec_depth = 0
+        # plan + source stamps -> {kind:tag -> capacity} a converged run
+        # settled on; the next execution of the plan starts from them
+        self._aqe_caps: Dict[str, Dict[str, int]] = {}
 
     # -- statement-scoped materialization ---------------------------------
 
@@ -114,6 +117,14 @@ class SparkTpuSession:
             if any(s.source.name == name for s in L.iter_scans(plan)):
                 del self._cache_requests[fp]
                 self._data_cache.pop(fp, None)
+        # free the replaced source's device-resident batches: no key can
+        # reach them under the new source's stamp
+        old = self.catalog.get(name)
+        if old is not None:
+            token = old.cache_token()
+            if token is not None:
+                from .io.device_cache import CACHE
+                CACHE.invalidate_token(token)
         if isinstance(source_or_table, TableSource):
             self.catalog[name] = source_or_table
         elif isinstance(source_or_table, pa.Table):
