@@ -7,9 +7,10 @@
 Phases, in order; any failure exits non-zero before the last line.
 Phases 1 and 2 always run; `--phases` names the others, from PHASES:
 kernels (3), variants (4), main (5), sql (6), tpcds (7), window (8),
-fuzz (9). Each query of phases 5-8 runs twice: a first run, after the
-device table cache and the session's kept capacities are emptied, and a
-warm run, which reuses the cached scans and the kept capacities. Both
+fuzz (9), functions (10). Each query of phases 5-8 and 10 runs twice: a
+first run, after the device table cache and the session's kept
+capacities are emptied, and a warm run, which reuses the cached scans
+and the kept capacities. Both
 must pass the query's checks; each prints its wall time and re-plan
 attempts, and the cache's hits, misses, bytes and evictions after it.
 
@@ -23,9 +24,10 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    512 slots, 2 int and 2 float64 rows, 1% of the indices out of range;
    (d) 16M rows into 65,536 slots, 3 int rows; (e) 6M rows into 25 slots,
    4 int rows; (f) as (e) with one slot more than the private variant's
-   cut-off. Ints must be equal, floats within rtol 1e-12 of the plain
-   float64 sum (another order), and two runs of (c) must give equal float
-   sums. Each shape gives the wrapper's time (`ms`, CUDA events around
+   cut-off. Ints must equal the plain version's, floats lie within rtol
+   1e-12 of per-slot tree sums (`reference_sums`: the plain version's
+   atomic float adds drift further on large slots), and two runs of (c)
+   must give equal float sums. Each shape gives the wrapper's time (`ms`, CUDA events around
    one call) and the kernels' own device time (`kernel_ms`, CUDA events
    around the launches alone, queued behind a spin kernel so that the
    host's time is not counted);
@@ -84,8 +86,24 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    `matmul` campaign must launch it from at least one seed, so that the
    kernel is held against its plain version on random data. A failure
    or a cache entry on another device than its key's fails the phase.
+10. functions: the function-library programs of
+   `testing/function_queries.py` at SF1: F1 (lineitem moments: stddev,
+   variance, corr, covar, skewness, kurtosis and count_if by
+   (l_returnflag, l_linestatus), all sums, so `dense_sums_smem` with 11
+   int and 26 float rows), F2 (percentile, median, first/last,
+   bool_and/bool_or and date functions over 1994's lineitem by ship mode
+   and quarter) and F3 (13 string, date, math and bit functions over
+   TPC-DS customer joined to customer_address). Each a first and a warm
+   run through `session.sql`, as phases 6-7 run a query, both against
+   the pandas/numpy/scipy golden of `function_queries` (F1's moments
+   within the bound it derives from the data, other floats within rtol
+   1e-12, the rest exactly); F1 must launch `dense_sums_smem` in both
+   runs. Then F1 once more under `aggregate.kernelMode=scatter`, which
+   must launch no kernel and agree with the kernel's result within the
+   same bound: the kernel's float rows held against the plain path at
+   full width.
 Then the kernels are timed again on the exact inputs the first run of
-each query of phases 5-7 gave them.
+each query of phases 5-7 and 10 gave them.
 
 The line before the last is a JSON object with one entry per kernel and
 main-path input; the last line is `{"ok": true, "device": {...}}`, and
@@ -170,9 +188,14 @@ VARIANT_PAIRS = [(16, "private", "shared"), (32, "private", "shared"),
 SOURCE = "spark_tpu_torch/csrc/dense_groupby.cu"
 #: the phases `--phases` chooses from, in run order (device and build
 #: always run)
-PHASES = ("kernels", "variants", "main", "sql", "tpcds", "window", "fuzz")
+PHASES = ("kernels", "variants", "main", "sql", "tpcds", "window", "fuzz",
+          "functions")
 #: the phases that drive the package's main path (run_phases)
-MAIN_PHASES = ("main", "sql", "tpcds", "window", "fuzz")
+MAIN_PHASES = ("main", "sql", "tpcds", "window", "fuzz", "functions")
+#: the hand kernels each function-library program must launch at SF1
+#: (F2's and F3's aggregates and functions run as torch ops: the
+#: positional sort, the sort aggregate, the date and bit arithmetic)
+FUNCTION_KERNELS = {"f1": ("dense_sums_smem",), "f2": (), "f3": ()}
 #: phase 9's fuzz campaigns: (seeds, the generator's maxRows,
 #: spark_tpu.sql.aggregate.kernelMode on both sessions)
 FUZZ_RUNS = ((range(0, 200), 40, "auto"), (range(0, 50), 4096, "auto"),
@@ -264,8 +287,32 @@ def bound_ms(idx, n_rows: int, domain: int) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def reference_sums(D, idx, ints, floats, domain):
+    """What the kernels' sums are held to: the plain version's int sums
+    (exact in any order), and per-slot float sums by one `torch.sum`
+    over each slot's values, a blocked tree reduction. The plain
+    version's float sums are not the yardstick: `index_add_` adds one
+    value at a time into a slot's running total with atomics, so each
+    add rounds at the ulp of the total, and over the 1.5M rows of an F1
+    slot that drifts past rtol 1e-12 of the exact sum (6.45e-12 on an
+    H100 80GB HBM3). Returns (int sums, float sums, the plain version's
+    float sums)."""
+    import torch
+    plain = D.dense_groupby_sums_plain(idx, ints, floats, domain)
+    keep = (idx >= 0) & (idx < domain)
+    order = torch.argsort(torch.where(keep, idx, torch.full_like(idx, domain)),
+                          stable=True)
+    counts = torch.bincount(idx[keep].long(), minlength=domain).tolist()
+    tree = []
+    for row in floats:
+        parts = torch.split(row[order][:sum(counts)], counts)
+        tree.append(torch.stack([p.sum() for p in parts]))
+    return plain[0], tree, plain[1]
+
+
 def compare_sums(name, got, want) -> float:
-    """Ints equal, floats within FLOAT_RTOL; returns the max abs error."""
+    """Ints equal, floats within FLOAT_RTOL of `reference_sums`' tree
+    sums; returns the max abs error of the floats."""
     import torch
     err = 0.0
     for a, b in zip(got[0], want[0]):
@@ -277,6 +324,16 @@ def compare_sums(name, got, want) -> float:
             raise AssertionError(
                 f"{name}: float sums off by {float((a - b).abs().max())}")
         err = max(err, float((a - b).abs().max()))
+    return err
+
+
+def plain_float_error(want) -> float:
+    """Largest relative distance of the plain version's float sums from
+    the tree sums (reported, not checked)."""
+    err = 0.0
+    for plain, tree in zip(want[2], want[1]):
+        scale = tree.abs().clamp_min(1e-300)
+        err = max(err, float(((plain - tree).abs() / scale).max()))
     return err
 
 
@@ -417,7 +474,7 @@ def phase_kernels(D, strict: bool = True) -> list:
         if launches < 1:
             raise AssertionError(f"shape {label}: {kernel} never launched")
         err = compare_sums(f"shape {label}", got,
-                           D.dense_groupby_sums_plain(idx, ir, fr, domain))
+                           reference_sums(D, idx, ir, fr, domain))
         repeats = None
         if fr:
             again = D.dense_groupby_sums(idx, ir, fr, domain)
@@ -472,7 +529,7 @@ def phase_variants(D) -> None:
         plan = D.plan_variant(variant, domain, 1, 2)
         got = D.run_plan(plan, idx, fi, ff, domain)
         err = compare_sums(f"{variant} with floats", got,
-                           D.dense_groupby_sums_plain(idx, fi, ff, domain))
+                           reference_sums(D, idx, fi, ff, domain))
         again = D.run_plan(plan, idx, fi, ff, domain)
         if not all(torch.equal(a, b) for a, b in zip(got[1], again[1])):
             raise AssertionError(f"{variant}: float sums differ between "
@@ -792,8 +849,56 @@ def phase_fuzz(D, S) -> None:
                              f"{failures[0]}")
 
 
+def phase_functions(D, S, names, path, launches, current) -> None:
+    """Phase 10 for the programs `names` over the data at `path`: each a
+    first and a warm run against its golden (launches kept under
+    `functions <name>`), then F1 under kernelMode=scatter against the
+    kernel's result."""
+    from spark_tpu_torch.testing import function_queries as FQ
+    if FQ.SUITE[names[0]] == "tpch":
+        from spark_tpu_torch.tpch.queries import register_tables
+    else:
+        from spark_tpu_torch.tpcds.queries import register_tables
+    session = S.SparkTpuSession.builder().get_or_create()
+    register_tables(session, path)
+    results, bounds = {}, {}
+    for name in names:
+        def golden(runs, name=name):
+            t0 = time.perf_counter()
+            answer, bounds[name] = FQ.golden(name, path)
+            seconds = time.perf_counter() - t0
+            for run, got in zip(("first", "warm"), runs):
+                FQ.compare(got, answer, bounds[name],
+                           f"{name}'s {run} run against its golden")
+            return seconds
+        results[name], _warm = run_sql_query(
+            D, session, name, FQ.QUERIES[name], f"functions {name}",
+            FUNCTION_KERNELS[name], launches, current, golden)
+    if "f1" in names:
+        import numpy as np
+        import torch
+        plain = S.SparkTpuSession.builder().config(
+            AGG_MODE, "scatter").get_or_create()
+        register_tables(plain, path)
+        zero_launches(D)
+        got = plain.sql(FQ.QUERIES["f1"]).collect()
+        torch.cuda.synchronize()
+        if any(D.LAUNCHES.values()):
+            raise AssertionError(f"F1 under kernelMode=scatter launched a "
+                                 f"kernel: {D.LAUNCHES}")
+        FQ.compare_tables(got, results["f1"], bounds["f1"],
+                          "F1 under kernelMode=scatter against the kernel")
+        worst = max(float(np.nanmax(
+            np.abs(got.column(c).to_numpy(zero_copy_only=False)
+                   - results["f1"].column(c).to_numpy(zero_copy_only=False))
+            / bounds["f1"][c].to_numpy())) for c in FQ.F1_MOMENTS)
+        log(f"[functions] f1 under kernelMode=scatter: no kernel launched, "
+            f"agrees with dense_sums_smem's result (largest difference "
+            f"{worst:.3g} of its bound)")
+
+
 def run_phases(D, phases):
-    """The main-path phases chosen (5-9); returns the per-kernel launch
+    """The main-path phases chosen (5-10); returns the per-kernel launch
     counts of each query's first run and the kernel inputs each query's
     first run handed the wrapper (for timing at those shapes)."""
     import spark_tpu_torch as S
@@ -820,7 +925,7 @@ def run_phases(D, phases):
     D.dense_groupby_sums = recording
     launches = {}
     try:
-        if {"main", "sql"} & phases:
+        if {"main", "sql", "functions"} & phases:
             with tempfile.TemporaryDirectory() as tmp:
                 t0 = time.perf_counter()
                 path = write_parquet(tmp + "/tpch", SF)
@@ -832,9 +937,12 @@ def run_phases(D, phases):
                                                   current)
                 if "sql" in phases:
                     phase_sql(D, S, G, path, df_results, launches, current)
+                if "functions" in phases:
+                    phase_functions(D, S, ["f1", "f2"], path, launches,
+                                    current)
         if "main" in phases:
             phase_range(D, S, launches, current)
-        if {"tpcds", "window"} & phases:
+        if {"tpcds", "window", "functions"} & phases:
             from spark_tpu_torch.tpcds.datagen import write_parquet as ds
             with tempfile.TemporaryDirectory() as tmp:
                 t0 = time.perf_counter()
@@ -845,6 +953,8 @@ def run_phases(D, phases):
                     phase_tpcds(D, S, path, launches, current)
                 if "window" in phases:
                     phase_window(D, S, path)
+                if "functions" in phases:
+                    phase_functions(D, S, ["f3"], path, launches, current)
         if "fuzz" in phases:
             t0 = time.perf_counter()
             phase_fuzz(D, S)
@@ -1140,7 +1250,8 @@ def kernel_report(D, launches, captured, phases):
     """One entry per kernel and main-path input shape, measured on the
     inputs that query gave it: the DataFrame programs' of KERNEL_INPUTS
     (each must have been captured when phase 5 ran), then each TPC-H and
-    TPC-DS SQL query's that launched a kernel. `launches` counts all of
+    TPC-DS SQL query's and function-library program's that launched a
+    kernel. `launches` counts all of
     the query's launches of that kernel."""
     import torch
     entries = []
@@ -1149,21 +1260,26 @@ def kernel_report(D, launches, captured, phases):
     if missing:
         raise AssertionError(f"no kernel input captured for {missing}")
     sql = [(name, label) for label, name in captured
-           if label.startswith(("sql ", "tpcds "))]
+           if label.startswith(("sql ", "tpcds ", "functions "))]
     inputs = [(name, q, x) for name, q in programs + sql
               for x in captured[(q, name)].values()]
     for name, q, (idx, ir, fr, domain) in inputs:
         got = D.dense_groupby_sums(idx, ir, fr, domain)
         torch.cuda.synchronize()
-        err = compare_sums(f"{name} on {q} inputs", got,
-                           D.dense_groupby_sums_plain(idx, ir, fr, domain))
+        want = reference_sums(D, idx, ir, fr, domain)
+        err = compare_sums(f"{name} on {q} inputs", got, want)
         t = measure(D, idx, ir, fr, domain)
         b, by = bound_ms(idx, len(ir) + len(fr), domain)
         log(f"[report] {name} on {q}'s inputs: n={idx.shape[0]} "
             f"domain={domain} int_rows={len(ir)} float_rows={len(fr)} "
             f"ms={t['ms']:.4f} kernel_ms={t['kernel_ms']:.4f} "
             f"bound_ms={b:.4f} share={b / t['kernel_ms']:.3f} "
-            f"launches={launches[q][name]}")
+            f"plain_ms={t['plain_ms']:.4f} "
+            f"library_ms={t['library_ms']:.4f} "
+            f"launches={launches[q][name]}"
+            + (f"; float sums within {err:.3g} of the tree sums, the "
+               f"plain version's within {plain_float_error(want):.3g} "
+               "relative" if fr else ""))
         entries.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[q][name],

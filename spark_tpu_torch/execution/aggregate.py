@@ -13,6 +13,8 @@ hand-written CUDA kernels of `dense_groupby.py`.
 Keys without such a domain (Q3's `l_orderkey`) take the sort-based
 general strategy, `sort_aggregate`: one stable sort by the keys, then
 per-segment reductions read off prefix sums and segmented scans.
+Percentile and median sort by (keys, value) instead and gather
+(`positional_sort`, `positional_percentile`).
 """
 
 from __future__ import annotations
@@ -420,3 +422,87 @@ def sort_aggregate(key_vecs: Sequence[Vec],
         key_valids.append(None if null_sorted is None else
                           scatter(first, ~null_sorted, True, torch.bool))
     return key_arrays, key_valids, accs, occupied_cnt > 0, total_groups
+
+
+# ---------------------------------------------------------------------------
+# Positional aggregates: percentile/median (reference: Percentile.scala,
+# ApproximatePercentile.scala:1 — ObjectHashAggregate's serialized
+# per-group state becomes ONE device sort by (group keys, value) and
+# positional gathers)
+# ---------------------------------------------------------------------------
+
+def positional_sort(key_vecs: Sequence[Vec], value_vec: Vec, sel,
+                    capacity: int):
+    """Sort rows by (liveness, group keys, value-null-last, value), the
+    value in `lax.sort`'s float order (-0.0 tied to +0.0, NaN above
+    +inf). Returns (values_sorted, value_valid_sorted, gid, gstart):
+    each sorted row's group id (`capacity` for dead rows) and each
+    group's first sorted row. Group ORDER depends only on the keys, so
+    several positional sorts (different value children) and a
+    sort_aggregate over the same keys align group for group."""
+    from .sort import stable_permutation
+    device = sel.device if sel is not None else value_vec.data.device
+
+    def full(t):
+        return t.expand((capacity,)) if t.dim() == 0 else t
+
+    invalid = torch.zeros((capacity,), dtype=torch.int8, device=device) \
+        if sel is None else (~sel).to(torch.int8)
+    operands = [invalid]
+    for vec in key_vecs:
+        data = full(vec.data)
+        if vec.validity is not None:
+            valid = full(vec.validity)
+            operands.append((~valid).to(torch.int8))
+            data = torch.where(valid, data, torch.zeros_like(data))
+        operands.append(data)
+    vinvalid = torch.zeros((capacity,), dtype=torch.int8, device=device) \
+        if value_vec.validity is None else \
+        (~full(value_vec.validity)).to(torch.int8)
+    operands.append(vinvalid)  # null values sort to the group tail
+    operands.append(full(value_vec.data))
+    perm = stable_permutation([_sort_operand(op) for op in operands],
+                              capacity, device)
+    sorted_ops = [op[perm] for op in operands]
+    valid_sorted = sorted_ops[0] == 0
+    values_sorted = sorted_ops[-1]
+    vvalid_sorted = (sorted_ops[-2] == 0) & valid_sorted
+
+    # group starts: IEEE != on the key operands, as the JAX package
+    # compares them
+    diff = torch.zeros((capacity,), dtype=torch.bool, device=device)
+    for op in sorted_ops[1:-2]:
+        diff = diff | (op != torch.roll(op, 1))
+    pos = torch.arange(capacity, device=device)
+    starts = ((pos == 0) | diff) & valid_sorted
+    gid = torch.cumsum(starts.to(torch.int64), 0) - 1
+    gid = torch.where(valid_sorted, gid, torch.full_like(gid, capacity))
+    # GROUP-indexed first-row position (slot g -> group g's start)
+    sidx = torch.where(starts, gid.clamp(0, capacity),
+                       torch.full_like(gid, capacity))
+    gstart = torch.zeros((capacity + 1,), dtype=torch.int64, device=device)
+    gstart[sidx] = pos
+    return values_sorted, vvalid_sorted, gid, gstart[:capacity]
+
+
+def positional_percentile(values_sorted, vvalid_sorted, gid, gstart,
+                          num_segments: int, q: float, capacity: int):
+    """Exact per-group percentile with linear interpolation (the
+    reference's Percentile): each group's values sit contiguously with
+    nulls at the tail, so the q-quantile is two gathers and a lerp.
+    `gstart` is GROUP-indexed. Returns (values, valid)."""
+    device = values_sorted.device
+    cnt = torch.zeros((num_segments + 1,), dtype=torch.int64, device=device)
+    cnt.index_add_(0, gid.clamp(0, num_segments),
+                   vvalid_sorted.to(torch.int64))
+    cnt = cnt[:num_segments]
+    gstart = gstart[:num_segments]
+    vals = values_sorted.to(torch.float64)
+    idx = (cnt - 1).to(torch.float64) * q
+    lo = torch.floor(idx).to(torch.int64).clamp_min(0)
+    hi = torch.ceil(idx).to(torch.int64).clamp_min(0)
+    safe = gstart.clamp(0, capacity - 1)
+    v_lo = vals[(safe + lo).clamp(0, capacity - 1)]
+    v_hi = vals[(safe + hi).clamp(0, capacity - 1)]
+    frac = idx - lo.to(torch.float64)
+    return v_lo + (v_hi - v_lo) * frac, cnt > 0

@@ -295,6 +295,10 @@ class HashAggregateExec(UnaryExec):
         base = self.child.schema()
         sel = batch.selection
 
+        if any(getattr(a.func, "positional", False)
+               for a in self.agg_exprs):
+            return self._compute_positional(ctx, batch, base)
+
         key_vecs = [g.eval(batch) for g in self.group_exprs]
         specs = [a.func.accumulators(base) for a in self.agg_exprs]
         contribs = [a.func.update(batch, sel) for a in self.agg_exprs]
@@ -340,10 +344,65 @@ class HashAggregateExec(UnaryExec):
             cols[g.name()] = Column(arr, vec.dtype, kv, vec.dictionary)
         for i, a in enumerate(self.agg_exprs):
             data, validity = a.func.device_finalize(accs[i], base)
-            cols[a.out_name] = Column(data, a.func.result_type(base),
-                                      validity)
+            cols[a.out_name] = Column(
+                data, a.func.result_type(base), validity,
+                getattr(a.func, "output_dictionary", None))
         ctx.add_metric("agg_groups", occupied.sum())
         return Batch(cols, occupied, ctx.device)
+
+    def _compute_positional(self, ctx, batch: Batch, base) -> Batch:
+        """Aggregates with percentile/median (Percentile.scala,
+        ApproximatePercentile.scala:1): one complete pass over a (group
+        keys, value) sort per distinct value child. Regular functions
+        in the same SELECT ride a sort_aggregate over the SAME key
+        order, so all output columns align group for group."""
+        from ..expr import cast_vec
+        sel = batch.selection
+        cap = batch.capacity
+        key_vecs = [g.eval(batch) for g in self.group_exprs]
+        num_segments = cap
+
+        regular = [(i, a) for i, a in enumerate(self.agg_exprs)
+                   if not getattr(a.func, "positional", False)]
+        specs = [a.func.accumulators(base) for _, a in regular]
+        contribs = [a.func.update(batch, sel) for _, a in regular]
+        (key_arrays, key_valids, accs, occupied,
+         _total) = agg_kernels.sort_aggregate(
+            key_vecs, contribs, specs, sel, cap, num_segments=num_segments)
+        if not self.group_exprs:
+            occupied = torch.arange(num_segments, device=ctx.device) < 1
+            key_arrays, key_valids = [], []
+
+        out_cols: Dict[str, Column] = {}
+        for g, vec, arr, kv in zip(self.group_exprs, key_vecs, key_arrays,
+                                   key_valids):
+            out_cols[g.name()] = Column(arr, vec.dtype, kv, vec.dictionary)
+
+        results: Dict[int, Column] = {}
+        for j, (i, a) in enumerate(regular):
+            data, validity = a.func.device_finalize(accs[j], base)
+            results[i] = Column(data, a.func.result_type(base), validity,
+                                getattr(a.func, "output_dictionary", None))
+
+        sorts = {}  # value child repr -> positional_sort outputs
+        for i, a in enumerate(self.agg_exprs):
+            f = a.func  # Percentile or Median, the positional aggregates
+            if not getattr(f, "positional", False):
+                continue
+            skey = repr(f.child)
+            if skey not in sorts:
+                vec = cast_vec(f.child.eval(batch), T.DOUBLE)
+                sorts[skey] = agg_kernels.positional_sort(
+                    key_vecs, vec, sel, cap)
+            vals_s, vvalid_s, gid, gstart = sorts[skey]
+            out, ok = agg_kernels.positional_percentile(
+                vals_s, vvalid_s, gid, gstart, num_segments, f.q, cap)
+            results[i] = Column(out, T.DOUBLE, ok & occupied)
+
+        for i, a in enumerate(self.agg_exprs):
+            out_cols[a.out_name] = results[i]
+        ctx.add_metric("agg_groups", occupied.sum())
+        return Batch(out_cols, occupied, ctx.device)
 
     def required_child_distributions(self):
         if not self.group_exprs:

@@ -102,6 +102,8 @@ def _convert(plan: L.LogicalPlan, conf: Conf) -> P.PhysicalPlan:
         rows = estimate_rows(plan.child)
         if rows is not None:
             est = min(est, bucket_capacity(max(1, rows)))
+        # complete mode always: one device needs no partial/final split,
+        # and positional aggregates (percentile/median) have none
         return P.HashAggregateExec(child, plan.group_exprs, plan.agg_exprs,
                                    mode="complete", est_groups=est)
     if isinstance(plan, L.Sort):

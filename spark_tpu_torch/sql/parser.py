@@ -36,9 +36,12 @@ from ..expr import (Alias, AnalysisError, And, CaseWhen, Cast, ColumnRef, EQ,
                     Expression, ExtractYear, GE, GT, In, IsNull, LE, LT, Like,
                     Literal, Mod, NE, Neg, Not, Or, SortOrder, Substring,
                     date_literal)
-from ..expr_agg import (AggExpr, AggregateFunction, Avg, AvgDistinct,
-                        Count, CountDistinct, Max, Min, NotPortedAggregate,
-                        Sum, SumDistinct)
+from ..expr_agg import (AggExpr, AggregateFunction, AnyValue, Avg,
+                        AvgDistinct, BoolAnd, BoolOr, Corr, Count,
+                        CountDistinct, CountIf, CovarPop, CovarSamp, First,
+                        Kurtosis, Last, Max, Median, Min, NotPortedAggregate,
+                        Percentile, Skewness, StddevPop, StddevSamp, Sum,
+                        SumDistinct, VariancePop, VarianceSamp)
 from ..plan import logical as L
 from .lexer import ParseError, Token, tokenize
 
@@ -650,21 +653,27 @@ class Parser:
             return T.DecimalType(p, s)
         raise ParseError(f"unknown type {name!r}")
 
-    _AGGS = {"SUM": Sum, "AVG": Avg, "MEAN": Avg, "MIN": Min, "MAX": Max}
+    _AGGS = {"SUM": Sum, "AVG": Avg, "MEAN": Avg, "MIN": Min, "MAX": Max,
+             "STDDEV": StddevSamp, "STDDEV_SAMP": StddevSamp,
+             "STDDEV_POP": StddevPop, "VARIANCE": VarianceSamp,
+             "VAR_SAMP": VarianceSamp, "VAR_POP": VariancePop}
 
     #: DISTINCT-capable rewrite markers (RewriteDistinctAggregates)
     _DISTINCT_AGGS = {"SUM": SumDistinct, "AVG": AvgDistinct,
                       "MEAN": AvgDistinct}
 
-    #: aggregates the JAX package computes whose accumulators the port
-    #: has not yet (single-argument, two-argument, positional)
-    _AGGS_NOT_PORTED = {
-        "STDDEV", "STDDEV_SAMP", "STDDEV_POP", "VARIANCE", "VAR_SAMP",
-        "VAR_POP", "FIRST", "FIRST_VALUE", "LAST", "LAST_VALUE",
-        "ANY_VALUE", "SKEWNESS", "KURTOSIS", "BOOL_AND", "EVERY", "BOOL_OR",
-        "ANY", "SOME", "COUNT_IF", "CORR", "COVAR_SAMP", "COVAR_POP",
-        "PERCENTILE", "PERCENTILE_APPROX", "APPROX_PERCENTILE", "MEDIAN",
-        "COLLECT_LIST", "COLLECT_SET", "ARRAY_AGG"}
+    #: single-argument extended aggregates
+    _AGGS_EXT = {"FIRST": First, "FIRST_VALUE": First, "LAST": Last,
+                 "LAST_VALUE": Last, "ANY_VALUE": AnyValue,
+                 "SKEWNESS": Skewness, "KURTOSIS": Kurtosis,
+                 "BOOL_AND": BoolAnd, "EVERY": BoolAnd, "BOOL_OR": BoolOr,
+                 "ANY": BoolOr, "SOME": BoolOr, "COUNT_IF": CountIf}
+
+    #: two-argument aggregates (corr/covar)
+    _AGGS2 = {"CORR": Corr, "COVAR_SAMP": CovarSamp, "COVAR_POP": CovarPop}
+
+    #: aggregates the JAX package computes that wait for array columns
+    _AGGS_NOT_PORTED = {"COLLECT_LIST", "COLLECT_SET", "ARRAY_AGG"}
 
     def parse_function(self) -> Expression:
         name = self._ident().upper()
@@ -692,6 +701,31 @@ class Parser:
             e = self.parse_expr()
             self.expect_op(")")
             return _AggCall(self._AGGS[name](e))
+        if name in self._AGGS_EXT:
+            e = self.parse_expr()
+            self.expect_op(")")
+            return _AggCall(self._AGGS_EXT[name](e))
+        if name in self._AGGS2:
+            x = self.parse_expr()
+            self.expect_op(",")
+            y = self.parse_expr()
+            self.expect_op(")")
+            return _AggCall(self._AGGS2[name](x, y))
+        if name in ("PERCENTILE", "PERCENTILE_APPROX",
+                    "APPROX_PERCENTILE"):
+            e = self.parse_expr()
+            self.expect_op(",")
+            q = self.parse_expr()
+            if not isinstance(q, Literal):
+                raise ParseError(f"{name} fraction must be a literal")
+            if self.eat_op(","):
+                self.parse_expr()  # accuracy: exact anyway
+            self.expect_op(")")
+            return _AggCall(Percentile(e, float(q.value)))
+        if name == "MEDIAN":
+            e = self.parse_expr()
+            self.expect_op(")")
+            return _AggCall(Median(e))
         if name in self._AGGS_NOT_PORTED:
             args = [self.parse_expr()]
             while self.eat_op(","):
