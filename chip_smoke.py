@@ -7,7 +7,8 @@
 Phases, in order; any failure exits non-zero before the last line.
 Phases 1 and 2 always run; `--phases` names the others, from PHASES:
 kernels (3), variants (4), main (5), sql (6), tpcds (7), window (8),
-fuzz (9), functions (10). Each query of phases 5-8 and 10 runs twice: a
+fuzz (9), functions (10), etl (11). Each query of phases 5-8, 10 and
+11's aggregates runs twice: a
 first run, after the device table cache and the session's kept
 capacities are emptied, and a warm run, which reuses the cached scans
 and the kept capacities. Both
@@ -102,8 +103,30 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    must launch no kernel and agree with the kernel's result within the
    same bound: the kernel's float rows held against the plain path at
    full width.
+11. etl, on phase 5's TPC-H SF1 tables, every step held to its answer:
+   the warehouse (`CREATE TABLE li_94 AS SELECT` Q1's columns of 1994's
+   lineitem, `INSERT INTO li_94 SELECT` 1995's, Q1 over li_94 against
+   pandas over the two years, launching `dense_sums_smem`; a fresh
+   session over the warehouse gives the same bytes; SHOW TABLES,
+   DESCRIBE and DROP TABLE); `cache()` of 1993-1996's lineitem, a
+   Q1-shaped aggregate and a join to orders over it with the bytes they
+   give without cache(), `__cached__` scans and a rising hit counter,
+   `l_partkey, count(*)` against pandas, and Parquet plans again after
+   `unpersist()`; `write.parquet` of orders x customer in every mode,
+   read back; lineitem written as CSV and read with `read_csv`, Q1 and
+   Q6 over it against pandas on the same Arrow table within rtol 1e-9
+   (float columns: both launch `dense_sums_smem`); orders as JSON lines
+   through `read_json`, counted and summed by status against pandas;
+   `collect_list(l_linenumber)` and `collect_set(l_shipmode)` by
+   l_orderkey (1,500,000 groups, 6,001,215 elements) against pandas'
+   sorted lists and sets, size/element_at/array_contains over them, and
+   `explode` back to lineitem's multiset; a count-min sketch of
+   l_partkey equal to a CPU session's bit for bit and within eps*N, a
+   Bloom filter of l_orderkey without false negatives; and
+   `explain(extended=True, runtime=True)` of SQL Q5 with every section,
+   rows out on every operator and `[joins]` agreeing with `reorder:`.
 Then the kernels are timed again on the exact inputs the first run of
-each query of phases 5-7 and 10 gave them.
+each query of phases 5-7, 10 and 11 gave them.
 
 The line before the last is a JSON object with one entry per kernel and
 main-path input; the last line is `{"ok": true, "device": {...}}`, and
@@ -189,9 +212,9 @@ SOURCE = "spark_tpu_torch/csrc/dense_groupby.cu"
 #: the phases `--phases` chooses from, in run order (device and build
 #: always run)
 PHASES = ("kernels", "variants", "main", "sql", "tpcds", "window", "fuzz",
-          "functions")
+          "functions", "etl")
 #: the phases that drive the package's main path (run_phases)
-MAIN_PHASES = ("main", "sql", "tpcds", "window", "fuzz", "functions")
+MAIN_PHASES = ("main", "sql", "tpcds", "window", "fuzz", "functions", "etl")
 #: the hand kernels each function-library program must launch at SF1
 #: (F2's and F3's aggregates and functions run as torch ops: the
 #: positional sort, the sort aggregate, the date and bit arithmetic)
@@ -897,6 +920,499 @@ def phase_functions(D, S, names, path, launches, current) -> None:
             f"{worst:.3g} of its bound)")
 
 
+#: phase 11's lineitem columns for the warehouse table and the cached
+#: frame (Q1's, and the keys its joins and counts read)
+ETL_Q1_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity",
+                  "l_extendedprice", "l_discount", "l_tax", "l_shipdate")
+ETL_CACHED_COLUMNS = ("l_orderkey", "l_partkey") + ETL_Q1_COLUMNS
+#: the hand kernels each phase-11 aggregate must launch at SF1
+ETL_KERNELS = {"etl warehouse q1": ("dense_sums_smem",),
+               "etl cached q1": ("dense_sums_smem",),
+               "etl csv q1": ("dense_sums_smem",),
+               "etl csv q6": ("dense_sums_smem",)}
+ETL_SEED = 42
+
+
+def year_filter(lo: str, hi: str) -> str:
+    return (f"l_shipdate >= date '{lo}' AND l_shipdate < date '{hi}'")
+
+
+def q1_pandas(l):
+    """TPC-H Q1's aggregate over the pandas frame `l` (floats), rows
+    already filtered, in the engine's column order and sort."""
+    l = l.assign(disc_price=l["l_extendedprice"] * (1 - l["l_discount"]),
+                 charge=l["l_extendedprice"] * (1 - l["l_discount"])
+                 * (1 + l["l_tax"]))
+    out = (l.groupby(["l_returnflag", "l_linestatus"], as_index=False)
+           .agg(sum_qty=("l_quantity", "sum"),
+                sum_base_price=("l_extendedprice", "sum"),
+                sum_disc_price=("disc_price", "sum"),
+                sum_charge=("charge", "sum"),
+                avg_qty=("l_quantity", "mean"),
+                avg_price=("l_extendedprice", "mean"),
+                avg_disc=("l_discount", "mean"),
+                count_order=("l_quantity", "size")))
+    return out.sort_values(["l_returnflag", "l_linestatus"]) \
+        .reset_index(drop=True)
+
+
+def timed(fn):
+    import torch
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def etl_query(D, session, label, make, launches, current):
+    """One phase-11 aggregate as phases 6-7 run a query: a first run
+    after `reset_state` and a warm run, each launching the kernels
+    ETL_KERNELS names, then its breakdown; returns the first run's
+    result."""
+    first, warm = first_and_warm(D, session, make, current, label)
+    launches[label] = first[3]
+    kernels = ETL_KERNELS.get(label, ())
+    require_kernels(label, kernels, first[3])
+    require_kernels(f"{label}'s warm run", kernels, warm[3])
+    tables_match(f"{label}'s warm run against its first", warm[0], first[0])
+    log(f"[etl] {label}: {first[0].num_rows} rows; {runs_text(first, warm)}"
+        f"; launches {first[3]}")
+    log(f"[breakdown] {label}: {breakdown(make())}")
+    return first[0]
+
+
+def phase_etl(D, S, path, launches, current) -> None:
+    """Phase 11 on the TPC-H SF1 tables at `path`: the warehouse (CTAS,
+    INSERT, Q1 over the table, a fresh session, SHOW/DESCRIBE/DROP),
+    cache(), the writer and the CSV/JSON readers, arrays, the sketches
+    and explain. Every step checks its answer."""
+    import os
+    with tempfile.TemporaryDirectory() as tmp:
+        session = S.SparkTpuSession.builder() \
+            .config("spark_tpu.sql.warehouse.dir", tmp + "/warehouse") \
+            .config("spark_tpu.sql.checkpoint.dir", tmp + "/checkpoints") \
+            .get_or_create()
+        from spark_tpu_torch.tpch.queries import register_tables
+        register_tables(session, path)
+        t0 = time.perf_counter()
+        etl_warehouse(D, S, session, path, tmp, launches, current)
+        log(f"[etl] warehouse steps in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        etl_cache(D, session, path, launches, current)
+        log(f"[etl] cache() steps in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        etl_io(D, S, session, path, tmp, launches, current)
+        log(f"[etl] writer and reader steps in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        etl_arrays(session, path)
+        log(f"[etl] array steps in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        etl_sketches(S, session, path)
+        log(f"[etl] sketch steps in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        etl_explain(session)
+        log(f"[etl] explain in {time.perf_counter() - t0:.1f} s")
+        if os.path.exists(os.path.join(tmp, "warehouse", "li_94")):
+            raise AssertionError("DROP TABLE left li_94's directory")
+
+
+def etl_warehouse(D, S, session, path, tmp, launches, current) -> None:
+    import os
+    import pandas as pd
+    from spark_tpu_torch.tpch import golden as G
+    from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
+    cols = ", ".join(ETL_Q1_COLUMNS)
+    _, ctas_s = timed(lambda: session.sql(
+        f"CREATE TABLE li_94 AS SELECT {cols} FROM lineitem WHERE "
+        + year_filter("1994-01-01", "1995-01-01")))
+    _, insert_s = timed(lambda: session.sql(
+        f"INSERT INTO li_94 SELECT {cols} FROM lineitem WHERE "
+        + year_filter("1995-01-01", "1996-01-01")))
+    text = SQL_QUERIES["q1"].replace("lineitem", "li_94")
+    got = etl_query(D, session, "etl warehouse q1",
+                    lambda: session.sql(text), launches, current)
+    l = G._read(path, "lineitem")
+    two_years = l[(l["l_shipdate"] >= pd.Timestamp("1994-01-01").date())
+                  & (l["l_shipdate"] < pd.Timestamp("1996-01-01").date())]
+    want = q1_pandas(two_years)
+    G.compare(G.normalize_decimals(got.to_pandas()), want)
+    rows = int(want["count_order"].sum())
+    log(f"[etl] CREATE TABLE li_94 AS SELECT (1994) {ctas_s:.3f} s, "
+        f"INSERT INTO li_94 SELECT (1995) {insert_s:.3f} s; Q1 over li_94 "
+        f"({rows} rows) matches pandas")
+    fresh = S.SparkTpuSession.builder().config(
+        "spark_tpu.sql.warehouse.dir", tmp + "/warehouse").get_or_create()
+    again, fresh_s = timed(lambda: fresh.sql(text).collect())
+    if not again.equals(got):
+        raise AssertionError("a fresh session over the warehouse differs")
+    tables = session.sql("SHOW TABLES").to_pandas()
+    want_tables = sorted([("li_94", False)] + [
+        (n, True) for n in ("lineitem", "orders", "customer", "supplier",
+                            "nation", "region", "part", "partsupp")])
+    if sorted(zip(tables["tableName"], tables["isTemporary"])) \
+            != want_tables:
+        raise AssertionError(f"SHOW TABLES: {tables.to_dict('list')}")
+    desc = session.sql("DESCRIBE li_94").to_pandas()
+    want_desc = [("l_returnflag", "string"), ("l_linestatus", "string"),
+                 ("l_quantity", "DecimalType(precision=19, scale=2)"),
+                 ("l_extendedprice", "DecimalType(precision=19, scale=2)"),
+                 ("l_discount", "DecimalType(precision=19, scale=2)"),
+                 ("l_tax", "DecimalType(precision=19, scale=2)"),
+                 ("l_shipdate", "date")]
+    if list(zip(desc["col_name"], desc["data_type"])) != want_desc:
+        raise AssertionError(f"DESCRIBE li_94: {desc.to_dict('list')}")
+    session.sql("DROP TABLE li_94")
+    if os.path.exists(os.path.join(tmp, "warehouse", "li_94")) \
+            or "li_94" in session.catalog:
+        raise AssertionError("DROP TABLE li_94 left the table behind")
+    log(f"[etl] a fresh session reads the same bytes ({fresh_s:.3f} s); "
+        f"SHOW TABLES and DESCRIBE li_94 as expected; DROP TABLE removed "
+        f"its directory")
+
+
+def etl_cache(D, session, path, launches, current) -> None:
+    import numpy as np
+    import pandas as pd
+    from spark_tpu_torch import functions as F
+    from spark_tpu_torch.functions import col, to_date
+    from spark_tpu_torch.tpch import golden as G
+
+    def frame():
+        return session.table("lineitem").filter(
+            (col("l_shipdate") >= to_date("1993-01-01"))
+            & (col("l_shipdate") < to_date("1997-01-01"))).select(
+            *[col(c) for c in ETL_CACHED_COLUMNS])
+
+    def q1_shape(df):
+        disc = col("l_extendedprice") * (F.lit(1) - col("l_discount"))
+        return df.group_by(col("l_returnflag"), col("l_linestatus")).agg(
+            F.sum(col("l_quantity")).alias("sum_qty"),
+            F.sum(disc).alias("sum_disc_price"),
+            F.avg(col("l_discount")).alias("avg_disc"),
+            F.count().alias("count_order")) \
+            .sort(col("l_returnflag"), col("l_linestatus"))
+
+    def with_orders(df):
+        return df.join(session.table("orders"), left_on="l_orderkey",
+                       right_on="o_orderkey") \
+            .group_by(col("o_orderpriority")).agg(
+                F.sum(col("l_extendedprice")).alias("revenue"),
+                F.count().alias("lines")).sort(col("o_orderpriority"))
+
+    plain = {"q1": q1_shape(frame()).collect(),
+             "orders": with_orders(frame()).collect()}
+    cached = frame().cache()
+    hits = session.result_cache_hits
+    _, fill_s = timed(lambda: cached.count())
+    results = {}
+    for name, build in (("q1", q1_shape), ("orders", with_orders)):
+        planned = session.result_cache_hits
+        qe = build(cached)._qe()
+        if "ScanExec(__cached__" not in qe.executed_plan.tree_string():
+            raise AssertionError(f"cached {name} does not scan __cached__")
+        if session.result_cache_hits != planned:
+            raise AssertionError("planning alone counted a cache hit")
+        label = f"etl cached {name}"
+        results[name] = etl_query(D, session, label,
+                                  lambda: build(cached), launches, current)
+        # the cached table holds decimals at egress precision (19, as
+        # in the JAX package), so decimal sums over it type wider: the
+        # values must be the same bytes at the uncached types
+        if not results[name].cast(plain[name].schema).equals(plain[name]):
+            raise AssertionError(f"cached {name} differs from the run "
+                                 "without cache()")
+    if session.result_cache_hits <= hits:
+        raise AssertionError("the cache hit counter did not rise")
+    log(f"[etl] cache(): 1993-1996 lineitem materialized in {fill_s:.3f} s "
+        f"({session._data_cache.nbytes} bytes); the Q1-shaped aggregate "
+        f"and the join to orders give the bytes they give without "
+        f"cache() (decimal sums typed "
+        f"{results['q1'].schema.field('sum_qty').type} against "
+        f"{plain['q1'].schema.field('sum_qty').type}); "
+        f"{session.result_cache_hits - hits} cache hits")
+    counts = etl_query(
+        D, session, "etl cached partkey",
+        lambda: cached.group_by(col("l_partkey")).agg(
+            F.count().alias("n")).sort(col("l_partkey")),
+        launches, current)
+    l = G._read(path, "lineitem")
+    keys = l["l_partkey"].to_numpy()[
+        (l["l_shipdate"] >= pd.Timestamp("1993-01-01").date())
+        & (l["l_shipdate"] < pd.Timestamp("1997-01-01").date())]
+    uniq, n = np.unique(keys, return_counts=True)
+    if not (np.array_equal(counts.column("l_partkey").to_numpy(), uniq)
+            and np.array_equal(counts.column("n").to_numpy(), n)):
+        raise AssertionError("l_partkey counts over the cached frame differ "
+                             "from pandas")
+    log(f"[etl] l_partkey counts over the cached frame ({len(uniq)} keys) "
+        f"match pandas; kernels {launches['etl cached partkey']}")
+    cached.unpersist()
+    plan = q1_shape(frame())._qe().executed_plan.tree_string()
+    if "__cached__" in plan or "ScanExec(lineitem" not in plan:
+        raise AssertionError(f"after unpersist() the plan is\n{plan}")
+    log("[etl] after unpersist() the query plans from Parquet again")
+
+
+def etl_io(D, S, session, path, tmp, launches, current) -> None:
+    import os
+    import numpy as np
+    import pandas as pd
+    import pyarrow as pa
+    import pyarrow.csv as pa_csv
+    import pyarrow.parquet as pq
+    from spark_tpu_torch import functions as F
+    from spark_tpu_torch.functions import col
+    from spark_tpu_torch.tpch import golden as G
+    from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
+    joined = session.sql(
+        "SELECT o_orderkey, o_custkey, o_totalprice, o_orderdate, "
+        "o_orderpriority, c_name, c_mktsegment FROM orders JOIN customer "
+        "ON o_custkey = c_custkey")
+    table, query_s = timed(lambda: joined.collect())
+    out = os.path.join(tmp, "joined")
+    times = {}
+    for mode, rows in (("error", 1), ("overwrite", 1), ("append", 2),
+                       ("ignore", 2)):
+        _, times[mode] = timed(lambda: joined.write.mode(mode).parquet(out))
+        back = session.read_parquet(out).collect()
+        if back.num_rows != rows * table.num_rows:
+            raise AssertionError(f"write mode {mode}: {back.num_rows} rows")
+        if rows == 1 and not back.equals(table):
+            raise AssertionError(f"write mode {mode}: read back differs")
+    try:
+        joined.write.parquet(out)
+    except FileExistsError:
+        pass
+    else:
+        raise AssertionError("write mode error wrote over an existing path")
+    log(f"[etl] orders x customer: {table.num_rows} rows ({query_s:.3f} s); "
+        f"write.parquet " + ", ".join(f"{m} {s:.3f} s"
+                                      for m, s in times.items())
+        + "; read back with the same bytes; mode error raised on the "
+        "existing path")
+
+    lineitem = pq.read_table(os.path.join(path, "lineitem.parquet"))
+    csv_path = os.path.join(tmp, "lineitem.csv")
+    _, write_s = timed(lambda: pa_csv.write_csv(lineitem, csv_path))
+    _, parquet_s = timed(lambda: pq.read_table(
+        os.path.join(path, "lineitem.parquet")))
+    reader = S.SparkTpuSession.builder().get_or_create()
+    csv_df, read_s = timed(lambda: reader.read_csv(csv_path, "lineitem"))
+    reader.register_table("lineitem", csv_df.plan.source)
+    csv_table = csv_df.plan.source.table
+    log(f"[etl] lineitem as CSV: {os.path.getsize(csv_path)} bytes written "
+        f"in {write_s:.3f} s; read_csv {read_s:.3f} s against the Parquet "
+        f"read {parquet_s:.3f} s")
+    l = csv_table.to_pandas()
+    ship = l["l_shipdate"]
+    want_q1 = q1_pandas(l[ship <= pd.Timestamp("1998-09-02").date()])
+    q6 = l[(ship >= pd.Timestamp("1994-01-01").date())
+           & (ship < pd.Timestamp("1995-01-01").date())
+           & (l["l_discount"] >= 0.05 - 1e-9)
+           & (l["l_discount"] <= 0.07 + 1e-9) & (l["l_quantity"] < 24)]
+    want_q6 = pd.DataFrame({"revenue": [
+        (q6["l_extendedprice"] * q6["l_discount"]).sum()]})
+    for q, want in (("q1", want_q1), ("q6", want_q6)):
+        got = etl_query(D, reader, f"etl csv {q}",
+                        lambda q=q: reader.sql(SQL_QUERIES[q]), launches,
+                        current)
+        G.compare(got.to_pandas(), want, float_rtol=1e-9, float_atol=0.0)
+    log("[etl] Q1 and Q6 over the CSV lineitem (float columns) match "
+        "pandas on the same Arrow table within rtol 1e-9")
+
+    orders = pq.read_table(os.path.join(path, "orders.parquet"),
+                           columns=["o_orderkey", "o_custkey",
+                                    "o_orderstatus", "o_totalprice",
+                                    "o_orderpriority"])
+    orders = orders.set_column(3, "o_totalprice",
+                               orders.column(3).cast(pa.float64()))
+    odf = orders.to_pandas()
+    json_path = os.path.join(tmp, "orders.jsonl")
+    _, jwrite_s = timed(lambda: odf.to_json(json_path, orient="records",
+                                            lines=True))
+    jdf, jread_s = timed(lambda: reader.read_json(json_path, "orders_json"))
+    got = jdf.group_by(col("o_orderstatus")).agg(
+        F.count().alias("n"), F.sum(col("o_totalprice")).alias("total")) \
+        .sort(col("o_orderstatus")).to_pandas()
+    want = (odf.groupby("o_orderstatus", as_index=False)
+            .agg(n=("o_orderkey", "size"), total=("o_totalprice", "sum"))
+            .sort_values("o_orderstatus").reset_index(drop=True))
+    G.compare(got, want, float_rtol=1e-9, float_atol=0.0)
+    if int(got["n"].sum()) != len(odf) or jdf.count() != len(odf):
+        raise AssertionError("read_json lost rows")
+    log(f"[etl] orders as JSON lines ({len(odf)} rows): written in "
+        f"{jwrite_s:.3f} s, read_json {jread_s:.3f} s; count and "
+        f"sum(o_totalprice) by o_orderstatus match pandas")
+
+
+def etl_arrays(session, path) -> None:
+    import numpy as np
+    import pyarrow as pa
+    import pandas as pd
+    import pyarrow.compute as pc
+    from spark_tpu_torch.tpch import golden as G
+    collect = ("SELECT l_orderkey, collect_list(l_linenumber) AS ln, "
+               "collect_set(l_shipmode) AS modes FROM lineitem "
+               "GROUP BY l_orderkey")
+    qe = session.sql(collect)._qe()
+    got, first_s = timed(lambda: qe.collect())
+    got, warm_s = timed(lambda: session.sql(collect).collect())
+    got = got.sort_by("l_orderkey")
+    l = G._read(path, "lineitem")
+    okey = l["l_orderkey"].to_numpy()
+    lnum = l["l_linenumber"].to_numpy()
+    order = np.lexsort((lnum, okey))
+    uniq, counts = np.unique(okey, return_counts=True)
+    ln = got.column("ln").combine_chunks()
+    if not (np.array_equal(got.column("l_orderkey").to_numpy(), uniq)
+            and np.array_equal(ln.value_lengths().to_numpy(), counts)
+            and np.array_equal(ln.flatten().to_numpy(), lnum[order])):
+        raise AssertionError("collect_list(l_linenumber) differs from "
+                             "pandas' sorted per-order lists")
+    # collect_set(l_shipmode) as (order, mode code) pairs: its elements
+    # come in dictionary-code order, so the sets are compared as sets
+    modes = got.column("modes").combine_chunks()
+    codes, names = pd.factorize(l["l_shipmode"], sort=True)
+    names = np.asarray(names, dtype=str)
+    mode_str = pc.cast(modes.flatten(), pa.string()).to_numpy(
+        zero_copy_only=False).astype(str)
+    got_pairs = np.repeat(uniq, modes.value_lengths().to_numpy()) \
+        * len(names) + np.searchsorted(names, mode_str)
+    want_pairs = np.unique(okey * len(names) + codes)
+    if not (len(got_pairs) == len(want_pairs)
+            and np.array_equal(np.sort(got_pairs), want_pairs)):
+        raise AssertionError("collect_set(l_shipmode) differs from pandas' "
+                             "per-order sets")
+    n_elems = int(ln.value_lengths().to_numpy().sum())
+    log(f"[etl] collect_list/collect_set by l_orderkey: {got.num_rows} "
+        f"groups, {n_elems} elements, equal to pandas' sorted lists and "
+        f"sets; first run {first_s:.3f} s, warm {warm_s:.3f} s")
+    derived = session.sql(
+        f"SELECT l_orderkey, size(ln) AS n, element_at(ln, -1) AS last, "
+        f"array_contains(modes, 'AIR') AS air FROM ({collect}) c "
+        f"ORDER BY l_orderkey").collect()
+    frame = pd.DataFrame({"k": okey, "ln": lnum,
+                          "air": codes == np.searchsorted(names, "AIR")})
+    per = frame.groupby("k").agg(n=("ln", "size"), last=("ln", "max"),
+                                 air=("air", "any"))
+    if not (np.array_equal(derived.column("n").to_numpy(), per["n"])
+            and np.array_equal(derived.column("last").to_numpy(),
+                               per["last"])
+            and np.array_equal(derived.column("air").to_numpy(
+                zero_copy_only=False), per["air"])):
+        raise AssertionError("size / element_at / array_contains over the "
+                             "collected lists differ from pandas")
+    exploded, explode_s = timed(lambda: session.sql(
+        f"SELECT l_orderkey, explode(ln) AS l_linenumber FROM "
+        f"({collect}) c").collect())
+    ek = exploded.column("l_orderkey").to_numpy()
+    ev = exploded.column("l_linenumber").to_numpy()
+    eorder = np.lexsort((ev, ek))
+    if not (len(ek) == len(okey) and np.array_equal(ek[eorder], okey[order])
+            and np.array_equal(ev[eorder], lnum[order])):
+        raise AssertionError("explode(ln) does not give back lineitem's "
+                             "(l_orderkey, l_linenumber) multiset")
+    log(f"[etl] size, element_at(-1) and array_contains(modes, 'AIR') "
+        f"match pandas; explode(ln) gives back {len(ek)} rows, the same "
+        f"multiset per order ({explode_s:.3f} s)")
+    log(f"[breakdown] etl collect: {breakdown(session.sql(collect))}")
+    log(f"[breakdown] etl explode: " + breakdown(session.sql(
+        f"SELECT l_orderkey, explode(ln) AS l_linenumber FROM "
+        f"({collect}) c")))
+
+
+def etl_sketches(S, session, path) -> None:
+    import numpy as np
+    import torch
+    from spark_tpu_torch.tpch import golden as G
+    from spark_tpu_torch.tpch.queries import register_tables
+    l = G._read(path, "lineitem")
+    eps, confidence = 0.001, 0.99
+    cms, cms_s = timed(lambda: session.table("lineitem").stat
+                       .count_min_sketch("l_partkey", eps, confidence))
+    cpu = S.SparkTpuSession.builder().device("cpu").get_or_create()
+    register_tables(cpu, path)
+    ref = cpu.table("lineitem").stat.count_min_sketch("l_partkey", eps,
+                                                      confidence)
+    if not torch.equal(cms.table.cpu(), ref.table):
+        raise AssertionError("count-min counters differ between the card "
+                             "and the CPU")
+    parts = l["l_partkey"].to_numpy()
+    exact = np.bincount(parts)
+    rng = np.random.default_rng(ETL_SEED)
+    probe = rng.choice(np.unique(parts), 1000, replace=False)
+    est = cms.estimate(torch.from_numpy(probe).to(
+        cms.table.device)).cpu().numpy()
+    if not (est >= exact[probe]).all():
+        raise AssertionError("a count-min estimate is below the count")
+    within = float((est <= exact[probe] + eps * len(parts)).mean())
+    if within < confidence:
+        raise AssertionError(f"only {within} of the estimates are within "
+                             f"eps*N")
+    log(f"[etl] count_min_sketch(l_partkey) in {cms_s:.3f} s: "
+        f"{cms.depth}x{cms.width} counters equal the CPU session's bit for "
+        f"bit; 1000 estimates never below the count, {within:.3f} within "
+        f"eps*N")
+    bf, bf_s = timed(lambda: session.table("lineitem").stat
+                     .bloom_filter("l_orderkey", 1_500_000))
+    keys = np.unique(l["l_orderkey"].to_numpy())
+    dev = bf.bits.device
+    if not bool(bf.might_contain(torch.from_numpy(keys).to(dev)).all()):
+        raise AssertionError("the bloom filter has a false negative")
+    absent = np.setdiff1d(rng.integers(1, 4 * int(keys.max()), 300_000),
+                          keys)[:100_000]
+    fp = float(bf.might_contain(torch.from_numpy(absent).to(dev))
+               .float().mean())
+    log(f"[etl] bloom_filter(l_orderkey, 1500000) in {bf_s:.3f} s: no "
+        f"false negative over {len(keys)} keys; false-positive rate "
+        f"{fp:.4f} on {len(absent)} absent keys (fpp 0.03)")
+
+
+def etl_explain(session) -> None:
+    import contextlib
+    import io
+    from spark_tpu_torch.execution.executor import plan_nodes
+    from spark_tpu_torch.plan.physical import JoinExec
+    from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
+    df = session.sql(SQL_QUERIES["q5"])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        df.explain(extended=True, runtime=True)
+    text = buf.getvalue()
+    for section in ("== Logical Plan ==", "== Optimized Logical Plan ==",
+                    "== Physical Plan (runtime metrics) ==",
+                    "== Join Reorder =="):
+        if section not in text:
+            raise AssertionError(f"explain lacks {section}")
+    physical = text.split("== Physical Plan (runtime metrics) ==")[1] \
+        .split("== Join Reorder ==")[0].strip().splitlines()
+    bare = [ln for ln in physical if "rows out:" not in ln
+            and not ln.strip().startswith("ScanExec")]
+    if bare:
+        raise AssertionError(f"operators without rows out: {bare[:3]}")
+    qe = df._qe()
+    qe.execute_batch()
+    joins = [j for j in plan_nodes(qe.executed_plan, JoinExec)
+             if not j.creation_side]
+    decisions = qe.reorder_decisions
+    reordered = sum(len(d["relations"]) - 1 for d in decisions)
+    reorder_line = qe.explain().split("== Join Reorder ==\n")[1] \
+        .splitlines()[0].strip()
+    changed = any(d["changed"] for d in decisions)
+    if reordered != len(joins) or \
+            reorder_line.startswith("reorder: yes") != changed:
+        raise AssertionError(f"the [joins] lines ({len(joins)} joins) and "
+                             f"'{reorder_line}' disagree: {decisions}")
+    log(f"[etl] explain(extended=True, runtime=True) of SQL Q5: every "
+        f"section, rows out on each of {len(physical)} operators "
+        f"({sum('ScanExec' in ln for ln in physical)} scans loaded as "
+        f"inputs); {reorder_line}: {len(joins)} joins in "
+        f"{len(decisions)} region(s)")
+    log(f"[joins] etl q5: {describe_joins(qe)}")
+    log("[etl] explain text:\n" + text)
+
+
 def run_phases(D, phases):
     """The main-path phases chosen (5-10); returns the per-kernel launch
     counts of each query's first run and the kernel inputs each query's
@@ -925,7 +1441,7 @@ def run_phases(D, phases):
     D.dense_groupby_sums = recording
     launches = {}
     try:
-        if {"main", "sql", "functions"} & phases:
+        if {"main", "sql", "functions", "etl"} & phases:
             with tempfile.TemporaryDirectory() as tmp:
                 t0 = time.perf_counter()
                 path = write_parquet(tmp + "/tpch", SF)
@@ -940,6 +1456,10 @@ def run_phases(D, phases):
                 if "functions" in phases:
                     phase_functions(D, S, ["f1", "f2"], path, launches,
                                     current)
+                if "etl" in phases:
+                    t0 = time.perf_counter()
+                    phase_etl(D, S, path, launches, current)
+                    log(f"[etl] phase in {time.perf_counter() - t0:.1f} s")
         if "main" in phases:
             phase_range(D, S, launches, current)
         if {"tpcds", "window", "functions"} & phases:
@@ -1250,9 +1770,9 @@ def kernel_report(D, launches, captured, phases):
     """One entry per kernel and main-path input shape, measured on the
     inputs that query gave it: the DataFrame programs' of KERNEL_INPUTS
     (each must have been captured when phase 5 ran), then each TPC-H and
-    TPC-DS SQL query's and function-library program's that launched a
-    kernel. `launches` counts all of
-    the query's launches of that kernel."""
+    TPC-DS SQL query's, function-library program's and phase-11
+    aggregate's that launched a kernel. `launches` counts all of the
+    query's launches of that kernel."""
     import torch
     entries = []
     programs = KERNEL_INPUTS if "main" in phases else []
@@ -1260,7 +1780,7 @@ def kernel_report(D, launches, captured, phases):
     if missing:
         raise AssertionError(f"no kernel input captured for {missing}")
     sql = [(name, label) for label, name in captured
-           if label.startswith(("sql ", "tpcds ", "functions "))]
+           if label.startswith(("sql ", "tpcds ", "functions ", "etl "))]
     inputs = [(name, q, x) for name, q in programs + sql
               for x in captured[(q, name)].values()]
     for name, q, (idx, ir, fr, domain) in inputs:

@@ -9,10 +9,12 @@ pieces it needs.
 
 The main path so far: SQL text (`session.sql`, the 22 TPC-H and 21
 TPC-DS queries) or DataFrame programs -> logical plan -> optimizer ->
-physical plan -> Parquet scan with pushdown -> Filter/Project, joins,
-windows, unions -> HashAggregate, whose dense-domain sums run in the
-hand-written CUDA kernels of `execution/dense_groupby.py` -> Sort ->
-Arrow.
+physical plan -> Parquet, CSV or JSON scan -> Filter/Project, joins,
+windows, unions, explode -> HashAggregate, whose dense-domain sums run
+in the hand-written CUDA kernels of `execution/dense_groupby.py` ->
+Sort -> Arrow. Around it: the catalog with a persistent Parquet
+warehouse and DDL/DML (`catalog.py`, `sql/ddl.py`), `cache()` and the
+session's data cache, `write.parquet`, checkpoints and the sketches.
 """
 
 from . import functions

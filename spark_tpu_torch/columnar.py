@@ -62,19 +62,29 @@ class Column:
     a later join composes its indices through `prov` instead
     (`execution/join.py gather_columns`). So a chain of joins gathers each
     payload column once from its base, and a column no operator reads is
-    never gathered."""
+    never gathered.
 
-    __slots__ = ("_data", "_validity", "dtype", "dictionary", "bits", "prov")
+    An ARRAY column (`T.ArrayType`) holds the Arrow List layout: `data` is
+    the flattened elements (the element dtype, padded to their own
+    capacity), `offsets` (int32 [rows+1]) marks each row's slice,
+    `elem_validity` is the per-element NULL mask and `validity` stays
+    per row; a string element column carries its dictionary."""
+
+    __slots__ = ("_data", "_validity", "dtype", "dictionary", "bits", "prov",
+                 "offsets", "elem_validity")
 
     def __init__(self, data, dtype: T.DataType, validity=None,
                  dictionary: Optional[pa.Array] = None,
-                 bits: Optional[int] = None, prov=None):
+                 bits: Optional[int] = None, prov=None, offsets=None,
+                 elem_validity=None):
         self._data = data
         self.dtype = dtype
         self._validity = validity  # None means all-valid
         self.dictionary = dictionary  # host pyarrow array for StringType
         self.bits = bits
         self.prov = prov
+        self.offsets = offsets
+        self.elem_validity = elem_validity
 
     @classmethod
     def gathered(cls, base_data, base_validity, idx, present,
@@ -99,6 +109,8 @@ class Column:
 
     @property
     def capacity(self) -> int:
+        if self.offsets is not None:
+            return self.offsets.shape[0] - 1
         if self._data is None and self.prov is not None:
             return self.prov[2].shape[0]
         return self._data.shape[0]
@@ -202,7 +214,8 @@ class Batch:
 
     def to_arrow(self) -> pa.Table:
         """Compact (drop unselected rows), decode dictionaries, return
-        host table."""
+        host table. An array column compacts on the host
+        (`_list_to_arrow`)."""
         sel = None if self.selection is None else \
             self.selection.cpu().numpy()
         arrays = []
@@ -211,6 +224,14 @@ class Batch:
             data = col.data.cpu().numpy()
             valid = None if col.validity is None else \
                 col.validity.cpu().numpy()
+            if col.offsets is not None:
+                evalid = None if col.elem_validity is None else \
+                    col.elem_validity.cpu().numpy()
+                arrays.append(_list_to_arrow(
+                    col, data, valid, col.offsets.cpu().numpy(), evalid,
+                    sel))
+                names.append(name)
+                continue
             if sel is not None:
                 data = data[sel]
                 if valid is not None:
@@ -333,8 +354,7 @@ def _arrow_to_column(name: str, col, n: int, cap: int,
     arr = col.combine_chunks() if isinstance(col, pa.ChunkedArray) else col
     at = arr.type
     if pa.types.is_list(at) or pa.types.is_large_list(at):
-        raise TypeError(f"array column {name} is not supported by this "
-                        f"engine yet")
+        return _arrow_list_to_column(name, arr, n, cap, device)
     dictionary = None
     if pa.types.is_null(at):
         # an empty/all-None object column infers arrow `null`: treat it
@@ -395,6 +415,61 @@ def _arrow_to_column(name: str, col, n: int, cap: int,
     padded = np.zeros(cap, dtype=dt.np_dtype)
     padded[:n] = np_data
     return Column(_to_device(padded, device), dt, validity, dictionary)
+
+
+def _arrow_list_to_column(name: str, arr, n: int, cap: int,
+                          device: torch.device) -> Column:
+    """pa.ListArray -> offsets-encoded list Column: the flattened element
+    data at its own bucket capacity + absolute int32 offsets [cap+1]
+    (padding rows repeat the last offset, i.e. zero-length)."""
+    if pa.types.is_large_list(arr.type):
+        arr = arr.cast(pa.list_(arr.type.value_type))
+    offs = arr.offsets.to_numpy(zero_copy_only=False).astype(np.int32)
+    values = arr.values
+    vcap = bucket_capacity(max(len(values), 1))
+    elem = _arrow_to_column(f"{name}.element", values, len(values), vcap,
+                            device)
+    padded_off = np.full(cap + 1, offs[n] if len(offs) > n else 0,
+                         dtype=np.int32)
+    padded_off[:n + 1] = offs[:n + 1]
+    validity = None
+    if arr.null_count > 0:
+        valid_np = np.zeros(cap, dtype=np.bool_)
+        valid_np[:n] = ~np.asarray(arr.is_null())
+        validity = _to_device(valid_np, device)
+    return Column(elem.data, T.ArrayType(elem.dtype), validity,
+                  elem.dictionary, offsets=_to_device(padded_off, device),
+                  elem_validity=elem.validity)
+
+
+def _list_to_arrow(col: Column, data: np.ndarray,
+                   valid: Optional[np.ndarray], offsets: np.ndarray,
+                   elem_valid: Optional[np.ndarray],
+                   sel: Optional[np.ndarray]) -> pa.Array:
+    """Offsets-encoded list column -> pa.ListArray over the selected
+    rows (the compaction happens here: per-row slices cannot be gathered
+    by the flat-column path)."""
+    cap = len(offsets) - 1
+    idx = np.nonzero(sel[:cap])[0] if sel is not None else np.arange(cap)
+    starts = offsets[idx]
+    lengths = (offsets[idx + 1] - starts).astype(np.int64)
+    lengths = np.maximum(lengths, 0)
+    new_off = np.zeros(len(idx) + 1, dtype=np.int32)
+    np.cumsum(lengths, out=new_off[1:])
+    total = int(new_off[-1])
+    intra = np.arange(total, dtype=np.int64) - np.repeat(
+        new_off[:-1].astype(np.int64), lengths)
+    val_idx = np.repeat(starts.astype(np.int64), lengths) + intra
+    vals = data[val_idx]
+    ev = None if elem_valid is None else elem_valid[val_idx]
+    elem_col = Column(None, col.dtype.element, None, col.dictionary)
+    elem_arrow = _column_to_arrow(elem_col, vals, ev)
+    off_mask = None
+    if valid is not None:
+        off_mask = np.zeros(len(idx) + 1, dtype=bool)
+        off_mask[:len(idx)] = ~valid[idx]
+    return pa.ListArray.from_arrays(
+        pa.array(new_off, type=pa.int32(), mask=off_mask), elem_arrow)
 
 
 def _column_to_arrow(col: Column, data: np.ndarray,

@@ -88,6 +88,13 @@ class Conf:
                 or (self._parent is not None and self._parent.contains(key))
                 or key in _REGISTRY)
 
+    def is_explicitly_set(self, key: str) -> bool:
+        """True when the key was set on this conf or a parent overlay,
+        as opposed to merely having a registry default."""
+        return (key in self._settings
+                or (self._parent is not None
+                    and self._parent.is_explicitly_set(key)))
+
     def copy(self) -> "Conf":
         c = Conf(parent=self._parent)
         c._settings.update(self._settings)
@@ -264,3 +271,24 @@ FUZZ_MAX_ROWS = register(
         "covering nulls, NaN/-0.0 floats, decimals and dictionary "
         "strings.",
     validator=lambda v: v > 0)
+
+WAREHOUSE_DIR = register(
+    "spark_tpu.sql.warehouse.dir", "spark-warehouse",
+    doc="Directory for persistent tables (CREATE TABLE / INSERT INTO): "
+        "one subdirectory of parquet parts + a JSON metadata sidecar per "
+        "table. The metastore seat of SessionCatalog.scala:1, minus the "
+        "Hive process: a fresh session over the same dir sees every "
+        "table.")
+
+CHECKPOINT_DIR = register(
+    "spark_tpu.sql.checkpoint.dir", "",
+    doc="Directory for df.checkpoint(): when set, checkpoints write "
+        "Parquet (survive the process, ReliableCheckpointRDD analog); "
+        "otherwise they materialize in memory (localCheckpoint).")
+
+RESULT_CACHE_BYTES = register(
+    "spark_tpu.service.resultCacheBytes", 256 << 20,
+    doc="Byte bound for the plan-fingerprint result cache (the "
+        "CacheManager/InMemoryRelation seat): materialized Arrow tables "
+        "for cache()-marked plans, LRU-evicted past the bound. A session "
+        "keeps an unbounded cache unless this key is set explicitly.")

@@ -1,10 +1,12 @@
-"""DataFrame API: a lazy logical-plan holder (the port of the
-`spark_tpu/dataframe.py` subset the slices use; reference:
-`Dataset.scala:191`). Every method builds a new logical plan; actions
-(`collect`, `to_pandas`) run the QueryExecution pipeline. Window
-functions in `select`/`with_column` become Window nodes below the
-projection; INTERSECT and EXCEPT are a tagged union plus a group-by
-(`set_op_plan`)."""
+"""DataFrame API: a lazy logical-plan holder (the port of
+`spark_tpu/dataframe.py` but for grouped-map UDFs and streaming;
+reference: `Dataset.scala:191`). Every method builds a new logical plan;
+actions (`collect`, `to_pandas`, `count`, `show`, `write`, `stat`) run
+the QueryExecution pipeline. Window functions in `select`/`with_column`
+become Window nodes below the projection, and an `explode()` a Generate
+node; INTERSECT and EXCEPT are a tagged union plus a group-by
+(`set_op_plan`). `cache()` marks the plan in the session's data cache,
+`checkpoint()` materializes it and truncates the lineage."""
 
 from __future__ import annotations
 
@@ -35,6 +37,9 @@ class DataFrame:
 
     def select(self, *exprs) -> "DataFrame":
         plan, es = self._extract_windows([_expr(e) for e in exprs])
+        from .expr_array import contains_explode, extract_generators
+        if any(contains_explode(e) for e in es):
+            plan, es = extract_generators(plan, es)
         return self._with(L.Project(plan, es))
 
     def _extract_windows(self, exprs: List[Expression]):
@@ -212,6 +217,18 @@ class DataFrame:
     def columns(self) -> List[str]:
         return self.plan.schema().names
 
+    def explain(self, extended: bool = False, runtime: bool = False,
+                analysis: bool = False, rules: bool = False) -> None:
+        """Print the plan. runtime=True executes first and annotates each
+        operator with its output rows (the SQLMetrics analog);
+        rules=True appends the optimizer's per-rule trace. analysis=True
+        (the JAX package's static analyzer) raises: not ported yet."""
+        qe = self._qe()
+        if runtime:
+            qe.execute_batch()
+        print(qe.explain(extended, runtime=runtime, analysis=analysis,
+                         rules=rules))
+
     # -- actions ------------------------------------------------------------
 
     def _qe(self):
@@ -221,10 +238,156 @@ class DataFrame:
     def collect(self) -> pa.Table:
         return self._qe().collect()
 
+    @property
+    def write(self) -> "DataFrameWriter":
+        return DataFrameWriter(self)
+
+    @property
+    def stat(self) -> "DataFrameStat":
+        return DataFrameStat(self)
+
+    def cache(self) -> "DataFrame":
+        """Mark this plan for materialization on first action; later
+        queries containing an equal subtree read the cached table
+        (reference: CacheManager.scala plan-fingerprint cache)."""
+        self.session.mark_cache(self.plan)
+        return self
+
+    persist = cache
+
+    def unpersist(self) -> "DataFrame":
+        self.session.uncache(self.plan)
+        return self
+
+    def checkpoint(self) -> "DataFrame":
+        """Materialize and truncate lineage (reference: RDD.checkpoint /
+        Dataset.checkpoint). With spark_tpu.sql.checkpoint.dir set, the
+        result persists as Parquet (ReliableCheckpointRDD analog) and the
+        returned frame scans it from disk; otherwise it is held in
+        memory (localCheckpoint)."""
+        import os
+        import uuid
+
+        ckpt_dir = str(self.session.conf.get("spark_tpu.sql.checkpoint.dir"))
+        if ckpt_dir:
+            path = os.path.join(ckpt_dir, f"ckpt-{uuid.uuid4().hex[:12]}")
+            self.write.parquet(path)
+            return self.session.read_parquet(path)
+        return self.local_checkpoint()
+
+    def local_checkpoint(self) -> "DataFrame":
+        """In-memory materialization + lineage truncation (reference:
+        Dataset.localCheckpoint — never reliable, ignores checkpoint.dir).
+        The source name is unique per call: the fingerprint-keyed data
+        cache would otherwise cross-match distinct checkpoints."""
+        import uuid
+
+        from .io.sources import ArrowTableSource
+        table = self.collect()
+        name = f"__checkpoint_{uuid.uuid4().hex[:12]}__"
+        return self._with(L.Scan(ArrowTableSource(name, table)))
+
+    localCheckpoint = local_checkpoint
+
     def to_pandas(self):
         return self.collect().to_pandas()
 
     toPandas = to_pandas
+
+    def count(self) -> int:
+        agg = L.Aggregate(self.plan, [], [AggExpr(Count(None), "count")])
+        table = DataFrame(self.session, agg).collect()
+        return table.column("count")[0].as_py()
+
+    def show(self, n: int = 20) -> None:
+        print(self.limit(n).to_pandas().to_string())
+
+
+class DataFrameWriter:
+    """df.write.mode(...).parquet(path) (reference: DataFrameWriter +
+    FileFormatWriter.scala). Writes a directory of part files, so the
+    output reads back through the same directory-dataset scan path."""
+
+    _MODES = ("error", "errorifexists", "overwrite", "append", "ignore")
+
+    def __init__(self, df: DataFrame):
+        self._df = df
+        self._mode = "error"
+
+    def mode(self, m: str) -> "DataFrameWriter":
+        m = m.lower()
+        if m not in self._MODES:
+            raise ValueError(f"unknown write mode {m!r}; one of "
+                             f"{self._MODES}")
+        self._mode = m
+        return self
+
+    def parquet(self, path: str) -> None:
+        import glob
+        import os
+        import shutil
+
+        import pyarrow.parquet as pq
+
+        exists = os.path.exists(path) and (
+            not os.path.isdir(path) or bool(os.listdir(path)))
+        if exists:
+            if self._mode in ("error", "errorifexists"):
+                raise FileExistsError(
+                    f"path {path!r} already exists (write mode=error)")
+            if self._mode == "ignore":
+                return
+        # execute BEFORE touching the target: a failing query must not
+        # destroy the previous output under mode=overwrite
+        table = self._df.collect()
+        if exists and self._mode == "overwrite":
+            if os.path.isdir(path):
+                shutil.rmtree(path)
+            else:
+                os.remove(path)
+        if os.path.exists(path) and not os.path.isdir(path):
+            raise NotADirectoryError(
+                f"append target {path!r} is a file, not a dataset "
+                f"directory")
+        os.makedirs(path, exist_ok=True)
+        n = len(glob.glob(os.path.join(path, "part-*.parquet")))
+        pq.write_table(table,
+                       os.path.join(path, f"part-{n:05d}.parquet"))
+
+
+class DataFrameStat:
+    """df.stat.* (reference: DataFrameStatFunctions — the sketch entry
+    points backed by common/sketch): each sketch is built on the device
+    from the column's live, non-NULL values."""
+
+    def __init__(self, df: DataFrame):
+        self._df = df
+
+    def _column_device(self, col_name: str):
+        from .execution.executor import QueryExecution
+        qe = QueryExecution(self._df.session,
+                            L.Project(self._df.plan, [ColumnRef(col_name)]))
+        batch = qe.execute_batch()
+        c = batch.columns[batch.names[0]]
+        sel = batch.selection_mask()
+        mask = sel if c.validity is None else (sel & c.validity)
+        return c.data, mask
+
+    def bloom_filter(self, col_name: str, expected_items: int,
+                     fpp: float = 0.03):
+        from .sketch import BloomFilter
+        data, mask = self._column_device(col_name)
+        return BloomFilter.build(data, expected_items, fpp, mask=mask)
+
+    bloomFilter = bloom_filter
+
+    def count_min_sketch(self, col_name: str, eps: float = 0.001,
+                         confidence: float = 0.99):
+        from .sketch import CountMinSketch
+        data, mask = self._column_device(col_name)
+        return CountMinSketch.build(data, eps, confidence, mask=mask)
+
+    countMinSketch = count_min_sketch
 
 
 def set_op_plan(lp: L.LogicalPlan, rp: L.LogicalPlan,

@@ -425,10 +425,11 @@ def sort_aggregate(key_vecs: Sequence[Vec],
 
 
 # ---------------------------------------------------------------------------
-# Positional aggregates: percentile/median (reference: Percentile.scala,
-# ApproximatePercentile.scala:1 — ObjectHashAggregate's serialized
-# per-group state becomes ONE device sort by (group keys, value) and
-# positional gathers)
+# Positional aggregates: percentile/median/collect_list/collect_set
+# (reference: Percentile.scala, ApproximatePercentile.scala:1,
+# collect.scala — ObjectHashAggregate's serialized per-group state
+# becomes ONE device sort by (group keys, value) and positional gathers;
+# list outputs compact into offsets-encoded array columns)
 # ---------------------------------------------------------------------------
 
 def positional_sort(key_vecs: Sequence[Vec], value_vec: Vec, sel,
@@ -506,3 +507,37 @@ def positional_percentile(values_sorted, vvalid_sorted, gid, gstart,
     v_hi = vals[(safe + hi).clamp(0, capacity - 1)]
     frac = idx - lo.to(torch.float64)
     return v_lo + (v_hi - v_lo) * frac, cnt > 0
+
+
+def positional_collect(values_sorted, vvalid_sorted, gid, gstart,
+                       num_segments: int, distinct: bool, capacity: int):
+    """collect_list / collect_set: compact each group's valid values, in
+    the sort's order, into an offsets-encoded list column; `distinct`
+    drops a value equal to the one before it in its group (adjacent
+    after the value sort). `gstart` is GROUP-indexed. Returns
+    (data[capacity], offsets[num_segments+1] int32)."""
+    device = values_sorted.device
+    pos = torch.arange(capacity, device=device)
+    keep = vvalid_sorted
+    if distinct:
+        same_prev = (torch.roll(values_sorted, 1) == values_sorted) & \
+            (torch.roll(gid, 1) == gid) & (pos != 0)
+        keep = keep & ~(same_prev & vvalid_sorted
+                        & torch.roll(vvalid_sorted, 1))
+    keep_i = keep.to(torch.int64)
+    gseg = gid.clamp(0, num_segments)
+    kcnt = torch.zeros((num_segments + 1,), dtype=torch.int64, device=device)
+    kcnt.index_add_(0, gseg, keep_i)
+    new_off = torch.cat([torch.zeros((1,), dtype=torch.int64, device=device),
+                         torch.cumsum(kcnt[:num_segments], 0)])
+    ck = torch.cumsum(keep_i, 0)
+    # kept rows before each row's group start: a row's rank among its
+    # group's kept values is the kept count since then
+    start = gstart[gid.clamp(0, capacity - 1)]
+    rank = ck - (ck[start] - keep_i[start]) - 1
+    target = torch.where(keep, new_off[gseg] + rank,
+                         torch.full_like(rank, capacity))
+    data = torch.zeros((capacity + 1,), dtype=values_sorted.dtype,
+                       device=device)
+    data[target] = values_sorted
+    return data[:capacity], new_off.to(torch.int32)

@@ -2,10 +2,15 @@
 `spark_tpu/execution/executor.py`; reference: `QueryExecution.scala`).
 
 analyzed -> optimized_plan -> executed_plan -> execute_batch -> collect.
-Before optimization, subtrees marked for statement-scoped
-materialization (WITH-clause views) are replaced by scans of their
-computed tables (`__cached__`), and uncorrelated scalar subqueries run
-and become literals, as in the JAX package. There is no jit stage or
+Before optimization, subtrees the session's data cache holds (a
+`cache()`-marked plan, a WITH-clause view) are replaced by scans of
+their materialized tables (`__cached__`), and uncorrelated scalar
+subqueries run and become literals, as in the JAX package. After the
+root of a marked plan runs, its result fills the cache; when the
+outermost execution ends, only the statement-scoped (implicit) entries
+are evicted. `explain()` prints the plans, the cost-based reorder's
+decisions, per-operator output rows after a run (`rows_<op_tag>`) and
+the optimizer's rule trace. There is no jit stage or
 compile cache: torch runs every operator
 eagerly on the session's device, bottom-up over the physical tree. A
 node that several parents share (a runtime filter's creation chain is
@@ -36,6 +41,7 @@ import time
 from typing import Dict, List, Optional
 
 import pyarrow as pa
+import torch
 
 from ..columnar import Batch, bucket_capacity
 from ..expr import Literal
@@ -63,19 +69,65 @@ def run_plan(root: P.PhysicalPlan, ctx: P.ExecContext,
     share it. `loaded` maps node ids to batches computed already (the
     scans `load_scans` loaded), which are not computed again.
     `visit(node, compute)` wraps each node's computation when given (a
-    profiler's seam)."""
+    profiler's seam). Each node it computes (not the loaded scans, which
+    the JAX package feeds in as inputs) keeps its live output rows as
+    the metric `rows_<op_tag>` (the SQLMetrics analog), counted inside
+    the computation `visit` times."""
     memo: Dict[int, Batch] = dict(loaded or {})
+
+    def compute(node: P.PhysicalPlan, inputs: List[Batch]) -> Batch:
+        out = node.compute(ctx, inputs)
+        if hasattr(node, "op_tag"):
+            ctx.add_metric(f"rows_{node.op_tag}",
+                           out.capacity if out.selection is None
+                           else out.selection.sum())
+        return out
 
     def run(node: P.PhysicalPlan) -> Batch:
         out = memo.get(id(node))
         if out is None:
             inputs = [run(c) for c in node.children]
-            out = node.compute(ctx, inputs) if visit is None else \
-                visit(node, lambda: node.compute(ctx, inputs))
+            out = compute(node, inputs) if visit is None else \
+                visit(node, lambda: compute(node, inputs))
             memo[id(node)] = out
         return out
 
     return run(root)
+
+
+def host_metrics(metrics: Dict[str, object]) -> Dict[str, object]:
+    """Metric values on the host: floats stay floats, the rest become
+    ints; the device tensors among them leave the card in one copy per
+    dtype class."""
+    out: Dict[str, object] = {}
+    pending = {True: [], False: []}  # is float -> [(name, tensor)]
+    for k, v in metrics.items():
+        if isinstance(v, torch.Tensor):
+            pending[v.is_floating_point()].append((k, v))
+        else:
+            out[k] = float(v) if isinstance(v, float) else int(v)
+    for is_float, items in pending.items():
+        if not items:
+            continue
+        dtype = torch.float64 if is_float else torch.int64
+        values = torch.stack([t.reshape(()).to(dtype)
+                              for _, t in items]).tolist()
+        for (k, _), v in zip(items, values):
+            out[k] = float(v) if is_float else int(v)
+    return out
+
+
+def render_trace(records: List[Dict]) -> List[str]:
+    """`explain(rules=True)` lines for a rule-trace record list (the
+    JAX package's `analysis/plan_integrity.render_trace`)."""
+    out = []
+    for r in records:
+        out.append(f"  {r['batch']}.{r['rule']}: "
+                   f"effective {r['effective']}/{r['invocations']}, "
+                   f"{r['ms']}ms")
+        for line in (r.get("diff") or "").splitlines():
+            out.append("    " + line)
+    return out
 
 
 def plan_nodes(root: P.PhysicalPlan, kind) -> List:
@@ -216,6 +268,13 @@ class QueryExecution:
         #: per-(batch, rule) optimizer records (`RuleExecutor.trace`);
         #: None until the optimizer ran for this execution
         self.rule_trace: Optional[List[Dict]] = None
+        #: the cost-based join reorder's decision records, one per
+        #: eligible region; None until the optimizer ran
+        self.reorder_decisions: Optional[List[Dict]] = None
+        #: the Arrow result a run of a marked plan left in the data cache
+        self._filled: Optional[pa.Table] = None
+        #: cached tables `_apply_cache` substituted into this plan
+        self._cache_hits = 0
 
     def _activate_conf(self) -> None:
         from ..expr import set_case_sensitive
@@ -233,22 +292,29 @@ class QueryExecution:
         return self._analyzed
 
     def _apply_cache(self, plan: L.LogicalPlan) -> L.LogicalPlan:
-        """Substitute marked subtrees with scans over their materialized
+        """Substitute cached subtrees with scans over their materialized
         tables (reference: CacheManager.useCachedData). A marked subtree
-        not yet computed in this statement is computed on first use.
-        Matching is on the pre-optimization plan fingerprint."""
+        not yet materialized is computed on its first use inside a
+        larger query, like the reference's InMemoryRelation. Matching is
+        on the pre-optimization plan fingerprint. Each table found in
+        the cache counts one `session.result_cache_hits` per execution
+        of this plan (`_execute_batch`), not when it is only planned."""
         session = self.session
-        if not session._cache_requests:
+        self._cache_hits = 0
+        if not len(session._data_cache) and not session._cache_requests:
             return plan
         root_fp = session._plan_fingerprint(plan)
 
         def f(node):
             fp = session._plan_fingerprint(node)
             table = session._data_cache.get(fp)
+            if table is not None:
+                self._cache_hits += 1
             if table is None and fp in session._cache_requests \
                     and fp != root_fp:
                 # first use inside a larger query: compute it now (the
-                # root itself runs on the normal path)
+                # root itself runs on the normal path, which fills the
+                # cache afterwards)
                 table = QueryExecution(
                     session, session._cache_requests[fp]).collect()
                 session._data_cache[fp] = table
@@ -295,9 +361,12 @@ class QueryExecution:
             t0 = time.perf_counter()
             plan = self._resolve_scalar_subqueries(
                 self._apply_cache(self.analyzed))
-            optimizer = default_optimizer(self.session.conf)
+            log: List[Dict] = []
+            optimizer = default_optimizer(self.session.conf,
+                                          reorder_log=log)
             self._optimized = optimizer.execute(plan)
             self.rule_trace = optimizer.trace()
+            self.reorder_decisions = log
             self.phase_times["optimization"] = time.perf_counter() - t0
         return self._optimized
 
@@ -310,6 +379,105 @@ class QueryExecution:
             self.phase_times["planning"] = time.perf_counter() - t0
         return self._executed
 
+    def explain(self, extended: bool = False, runtime: bool = False,
+                analysis: bool = False, rules: bool = False) -> str:
+        """The plan as text: the physical plan (with each operator's
+        runtime observables when `runtime` and the query ran), the
+        logical and optimized plans when `extended`, the join reorder's
+        decisions, and the optimizer's rule trace when `rules`. The JAX
+        package's `QueryExecution.explain`; its XLA stage costs have no
+        counterpart here."""
+        if analysis:
+            from ..expr import AnalysisError
+            raise AnalysisError(
+                "explain(analysis=True): static analysis is not yet "
+                "ported to spark_tpu_torch")
+        out = []
+        if extended:
+            out += ["== Logical Plan ==", self.logical.tree_string(),
+                    "== Optimized Logical Plan ==",
+                    self.optimized_plan.tree_string()]
+        if runtime and self.last_metrics:
+            out.append("== Physical Plan (runtime metrics) ==")
+            out.append(self._runtime_tree(self.executed_plan))
+        else:
+            out += ["== Physical Plan ==",
+                    self.executed_plan.tree_string()]
+        out += ["== Join Reorder =="] + self._reorder_lines()
+        if rules:
+            self.optimized_plan  # the optimizer (and its trace) ran
+            out.append("== Rule Trace ==")
+            out += render_trace(self.rule_trace or []) or \
+                ["  no rules applied"]
+        return "\n".join(out)
+
+    def _reorder_lines(self) -> List[str]:
+        """The cost-based join reorder for explain(): 'reorder: yes/no'
+        and, per region, the frontend order, the chosen order and the
+        estimated rows of each join."""
+        self.executed_plan  # the optimizer (and its log) ran
+        decisions = self.reorder_decisions or []
+        changed = [d for d in decisions if d.get("changed")]
+        lines = [f"  reorder: {'yes' if changed else 'no'}"
+                 + (f" ({len(changed)}/{len(decisions)} regions)"
+                    if decisions else "")]
+        for d in decisions:
+            if not d.get("changed"):
+                arrow = " (kept)"
+            elif d.get("kind") == "orientation":
+                arrow = " -> same order, probe/build orientation flipped"
+            else:
+                arrow = " -> " + " * ".join(d["order"])
+            est = d.get("est_rows") or []
+            lines.append("  " + " * ".join(d["relations"]) + arrow
+                         + (f"  est rows/join: {est}" if est else ""))
+        return lines
+
+    def _runtime_tree(self, node: P.PhysicalPlan, depth: int = 0) -> str:
+        """The physical tree annotated with each operator's runtime
+        observables (the SQL-UI plan graph analog of
+        `metric/SQLMetrics.scala:40`): output rows everywhere, a join's
+        rows against its capacity and its hash table, an exchange's
+        largest block, a runtime filter's pruned rows."""
+        m = self.last_metrics
+        notes = []
+        rows = m.get(f"rows_{getattr(node, 'op_tag', '')}")
+        if rows is not None:
+            notes.append(f"rows out: {rows:,}")
+        tag = getattr(node, "tag", None)
+        if isinstance(node, P.JoinExec):
+            jr = m.get(f"join_rows_{tag}")
+            if jr is not None:
+                cap = node.out_cap
+                notes.append(f"join rows: {jr:,}"
+                             + (f"/{cap:,} cap" if cap else ""))
+            if getattr(node, "cbo_est_rows", None) is not None:
+                notes.append(f"cbo est: {node.cbo_est_rows:,}")
+            slots = m.get(f"join_table_slots_{tag}")
+            if slots is not None:
+                notes.append(
+                    f"hash table: {slots:,} slots, build "
+                    f"{m.get(f'join_build_ms_{tag}', 0)}ms, probe "
+                    f"{m.get(f'join_probe_ms_{tag}', 0)}ms")
+        elif isinstance(node, P.ExchangeExec):
+            mx = m.get(f"exch_max_{tag}")
+            if mx is not None:
+                cap = node.block_cap
+                notes.append(f"exch max: {mx:,}"
+                             + (f"/{cap:,} cap" if cap else ""))
+            er = m.get(f"exch_rows_{tag}")
+            if er is not None:
+                notes.append(f"exch rows: {er:,}")
+        elif isinstance(node, P.RuntimeFilterExec):
+            tested = m.get(f"rtf_tested_{tag}")
+            pruned = m.get(f"rtf_pruned_{tag}")
+            if tested is not None and pruned is not None:
+                notes.append(f"rtf pruned: {pruned:,}/{tested:,}")
+        note = f"   [{'; '.join(notes)}]" if notes else ""
+        line = "  " * depth + node.simple_string() + note
+        return "\n".join([line] + [self._runtime_tree(c, depth + 1)
+                                   for c in node.children])
+
     def execute_batch(self) -> Batch:
         session = self.session
         session._exec_depth += 1
@@ -320,8 +488,9 @@ class QueryExecution:
             if session._exec_depth == 0:
                 # statement-scoped materializations end with the
                 # outermost execution; the marks stay, so running the
-                # statement again computes a shared view once again
-                session._data_cache.clear()
+                # statement again computes a shared view once again.
+                # Explicit cache() entries outlive the statement.
+                session._evict_implicit_caches()
 
     def _aqe_cache_key(self) -> Optional[str]:
         """Plan and data identity of the capacities `session._aqe_caps`
@@ -348,6 +517,7 @@ class QueryExecution:
             apply_saved_caps(root, saved_caps)
         t0 = time.perf_counter()
         loaded = load_scans(root, conf, session.device)
+        session.result_cache_hits += self._cache_hits
         self.phase_times["ingest"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         overflow: List[str] = []
@@ -372,9 +542,7 @@ class QueryExecution:
             raise RuntimeError(f"capacity retries did not converge; still "
                                f"overflowing: {overflow}")
         self.attempts = attempt + 1
-        self.last_metrics = {
-            k: (float(v) if isinstance(v, float) else int(v))
-            for k, v in ctx.metrics.items()}
+        self.last_metrics = host_metrics(ctx.metrics)
         if adaptive:
             shrink_caps_from_rtf(root, self.last_metrics)
         if aqe_key is not None:
@@ -386,10 +554,21 @@ class QueryExecution:
                 while len(store) > MAX_SAVED_PLANS:
                     store.pop(next(iter(store)))
         self.phase_times["execute"] = time.perf_counter() - t0
+        # fill the data cache on the first action over a marked plan
+        self._filled = None
+        fp = session._plan_fingerprint(self.logical) \
+            if session._cache_requests else None
+        if fp in session._cache_requests and fp not in session._data_cache:
+            t0 = time.perf_counter()
+            self._filled = out.to_arrow()
+            self.phase_times["egress"] = time.perf_counter() - t0
+            session._data_cache[fp] = self._filled
         return out
 
     def collect(self) -> pa.Table:
         batch = self.execute_batch()
+        if self._filled is not None:
+            return self._filled  # already egressed into the data cache
         t0 = time.perf_counter()
         table = batch.to_arrow()
         self.phase_times["egress"] = time.perf_counter() - t0

@@ -102,8 +102,33 @@ def stable_permutation(operands: Sequence, cap: int, device):
 def apply_permutation(batch: Batch, perm, n_valid) -> Batch:
     cols = {}
     for name, col in batch.columns.items():
+        if col.offsets is not None:
+            cols[name] = _permute_list_column(col, perm)
+            continue
         validity = None if col.validity is None else col.validity[perm]
         cols[name] = Column(col.data[perm], col.dtype, validity,
                             col.dictionary)
     sel = torch.arange(batch.capacity, device=batch.device) < n_valid
     return Batch(cols, sel, batch.device)
+
+
+def _permute_list_column(col: Column, perm) -> Column:
+    """Row-permute an offsets-encoded array column: offsets rebuilt from
+    the permuted row lengths, then each value slot gathered from its
+    source slice (the flattened values keep their capacity)."""
+    old_off = col.offsets.to(torch.int64)
+    starts = old_off[:-1][perm]
+    lengths = (old_off[1:] - old_off[:-1])[perm]
+    new_off = torch.cat([torch.zeros((1,), dtype=torch.int64,
+                                     device=perm.device),
+                         torch.cumsum(lengths, 0)])
+    vcap = col.data.shape[0]
+    iota = torch.arange(vcap, device=perm.device)
+    out_row = (torch.searchsorted(new_off, iota, right=True) - 1) \
+        .clamp(0, lengths.shape[0] - 1)
+    intra = iota - new_off[out_row]
+    src = (starts[out_row] + intra).clamp(0, max(vcap - 1, 0))
+    ev = None if col.elem_validity is None else col.elem_validity[src]
+    validity = None if col.validity is None else col.validity[perm]
+    return Column(col.data[src], col.dtype, validity, col.dictionary,
+                  offsets=new_off.to(torch.int32), elem_validity=ev)

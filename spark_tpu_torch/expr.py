@@ -39,13 +39,17 @@ class Vec:
     """An evaluated column-expression: data + validity + type + dictionary.
 
     `bits`: optional static bound — values are known to lie in
-    [0, 2^bits) (Range ids set it)."""
+    [0, 2^bits) (Range ids set it). An array value carries the
+    flattened-element layout of `columnar.Column` (`offsets`,
+    `elem_validity`)."""
 
     data: Any
     dtype: T.DataType
     validity: Any = None  # None = all valid
     dictionary: Optional[pa.Array] = None
     bits: Optional[int] = None
+    offsets: Any = None
+    elem_validity: Any = None
 
 
 def _and_valid(a, b):
@@ -197,7 +201,8 @@ class ColumnRef(Expression):
     def eval(self, batch: Batch) -> Vec:
         col = _resolve_column(batch, self._name)
         return Vec(col.data, col.dtype, col.validity, col.dictionary,
-                   bits=col.bits)
+                   bits=col.bits, offsets=col.offsets,
+                   elem_validity=col.elem_validity)
 
     def references(self) -> set:
         return {self._name}

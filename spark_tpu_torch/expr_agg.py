@@ -1,14 +1,14 @@
 """Aggregate functions as declarative accumulator specs.
 
 The port of `spark_tpu/expr_agg.py` (reference: DeclarativeAggregate in
-`expressions/aggregate/interfaces.scala`) but for collect_list,
-collect_set and array_agg, which wait for array columns. Each function
+`expressions/aggregate/interfaces.scala`). Each function
 declares flat *accumulator* columns with an associative/commutative
 reduce kind, an ``update`` producing per-row contributions (already
 neutralized for NULL/unselected rows), and a ``device_finalize``.
-Percentile and median have no such decomposition: they are
-*positional* and run in one complete pass over a sort by (group keys,
-value) (`execution/aggregate.py`, `positional_sort`).
+Percentile, median, collect_list and collect_set have no such
+decomposition: they are *positional* and run in one complete pass over a
+sort by (group keys, value) (`execution/aggregate.py`,
+`positional_sort`); the collect aggregates give array columns.
 
 The statistical aggregates (variance, stddev, corr, covar, skewness,
 kurtosis) carry raw power sums in float64, so they are plain sums too
@@ -743,28 +743,26 @@ class Median(Percentile):
         return f"median({self.child!r})"
 
 
-class NotPortedAggregate(AggregateFunction):
-    """An aggregate the SQL parser knows whose port waits for array
-    columns (collect_list, collect_set, array_agg): analysis raises
-    AnalysisError naming it."""
+class CollectList(_PositionalAgg):
+    """collect_list: the group's non-null values as an array (order is
+    value-sorted — a valid instance of the reference's unspecified
+    order)."""
 
-    def __init__(self, sql_name: str, *args: Expression):
-        self.sql_name = sql_name
-        self.child = args[0] if args else None
-        self.children = tuple(args)
+    distinct = False
+    _name = "collect_list"
 
     def result_type(self, schema):
-        from .expr import AnalysisError
-        raise AnalysisError(
-            f"aggregate {self.sql_name.lower()}() is not yet ported to "
-            f"spark_tpu_torch")
-
-    def accumulators(self, schema):
-        return self.result_type(schema)
+        return T.ArrayType(self.child.dtype(schema))
 
     def __repr__(self):
-        args = ", ".join(repr(c) for c in self.children)
-        return f"{self.sql_name.lower()}({args})"
+        return f"{self._name}({self.child!r})"
+
+
+class CollectSet(CollectList):
+    """collect_set: the group's distinct non-null values, value-sorted."""
+
+    distinct = True
+    _name = "collect_set"
 
 
 @dataclass

@@ -1,8 +1,8 @@
 """User-facing expression constructors (the reference's `functions.scala`;
-the port of `spark_tpu/functions.py` but for the array functions, the
-collect aggregates, the event-time `window` and the Python UDFs, which
-wait for later slices). The window functions return `WindowExpr`s to
-finish with `.over(spec)` (`window.Window` builds specs)."""
+the port of `spark_tpu/functions.py` but for the event-time `window` and
+the Python UDFs, which wait for later slices). The window functions
+return `WindowExpr`s to finish with `.over(spec)` (`window.Window`
+builds specs)."""
 
 from __future__ import annotations
 
@@ -489,3 +489,46 @@ approx_percentile = percentile_approx
 
 def median(e):
     return _Median(_expr(e))
+
+
+# -- arrays (collectionOperations.scala / complexTypeCreator.scala) ---------
+
+from . import expr_array as _A  # noqa: E402
+
+
+def array(*cols):
+    return _A.MakeArray(*[_expr(c) for c in cols])
+
+
+def size(c):
+    return _A.Size(_expr(c))
+
+
+def array_contains(c, value):
+    return _A.ArrayContains(_expr(c), value)
+
+
+def element_at(c, index):
+    return _A.ElementAt(_expr(c), _expr(index))
+
+
+def explode(c):
+    return _A.Explode(_expr(c))
+
+
+def explode_outer(c):
+    return _A.Explode(_expr(c), outer=True)
+
+
+# -- collect aggregates (collect.scala) -------------------------------------
+
+from .expr_agg import (CollectList as _CollectList,  # noqa: E402
+                       CollectSet as _CollectSet)
+
+
+def collect_list(e):
+    return _CollectList(_expr(e))
+
+
+def collect_set(e):
+    return _CollectSet(_expr(e))

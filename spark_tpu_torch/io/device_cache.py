@@ -37,7 +37,9 @@ def batch_nbytes(batch) -> int:
     """Device bytes of a batch: data, validity and selection tensors."""
     total = _tensor_nbytes(batch.selection)
     for col in batch.columns.values():
-        total += _tensor_nbytes(col.data) + _tensor_nbytes(col.validity)
+        total += (_tensor_nbytes(col.data) + _tensor_nbytes(col.validity)
+                  + _tensor_nbytes(col.offsets)
+                  + _tensor_nbytes(col.elem_validity))
     return total
 
 

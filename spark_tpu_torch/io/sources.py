@@ -5,8 +5,9 @@ The port of the whole-table half of `spark_tpu/io/sources.py`
 `SupportsPushDownRequiredColumns`, and `VectorizedParquetRecordReader.java:54`):
 the C++ Arrow/Parquet reader does columnar decode plus predicate and
 column pushdown on the host, then `Batch.from_arrow` dictionary-encodes,
-pads and copies the columns to the device. Tables load whole; the
-chunked iterator is not ported yet.
+pads and copies the columns to the device. CSV and line-delimited JSON
+are read eagerly into Arrow tables. Tables load whole; the chunked
+iterator is not ported yet.
 
 Sources also report statistics without loading rows: a row estimate,
 per-column min/max (`column_stats`, from Parquet footers, which the join
@@ -146,6 +147,10 @@ def _arrow_schema_to_engine(schema: pa.Schema) -> T.Schema:
             dt = T.TIMESTAMP
         elif at == pa.date32():
             dt = T.DATE
+        elif pa.types.is_list(at) or pa.types.is_large_list(at):
+            elem = _arrow_schema_to_engine(
+                pa.schema([pa.field("e", at.value_type)])).fields[0]
+            dt = T.ArrayType(elem.dtype)
         else:
             dt = _ARROW_TO_DTYPE.get(at)
             if dt is None:
@@ -228,6 +233,35 @@ class ArrowTableSource(TableSource):
         if required_columns is not None:
             t = t.select(list(required_columns))
         return Batch.from_arrow(t, device)
+
+
+class CsvSource(ArrowTableSource):
+    """CSV via the C++ Arrow reader (reference: csv/CSVFileFormat +
+    UnivocityParser; here native decode + dictionary-encoding happen
+    before any bytes reach the device). Eagerly read: CSV has no
+    row-group skipping, so pushdown happens post-parse in Arrow."""
+
+    def __init__(self, path: str, name: Optional[str] = None, **options):
+        import pyarrow.csv as pa_csv
+        parse = pa_csv.ParseOptions(
+            delimiter=options.get("sep", options.get("delimiter", ",")))
+        read = pa_csv.ReadOptions(
+            autogenerate_column_names=not options.get("header", True))
+        table = pa_csv.read_csv(path, parse_options=parse,
+                                read_options=read)
+        super().__init__(name or os.path.basename(path).split(".")[0],
+                         table)
+
+
+class JsonSource(ArrowTableSource):
+    """Line-delimited JSON via the C++ Arrow reader (reference:
+    json/JsonFileFormat + JacksonParser)."""
+
+    def __init__(self, path: str, name: Optional[str] = None):
+        import pyarrow.json as pa_json
+        table = pa_json.read_json(path)
+        super().__init__(name or os.path.basename(path).split(".")[0],
+                         table)
 
 
 class ParquetSource(TableSource):

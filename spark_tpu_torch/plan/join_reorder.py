@@ -297,8 +297,9 @@ class CostBasedJoinReorder(Rule):
     # nullability from the reordered join tree
     schema_preserving = False
 
-    def __init__(self, conf=None):
+    def __init__(self, conf=None, log: Optional[list] = None):
         self.conf = conf
+        self.log = log
 
     def apply(self, plan: L.LogicalPlan) -> L.LogicalPlan:
         if self.conf is None or not bool(self.conf.get(ENABLED_KEY)):
@@ -311,6 +312,33 @@ class CostBasedJoinReorder(Rule):
             if out is not None:
                 return out
         return node.map_children(self._rewrite)
+
+    def _rel_label(self, rel: L.LogicalPlan) -> str:
+        n = rel
+        while isinstance(n, (L.Filter, L.Project)):
+            n = n.children[0]
+        if isinstance(n, L.Scan):
+            return n.source.name
+        return type(n).__name__.lower()
+
+    def _record(self, region: "_Region", order, per_join, changed: bool
+                ) -> None:
+        """One decision record for the executor's reorder log (shown by
+        `explain()`'s "reorder:" lines). `kind` tells the two change
+        classes apart: "order" = the relation sequence moved;
+        "orientation" = the same sequence with a probe/build side
+        flipped."""
+        if self.log is None:
+            return
+        labels = [self._rel_label(r) for r in region.rels]
+        seq_changed = tuple(order) != tuple(range(len(labels)))
+        self.log.append({
+            "relations": labels,
+            "order": [labels[i] for i in order],
+            "est_rows": list(per_join),
+            "changed": bool(changed),
+            "kind": ("order" if changed and seq_changed
+                     else "orientation" if changed else "kept")})
 
     @staticmethod
     def _signature(node: L.LogicalPlan, leaf_index: Dict[int, int]):
@@ -351,7 +379,7 @@ class CostBasedJoinReorder(Rule):
         found = _best_order(est, adj)
         if found is None:
             return None  # disconnected region (cross joins): keep
-        order, _per_join = found
+        order, per_join = found
         # rewrite the region relations themselves first (nested regions
         # under aggregates/subqueries)
         rels = [self._rewrite(r) for r in region.rels]
@@ -362,6 +390,7 @@ class CostBasedJoinReorder(Rule):
         orig_leaf_index = {id(r): i for i, r in enumerate(region.rels)}
         changed = (self._signature(node, orig_leaf_index)
                    != self._signature(rebuilt, new_leaf_index))
+        self._record(region, order, per_join, changed)
         if not changed:
             # keep the frontend tree (modulo rewritten leaves below it)
             return self._rebuild_shape(node, {

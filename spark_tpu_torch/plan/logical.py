@@ -136,6 +136,8 @@ def iter_expressions(plan: LogicalPlan):
         elif isinstance(n, WindowPlan):
             for w, _name in n.wexprs:
                 yield from w.children
+        elif isinstance(n, Generate):
+            yield n.gen_expr
 
 
 def iter_scans(plan: LogicalPlan):
@@ -182,6 +184,9 @@ def map_expressions(plan: LogicalPlan, f) -> LogicalPlan:
             return WindowPlan(node.child,
                               [(w.map_children(f), name)
                                for w, name in node.wexprs])
+        if isinstance(node, Generate):
+            return Generate(node.child, f(node.gen_expr), node.out_name,
+                            node.outer)
         return node
 
     return walk(plan)
@@ -452,3 +457,40 @@ class Union(LogicalPlan):
             fields.append(T.Field(a.name, T.common_type(a.dtype, b.dtype),
                                   a.nullable or b.nullable))
         return T.Schema(fields)
+
+
+class Generate(LogicalPlan):
+    """One output row per array element of `gen_expr` (explode) — the
+    reference's logical Generate (`basicLogicalOperators.scala`) over
+    `GenerateExec.scala:1`. Child columns replicate per element; the
+    element column appends as `out_name`. `outer=True` keeps empty/NULL
+    arrays as one NULL-element row (explode_outer)."""
+
+    def __init__(self, child: LogicalPlan, gen_expr, out_name: str,
+                 outer: bool = False):
+        self.children = (child,)
+        self.gen_expr = gen_expr
+        self.out_name = out_name
+        self.outer = outer
+
+    @property
+    def child(self):
+        return self.children[0]
+
+    def schema(self) -> T.Schema:
+        cs = self.child.schema()
+        dt = self.gen_expr.dtype(cs)
+        if not isinstance(dt, T.ArrayType):
+            raise AnalysisError(
+                f"explode() needs an array, got {dt!r}")
+        # array columns do not replicate through a Generate (their
+        # per-row slices have no cheap element-space gather); scalar
+        # columns + the generated element column come out
+        fields = [f for f in cs.fields
+                  if not isinstance(f.dtype, T.ArrayType)]
+        fields.append(T.Field(self.out_name, dt.element, True))
+        return T.Schema(fields)
+
+    def simple_string(self):
+        return (f"Generate(explode{'_outer' if self.outer else ''}"
+                f"({self.gen_expr!r}) AS {self.out_name})")

@@ -444,10 +444,11 @@ def excluded_rule_names(conf) -> Set[str]:
     return {s.strip() for s in raw.split(",") if s.strip()}
 
 
-def default_optimizer(conf=None) -> RuleExecutor:
+def default_optimizer(conf=None, reorder_log=None) -> RuleExecutor:
     """`conf` enables the conf-gated batch (cost-based join reorder) and
     the excludedRules lever; without it the pipeline is the
-    conf-independent rule set."""
+    conf-independent rule set. `reorder_log` is a list the reorder rule
+    appends its decision records to."""
     from .join_reorder import CostBasedJoinReorder
     batches = [
         Batch("Rewrite", [RewriteDistinctAggregates()], strategy="once"),
@@ -458,7 +459,8 @@ def default_optimizer(conf=None) -> RuleExecutor:
         ]),
         # after pushdown (selectivities read the settled Filter chains),
         # before pruning/collapse (which see the reordered tree)
-        Batch("JoinReorder", [CostBasedJoinReorder(conf)], strategy="once"),
+        Batch("JoinReorder", [CostBasedJoinReorder(conf, reorder_log)],
+              strategy="once"),
         Batch("Collapse", [CollapseProjectIntoAggregate()]),
         Batch("KeyAggs", [RewriteGroupKeyAggregates()], strategy="once"),
         Batch("Fold", [ConstantFolding()], strategy="once"),

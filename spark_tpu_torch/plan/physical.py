@@ -230,7 +230,9 @@ class ProjectExec(UnaryExec):
             validity = v.validity
             if validity is not None and validity.dim() == 0:
                 validity = validity.expand((cap,))
-            cols[e.name()] = Column(data, v.dtype, validity, v.dictionary)
+            cols[e.name()] = Column(data, v.dtype, validity, v.dictionary,
+                                    offsets=v.offsets,
+                                    elem_validity=v.elem_validity)
         return Batch(cols, batch.selection, batch.device)
 
     def simple_string(self):
@@ -351,11 +353,14 @@ class HashAggregateExec(UnaryExec):
         return Batch(cols, occupied, ctx.device)
 
     def _compute_positional(self, ctx, batch: Batch, base) -> Batch:
-        """Aggregates with percentile/median (Percentile.scala,
-        ApproximatePercentile.scala:1): one complete pass over a (group
-        keys, value) sort per distinct value child. Regular functions
-        in the same SELECT ride a sort_aggregate over the SAME key
-        order, so all output columns align group for group."""
+        """Aggregates with percentile/median/collect_list/collect_set
+        (Percentile.scala, ApproximatePercentile.scala:1, collect.scala):
+        one complete pass over a (group keys, value) sort per distinct
+        value child. Regular functions in the same SELECT ride a
+        sort_aggregate over the SAME key order, so all output columns
+        align group for group. The collect outputs are array columns of
+        the input's capacity (`num_segments = cap`), as in the JAX
+        package."""
         from ..expr import cast_vec
         sel = batch.selection
         cap = batch.capacity
@@ -384,20 +389,31 @@ class HashAggregateExec(UnaryExec):
             results[i] = Column(data, a.func.result_type(base), validity,
                                 getattr(a.func, "output_dictionary", None))
 
-        sorts = {}  # value child repr -> positional_sort outputs
+        from ..expr_agg import Percentile
+        sorts = {}  # (value child repr, cast) -> positional_sort outputs
         for i, a in enumerate(self.agg_exprs):
-            f = a.func  # Percentile or Median, the positional aggregates
+            f = a.func
             if not getattr(f, "positional", False):
                 continue
-            skey = repr(f.child)
+            vec = f.child.eval(batch)
+            is_pct = isinstance(f, Percentile)
+            if is_pct:
+                vec = cast_vec(vec, T.DOUBLE)
+            skey = (repr(f.child), is_pct)
             if skey not in sorts:
-                vec = cast_vec(f.child.eval(batch), T.DOUBLE)
                 sorts[skey] = agg_kernels.positional_sort(
                     key_vecs, vec, sel, cap)
             vals_s, vvalid_s, gid, gstart = sorts[skey]
-            out, ok = agg_kernels.positional_percentile(
-                vals_s, vvalid_s, gid, gstart, num_segments, f.q, cap)
-            results[i] = Column(out, T.DOUBLE, ok & occupied)
+            if is_pct:
+                out, ok = agg_kernels.positional_percentile(
+                    vals_s, vvalid_s, gid, gstart, num_segments, f.q, cap)
+                results[i] = Column(out, T.DOUBLE, ok & occupied)
+            else:
+                data, offs = agg_kernels.positional_collect(
+                    vals_s, vvalid_s, gid, gstart, num_segments,
+                    f.distinct, cap)
+                results[i] = Column(data, T.ArrayType(vec.dtype), occupied,
+                                    vec.dictionary, offsets=offs)
 
         for i, a in enumerate(self.agg_exprs):
             out_cols[a.out_name] = results[i]
@@ -451,6 +467,84 @@ class SortExec(UnaryExec):
 
     def simple_string(self):
         return f"SortExec({[repr(o) for o in self.orders]})"
+
+
+class GenerateExec(UnaryExec):
+    """explode: one output row per flattened array element. The output
+    capacity is the values capacity (the flattened element column's
+    padded length), so unlike the reference's `GenerateExec.scala:1`
+    row iterator no re-plan sizing is needed: element slots map back to
+    their rows with one searchsorted over the offsets, and every child
+    column gathers by that row index. `outer` appends one slot per
+    input row, live for empty/NULL arrays (explode_outer)."""
+
+    def __init__(self, child: PhysicalPlan, gen_expr, out_name: str,
+                 out_schema: T.Schema, outer: bool = False):
+        self.children = (child,)
+        self.gen_expr = gen_expr
+        self.out_name = out_name
+        self._schema = out_schema
+        self.outer = outer
+
+    def schema(self):
+        return self._schema
+
+    def compute(self, ctx, inputs):
+        batch = inputs[0]
+        cap = batch.capacity
+        v = self.gen_expr.eval(batch)
+        if v.offsets is None:
+            raise AnalysisError(
+                f"explode() needs an array, got {v.dtype!r}")
+        device = v.data.device
+        vcap = max(int(v.data.shape[0]), 1)
+        iota = torch.arange(vcap, dtype=torch.int32, device=device)
+        seg = torch.searchsorted(v.offsets, iota, right=True) - 1
+        seg_c = seg.clamp(0, cap - 1)
+        row_live = batch.selection_mask()
+        live = (iota < v.offsets[-1]) & row_live[seg_c]
+        if v.validity is not None:
+            live = live & v.validity[seg_c]
+
+        parts = {}
+        for name, col in batch.columns.items():
+            if col.offsets is not None:
+                continue  # array columns do not replicate (see schema)
+            parts[name] = (col.data[seg_c], None if col.validity is None
+                           else col.validity[seg_c])
+        elem_data = v.data
+        elem_valid = v.elem_validity
+        sel = live
+        if self.outer:
+            # one extra slot per input row, live only for empty/NULL
+            # arrays; its element is NULL (explode_outer semantics)
+            empty = v.offsets[1:] == v.offsets[:-1]
+            if v.validity is not None:
+                empty = empty | ~v.validity
+            for name, (d, va) in parts.items():
+                col = batch.columns[name]
+                parts[name] = (torch.cat([d, col.data]),
+                               None if va is None
+                               else torch.cat([va, col.validity]))
+            elem_data = torch.cat([elem_data, torch.zeros(
+                (cap,), dtype=elem_data.dtype, device=device)])
+            ev_main = elem_valid if elem_valid is not None else \
+                torch.ones((vcap,), dtype=torch.bool, device=device)
+            elem_valid = torch.cat([ev_main, torch.zeros(
+                (cap,), dtype=torch.bool, device=device)])
+            sel = torch.cat([live, row_live & empty])
+
+        cols = {n: Column(d, batch.columns[n].dtype, va,
+                          batch.columns[n].dictionary)
+                for n, (d, va) in parts.items()}
+        cols[self.out_name] = Column(elem_data, v.dtype.element, elem_valid,
+                                     v.dictionary)
+        ctx.add_metric(f"gen_rows_{self.out_name}", sel.sum())
+        return Batch(cols, sel, ctx.device)
+
+    def simple_string(self):
+        return (f"GenerateExec(explode{'_outer' if self.outer else ''}"
+                f"({self.gen_expr!r}) AS {self.out_name})")
 
 
 class WindowExec(UnaryExec):

@@ -36,8 +36,10 @@ def plan_physical(plan: L.LogicalPlan, conf: Conf) -> P.PhysicalPlan:
 def _assign_join_tags(plan: P.PhysicalPlan) -> None:
     """Stable per-node tags for the join/aggregate/runtime-filter flags
     and metrics (the executor's re-plan loop keys on them), numbered in
-    post-order as the JAX package numbers them."""
-    counters = {"j": 0, "cj": 0, "e": 0, "a": 0, "rf": 0}
+    post-order as the JAX package numbers them. Every node also gets an
+    `op_tag` (`op0`, `op1`, ...), which its output row count is kept
+    under (`rows_<op_tag>`, shown by `explain(runtime=True)`)."""
+    counters = {"j": 0, "cj": 0, "e": 0, "a": 0, "rf": 0, "op": 0}
     seen = set()  # creation chains are DAG-shared under rf nodes:
     # tag each node once
 
@@ -61,6 +63,7 @@ def _assign_join_tags(plan: P.PhysicalPlan) -> None:
             node.tag = next_tag("a")
         elif isinstance(node, P.RuntimeFilterExec):
             node.tag = next_tag("rf")
+        node.op_tag = next_tag("op")
 
     walk(plan)
 
@@ -119,6 +122,9 @@ def _convert(plan: L.LogicalPlan, conf: Conf) -> P.PhysicalPlan:
     if isinstance(plan, L.WindowPlan):
         return P.WindowExec(_convert(plan.child, conf), plan.wexprs,
                             plan.schema())
+    if isinstance(plan, L.Generate):
+        return P.GenerateExec(_convert(plan.child, conf), plan.gen_expr,
+                              plan.out_name, plan.schema(), outer=plan.outer)
     if isinstance(plan, L.Union):
         return P.UnionExec(_convert(plan.children[0], conf),
                            _convert(plan.children[1], conf), plan.schema())

@@ -5,39 +5,55 @@ A session runs on one device: the current CUDA card unless the builder
 asks for another (`SparkTpuSession.builder().device("cpu")`). Without a
 device and without CUDA, building a session raises.
 
-`sql(text)` parses and lowers one SELECT statement (`sql/parser.py`) to
-the same logical plans the DataFrame API builds. A WITH-clause view is
-marked for statement-scoped materialization (`mark_cache`): the first
-query that reaches it computes it once, later references in the same
-statement read the result, and the data is dropped when the outermost
-execution ends. The user-facing `DataFrame.cache()` and a session data
-cache that outlives a statement are not ported yet.
+`sql(text)` parses and lowers one statement (`sql/parser.py`) to the
+same logical plans the DataFrame API builds; a DDL/DML command runs at
+parse time against the catalog (`catalog.py`: temp views over a
+persistent Parquet warehouse under `spark_tpu.sql.warehouse.dir`).
+
+The data cache (`result_cache.ResultCache`, keyed by plan
+fingerprint) holds materialized results. `DataFrame.cache()` marks a
+plan: its first action fills the cache, and later queries containing
+an equal subtree read the cached table until `unpersist()`. A
+WITH-clause view is marked `implicit`: the first query that reaches it
+computes it once, later references in the same statement read the
+result, and the data is dropped when the outermost execution ends (the
+mark stays, so the statement run again computes the view once again).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Set
 
 import pandas as pd
 import pyarrow as pa
 
+from .catalog import Catalog
 from .columnar import resolve_device
-from .config import Conf
+from .config import RESULT_CACHE_BYTES, Conf
 from .dataframe import DataFrame
 from .io.sources import ArrowTableSource, ParquetSource, TableSource
 from .plan import logical as L
+from .result_cache import ResultCache
 
 
 class SparkTpuSession:
     def __init__(self, conf: Optional[Conf] = None, device=None):
         self.conf = conf or Conf()
         self.device = resolve_device(device)
-        self.catalog: Dict[str, TableSource] = {}
-        # statement-scoped materializations (WITH-clause views), keyed by
-        # plan fingerprint: the marked plans, and the tables computed for
-        # them in the current statement
+        self.catalog: Catalog = Catalog(self)
+        # plan-fingerprint data cache (reference: CacheManager.scala):
+        # the marked plans, and the tables materialized for them; a
+        # standalone session's cache is unbounded unless the bound is
+        # set explicitly
         self._cache_requests: Dict[str, L.LogicalPlan] = {}
-        self._data_cache: Dict[str, pa.Table] = {}
+        key = RESULT_CACHE_BYTES.key
+        self._data_cache = ResultCache(
+            int(self.conf.get(key)) if self.conf.is_explicitly_set(key)
+            else 0)
+        # marks whose data lives for one statement (WITH-clause views)
+        self._implicit_cache_fps: Set[str] = set()
+        #: subtrees replaced by a cached table (`_apply_cache`)
+        self.result_cache_hits = 0
         # nesting depth of running executions (subqueries and
         # materializations run their own); the outermost one's end ends
         # the statement
@@ -46,7 +62,7 @@ class SparkTpuSession:
         # settled on; the next execution of the plan starts from them
         self._aqe_caps: Dict[str, Dict[str, int]] = {}
 
-    # -- statement-scoped materialization ---------------------------------
+    # -- data cache -------------------------------------------------------
 
     @staticmethod
     def _plan_fingerprint(plan: L.LogicalPlan) -> str:
@@ -56,12 +72,28 @@ class SparkTpuSession:
         tokens = [s.source.cache_token() for s in L.iter_scans(plan)]
         return plan.tree_string() + f"#src{tokens!r}"
 
-    def mark_cache(self, plan: L.LogicalPlan) -> None:
-        """Materialize `plan` once per statement wherever a query reaches
-        it (the executor's `_apply_cache`): the JAX package's
-        `mark_cache(plan, implicit=True)`. A cache that outlives the
-        statement is not ported yet."""
-        self._cache_requests[self._plan_fingerprint(plan)] = plan
+    def mark_cache(self, plan: L.LogicalPlan, implicit: bool = False) -> None:
+        """Materialize `plan` wherever a query reaches it (the
+        executor's `_apply_cache`). `implicit` scopes the data to one
+        statement (WITH-clause views): evicted when the outermost
+        execution finishes."""
+        fp = self._plan_fingerprint(plan)
+        self._cache_requests[fp] = plan
+        if implicit:
+            self._implicit_cache_fps.add(fp)
+
+    def uncache(self, plan: L.LogicalPlan) -> None:
+        fp = self._plan_fingerprint(plan)
+        self._cache_requests.pop(fp, None)
+        self._data_cache.pop(fp, None)
+        self._implicit_cache_fps.discard(fp)
+
+    def _evict_implicit_caches(self) -> None:
+        """Statement-scoped data lifetime: drop the materialized tables
+        but keep the marks, so running the same statement again still
+        computes a multiply-referenced view once."""
+        for fp in self._implicit_cache_fps:
+            self._data_cache.pop(fp, None)
 
     # -- builder ------------------------------------------------------------
 
@@ -112,11 +144,12 @@ class SparkTpuSession:
 
     def register_table(self, name: str, source_or_table) -> None:
         # marks over the replaced table can never match again (its
-        # source stamp is gone): drop them
+        # source stamp is gone): drop them and their data
         for fp, plan in list(self._cache_requests.items()):
             if any(s.source.name == name for s in L.iter_scans(plan)):
                 del self._cache_requests[fp]
                 self._data_cache.pop(fp, None)
+                self._implicit_cache_fps.discard(fp)
         # free the replaced source's device-resident batches: no key can
         # reach them under the new source's stamp
         old = self.catalog.get(name)
@@ -148,8 +181,48 @@ class SparkTpuSession:
     def read_parquet(self, path: str, name: Optional[str] = None) -> DataFrame:
         return DataFrame(self, L.Scan(ParquetSource(path, name)))
 
+    def read_csv(self, path: str, name: Optional[str] = None,
+                 **options) -> DataFrame:
+        from .io.sources import CsvSource
+        return DataFrame(self, L.Scan(CsvSource(path, name, **options)))
+
+    def read_json(self, path: str, name: Optional[str] = None) -> DataFrame:
+        from .io.sources import JsonSource
+        return DataFrame(self, L.Scan(JsonSource(path, name)))
+
+    def long_accumulator(self, name: str = "acc") -> "Accumulator":
+        return Accumulator(name, 0)
+
+    def double_accumulator(self, name: str = "acc") -> "Accumulator":
+        return Accumulator(name, 0.0)
+
+    longAccumulator = long_accumulator
+    doubleAccumulator = double_accumulator
+
     def sql(self, query: str) -> DataFrame:
         """Parse and lower one SQL statement against the catalog (the
         reference's `SparkSession.sql:613`)."""
         from .sql.parser import parse_sql
         return DataFrame(self, parse_sql(query, self))
+
+
+class Accumulator:
+    """Host-side mergeable counter (reference: AccumulatorV2.scala:44):
+    updates are plain in-process adds."""
+
+    def __init__(self, name: str, value=0):
+        self.name = name
+        self._value = value
+
+    def add(self, v) -> None:
+        self._value += v
+
+    @property
+    def value(self):
+        return self._value
+
+    def reset(self) -> None:
+        self._value = type(self._value)()
+
+    def __repr__(self):
+        return f"Accumulator({self.name}={self._value!r})"

@@ -1,10 +1,12 @@
-"""Bloom filter on device tensors (the port of `BloomFilter` and `_mix64`
-in `spark_tpu/sketch.py`; reference: `common/sketch/BloomFilter.java`).
+"""Probabilistic sketches on device tensors: Bloom filter and Count-Min
+(the port of `spark_tpu/sketch.py`; reference:
+`common/sketch/BloomFilter.java`, `CountMinSketch.java`).
 
-The filter stores one logical bit per byte, set by an idempotent scatter
-of ones. Hashes are the splitmix64 finalizer on int64 tensors: torch has
-no unsigned 64-bit arithmetic on CUDA, so the unsigned operations are
-emulated on int64 bits:
+The Bloom filter stores one logical bit per byte, set by an idempotent
+scatter of ones; Count-Min is a [depth, width] table of int64 counters
+filled by scatter-adds. Hashes are the splitmix64 finalizer on int64
+tensors: torch has no unsigned 64-bit arithmetic on CUDA, so the
+unsigned operations are emulated on int64 bits:
 
 - a logical right shift is the arithmetic shift masked to the bits that
   shifted in from the top;
@@ -99,3 +101,45 @@ class BloomFilter:
         for s in range(self.num_hashes):
             out = out & (self.bits[_umod(_mix64(x, s), m)] > 0)
         return out
+
+
+class CountMinSketch:
+    """Frequency sketch: [depth, width] counters, point query = min over
+    rows (reference: CountMinSketch.java). Row d hashes with seed d, so
+    the counters equal the JAX package's bit for bit."""
+
+    def __init__(self, table, depth: int, width: int):
+        self.table = table
+        self.depth = depth
+        self.width = width
+
+    @staticmethod
+    def sizing(eps: float = 0.001, confidence: float = 0.99):
+        width = int(np.ceil(2.0 / eps))
+        depth = int(np.ceil(-np.log(1.0 - confidence) / np.log(2.0)))
+        return max(1, depth), max(16, width)
+
+    @classmethod
+    def build(cls, values, eps: float = 0.001, confidence: float = 0.99,
+              mask=None) -> "CountMinSketch":
+        depth, width = cls.sizing(eps, confidence)
+        # one column past the end catches the masked-out rows
+        table = torch.zeros((depth, width + 1), dtype=torch.int64,
+                            device=values.device)
+        x = values.to(torch.int64)
+        ones = torch.ones(values.shape, dtype=torch.int64,
+                          device=values.device)
+        for d in range(depth):
+            idx = _umod(_mix64(x, d), width)
+            if mask is not None:
+                idx = torch.where(mask, idx, torch.full_like(idx, width))
+            table[d].index_add_(0, idx, ones)
+        return cls(table[:, :width].contiguous(), depth, width)
+
+    def estimate(self, values):
+        x = values.to(torch.int64)
+        est = None
+        for d in range(self.depth):
+            row = self.table[d][_umod(_mix64(x, d), self.width)]
+            est = row if est is None else torch.minimum(est, row)
+        return est

@@ -37,11 +37,12 @@ from ..expr import (Alias, AnalysisError, And, CaseWhen, Cast, ColumnRef, EQ,
                     Literal, Mod, NE, Neg, Not, Or, SortOrder, Substring,
                     date_literal)
 from ..expr_agg import (AggExpr, AggregateFunction, AnyValue, Avg,
-                        AvgDistinct, BoolAnd, BoolOr, Corr, Count,
-                        CountDistinct, CountIf, CovarPop, CovarSamp, First,
-                        Kurtosis, Last, Max, Median, Min, NotPortedAggregate,
-                        Percentile, Skewness, StddevPop, StddevSamp, Sum,
-                        SumDistinct, VariancePop, VarianceSamp)
+                        AvgDistinct, BoolAnd, BoolOr, CollectList,
+                        CollectSet, Corr, Count, CountDistinct, CountIf,
+                        CovarPop, CovarSamp, First, Kurtosis, Last, Max,
+                        Median, Min, Percentile, Skewness, StddevPop,
+                        StddevSamp, Sum, SumDistinct, VariancePop,
+                        VarianceSamp)
 from ..plan import logical as L
 from .lexer import ParseError, Token, tokenize
 
@@ -672,9 +673,6 @@ class Parser:
     #: two-argument aggregates (corr/covar)
     _AGGS2 = {"CORR": Corr, "COVAR_SAMP": CovarSamp, "COVAR_POP": CovarPop}
 
-    #: aggregates the JAX package computes that wait for array columns
-    _AGGS_NOT_PORTED = {"COLLECT_LIST", "COLLECT_SET", "ARRAY_AGG"}
-
     def parse_function(self) -> Expression:
         name = self._ident().upper()
         self.expect_op("(")
@@ -726,12 +724,11 @@ class Parser:
             e = self.parse_expr()
             self.expect_op(")")
             return _AggCall(Median(e))
-        if name in self._AGGS_NOT_PORTED:
-            args = [self.parse_expr()]
-            while self.eat_op(","):
-                args.append(self.parse_expr())
+        if name in ("COLLECT_LIST", "COLLECT_SET", "ARRAY_AGG"):
+            e = self.parse_expr()
             self.expect_op(")")
-            return _AggCall(NotPortedAggregate(name, *args))
+            cls = CollectSet if name == "COLLECT_SET" else CollectList
+            return _AggCall(cls(e))
         if name in ("ROW_NUMBER", "RANK", "DENSE_RANK"):
             self.expect_op(")")
             return _RankingCall(name.lower(), None, 0, None)
@@ -1181,7 +1178,7 @@ class Lowerer:
             # once on first use instead of re-executing per reference.
             # implicit=True scopes the entry to one statement execution
             # (evicted afterwards — no staleness, no unbounded growth)
-            self.session.mark_cache(plan)
+            self.session.mark_cache(plan, implicit=True)
         if sel.grouping_sets:
             return self._lower_grouping_sets(sel)
         if sel.union_of is not None:
@@ -1424,11 +1421,14 @@ class Lowerer:
             (sel.having is not None and _contains_agg(sel.having))
 
         from ..window import contains_window
-        if any(contains_window(e) for e, _ in items):
+        from ..expr_array import contains_explode
+        has_window = any(contains_window(e) for e, _ in items)
+        has_gen = any(contains_explode(e) for e, _ in items)
+        if has_window or has_gen:
             if has_agg:
                 raise AnalysisError(
-                    "window functions with GROUP BY in one SELECT are not "
-                    "supported yet (use a FROM subquery)")
+                    "window functions / explode with GROUP BY in one "
+                    "SELECT are not supported yet (use a FROM subquery)")
             plan, items = self._extract_window_items(plan, items)
 
         if sel.distinct and has_agg:
@@ -1868,8 +1868,11 @@ class Lowerer:
         projection (shared with the DataFrame layer: one node — one
         sort — per distinct spec; collision-safe names)."""
         from ..window import extract_window_exprs
+        from ..expr_array import contains_explode, extract_generators
         exprs = [Alias(e, a) if a else e for e, a in items]
         plan, out = extract_window_exprs(plan, exprs)
+        if any(contains_explode(e) for e in out):
+            plan, out = extract_generators(plan, out)
         rebuilt = []
         for (orig_e, a), new_e in zip(items, out):
             if a and isinstance(new_e, Alias):
@@ -1904,14 +1907,16 @@ class Lowerer:
 def parse_sql(query: str, session) -> L.LogicalPlan:
     """Parse one statement into a logical plan bound to the session
     catalog (the `SparkSession.sql:613` entry point). DDL/DML commands
-    (CREATE/DROP/INSERT/SHOW/DESCRIBE) and the catalog they act on are
-    not ported yet."""
+    (CREATE/DROP/INSERT/SHOW/DESCRIBE) run eagerly at parse time — the
+    reference's RunnableCommand contract — and lower to a scan over
+    their small result relation."""
     p = Parser(query, session)
     t = p.peek()
     if t.kind == "ident" and t.upper in ("CREATE", "DROP", "INSERT",
                                          "SHOW", "DESCRIBE", "DESC"):
-        raise AnalysisError(
-            f"DDL/DML command {t.upper} is not yet ported to "
-            f"spark_tpu_torch")
+        from .ddl import execute_command
+        from ..io.sources import ArrowTableSource
+        table = execute_command(p, session)
+        return L.Scan(ArrowTableSource("__command__", table))
     sel = p.parse_statement()
     return Lowerer(session).lower(sel)

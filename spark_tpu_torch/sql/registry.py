@@ -6,9 +6,8 @@ with arity checking).
 Each entry: NAME -> (builder, min_args, max_args). Builders receive
 already-parsed Expression args; entries whose parameters must be
 literals (regexp patterns, pad strings, trunc formats) unwrap them and
-raise AnalysisError otherwise. The JAX package's array functions
-(`expr_array.py`) are listed in `NOT_YET_PORTED` and raise
-AnalysisError naming them.
+raise AnalysisError otherwise. Every name of the JAX package's
+registry is here, the array functions (`expr_array.py`) included.
 """
 
 from __future__ import annotations
@@ -24,12 +23,6 @@ from ..expr import (AnalysisError, Coalesce, ConcatLit, DateAdd, Expression,
 #: NAME -> (builder(args) -> Expression, min_args, max_args)
 REGISTRY: Dict[str, Tuple[Callable, int, int]] = {}
 
-#: functions the JAX package's registry resolves that the port has no
-#: expression for yet (its `expr_array.py`, which needs array columns)
-NOT_YET_PORTED = frozenset("""
-    ARRAY SIZE CARDINALITY ARRAY_CONTAINS ELEMENT_AT EXPLODE EXPLODE_OUTER
-""".split())
-
 
 def register(name: str, builder: Callable, lo: int, hi: int) -> None:
     REGISTRY[name.upper()] = (builder, lo, hi)
@@ -37,14 +30,9 @@ def register(name: str, builder: Callable, lo: int, hi: int) -> None:
 
 def lookup(name: str, args: List[Expression]) -> Optional[Expression]:
     """Build the expression for `name(args)`, or None when unknown.
-    Raises AnalysisError on arity mismatch for a known function, and for
-    a function the JAX package has but the port does not yet."""
+    Raises AnalysisError on arity mismatch for a known function."""
     entry = REGISTRY.get(name.upper())
     if entry is None:
-        if name.upper() in NOT_YET_PORTED:
-            raise AnalysisError(
-                f"function {name.lower()}() is not yet ported to "
-                f"spark_tpu_torch")
         return None
     builder, lo, hi = entry
     if not (lo <= len(args) <= hi):
@@ -217,3 +205,16 @@ def _concat(args: List[Expression]) -> Expression:
 
 
 register("CONCAT", _concat, 1, 64)
+
+
+# -- arrays (collectionOperations.scala) ------------------------------------
+
+from .. import expr_array as _arr  # noqa: E402
+
+register("ARRAY", lambda a: _arr.MakeArray(*a), 1, 64)
+register("SIZE", lambda a: _arr.Size(a[0]), 1, 1)
+register("CARDINALITY", lambda a: _arr.Size(a[0]), 1, 1)
+register("ARRAY_CONTAINS", lambda a: _arr.ArrayContains(a[0], a[1]), 2, 2)
+register("ELEMENT_AT", lambda a: _arr.ElementAt(a[0], a[1]), 2, 2)
+register("EXPLODE", lambda a: _arr.Explode(a[0]), 1, 1)
+register("EXPLODE_OUTER", lambda a: _arr.Explode(a[0], outer=True), 1, 1)

@@ -335,11 +335,19 @@ def test_positional_forces_complete_mode_and_sorts_by_value(table):
 
 
 def test_collect_aggregates_still_raise(table):
-    from spark_tpu_torch.expr import AnalysisError
-    port, _ref = both(table, "collect")
+    """Written while collect_list, collect_set and array_agg still
+    raised in the port. They are ported now, so the case holds each to
+    the reference's rows instead: lists of decimals, strings, int64
+    extremes, dates and doubles, NULL elements dropped, by the sparse
+    int key with its NULL group."""
+    port, ref = both(table, "collect")
     for fn in ("collect_list", "collect_set", "array_agg"):
-        with pytest.raises(AnalysisError, match=f"{fn}.*not yet ported"):
-            port.sql(f"SELECT ks, {fn}(x) AS c FROM t GROUP BY ks").collect()
+        text = (f"SELECT ks, {fn}(dec) AS cd, {fn}(s) AS cs, "
+                f"{fn}(big) AS cb, {fn}(dt) AS ct, {fn}(y) AS cy "
+                f"FROM t GROUP BY ks ORDER BY ks")
+        got, want = run(port, ref, lambda s: s.sql(text))
+        assert got.equals(want), fn
+        assert got.num_rows > 30
 
 
 def test_first_of_doubles_outside_float32():

@@ -240,14 +240,12 @@ def test_dataframe_wrappers_match_reference(table):
 
 def test_every_reference_wrapper_is_exported():
     """functions.py exports every wrapper of the JAX package's but the
-    array functions, the collect aggregates, `window` and the UDFs."""
+    event-time `window` and the UDFs."""
     import inspect
 
     from spark_tpu import functions as RF
     from spark_tpu_torch import functions as PF
-    later = {"array", "size", "array_contains", "element_at", "explode",
-             "explode_outer", "collect_list", "collect_set", "window",
-             "udf", "pandas_udf"}
+    later = {"window", "udf", "pandas_udf"}
     ref_names = {n for n, v in vars(RF).items()
                  if not n.startswith("_") and callable(v)
                  and not inspect.isclass(v)
@@ -261,20 +259,19 @@ def test_every_reference_wrapper_is_exported():
 
 
 def test_registry_resolves_every_reference_name():
-    """The port's SQL registry has every name of the JAX package's but
-    the seven array functions, which raise naming themselves."""
+    """The port's SQL registry has every name of the JAX package's, the
+    seven array functions included, with the same arities."""
     from spark_tpu.sql.registry import REGISTRY as REF
     from spark_tpu_torch.expr import AnalysisError
-    from spark_tpu_torch.sql.registry import NOT_YET_PORTED, REGISTRY
+    from spark_tpu_torch.sql.registry import REGISTRY
     arrays = {"ARRAY", "SIZE", "CARDINALITY", "ARRAY_CONTAINS",
               "ELEMENT_AT", "EXPLODE", "EXPLODE_OUTER"}
-    assert set(REF) - set(REGISTRY) == arrays
-    assert set(REGISTRY) <= set(REF)
-    assert NOT_YET_PORTED == arrays
+    assert set(REF) == set(REGISTRY)
+    assert arrays <= set(REGISTRY)
     for name, (_b, lo, hi) in REGISTRY.items():
         assert (lo, hi) == REF[name][1:], name
     from spark_tpu_torch.sql.registry import lookup
-    with pytest.raises(AnalysisError, match="size.*not yet ported"):
+    with pytest.raises(AnalysisError, match="size expects 1 arguments"):
         lookup("size", [])
 
 
