@@ -3,12 +3,13 @@
     python3 chip_smoke.py                      # every phase, as below
     python3 chip_smoke.py --phases kernels,fuzz   # chosen phases (PHASES)
     python3 chip_smoke.py --phases kernels     # phases 1-3 only
+    python3 chip_smoke.py --phases ooc         # phase 12 (and 1-2)
 
 Phases, in order; any failure exits non-zero before the last line.
 Phases 1 and 2 always run; `--phases` names the others, from PHASES:
 kernels (3), variants (4), main (5), sql (6), tpcds (7), window (8),
-fuzz (9), functions (10), etl (11). Each query of phases 5-8, 10 and
-11's aggregates runs twice: a
+fuzz (9), functions (10), etl (11), ooc (12). Each query of phases 5-8,
+10 and 11's aggregates runs twice: a
 first run, after the device table cache and the session's kept
 capacities are emptied, and a warm run, which reuses the cached scans
 and the kept capacities. Both
@@ -45,7 +46,9 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    the sort path). Each query is then run twice more per operator (a
    cold pass with the cache emptied, whose ScanExec time is printed as
    "cold ScanExec", and a cached pass), and once under torch.profiler
-   for the card's busy share; each join
+   for the card's busy share, then 9 more warm runs with the stage's
+   dispatch wait polling and 9 blocking, interleaved (`[sync]` lines,
+   the medians); each join
    reports the kernel it took (hash or sort), its hash-probe steps,
    whether its unique-build path held, and the query's re-plan attempts.
    Q3 and Q5 run again under `join.kernelMode=sort` and `=hash` and must
@@ -125,8 +128,37 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    Bloom filter of l_orderkey without false negatives; and
    `explain(extended=True, runtime=True)` of SQL Q5 with every section,
    rows out on every operator and `[joins]` agreeing with `reorder:`.
+12. ooc, out-of-core execution and recovery: lineitem at SF10 (about
+   60M rows, written in ten pieces by `write_lineitem_pieces`, its
+   seconds printed), SQL Q1 and Q6 a first and a warm run each under the
+   default conf: each must stream (`InputExec(streamed_agg,...)`, one
+   chunk of 2^24 rows per 2^24 rows the pushed filter passes: Q1 4, Q6
+   1), launch `dense_sums_smem` exactly the chunks times the launches
+   `plan_launches` plans for one chunk's input, and no other kernel, and
+   equal an exact golden built from the
+   generator's integer arrays piece by piece; each prints its wall
+   times, per-chunk wait, decode, copy and update times, the prefetch
+   wait, the peak allocated bytes beside the whole-input estimate, and
+   the idle share of one profiled run. Q1 under
+   `aggregate.kernelMode=scatter` launches no kernel and gives the same
+   bytes; `range(2^26).group_by(id % 65536)` streams four chunks, with
+   one chunk's planned `dense_sums_global` launches each, against the
+   closed form; phase 5's
+   SF1 data under `memory.deviceBudget` 65,536 and 2^20-row chunks
+   gives each whole-input result's bytes (Q1, Q5 streamed, Q3 spilled,
+   a top-10 and a plain chain through external collect). Faults:
+   `stream_chunk:unavailable:2` and `ingest_prefetch:unavailable:1` on
+   SF10 Q1 replay one chunk, two injected out-of-memory errors at an
+   SF1 whole-table load climb the ladder to the 1-byte-budget re-plan,
+   and SF10 Q1 forced to load whole under a memory fraction (printed)
+   runs out of memory for real and lands on the stream, each with the
+   clean bytes and the expected `fault_summary`. Last, a deadline of
+   half Q1's warm time and a `session.cancel` from a timer thread each
+   stop it within dispatchPollMs plus one chunk (printed), leave no
+   prefetch thread, and a rerun gives the clean bytes.
 Then the kernels are timed again on the exact inputs the first run of
-each query of phases 5-7, 10 and 11 gave them.
+each query of phases 5-7 and 10-12 gave them (a chunk's input, for a
+streamed query).
 
 The line before the last is a JSON object with one entry per kernel and
 main-path input; the last line is `{"ok": true, "device": {...}}`, and
@@ -159,6 +191,14 @@ SPIN_CYCLES = 2_000_000
 SF = 1.0
 RANGE_ROWS = 16_000_000
 RANGE_MOD = 65536
+#: runs of each wait in phase 5's polling-against-blocking comparison
+SYNC_PAIRS = 9
+#: phase 12: the scale of the streamed lineitem, the chunks the range
+#: stream cuts (streamingChunkRows, 2^24, by default; a scan's chunks
+#: count the rows its pushed filter passes), and the range's rows
+OOC_SF = 10
+OOC_RANGE_CHUNKS = 4
+OOC_RANGE_ROWS = 1 << 26
 
 REPLACES = {
     "dense_sums_smem": "spark_tpu/execution/pallas_groupby.py:93",
@@ -212,9 +252,10 @@ SOURCE = "spark_tpu_torch/csrc/dense_groupby.cu"
 #: the phases `--phases` chooses from, in run order (device and build
 #: always run)
 PHASES = ("kernels", "variants", "main", "sql", "tpcds", "window", "fuzz",
-          "functions", "etl")
+          "functions", "etl", "ooc")
 #: the phases that drive the package's main path (run_phases)
-MAIN_PHASES = ("main", "sql", "tpcds", "window", "fuzz", "functions", "etl")
+MAIN_PHASES = ("main", "sql", "tpcds", "window", "fuzz", "functions", "etl",
+               "ooc")
 #: the hand kernels each function-library program must launch at SF1
 #: (F2's and F3's aggregates and functions run as torch ops: the
 #: positional sort, the sort aggregate, the date and bit arithmetic)
@@ -641,8 +682,37 @@ def phase_dataframes(D, S, Q, path, launches, current) -> dict:
         if q in ("q3", "q5"):
             log(f"[joins] {q}: {describe_joins(first[1])}")
         log(f"[breakdown] {q}: {breakdown(Q.QUERIES[q](session))}")
+        poll, block = sync_cost(session, lambda: Q.QUERIES[q](session))
+        log(f"[sync] {q}: warm run, median of {SYNC_PAIRS} each, "
+            f"interleaved: dispatch wait polling {poll * 1e3:.2f} ms, "
+            f"blocking {block * 1e3:.2f} ms (polling costs "
+            f"{(poll - block) * 1e3:+.2f} ms)")
     join_kernel_parity(S, Q, path, results)
     return results
+
+
+def sync_cost(session, make_df):
+    """Warm wall times of `make_df()` with the stage's dispatch wait
+    polling its CUDA event (dispatchPollMs at its default) and blocking
+    on it (dispatchPollMs 0), SYNC_PAIRS runs of each, interleaved:
+    the two medians, seconds."""
+    import statistics
+    import torch
+    from spark_tpu_torch.execution.executor import DISPATCH_POLL_KEY
+    default = session.conf.get(DISPATCH_POLL_KEY)
+    times = {"poll": [], "block": []}
+    try:
+        for _ in range(SYNC_PAIRS):
+            for mode, poll_ms in (("poll", default), ("block", 0)):
+                session.conf.set(DISPATCH_POLL_KEY, poll_ms)
+                t0 = time.perf_counter()
+                make_df()._qe().collect()
+                torch.cuda.synchronize()
+                times[mode].append(time.perf_counter() - t0)
+    finally:
+        session.conf.set(DISPATCH_POLL_KEY, default)
+    return (statistics.median(times["poll"]),
+            statistics.median(times["block"]))
 
 
 def phase_range(D, S, launches, current) -> None:
@@ -1413,8 +1483,534 @@ def etl_explain(session) -> None:
     log("[etl] explain text:\n" + text)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: out-of-core execution and recovery
+# ---------------------------------------------------------------------------
+
+def q1_q6_golden():
+    """Exact SQL Q1/Q6 answers built piece by piece from the generator's
+    integer arrays: numpy int64 partial sums over one piece at most
+    (far below 2^63), added across pieces as Python ints. Returns
+    (on_piece callback, the answers' dict)."""
+    import numpy as np
+    from spark_tpu_torch.tpch.datagen import EPOCH
+    q1_cut = int((np.datetime64("1998-09-02", "D") - EPOCH).astype(int))
+    q6_lo = int((np.datetime64("1994-01-01", "D") - EPOCH).astype(int))
+    q6_hi = int((np.datetime64("1995-01-01", "D") - EPOCH).astype(int))
+    ans = {"q1": {}, "q6": 0, "rows": 0, "q6_rows": 0}
+
+    def on_piece(p):
+        ans["rows"] += len(p["qty"])
+        qty, ext, disc, tax = p["qty"], p["extended"], p["discount"], p["tax"]
+        keep = p["ship"] <= q1_cut
+        group = p["returnflag"] * 2 + p["linestatus"]
+        disc_price = ext * (100 - disc)
+        charge = disc_price * (100 + tax)
+        for g in np.unique(group[keep]):
+            m = keep & (group == g)
+            acc = ans["q1"].setdefault(int(g), [0] * 6)
+            for i, v in enumerate((qty * 100, ext, disc_price, charge, disc)):
+                acc[i] += int(v[m].sum())
+            acc[5] += int(m.sum())
+        m6 = ((p["ship"] >= q6_lo) & (p["ship"] < q6_hi) & (disc >= 5)
+              & (disc <= 7) & (qty < 24))
+        ans["q6"] += int((ext[m6] * disc[m6]).sum())
+        ans["q6_rows"] += int(m6.sum())
+
+    return on_piece, ans
+
+
+def expected_chunks(q, ans) -> int:
+    """The chunks a stream of `q` cuts: the rows its pushed filter lets
+    through the Parquet reader, over streamingChunkRows (2^24)."""
+    rows = ans["q6_rows"] if q == "q6" else \
+        sum(acc[5] for acc in ans["q1"].values())
+    return -(-rows // (1 << 24))
+
+
+def check_q1_q6(q, table, ans) -> None:
+    """Sums and counts equal the golden to the last unit of their scale;
+    an average lies within one unit of its scale (6) of sum/count."""
+    from decimal import Decimal
+    from spark_tpu_torch.tpch.datagen import LINESTATUS, RETURNFLAGS
+    rows = table.to_pylist()
+    if q == "q6":
+        want = Decimal(ans["q6"]).scaleb(-4)
+        if len(rows) != 1 or rows[0]["revenue"] != want:
+            raise AssertionError(f"SF10 q6 gave {rows}, golden {want}")
+        return
+    want = {(RETURNFLAGS[g // 2], LINESTATUS[g % 2]): acc
+            for g, acc in ans["q1"].items()}
+    if len(rows) != len(want):
+        raise AssertionError(f"SF10 q1: {len(rows)} groups, golden "
+                             f"{len(want)}")
+    for r in rows:
+        qty, ext, dp, ch, disc, n = want[(r["l_returnflag"],
+                                          r["l_linestatus"])]
+        exact = {"sum_qty": Decimal(qty).scaleb(-2),
+                 "sum_base_price": Decimal(ext).scaleb(-2),
+                 "sum_disc_price": Decimal(dp).scaleb(-4),
+                 "sum_charge": Decimal(ch).scaleb(-6), "count_order": n}
+        for k, v in exact.items():
+            if r[k] != v:
+                raise AssertionError(f"SF10 q1 {k} of {r['l_returnflag']}"
+                                     f"{r['l_linestatus']}: {r[k]} != {v}")
+        for k, s in (("avg_qty", Decimal(qty).scaleb(-2)),
+                     ("avg_price", Decimal(ext).scaleb(-2)),
+                     ("avg_disc", Decimal(disc).scaleb(-2))):
+            if abs(r[k] - s / n) > Decimal("0.000001"):
+                raise AssertionError(f"SF10 q1 {k}: {r[k]} vs {s / n}")
+
+
+def device_busy(prof):
+    """The card's busy seconds in a torch.profiler trace (the union of
+    its kernel and copy intervals), and its device events."""
+    import torch
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy / 1e6, events
+
+
+def busy_text(busy_s: float, events, wall: float) -> str:
+    if not events:
+        return ("card busy time not measured (the profiler saw no device "
+                "events)")
+    return (f"card busy {busy_s * 1e3:.2f} ms of {wall * 1e3:.1f} ms wall "
+            f"(idle share {1 - busy_s / wall:.4f}, {len(events)} device "
+            f"events)")
+
+
+def stall_s(r) -> float:
+    """The consumer's wait for a chunk's decode: its whole wait for the
+    chunk less the copy to the card it ran itself."""
+    return max(0.0, r["wait_s"] - r.get("copy_s", 0.0))
+
+
+def chunk_lines(qe) -> str:
+    """Per chunk of the query's stream: its host decode (on the prefetch
+    thread), the consumer's stall for it, its copy to the card, and its
+    update's host and device time."""
+    parts = []
+    for stream in qe.stream_stats:
+        for i, r in enumerate(stream["chunks"]):
+            ev = r.get("events")
+            upd = ev[0].elapsed_time(ev[1]) if ev is not None else None
+            parts.append(
+                f"chunk {i}: decode {r.get('decode_s', 0) * 1e3:.1f} ms, "
+                f"stall {stall_s(r) * 1e3:.1f} ms, copy "
+                f"{r.get('copy_s', 0) * 1e3:.1f} ms, update host "
+                f"{r['update_s'] * 1e3:.1f} ms"
+                + (f" / device {upd:.1f} ms" if upd is not None else ""))
+    return "; ".join(parts)
+
+
+def n_chunks(qe) -> int:
+    return sum(len(s["chunks"]) for s in qe.stream_stats)
+
+
+def require_stream(label, qe, kind, chunks=None) -> None:
+    text = qe.spliced_plan.tree_string()
+    if f"InputExec({kind}," not in text:
+        raise AssertionError(f"{label} did not splice InputExec({kind}: "
+                             f"{text}")
+    if chunks is not None and n_chunks(qe) != chunks:
+        raise AssertionError(f"{label} streamed {n_chunks(qe)} chunks, "
+                             f"expected {chunks}")
+
+
+def prefetch_threads():
+    import threading
+    deadline = time.monotonic() + 10
+    while True:
+        alive = [t.name for t in threading.enumerate()
+                 if t.name.startswith("spark-tpu-torch-ingest")]
+        if not alive or time.monotonic() > deadline:
+            return alive
+        time.sleep(0.01)
+
+
+def plan_size(D, captured, label, kernel) -> int:
+    """The launches one wrapper call makes on `label`'s kernel inputs
+    (`plan_launches` on each input shape its first run gave `kernel`;
+    every shape must plan the same number)."""
+    sizes = {len(D.plan_launches(domain, n_int, n_float))
+             for _, domain, n_int, n_float in captured[(label, kernel)]}
+    if len(sizes) != 1:
+        raise AssertionError(f"{label}: {kernel}'s inputs plan "
+                             f"{sorted(sizes)} launches a call")
+    return sizes.pop()
+
+
+def require_launches(label, counts, kernel, want) -> None:
+    """Exactly `want` launches of `kernel` and none of the other."""
+    expected = {k: (want if k == kernel else 0) for k in counts}
+    if counts != expected:
+        raise AssertionError(f"{label}: launches {counts}, expected "
+                             f"{expected}")
+
+
+def phase_ooc(D, S, sf1_path, launches, current, captured) -> None:
+    """Phase 12: SF10 lineitem streamed (Q1/Q6 against the exact golden,
+    one dense_sums_smem launch per chunk), Q1 under kernelMode=scatter,
+    the range stream, phase 5's SF1 data under a small deviceBudget,
+    injected faults, one real out-of-memory error, a deadline and a
+    cancel."""
+    import torch
+    from spark_tpu_torch.io.device_cache import estimated_scan_bytes
+    from spark_tpu_torch.io.sources import ParquetSource
+    from spark_tpu_torch.tpch.datagen import write_lineitem_pieces
+    from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
+    with tempfile.TemporaryDirectory() as tmp:
+        on_piece, ans = q1_q6_golden()
+        t0 = time.perf_counter()
+        path = write_lineitem_pieces(tmp + "/lineitem.parquet", OOC_SF,
+                                     on_piece=on_piece)
+        log(f"[ooc] SF{OOC_SF} lineitem: {ans['rows']} rows generated in "
+            f"{time.perf_counter() - t0:.1f} s")
+        session = S.SparkTpuSession.builder().get_or_create()
+        session.register_table("lineitem", ParquetSource(path, "lineitem"))
+        results, warm_s = {}, {}
+        for q in ("q1", "q6"):
+            reset_state(session)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            first, warm = first_and_warm(
+                D, session, lambda: session.sql(SQL_QUERIES[q]), current,
+                f"ooc {q}")
+            launches[f"ooc {q}"] = first[3]
+            chunks = expected_chunks(q, ans)
+            # one wrapper call per chunk: its launch plan, once a chunk
+            per_chunk = plan_size(D, captured, f"ooc {q}", "dense_sums_smem")
+            for run, (got, qe, seconds, counts) in (("first", first),
+                                                    ("warm", warm)):
+                label = f"SF{OOC_SF} {q} {run} run"
+                require_stream(label, qe, "streamed_agg", chunks)
+                require_launches(label, counts, "dense_sums_smem",
+                                 chunks * per_chunk)
+                if qe.fault_summary:
+                    raise AssertionError(f"{label}: {qe.fault_summary}")
+                check_q1_q6(q, got, ans)
+            tables_match(f"SF{OOC_SF} {q} warm run", warm[0], first[0])
+            results[q], warm_s[q] = first[0], warm[2]
+            leaf = [n for n in plan_leaves(first[1].executed_plan)][0]
+            stall = sum(stall_s(r) for st in warm[1].stream_stats
+                        for r in st["chunks"])
+            log(f"[ooc] {q} SF{OOC_SF}: equals the golden; first run "
+                f"{first[2]:.3f} s, warm run {warm[2]:.3f} s (the stream "
+                f"rides no device cache, so the warm run ingests again; "
+                f"{ans['rows'] / warm[2] / 1e6:.2f} M rows/s); "
+                f"{n_chunks(warm[1])} chunks, {per_chunk} launches a "
+                f"chunk, launches {first[3]}; peak allocated "
+                f"{torch.cuda.max_memory_allocated() - base:,} bytes over "
+                f"{base:,} held, whole-input estimate "
+                f"{estimated_scan_bytes(leaf):,} bytes; prefetch stall "
+                f"{stall * 1e3:.1f} ms in the warm run")
+            log(f"[ooc] {q} warm run chunks: {chunk_lines(warm[1])}")
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                session.sql(SQL_QUERIES[q]).collect()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            log(f"[ooc] {q} profiled run: "
+                f"{busy_text(*device_busy(prof), wall)}")
+        ooc_scatter(D, S, path, results["q1"])
+        ooc_range(D, S, launches, current, captured)
+        ooc_budget(D, S, sf1_path)
+        ooc_faults(D, session, sf1_path, S, results["q1"])
+        ooc_cancel(session, results["q1"], warm_s["q1"],
+                   expected_chunks("q1", ans))
+
+
+def plan_leaves(node):
+    if not node.children:
+        yield node
+    for c in node.children:
+        yield from plan_leaves(c)
+
+
+def ooc_scatter(D, S, path, want) -> None:
+    """SF10 Q1 under aggregate.kernelMode=scatter: no kernel launch, and
+    the bytes of the kernel's run."""
+    import torch
+    from spark_tpu_torch.io.sources import ParquetSource
+    from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
+    session = S.SparkTpuSession.builder().config(
+        AGG_MODE, "scatter").get_or_create()
+    session.register_table("lineitem", ParquetSource(path, "lineitem"))
+    zero_launches(D)
+    t0 = time.perf_counter()
+    qe = session.sql(SQL_QUERIES["q1"])._qe()
+    got = qe.collect()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    require_stream("SF10 q1 under scatter", qe, "streamed_agg")
+    if any(D.LAUNCHES.values()):
+        raise AssertionError(f"q1 under kernelMode=scatter launched "
+                             f"{dict(D.LAUNCHES)}")
+    if not got.equals(want):
+        raise AssertionError("SF10 q1 under kernelMode=scatter differs from "
+                             "the kernel's bytes")
+    log(f"[ooc] q1 SF{OOC_SF} kernelMode=scatter: no launch, the same Arrow "
+        f"bytes as the kernel's run; {seconds:.3f} s")
+
+
+def ooc_range(D, S, launches, current, captured) -> None:
+    """range(2^26).group_by(id % 65536) with count, sum and avg: four
+    chunks of 2^24 rows synthesized on the card, one wrapper call of
+    dense_sums_global per chunk, against the closed form."""
+    import numpy as np
+    from spark_tpu_torch import functions as F
+    from spark_tpu_torch.functions import col
+    session = S.SparkTpuSession.builder().get_or_create()
+    rows, mod = OOC_RANGE_ROWS, RANGE_MOD
+    make = lambda: session.range(rows).group_by(col("id") % mod).agg(
+        F.count(), F.sum(col("id")), F.avg(col("id")))
+    first, warm = first_and_warm(D, session, make, current, "ooc range")
+    launches["ooc range"] = first[3]
+    per_key = rows // mod
+    keys = np.arange(mod, dtype=np.int64)
+    total = per_key * keys + mod * (per_key * (per_key - 1) // 2)
+    per_chunk = plan_size(D, captured, "ooc range", "dense_sums_global")
+    for run, (got, qe, seconds, counts) in (("first", first),
+                                            ("warm", warm)):
+        require_stream(f"range {run} run", qe, "streamed_agg",
+                       OOC_RANGE_CHUNKS)
+        require_launches(f"range {run} run", counts, "dense_sums_global",
+                         OOC_RANGE_CHUNKS * per_chunk)
+        pdf = got.to_pandas().sort_values(got.column_names[0])
+        if not (np.array_equal(pdf.iloc[:, 0].to_numpy(), keys)
+                and (pdf["count(*)"].to_numpy() == per_key).all()
+                and np.array_equal(pdf["sum(id)"].to_numpy(), total)
+                and np.allclose(pdf["avg(id)"].to_numpy(), total / per_key,
+                                rtol=1e-15, atol=0)):
+            raise AssertionError(f"range stream {run} run disagrees with "
+                                 "the closed form")
+    log(f"[ooc] range({rows}).group_by(id % {mod}): equals the closed form; "
+        f"{OOC_RANGE_CHUNKS} chunks, launches {first[3]}; first run "
+        f"{first[2]:.3f} s, warm run {warm[2]:.3f} s "
+        f"({rows / warm[2] / 1e6:.1f} M rows/s)")
+    log(f"[ooc] range warm run chunks: {chunk_lines(warm[1])}")
+
+
+def ooc_budget(D, S, path) -> None:
+    """Phase 5's SF1 data under a small deviceBudget and 2^20-row chunks:
+    Q1 and Q5 stream directly, Q3 spills its partials, an ORDER BY ...
+    LIMIT and a plain chain go through external collect; each gives its
+    whole-input run's bytes."""
+    import torch
+    from spark_tpu_torch.functions import col
+    from spark_tpu_torch.tpch import queries as Q
+    whole = S.SparkTpuSession.builder().get_or_create()
+    Q.register_tables(whole, path)
+    small = S.SparkTpuSession.builder().config(
+        "spark_tpu.sql.memory.deviceBudget", 1 << 16).config(
+        "spark_tpu.sql.execution.streamingChunkRows", 1 << 20).get_or_create()
+    Q.register_tables(small, path)
+    cases = {
+        "q1": (lambda s: Q.QUERIES["q1"](s), "streamed_agg", None),
+        "q5": (lambda s: Q.QUERIES["q5"](s), "streamed_agg", None),
+        "q3": (lambda s: Q.QUERIES["q3"](s), "spilled_partials", None),
+        "top10": (lambda s: s.table("lineitem").select(
+            col("l_orderkey"), col("l_linenumber"),
+            col("l_extendedprice")).sort(col("l_extendedprice").desc(),
+                                         col("l_orderkey"),
+                                         col("l_linenumber")).limit(10),
+            None, None),
+        # a residual filter (not pushed into the reader), so that the
+        # chain runs on every chunk
+        "chain": (lambda s: s.table("lineitem").filter(
+            col("l_extendedprice") * col("l_discount") > 300).select(
+            col("l_orderkey"), col("l_linenumber"),
+            (col("l_extendedprice") * col("l_discount")).alias("d")),
+            None, ["l_orderkey", "l_linenumber"]),
+    }
+    for name, (make, kind, order) in cases.items():
+        want = make(whole)._qe().collect()
+        qe = make(small)._qe()
+        t0 = time.perf_counter()
+        got = qe.collect()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if kind is not None:
+            require_stream(f"SF1 {name} under the budget", qe, kind)
+        elif "external" not in qe.phase_times:
+            raise AssertionError(f"SF1 {name} did not take external collect")
+        if order:
+            got, want = got.sort_by([(c, "ascending") for c in order]), \
+                want.sort_by([(c, "ascending") for c in order])
+        if not got.equals(want):
+            raise AssertionError(f"SF1 {name} under the budget differs from "
+                                 "its whole-input run")
+        log(f"[ooc] SF1 {name} under deviceBudget=65536: "
+            f"{'InputExec(' + kind + ')' if kind else 'external collect'}, "
+            f"{n_chunks(qe)} chunks, {got.num_rows} rows equal to the "
+            f"whole-input run; {seconds:.3f} s")
+
+
+def ooc_faults(D, session, sf1_path, S, clean_q1) -> None:
+    """Faults on the card, each recovering to the clean bytes: a chunk
+    replay, a prefetch decode replay, two injected out-of-memory errors
+    climbing to the spill re-plan, and one real out-of-memory error."""
+    import torch
+    from spark_tpu_torch.io.device_cache import CACHE, estimated_scan_bytes
+    from spark_tpu_torch.testing import faults
+    from spark_tpu_torch.tpch import queries as Q
+    from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
+
+    def run(sess, make, spec, want, summary, label, kind="streamed_agg"):
+        with faults.inject(sess.conf, spec) as plan:
+            qe = make()._qe()
+            t0 = time.perf_counter()
+            got = qe.collect()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        if not plan.fired_log:
+            raise AssertionError(f"{label}: the fault never fired")
+        if qe.fault_summary != summary:
+            raise AssertionError(f"{label}: fault_summary "
+                                 f"{qe.fault_summary}, expected {summary}")
+        require_stream(label, qe, kind)
+        if not got.equals(want):
+            raise AssertionError(f"{label}: differs from the clean run")
+        log(f"[ooc] {label}: {spec} -> {qe.fault_summary}, the clean bytes; "
+            f"{seconds:.3f} s")
+        return qe
+
+    q1 = lambda: session.sql(SQL_QUERIES["q1"])
+    run(session, q1, "stream_chunk:unavailable:2", clean_q1,
+        {"chunk_retry": 1}, f"SF{OOC_SF} q1 chunk replay")
+    run(session, q1, "ingest_prefetch:unavailable:1", clean_q1,
+        {"chunk_retry": 1}, f"SF{OOC_SF} q1 prefetch replay")
+    sf1 = S.SparkTpuSession.builder().get_or_create()
+    Q.register_tables(sf1, sf1_path)
+    sf1_q1 = lambda: Q.QUERIES["q1"](sf1)
+    want = sf1_q1()._qe().collect()
+    CACHE.clear()
+    # one injected failure is absorbed by rung 1 (evict and retry); the
+    # second reaches rung 2, the 1-byte-budget re-plan
+    run(sf1, sf1_q1,
+        "scan_load:resource_exhausted:1,scan_load:resource_exhausted:2",
+        want, {"oom_cache_evict": 1, "oom_spill_reroute": 1},
+        "SF1 q1 whole-input load, injected out-of-memory")
+
+    # the real one: SF10 q1 forced to load whole, under a memory fraction
+    # that holds the stream but not the whole table
+    CACHE.clear()
+    sf1 = None
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    held = torch.cuda.memory_reserved()
+    fraction = (held + (2 << 30)) / total
+    session.conf.set("spark_tpu.sql.io.deviceCacheBytes", 1 << 40)
+    torch.cuda.set_per_process_memory_fraction(fraction)
+    try:
+        qe = q1()._qe()
+        t0 = time.perf_counter()
+        got = qe.collect()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        session.conf.set("spark_tpu.sql.io.deviceCacheBytes", 6 << 30)
+    first_error = qe.fault_events[0].get("error", "") if qe.fault_events \
+        else ""
+    if not first_error.startswith("OutOfMemoryError"):
+        raise AssertionError(f"the whole load did not run out of memory: "
+                             f"{qe.fault_events}")
+    if qe.fault_summary != {"oom_cache_evict": 1, "oom_spill_reroute": 1}:
+        raise AssertionError(f"real out-of-memory: {qe.fault_summary}")
+    require_stream("SF10 q1 after a real out-of-memory error", qe,
+                   "streamed_agg")
+    if not got.equals(clean_q1):
+        raise AssertionError("SF10 q1 after the real out-of-memory error "
+                             "differs from the clean run")
+    leaf = list(plan_leaves(qe.executed_plan))[0]
+    log(f"[ooc] real out-of-memory: memory fraction {fraction:.4f} of "
+        f"{total:,} bytes ({held:,} held before), whole-input estimate "
+        f"{estimated_scan_bytes(leaf):,} bytes; {first_error[:120]}; ladder "
+        f"{qe.fault_summary}, landed on the stream ({n_chunks(qe)} chunks "
+        f"of 2^22 rows), the clean bytes; {seconds:.3f} s; fraction "
+        f"restored to 1.0")
+
+
+def ooc_cancel(session, clean_q1, warm_s, chunks) -> None:
+    """SF10 q1 under a deadline of half its warm time, then cancelled by
+    session.cancel from a timer thread at half its warm time: each stops
+    within dispatchPollMs plus one chunk, leaves no prefetch thread, and
+    a rerun gives the clean bytes."""
+    import threading
+    import torch
+    from spark_tpu_torch.execution import lifecycle
+    from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
+    poll_ms = float(session.conf.get("spark_tpu.execution.dispatchPollMs"))
+    chunk_s = warm_s / chunks
+    bound_s = poll_ms / 1e3 + chunk_s
+    half = warm_s / 2
+    session.conf.set("spark_tpu.execution.queryDeadlineMs", half * 1e3)
+    try:
+        t0 = time.perf_counter()
+        try:
+            session.sql(SQL_QUERIES["q1"]).collect()
+            raise AssertionError("the deadline did not stop SF10 q1")
+        except lifecycle.QueryDeadlineError as e:
+            late = time.perf_counter() - t0 - half
+            seen = {"deadline": str(e)}
+    finally:
+        session.conf.set("spark_tpu.execution.queryDeadlineMs", 0.0)
+    torch.cuda.synchronize()
+    qe = session.sql(SQL_QUERIES["q1"])._qe()
+    fired = {}
+
+    def cancel():
+        fired["t"] = time.perf_counter()
+        fired["ok"] = session.cancel(qe.query_id)
+
+    timer = threading.Timer(half, cancel)
+    timer.start()
+    try:
+        qe.collect()
+        raise AssertionError("session.cancel did not stop SF10 q1")
+    except lifecycle.QueryCancelledError as e:
+        cancel_late = time.perf_counter() - fired["t"]
+        seen["cancel"] = str(e)
+    finally:
+        timer.cancel()
+    torch.cuda.synchronize()
+    if not fired.get("ok"):
+        raise AssertionError("session.cancel found no running query")
+    left = prefetch_threads()
+    if left:
+        raise AssertionError(f"prefetch threads left behind: {left}")
+    for what, lat in (("deadline", late), ("cancel", cancel_late)):
+        if lat > bound_s:
+            raise AssertionError(f"{what} landed {lat * 1e3:.1f} ms late "
+                                 f"({seen[what]}), over dispatchPollMs + "
+                                 f"one chunk ({bound_s * 1e3:.1f} ms)")
+    again = session.sql(SQL_QUERIES["q1"]).collect()
+    if not again.equals(clean_q1):
+        raise AssertionError("SF10 q1 after the cancel differs from the "
+                             "clean run")
+    log(f"[ooc] deadline {half * 1e3:.1f} ms: QueryDeadlineError "
+        f"{late * 1e3:.1f} ms after it ({seen['deadline']}); session.cancel "
+        f"at {half * 1e3:.1f} ms: QueryCancelledError "
+        f"{cancel_late * 1e3:.1f} ms after it ({seen['cancel']}) "
+        f"(bound: dispatchPollMs {poll_ms:.0f} ms + one chunk "
+        f"{chunk_s * 1e3:.1f} ms); no prefetch thread left; "
+        "the rerun gives the clean bytes")
+
+
 def run_phases(D, phases):
-    """The main-path phases chosen (5-10); returns the per-kernel launch
+    """The main-path phases chosen (5-12); returns the per-kernel launch
     counts of each query's first run and the kernel inputs each query's
     first run handed the wrapper (for timing at those shapes)."""
     import spark_tpu_torch as S
@@ -1441,7 +2037,7 @@ def run_phases(D, phases):
     D.dense_groupby_sums = recording
     launches = {}
     try:
-        if {"main", "sql", "functions", "etl"} & phases:
+        if {"main", "sql", "functions", "etl", "ooc"} & phases:
             with tempfile.TemporaryDirectory() as tmp:
                 t0 = time.perf_counter()
                 path = write_parquet(tmp + "/tpch", SF)
@@ -1460,6 +2056,10 @@ def run_phases(D, phases):
                     t0 = time.perf_counter()
                     phase_etl(D, S, path, launches, current)
                     log(f"[etl] phase in {time.perf_counter() - t0:.1f} s")
+                if "ooc" in phases:
+                    t0 = time.perf_counter()
+                    phase_ooc(D, S, path, launches, current, captured)
+                    log(f"[ooc] phase in {time.perf_counter() - t0:.1f} s")
         if "main" in phases:
             phase_range(D, S, launches, current)
         if {"tpcds", "window", "functions"} & phases:
@@ -1744,25 +2344,14 @@ def breakdown(df) -> str:
         df.collect()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, end = 0.0, float("-inf")
-    for s, e in spans:
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    busy_s = busy / 1e6
+    busy_s, events = device_busy(prof)
     by_name = collections.defaultdict(float)
     for e in events:
         by_name[e.name[:48]] += (e.time_range.end - e.time_range.start) / 1e3
     top = ", ".join(f"{n} {ms:.2f} ms" for n, ms in
                     sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
-    device = (f"card busy {busy_s * 1e3:.2f} ms of {wall * 1e3:.1f} ms wall "
-              f"(idle share {1 - busy_s / wall:.4f}, {len(spans)} device "
-              f"events; most device time: {top})" if spans else
-              "card busy time not measured (the profiler saw no device "
-              "events)")
+    device = busy_text(busy_s, events, wall) + (
+        f"; most device time: {top}" if events else "")
     return f"total {total * 1e3:.1f} ms: {parts}; {device}"
 
 
@@ -1780,7 +2369,8 @@ def kernel_report(D, launches, captured, phases):
     if missing:
         raise AssertionError(f"no kernel input captured for {missing}")
     sql = [(name, label) for label, name in captured
-           if label.startswith(("sql ", "tpcds ", "functions ", "etl "))]
+           if label.startswith(("sql ", "tpcds ", "functions ", "etl ",
+                                "ooc "))]
     inputs = [(name, q, x) for name, q in programs + sql
               for x in captured[(q, name)].values()]
     for name, q, (idx, ir, fr, domain) in inputs:

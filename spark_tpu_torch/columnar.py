@@ -20,7 +20,7 @@ Every tensor of a batch lives on one device. Entry points pick it with
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import pyarrow as pa
@@ -145,9 +145,12 @@ class Batch:
 
     @staticmethod
     def from_arrow(table: pa.Table, device, growth: float = 2.0,
-                   capacity: Optional[int] = None) -> "Batch":
+                   capacity: Optional[int] = None,
+                   check: Optional[Callable[[], None]] = None) -> "Batch":
         """Ingest a pyarrow table: dictionary-encode strings, pad to bucket,
-        copy to `device`."""
+        copy to `device`. `check`, when given, runs before each column
+        (a chunked ingest's cancel check: a chunk's copy takes up to a
+        second, and a cancel should not wait for all of it)."""
         device = torch.device(device)
         n = table.num_rows
         cap = capacity if capacity is not None else bucket_capacity(n, growth)
@@ -155,6 +158,8 @@ class Batch:
             raise ValueError(f"capacity {cap} < rows {n}")
         cols: Dict[str, Column] = {}
         for name, col in zip(table.column_names, table.columns):
+            if check is not None:
+                check()
             cols[name] = _arrow_to_column(name, col, n, cap, device)
         sel = torch.arange(cap, device=device) < n
         return Batch(cols, sel, device)

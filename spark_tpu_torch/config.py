@@ -292,3 +292,102 @@ RESULT_CACHE_BYTES = register(
         "CacheManager/InMemoryRelation seat): materialized Arrow tables "
         "for cache()-marked plans, LRU-evicted past the bound. A session "
         "keeps an unbounded cache unless this key is set explicitly.")
+
+# -- out-of-core execution and recovery --------------------------------------
+
+STREAMING_CHUNK_ROWS = register(
+    "spark_tpu.sql.execution.streamingChunkRows", 1 << 24,
+    doc="Chunk size (rows) for streaming large scans through aggregates "
+        "with carried accumulator tables (execution/streaming_agg.py) and "
+        "through external collect (execution/external.py); bounds the "
+        "device residency of a scan the way the reference's row-iterator "
+        "pipeline does.")
+
+INGEST_PREFETCH = register(
+    "spark_tpu.sql.ingest.prefetch", True,
+    doc="Double-buffered chunk ingest for the streaming loops: a "
+        "background thread decodes and dictionary-unifies chunk N+1 into "
+        "HOST buffers while chunk N computes on the device. Bounded to "
+        "one chunk in flight; the copy to the device stays on the "
+        "consuming thread. Results are identical on and off.")
+
+DEVICE_MEMORY_BUDGET = register(
+    "spark_tpu.sql.memory.deviceBudget", 0,
+    doc="Device byte budget for a single query's resident working set. "
+        "Scans whose estimated post-prune footprint exceeds it run "
+        "out-of-core: chunked through device-resident build sides, with "
+        "partial-aggregate spill to host Arrow buffers or external "
+        "collect (host RAM plays the role of executor disk). 0 = "
+        "unbounded (whole-input residency).")
+
+TASK_MAX_FAILURES = register(
+    "spark_tpu.sql.execution.maxTaskFailures", 2,
+    doc="DEPRECATED alias of spark_tpu.execution.maxRetries: when "
+        "explicitly set, it overrides maxRetries.")
+
+EXEC_MAX_RETRIES = register(
+    "spark_tpu.execution.maxRetries", 3,
+    doc="Retry budget per query execution for TRANSIENT failures "
+        "(UNAVAILABLE, DEADLINE_EXCEEDED) and stage wall-clock timeouts, "
+        "with exponential backoff and jitter (execution/failures.py).")
+
+EXEC_BACKOFF_MS = register(
+    "spark_tpu.execution.backoffMs", 50.0,
+    doc="Base backoff for stage-failure retries: attempt n sleeps "
+        "backoffMs * 2^n * uniform(0.5, 1.0) milliseconds.",
+    validator=lambda v: v >= 0)
+
+EXEC_STAGE_TIMEOUT_MS = register(
+    "spark_tpu.execution.stageTimeoutMs", 0,
+    doc="Per-stage wall-clock deadline (run + wait for the device of one "
+        "attempt), checked after the attempt's host sync. A blown "
+        "deadline raises StageTimeoutError and retries under the "
+        "maxRetries budget. 0 disables.")
+
+EXEC_QUERY_DEADLINE_MS = register(
+    "spark_tpu.execution.queryDeadlineMs", 0.0,
+    doc="End-to-end query deadline in milliseconds, armed on the "
+        "cooperative cancel token (execution/lifecycle.py) at execution "
+        "entry. Every wait — stage attempts, retry backoff, chunk "
+        "boundaries, the wait for the device — is capped by the "
+        "remaining budget; a blown deadline raises QueryDeadlineError, "
+        "which stops the recovery ladder. 0 disables.",
+    validator=lambda v: v >= 0)
+
+EXEC_DISPATCH_POLL_MS = register(
+    "spark_tpu.execution.dispatchPollMs", 25,
+    doc="Cancellable wait for a stage's device work: with a cancel "
+        "token installed, the executor polls a CUDA event recorded after "
+        "the stage instead of blocking; the tick is an eighth of the "
+        "time waited so far, from 50 us up to this cap, so a cancel or "
+        "a blown queryDeadlineMs lands within about one tick and a "
+        "stage's end is seen at most an eighth of its wait late. 0 "
+        "restores the blocking wait.",
+    validator=lambda v: v >= 0)
+
+CHUNK_RETRY_ENABLED = register(
+    "spark_tpu.execution.chunkRetry.enabled", True,
+    doc="Chunk-granular retry inside the streaming loops "
+        "(execution/recovery.py): a TRANSIENT/TIMEOUT failure replays "
+        "only the failed chunk against the carried state, recorded as a "
+        "`chunk_retry` action and the `rec_chunks_replayed` counter.")
+
+CHUNK_RETRY_MAX = register(
+    "spark_tpu.execution.chunkRetry.maxRetries", 2,
+    doc="Per-chunk retry budget for the streaming loops (a fresh "
+        "backoff RetryPolicy per chunk). 0 disables chunk retry.",
+    validator=lambda v: v >= 0)
+
+OOM_SPILL_ENABLED = register(
+    "spark_tpu.execution.oom.spillOnExhausted", True,
+    doc="Rung 2 of the device-memory degradation ladder: after a "
+        "device-cache eviction retry still runs out of memory, re-plan "
+        "under a 1-byte device budget so the chunked host-spill paths "
+        "take over. Disabled, the ladder goes from eviction to the "
+        "diagnostic.")
+
+FAULT_INJECT = register(
+    "spark_tpu.faults.inject", "",
+    doc="Deterministic fault injection for chaos testing "
+        "(testing/faults.py): comma-separated `site:fault:nth[:arg]` "
+        "rules, each firing once. Empty disables.")

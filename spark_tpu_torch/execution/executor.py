@@ -33,6 +33,25 @@ query over the same data reuses the loaded batches. And the capacities a
 converged run settled on are kept in `session._aqe_caps`, keyed by the
 optimized plan and its sources' identity stamps: the next execution of
 that plan starts from them and skips the re-plan attempts.
+
+Out-of-core execution and recovery (the JAX package's single-device
+half): before the scans load, every streamable aggregate over a scan
+past the device budget runs chunk by chunk (`streaming_agg.py`) and its
+result is spliced back as an `InputExec` (`InputExec(streamed_agg,...)`,
+or `InputExec(spilled_partials,...)` under a final-mode aggregate);
+`collect()` first offers the plan to the chunked host-egress path
+(`external.py`). Failures go through the taxonomy of `failures.py`
+(`_execute_recover`, `_handle_failure`): a cancel or a blown deadline
+surfaces unchanged; a transient fault or a stage timeout retries with
+jittered backoff under `spark_tpu.execution.maxRetries`; running out of
+device memory (`torch.cuda.OutOfMemoryError`) evicts the stage-output
+memo and the device table cache and empties torch's allocator cache,
+then re-plans under a 1-byte deviceBudget so the chunked paths take over
+(`oom.spillOnExhausted`), then raises a diagnostic; anything else —
+a sticky CUDA error included — raises. Every action lands in
+`fault_summary`. Each execution registers a cancel token
+(`lifecycle.py`), and the wait for a stage's device work polls a CUDA
+event so that a cancel lands within `dispatchPollMs`.
 """
 
 from __future__ import annotations
@@ -50,9 +69,56 @@ from ..plan import logical as L
 from ..plan import physical as P
 from ..plan.optimizer import default_optimizer
 from ..plan.planner import plan_physical
+from .failures import (FailureClass, RetryPolicy, StageOOMError,
+                       StageTimeoutError, classify)
 
 #: attempts of the re-plan loop before it gives up
 MAX_ATTEMPTS = 8
+
+#: recovery actions before the failure ladder gives up
+MAX_RECOVERY_ACTIONS = 32
+
+DISPATCH_POLL_KEY = "spark_tpu.execution.dispatchPollMs"
+
+#: the dispatch wait's shortest poll tick, seconds
+POLL_MIN_TICK_S = 5e-5
+
+
+def stage_events(device) -> List:
+    """A CUDA event recorded behind the work queued so far on `device`'s
+    current stream; none on the CPU, whose work is done when queued."""
+    if torch.device(device).type != "cuda":
+        return []
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return [ev]
+
+
+def _sync_dispatched(events, conf) -> None:
+    """Wait for a stage's device work, cancellably.
+
+    With a cancel token installed and dispatchPollMs > 0, poll each
+    event's `query()` instead of blocking: every tick checks the token,
+    so a cancel or a blown queryDeadlineMs raises within about one tick
+    (the kernels already queued run on; the host thread is released).
+    The tick is an eighth of the time waited so far, from 50 us up to
+    dispatchPollMs: a stage that ends during a tick is seen at most an
+    eighth of its wait (or 50 us) late, and a long stage is polled
+    every dispatchPollMs. The token is checked directly, not through
+    `lifecycle.checkpoint`: readiness is timing-dependent, and the
+    `cancel_point` seam's hit counts must stay deterministic."""
+    from . import lifecycle
+    tok = lifecycle.current_token()
+    poll_s = float(conf.get(DISPATCH_POLL_KEY) or 0) / 1e3
+    if tok is not None and poll_s > 0:
+        t0 = time.monotonic()
+        while not all(e.query() for e in events):
+            tok.check("dispatch_wait")
+            tok.wait(min(poll_s, max(POLL_MIN_TICK_S,
+                                     (time.monotonic() - t0) / 8)))
+    for e in events:
+        e.synchronize()
+
 
 _REPLAN_FLAGS = ("join_overflow_", "join_nonunique_", "join_hashsat_",
                  "agg_overflow_")
@@ -275,6 +341,35 @@ class QueryExecution:
         self._filled: Optional[pa.Table] = None
         #: cached tables `_apply_cache` substituted into this plan
         self._cache_hits = 0
+        self.query_id: int = session._next_query_id()
+        # failure handling: a degraded rerun overlays conf (the OOM
+        # ladder's spill rung) without touching the session's
+        self._exec_conf = None
+        self._oom_rung = 0
+        self._retry_policy: Optional[RetryPolicy] = None
+        #: set by the OOM rungs: free device memory once the failed
+        #: attempt's frames are gone
+        self._free_device_memory = False
+        #: recovery actions of the last execution, by action, and up to
+        #: 32 event records
+        self.fault_summary: Dict[str, object] = {}
+        self.fault_events: List[Dict] = []
+        self._recovery = None
+        #: rows of the spilled partials the last execution re-reduced
+        self.spilled_partial_rows: Optional[int] = None
+        #: per-stream chunk timings of the last execution
+        #: (`streaming_agg._ChunkClock`)
+        self.stream_stats: List[Dict] = []
+        #: the plan the last execution ran: `executed_plan` with its
+        #: streamed aggregates spliced in as InputExec leaves
+        self.spliced_plan: Optional[P.PhysicalPlan] = None
+
+    @property
+    def _conf(self):
+        """The conf planning and execution read: the session's, or the
+        degraded-mode overlay of the OOM ladder's spill rung."""
+        return self._exec_conf if self._exec_conf is not None \
+            else self.session.conf
 
     def _activate_conf(self) -> None:
         from ..expr import set_case_sensitive
@@ -374,8 +469,7 @@ class QueryExecution:
     def executed_plan(self) -> P.PhysicalPlan:
         if self._executed is None:
             t0 = time.perf_counter()
-            self._executed = plan_physical(self.optimized_plan,
-                                           self.session.conf)
+            self._executed = plan_physical(self.optimized_plan, self._conf)
             self.phase_times["planning"] = time.perf_counter() - t0
         return self._executed
 
@@ -479,18 +573,284 @@ class QueryExecution:
                                    for c in node.children])
 
     def execute_batch(self) -> Batch:
+        """Run the query under the failure ladder; returns its device
+        Batch."""
+        from . import lifecycle
         session = self.session
+        self._activate_conf()
+        # every execution starts optimistic: a plan built under an
+        # earlier execution's degraded overlay is rebuilt
+        if self._exec_conf is not None:
+            self._executed = None
+        self._exec_conf = None
+        lc_scope = lifecycle.enter_query_scope(session.app_id,
+                                               self.query_id, session.conf)
+        self._begin_recovery()
         session._exec_depth += 1
         try:
-            return self._execute_batch()
+            return self._execute_recover()
+        except (lifecycle.QueryCancelledError,
+                lifecycle.QueryDeadlineError) as e:
+            self._observe_cancel(e)
+            raise
         finally:
+            lifecycle.exit_query_scope(lc_scope)
             session._exec_depth -= 1
+            self.stream_stats = self._recovery.chunk_stats
+            # the memo spans recovery loops, not executions
+            self._recovery.release()
             if session._exec_depth == 0:
                 # statement-scoped materializations end with the
                 # outermost execution; the marks stay, so running the
                 # statement again computes a shared view once again.
                 # Explicit cache() entries outlive the statement.
                 session._evict_implicit_caches()
+
+    def _begin_recovery(self) -> None:
+        """Fresh failure state for one run of the ladder (execute_batch
+        or the external collect): injection armed from the conf, an
+        empty fault_summary, a new stage-output memo and retry budget."""
+        from ..testing import faults
+        from .recovery import RecoveryContext
+        conf = self.session.conf
+        faults.arm(conf)
+        self.fault_summary = {}
+        self.fault_events = []
+        self._recovery = RecoveryContext(metrics=self.session.metrics,
+                                         record=self._record_fault)
+        self._oom_rung = 0
+        self._retry_policy = RetryPolicy(
+            max_retries=self._max_retries(conf),
+            backoff_ms=float(conf.get("spark_tpu.execution.backoffMs")))
+
+    @staticmethod
+    def _max_retries(conf) -> int:
+        """spark_tpu.execution.maxRetries, unless the deprecated
+        spark_tpu.sql.execution.maxTaskFailures was set explicitly."""
+        legacy = "spark_tpu.sql.execution.maxTaskFailures"
+        if conf.is_explicitly_set(legacy):
+            return int(conf.get(legacy))
+        return int(conf.get("spark_tpu.execution.maxRetries"))
+
+    # -- failure recovery ---------------------------------------------------
+
+    def _record_fault(self, action: str, exc=None, **extra) -> None:
+        """Count one recovery action into fault_summary and keep a
+        bounded event record (drops past 32 are counted)."""
+        self.fault_summary[action] = int(self.fault_summary.get(action, 0)) + 1
+        if len(self.fault_events) < 32:
+            ev = {"action": action}
+            if exc is not None:
+                ev["error"] = f"{type(exc).__name__}: {exc}"[:200]
+                site = getattr(exc, "site", None)
+                if site is not None:
+                    ev["site"] = site
+            ev.update(extra)
+            self.fault_events.append(ev)
+        else:
+            self.fault_summary["events_dropped"] = int(
+                self.fault_summary.get("events_dropped", 0)) + 1
+
+    def _observe_cancel(self, e: Exception) -> None:
+        """A cancelled or deadlined execution: its session counter and a
+        `cancel` action in fault_summary."""
+        from .lifecycle import QueryCancelledError
+        self.session.metrics.counter(
+            "query_cancelled" if isinstance(e, QueryCancelledError)
+            else "query_deadline_exceeded").inc()
+        self._record_fault("cancel", e)
+
+    def _execute_recover(self) -> Batch:
+        """Run `_execute_batch` under the failure taxonomy: each iteration
+        returns, re-raises (FATAL, exhausted budgets, a cancel) or applies
+        one recovery action and runs again."""
+        from . import lifecycle
+        last: Optional[str] = None
+        for _ in range(MAX_RECOVERY_ACTIONS):
+            # a cancel or deadline delivered mid-recovery stops here
+            lifecycle.checkpoint("stage_attempt")
+            try:
+                return self._execute_batch()
+            except Exception as e:  # noqa: BLE001 — classified below
+                last = f"{type(e).__name__}: {str(e)[:300]}"
+                self._handle_failure(e)  # raises when unrecoverable
+            if self._free_device_memory:
+                # outside the except block the failed attempt's frames
+                # (and the tensors they held) are gone: free them before
+                # the retry allocates
+                self._free_device_memory = False
+                import gc
+                gc.collect()
+                if torch.cuda.is_available():
+                    torch.cuda.empty_cache()
+        raise RuntimeError(
+            f"stage failure recovery did not converge after "
+            f"{MAX_RECOVERY_ACTIONS} recovery actions; "
+            f"fault_summary={self.fault_summary}; last error: "
+            + (last or "<none>"))
+
+    def _handle_failure(self, e: Exception) -> None:
+        """One step of the recovery ladder: returns after applying a
+        recovery action (the caller runs again), raises when the failure
+        is fatal or every applicable budget is spent."""
+        import warnings
+        from ..config import Conf
+        cls = classify(e)
+        msg = f"{type(e).__name__}: {e}"
+        if cls is FailureClass.CANCELLED:
+            raise e  # lifecycle control outranks every rung
+        if cls in (FailureClass.TRANSIENT, FailureClass.TIMEOUT):
+            self._retry_transient(e, cls)
+            return
+        if cls is FailureClass.OOM:
+            self._oom_rung += 1
+            conf = self._conf
+            if self._oom_rung == 1:
+                # rung 1: evict the device table cache (the storage
+                # pool) and the memo's device batches, then retry
+                from ..io.device_cache import CACHE
+                freed = CACHE.evict_bytes(CACHE.nbytes)
+                warnings.warn(f"device memory exhausted: evicted the "
+                              f"device cache ({freed} bytes) and "
+                              f"retrying: {msg[:160]}")
+                self._record_fault("oom_cache_evict", e, freed_bytes=freed)
+                self._recovery.invalidate()
+                self._recovery.begin_recovery_attempt()
+                self._free_device_memory = True
+                return
+            if self._oom_rung == 2 and bool(conf.get(
+                    "spark_tpu.execution.oom.spillOnExhausted")):
+                # rung 2: re-plan under a 1-byte device budget, so the
+                # chunked host-spill paths take over
+                warnings.warn(f"device memory still exhausted: re-routing "
+                              f"through the host-spill chunked path: "
+                              f"{msg[:160]}")
+                self._record_fault("oom_spill_reroute", e)
+                self._recovery.invalidate()
+                self._recovery.begin_recovery_attempt()
+                overlay = Conf(parent=conf)
+                overlay.set("spark_tpu.sql.memory.deviceBudget", 1)
+                chunk = int(conf.get(
+                    "spark_tpu.sql.execution.streamingChunkRows"))
+                overlay.set("spark_tpu.sql.execution.streamingChunkRows",
+                            min(chunk, 1 << 22))
+                self._exec_conf = overlay
+                self._executed = None
+                self._free_device_memory = True
+                return
+            raise StageOOMError(self._oom_diagnostic(e)) from e
+        raise e  # FATAL: surface unchanged
+
+    def _retry_transient(self, e: Exception, cls: FailureClass) -> None:
+        """The transient and stage-timeout rung: sleep a jittered backoff
+        under the maxRetries budget and return (the caller runs again),
+        or raise once the budget is spent."""
+        import warnings
+        msg = f"{type(e).__name__}: {e}"
+        slept = self._retry_policy.attempt_retry()
+        if slept is None:
+            if cls is FailureClass.TIMEOUT:
+                raise StageTimeoutError(
+                    f"stage still over stageTimeoutMs after "
+                    f"{self._retry_policy.attempts} retries: "
+                    f"{msg[:200]}") from e
+            raise e  # transient budget spent: the original error
+        action = "stage_timeout" if cls is FailureClass.TIMEOUT \
+            else "transient_retry"
+        kind = "stage timeout" if cls is FailureClass.TIMEOUT \
+            else "transient stage failure"
+        warnings.warn(f"{kind}, retrying ({self._retry_policy.remaining}"
+                      f" left, backoff {slept:.0f}ms): {msg[:160]}")
+        self._record_fault(action, e, backoff_ms=round(slept, 1))
+        # shapes unchanged: completed upstream stages replay from the
+        # memo
+        self._recovery.begin_recovery_attempt()
+
+    def _oom_diagnostic(self, e: Exception) -> str:
+        caps: Dict[str, int] = {}
+        try:
+            if self._executed is not None:
+                caps = collect_caps(self._executed)
+        except Exception:  # noqa: BLE001 — best-effort diagnostics only
+            pass
+        from ..io.device_cache import CACHE
+        conf = self._conf
+        stage = (self._executed.simple_string()
+                 if self._executed is not None else "<unplanned>")[:400]
+        device = self.session.device
+        mem = "n/a (not a CUDA device)"
+        if torch.device(device).type == "cuda":
+            mem = (f"allocated {torch.cuda.memory_allocated(device):,} "
+                   f"bytes, peak {torch.cuda.max_memory_allocated(device):,}"
+                   f", reserved {torch.cuda.memory_reserved(device):,}")
+        return (
+            f"RESOURCE_EXHAUSTED survived the degradation ladder "
+            f"(device-cache evict -> host-spill reroute): "
+            f"{type(e).__name__}: {str(e)[:200]}\n"
+            f"  stage: {stage}\n"
+            f"  device memory: {mem}\n"
+            f"  capacity stats (kind:tag -> rows): {caps or 'n/a'}\n"
+            f"  deviceCacheBytes={CACHE.nbytes}, "
+            f"deviceBudget={conf.get('spark_tpu.sql.memory.deviceBudget')}, "
+            f"streamingChunkRows="
+            f"{conf.get('spark_tpu.sql.execution.streamingChunkRows')}")
+
+    # -- out-of-core splices ------------------------------------------------
+
+    def _splice_stream(self, node: P.PhysicalPlan, tagged):
+        """Splice one streamed-aggregate result into the plan. `tagged` is
+        ("direct", Batch) or ("spill", (host partial table, partial
+        node)) — the value the stage-output memo keeps, so a recovery
+        re-execution rebuilds the splice without streaming again."""
+        kind, result = tagged
+        if kind == "direct":
+            return P.InputExec(result, node.schema(), label="streamed_agg")
+        # spilled partials re-reduce in a final aggregate (the partial ->
+        # exchange -> final split of AggUtils.scala, host Arrow buffers in
+        # the exchange's seat)
+        from ..expr import ColumnRef
+        partial_table, partial_node = result
+        inp = P.InputExec(Batch.from_arrow(partial_table,
+                                           self.session.device),
+                          partial_node.schema(), label="spilled_partials")
+        inp._agg_base_schema = node._base_schema()
+        final_groups = [ColumnRef(g.name()) for g in node.group_exprs]
+        final = P.HashAggregateExec(
+            inp, final_groups, node.agg_exprs, mode="final",
+            est_groups=bucket_capacity(max(partial_table.num_rows, 8)))
+        final.tag = node.tag
+        self.spilled_partial_rows = partial_table.num_rows
+        return final
+
+    def _materialize_streaming(self, node: P.PhysicalPlan) -> P.PhysicalPlan:
+        """Run the streamable aggregates chunk by chunk and splice their
+        results in as InputExec leaves. Completed streams land in the
+        stage-output memo: a re-execution after a downstream failure
+        splices them again without streaming."""
+        from .streaming_agg import (try_stream_aggregate,
+                                    try_stream_aggregate_spill)
+        rec = self._recovery
+        device = self.session.device
+        if isinstance(node, P.HashAggregateExec):
+            memo_key = ("stream", id(node))
+            hit = rec.memo_get(memo_key, label=node.simple_string())
+            if hit is not None:
+                return self._splice_stream(node, hit)
+            result = try_stream_aggregate(node, self._conf, device, rec)
+            if result is not None:
+                rec.memo_put(memo_key, ("direct", result))
+                return self._splice_stream(node, ("direct", result))
+            spill = try_stream_aggregate_spill(node, self._conf, device, rec)
+            if spill is not None:
+                rec.memo_put(memo_key, ("spill", spill))
+                return self._splice_stream(node, ("spill", spill))
+        new_children = tuple(self._materialize_streaming(c)
+                             for c in node.children)
+        if any(a is not b for a, b in zip(new_children, node.children)):
+            import copy
+            node = copy.copy(node)
+            node.children = new_children
+        return node
 
     def _aqe_cache_key(self) -> Optional[str]:
         """Plan and data identity of the capacities `session._aqe_caps`
@@ -504,9 +864,11 @@ class QueryExecution:
                 + f"#mesh1#src{tokens!r}")
 
     def _execute_batch(self) -> Batch:
-        root = self.executed_plan
+        from ..testing import faults
+        from . import lifecycle
+        root0 = self.executed_plan
         session = self.session
-        conf = session.conf
+        conf = self._conf
         adaptive = bool(conf.get("spark_tpu.sql.adaptive.enabled"))
         # seed the capacities an earlier execution of this plan over the
         # same data converged on: repeated queries skip the re-plans
@@ -514,16 +876,40 @@ class QueryExecution:
         saved_caps = session._aqe_caps.get(aqe_key) \
             if aqe_key is not None else None
         if saved_caps:
-            apply_saved_caps(root, saved_caps)
+            apply_saved_caps(root0, saved_caps)
+        t0 = time.perf_counter()
+        self.spilled_partial_rows = None
+        root = self._materialize_streaming(root0)
+        self.spliced_plan = root
+        if root is not root0:
+            # chunked ingest and the chunks' compute run in the splice
+            self.phase_times["streaming"] = time.perf_counter() - t0
+        # cooperative boundary before the scans load
+        lifecycle.checkpoint("scan")
         t0 = time.perf_counter()
         loaded = load_scans(root, conf, session.device)
         session.result_cache_hits += self._cache_hits
         self.phase_times["ingest"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        timeout_ms = int(conf.get("spark_tpu.execution.stageTimeoutMs"))
         overflow: List[str] = []
         for attempt in range(MAX_ATTEMPTS):
+            t_att = time.perf_counter()
+            faults.fire("stage_run")  # fault seam: before each run
             ctx = P.ExecContext(conf, session.device)
             out = run_plan(root, ctx, loaded=loaded)
+            # the wait for the device is cancellable (dispatchPollMs)
+            _sync_dispatched(stage_events(ctx.device), conf)
+            # the deadline before the stage timeout: an attempt past the
+            # end-to-end budget stops the ladder, never retries
+            lifecycle.checkpoint("post_dispatch")
+            if timeout_ms > 0:
+                att_ms = (time.perf_counter() - t_att) * 1e3
+                if att_ms > timeout_ms:
+                    raise StageTimeoutError(
+                        f"stage attempt took {att_ms:.0f}ms > "
+                        f"stageTimeoutMs={timeout_ms}: "
+                        f"{root.simple_string()}")
             overflow = [k for k, v in ctx.flags.items()
                         if k.startswith(_REPLAN_FLAGS) and bool(v)]
             if not overflow:
@@ -546,8 +932,11 @@ class QueryExecution:
         if adaptive:
             shrink_caps_from_rtf(root, self.last_metrics)
         if aqe_key is not None:
-            # merge, as the JAX package does, and bound the store
-            converged = collect_caps(root)
+            # harvest from the unspliced plan too (a streamed aggregate's
+            # joins learned their capacities there); merge, as the JAX
+            # package does, and bound the store
+            converged = collect_caps(root0)
+            converged.update(collect_caps(root))
             if converged:
                 store = session._aqe_caps
                 store.setdefault(aqe_key, {}).update(converged)
@@ -566,10 +955,62 @@ class QueryExecution:
         return out
 
     def collect(self) -> pa.Table:
-        batch = self.execute_batch()
-        if self._filled is not None:
-            return self._filled  # already egressed into the data cache
+        """The query's Arrow result: through the chunked host-egress path
+        when the plan and the device budget call for it, else through
+        execute_batch. One lifecycle scope spans both, so a cancel lands
+        between chunks of either."""
+        from . import lifecycle
+        lc_scope = lifecycle.enter_query_scope(
+            self.session.app_id, self.query_id, self.session.conf)
+        try:
+            try:
+                ext = self._try_external_collect()
+            except (lifecycle.QueryCancelledError,
+                    lifecycle.QueryDeadlineError) as e:
+                self._observe_cancel(e)
+                raise
+            if ext is not None:
+                return ext
+            batch = self.execute_batch()
+            if self._filled is not None:
+                return self._filled  # already egressed into the data cache
+            t0 = time.perf_counter()
+            table = batch.to_arrow()
+            self.phase_times["egress"] = time.perf_counter() - t0
+            return table
+        finally:
+            lifecycle.exit_query_scope(lc_scope)
+
+    def _try_external_collect(self) -> Optional[pa.Table]:
+        """Out-of-core host egress (`external.py`): ORDER BY / LIMIT /
+        plain chains over a scan past the per-query deviceBudget stream
+        chunk by chunk and spill to host Arrow. A transient fault that
+        spends a chunk's retry budget restarts the whole stream through
+        the ladder's transient rung (`_retry_transient`)."""
+        from ..io.device_cache import out_of_core_active
+        from .external import try_external_collect
+        conf = self.session.conf
+        if not out_of_core_active(conf):
+            return None
+        self._activate_conf()
+        self._begin_recovery()
         t0 = time.perf_counter()
-        table = batch.to_arrow()
-        self.phase_times["egress"] = time.perf_counter() - t0
-        return table
+        try:
+            while True:
+                try:
+                    out = try_external_collect(
+                        self.session, self.executed_plan, conf,
+                        self._recovery)
+                    break
+                except Exception as e:  # noqa: BLE001 — classified below
+                    cls = classify(e)
+                    if cls not in (FailureClass.TRANSIENT,
+                                   FailureClass.TIMEOUT):
+                        raise
+                    self._retry_transient(e, cls)  # raises when spent
+        finally:
+            self.stream_stats = self._recovery.chunk_stats
+            self._recovery.release()
+        if out is not None:
+            self.phase_times["external"] = time.perf_counter() - t0
+        return out

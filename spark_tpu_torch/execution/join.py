@@ -73,6 +73,8 @@ def build_sorted(key: Vec, sel) -> Tuple:
     """Sort build side by key; invalid rows pushed to the end.
 
     Returns (sorted_keys, perm, num_valid, valid_mask_sorted)."""
+    from ..testing import faults
+    faults.fire("join_build")  # fault seam: once per join per run
     data = key.data
     cap = data.shape[0]
     invalid = torch.zeros((cap,), dtype=torch.int8, device=data.device)

@@ -74,6 +74,12 @@ def _min_of(dt):
 class AggregateFunction:
     """Base class. `child` may be None (COUNT(*))."""
 
+    #: True for position-packed aggregates (first/last/any_value) whose
+    #: update() takes a row base that makes positions unique across the
+    #: chunks of a stream: a tie on in-chunk position would let the two
+    #: word accumulators of a 64-bit value pick different rows
+    uses_row_base = False
+
     def __init__(self, child: Optional[Expression] = None):
         self.child = child
         self.children = (child,) if child is not None else ()
@@ -396,6 +402,7 @@ class First(AggregateFunction):
 
     _reduce = "min"
     _name = "first"
+    uses_row_base = True
 
     def __init__(self, child, ignorenulls: bool = False):
         super().__init__(child)
@@ -420,20 +427,23 @@ class First(AggregateFunction):
         specs.append(AccSpec("cnt", np.dtype(np.int64), "sum", width=8))
         return specs
 
-    def update(self, batch, sel):
+    def update(self, batch, sel, row_base=None):
         v = self.child.eval(batch)
         self.output_dictionary = v.dictionary
         cap = batch.capacity
         dev = batch.device
         # min picks the smallest position (first), max the largest
         # (last): the position rides the high packed bits, 30 of them.
-        # One device aggregates one batch, so positions are unique
-        # without the JAX package's row base for merged chunks.
+        # `row_base` offsets the positions of a streamed chunk, so they
+        # stay unique across chunks; the streaming loop bounds
+        # row_base + cap below 2^30.
         if cap >= (1 << 30):
             raise AnalysisError(
                 f"{self._name}() input exceeds the 2^30 packed-position "
                 f"bound ({cap} rows)")
         pos = torch.arange(cap, dtype=torch.int64, device=dev)
+        if row_base is not None:
+            pos = pos + int(row_base)
         isnull = torch.zeros((cap,), dtype=torch.int64, device=dev) \
             if v.validity is None else (~v.validity).to(torch.int64)
         data = v.data

@@ -18,6 +18,14 @@ and a CUDA session: a hit never hands one device's batch to the other.
 Cached batches are shared by every query that hits them. Operators build
 new tensors and never write into an input batch's tensors, so a cached
 batch stays as it was loaded.
+
+The executor's device-memory ladder calls `CACHE.evict_bytes` (its first
+rung frees the storage pool before a retry). `admit_scan_resident` is the
+one residency verdict the out-of-core gates read
+(`execution/streaming_agg.py`, `execution/external.py`): under a
+per-query `spark_tpu.sql.memory.deviceBudget`, a scan stays resident only
+when its estimate fits it. The JAX package's cross-query arbiter pool
+comes with the service.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from collections import OrderedDict
 from typing import Dict, Optional, Tuple
 
 CACHE_BYTES_KEY = "spark_tpu.sql.io.deviceCacheBytes"
+DEVICE_BUDGET_KEY = "spark_tpu.sql.memory.deviceBudget"
 
 
 def _tensor_nbytes(t) -> int:
@@ -198,6 +207,24 @@ def estimated_scan_bytes(scan) -> Optional[int]:
         if f.nullable:
             width += 1
     return 2 * est * width
+
+
+def out_of_core_active(conf) -> bool:
+    """Whether an out-of-core budget is in force (a per-query
+    deviceBudget): the cheap early gate of the spill and external-collect
+    paths."""
+    return int(conf.get(DEVICE_BUDGET_KEY)) > 0
+
+
+def admit_scan_resident(conf, scan) -> bool:
+    """May this scan's working set stay on the device? Under a deviceBudget
+    only when its estimate fits (an unknown estimate streams); without
+    one, always."""
+    budget = int(conf.get(DEVICE_BUDGET_KEY))
+    if budget > 0:
+        est = estimated_scan_bytes(scan)
+        return est is not None and est <= budget
+    return True
 
 
 def is_cached(scan, device) -> bool:

@@ -6,8 +6,16 @@ The port of the whole-table half of `spark_tpu/io/sources.py`
 the C++ Arrow/Parquet reader does columnar decode plus predicate and
 column pushdown on the host, then `Batch.from_arrow` dictionary-encodes,
 pads and copies the columns to the device. CSV and line-delimited JSON
-are read eagerly into Arrow tables. Tables load whole; the chunked
-iterator is not ported yet.
+are read eagerly into Arrow tables. A scan loads whole (`load`), or in
+chunks (`load_chunks`) for the out-of-core loops
+(`execution/streaming_agg.py`, `execution/external.py`): a
+`ChunkIterator` cuts the record-batch stream into chunks of one bucketed
+capacity, a `DictUnifier` grows one dictionary per string column across
+them, and `PrefetchChunkIterator` decodes chunk N+1 on a worker thread
+while chunk N computes (`spark_tpu.sql.ingest.prefetch`). The worker
+only decodes on the host; the copy to the device stays on the consuming
+thread. The file-stream helpers of the JAX package come with streaming
+queries.
 
 Sources also report statistics without loading rows: a row estimate,
 per-column min/max (`column_stats`, from Parquet footers, which the join
@@ -20,7 +28,8 @@ from __future__ import annotations
 
 import itertools
 import os
-from typing import Optional, Sequence
+import time
+from typing import List, Optional, Sequence
 
 import pyarrow as pa
 import pyarrow.compute as pc
@@ -168,6 +177,169 @@ def _pushed_expression(pushed_filters, schema: pa.Schema):
     return ae
 
 
+class DictUnifier:
+    """Grows one global dictionary per string column across chunks so
+    device codes are comparable between chunks (append-only: codes handed
+    out earlier stay valid). The analog of the reference's per-column
+    dictionary pages resolved to one dictionary at read time."""
+
+    def __init__(self):
+        self.dicts = {}
+
+    def unify(self, table: pa.Table, stop=None) -> pa.Table:
+        """`table` with every string column coded against the global
+        dictionaries. `stop`, an Event, ends the work between columns
+        (a prefetcher's close())."""
+        if table.num_columns == 0:
+            return table  # pa.table([]) would drop the row count
+        cols = []
+        for name, col in zip(table.column_names, table.columns):
+            if stop is not None and stop.is_set():
+                raise RuntimeError("chunk ingest stopped by close()")
+            arr = col.combine_chunks() if isinstance(col, pa.ChunkedArray) \
+                else col
+            at = arr.type
+            if pa.types.is_string(at) or pa.types.is_large_string(at):
+                arr = arr.cast(pa.string()).dictionary_encode()
+                at = arr.type
+            if pa.types.is_dictionary(at):
+                chunk_dict = arr.dictionary.cast(pa.string())
+                glob = self.dicts.get(name)
+                if glob is None:
+                    glob = chunk_dict
+                else:
+                    present = pc.index_in(chunk_dict, value_set=glob)
+                    new_mask = pc.is_null(present)
+                    if pc.any(new_mask).as_py():
+                        new_vals = pc.filter(chunk_dict, new_mask)
+                        glob = pa.concat_arrays([glob, new_vals])
+                self.dicts[name] = glob
+                mapping = pc.index_in(chunk_dict, value_set=glob) \
+                    .cast(pa.int32())
+                codes = mapping.take(arr.indices)
+                arr = pa.DictionaryArray.from_arrays(codes, glob)
+            cols.append(arr)
+        return pa.table(cols, names=table.column_names)
+
+
+class ChunkIterator:
+    """Single-pass iterator of uniform-capacity Batches on `device` over a
+    record-batch stream; `.dictionaries` holds the global dictionaries.
+    Every chunk gets the capacity `bucket_capacity(chunk_rows)`, so the
+    loops see one shape. `decode_s` and `copy_s` keep each chunk's host
+    decode (read, slice, dictionary unify) and copy-to-device seconds."""
+
+    def __init__(self, batches_iter, chunk_rows: int, device):
+        self._batches = batches_iter
+        self._chunk_rows = chunk_rows
+        self._device = device
+        self._capacity = None
+        self._pending = []
+        self._pending_rows = 0
+        self._done = False
+        self._failed: Optional[BaseException] = None
+        self._unifier = DictUnifier()
+        self.decode_s: List[float] = []
+        self.copy_s: List[float] = []
+        #: set by a prefetcher's close(): its worker stops at the next
+        #: record batch or column instead of decoding the chunk to its end
+        self.stop = None
+
+    @property
+    def dictionaries(self):
+        return self._unifier.dicts
+
+    def __iter__(self):
+        return self
+
+    def _fill(self) -> None:
+        if self._failed is not None:
+            # the reader raised mid-stream, and a generator dies when an
+            # exception passes through it: reading on would see the
+            # buffered prefix as the whole stream. Poison the iterator
+            # instead, so the whole-query ladder restarts the stream.
+            raise self._failed
+        while not self._done and self._pending_rows < self._chunk_rows:
+            if self.stop is not None and self.stop.is_set():
+                raise RuntimeError("chunk ingest stopped by close()")
+            try:
+                rb = next(self._batches)
+            except StopIteration:
+                self._done = True
+                break
+            except Exception as e:
+                self._failed = e
+                raise
+            self._pending.append(rb)
+            self._pending_rows += rb.num_rows
+
+    def _take_chunk(self) -> Optional[pa.Table]:
+        """One chunk's Arrow slice off the stream (shared by __next__ and
+        skip_chunks, so both cut the same boundaries), or None at the end
+        of the stream."""
+        self._fill()
+        if self._pending_rows == 0:
+            return None
+        take = min(self._pending_rows, self._chunk_rows)
+        if all(rb.num_columns == 0 for rb in self._pending):
+            # a scan that prunes every column (count(*)): pyarrow drops
+            # the row count of column-less batches it combines, so the
+            # rows are counted here
+            self._pending = []
+            self._pending_rows -= take
+            return pa.table({"_": pa.nulls(take)}).select([])
+        table = pa.Table.from_batches(self._pending)
+        chunk = table.slice(0, take)
+        rest = table.slice(take)
+        self._pending = rest.to_batches() if rest.num_rows else []
+        self._pending_rows = rest.num_rows
+        return chunk
+
+    def skip_chunks(self, n: int) -> int:
+        """Advance past the next `n` chunks without unifying
+        dictionaries or copying to the device; returns how many chunks
+        were skipped (fewer when the stream ends first)."""
+        skipped = 0
+        while skipped < int(n):
+            if self._take_chunk() is None:
+                break
+            skipped += 1
+        return skipped
+
+    def _host_next(self) -> Optional[pa.Table]:
+        """One decoded, dictionary-unified host chunk, or None at the end
+        of the stream: all the per-chunk host work (what the prefetcher
+        overlaps with device compute)."""
+        t0 = time.perf_counter()
+        chunk = self._take_chunk()
+        if chunk is None:
+            return None
+        if self._capacity is None:
+            from ..columnar import bucket_capacity
+            self._capacity = bucket_capacity(self._chunk_rows)
+        out = self._unifier.unify(chunk, self.stop)
+        self.decode_s.append(time.perf_counter() - t0)
+        return out
+
+    def _to_device(self, chunk: pa.Table) -> Batch:
+        from ..execution import lifecycle
+        tok = lifecycle.current_token()
+        # the token is checked directly, not through lifecycle.checkpoint,
+        # whose cancel_point seam counts chunk boundaries only
+        check = None if tok is None else (lambda: tok.check("chunk_copy"))
+        t0 = time.perf_counter()
+        b = Batch.from_arrow(chunk, self._device, capacity=self._capacity,
+                             check=check)
+        self.copy_s.append(time.perf_counter() - t0)
+        return b
+
+    def __next__(self) -> Batch:
+        chunk = self._host_next()
+        if chunk is None:
+            raise StopIteration
+        return self._to_device(chunk)
+
+
 _SOURCE_TOKENS = itertools.count()
 
 
@@ -225,14 +397,25 @@ class ArrowTableSource(TableSource):
     def estimated_rows(self):
         return self.table.num_rows
 
-    def load(self, required_columns, pushed_filters, device) -> Batch:
+    def _pruned(self, required_columns, pushed_filters) -> pa.Table:
         t = self.table
         ae = _pushed_expression(pushed_filters, self.table.schema)
         if ae is not None:
             t = t.filter(ae)
         if required_columns is not None:
             t = t.select(list(required_columns))
-        return Batch.from_arrow(t, device)
+        return t
+
+    def load(self, required_columns, pushed_filters, device) -> Batch:
+        from ..testing import faults
+        faults.fire("scan_load")  # fault seam: host -> device ingest edge
+        return Batch.from_arrow(
+            self._pruned(required_columns, pushed_filters), device)
+
+    def load_chunks(self, required_columns, pushed_filters,
+                    chunk_rows: int, device) -> ChunkIterator:
+        t = self._pruned(required_columns, pushed_filters)
+        return ChunkIterator(iter(t.to_batches()), chunk_rows, device)
 
 
 class CsvSource(ArrowTableSource):
@@ -349,7 +532,185 @@ class ParquetSource(TableSource):
         return ("parquet", self.path, tuple(stamps))
 
     def load(self, required_columns, pushed_filters, device) -> Batch:
+        from ..testing import faults
+        faults.fire("scan_load")  # fault seam: host -> device ingest edge
         t = self._dataset.to_table(
             columns=list(required_columns) if required_columns is not None else None,
             filter=_pushed_expression(pushed_filters, self._dataset.schema))
         return Batch.from_arrow(t, device)
+
+    def load_chunks(self, required_columns, pushed_filters,
+                    chunk_rows: int, device) -> ChunkIterator:
+        scanner = self._dataset.scanner(
+            columns=list(required_columns) if required_columns is not None else None,
+            filter=_pushed_expression(pushed_filters, self._dataset.schema),
+            batch_size=min(chunk_rows, 1 << 20))
+        return ChunkIterator(scanner.to_batches(), chunk_rows, device)
+
+
+# ---------------------------------------------------------------------------
+# Double-buffered ingest: host decode of chunk N+1 overlaps chunk N's
+# device compute
+# ---------------------------------------------------------------------------
+
+INGEST_PREFETCH_KEY = "spark_tpu.sql.ingest.prefetch"
+
+
+class PrefetchChunkIterator:
+    """Double-buffered wrapper over a ChunkIterator: a worker thread
+    decodes and dictionary-unifies chunk N+1 into host buffers
+    (`ChunkIterator._host_next`; pyarrow releases the GIL, so the decode
+    overlaps the consumer) while the consumer computes chunk N. One chunk
+    in flight (a size-1 queue). The copy to the device stays on the
+    consuming thread, so the CUDA stream, device residency and the
+    per-chunk retry semantics are those of the plain iterator.
+
+    The worker runs each decode under the per-chunk retry path of the
+    compute steps (`ChunkRetrier` with the `ingest_prefetch` seam): a
+    transient fault replays one chunk's decode; a real reader failure
+    poisons the inner iterator and surfaces on the consumer thread.
+    `close()` joins the worker, and every chunk loop calls it on every exit
+    (end, fallback, fault, cancel); the worker then stops at its next
+    record batch, and a consumer waiting for a chunk checks the cancel
+    token as it waits. `wait_s` keeps the consumer's wait for each
+    decoded chunk (its stall); the session counters `ingest_stall_ms`
+    and `ingest_overlap_ms` sum the stall and the decode time it hid."""
+
+    def __init__(self, inner: ChunkIterator, conf, recovery=None,
+                 metrics=None):
+        import queue as _queue
+        import threading
+        import weakref
+        from ..execution.recovery import ChunkRetrier
+        self._inner = inner
+        self._retrier = ChunkRetrier(conf, recovery, site="ingest_prefetch")
+        self._metrics = metrics
+        self._started = False
+        self._closed = False
+        self._queue: "_queue.Queue" = _queue.Queue(maxsize=1)
+        # the worker gets this event, never `self`: an iterator dropped
+        # without close() becomes unreachable, the finalizer fires and
+        # the worker exits instead of spinning on its full queue
+        self._stop = threading.Event()
+        self._finalizer = weakref.finalize(self, self._stop.set)
+        inner.stop = self._stop
+        self._thread: "threading.Thread | None" = None
+        self.wait_s: List[float] = []
+
+    @property
+    def dictionaries(self):
+        return self._inner.dictionaries
+
+    @property
+    def decode_s(self) -> List[float]:
+        return self._inner.decode_s
+
+    @property
+    def copy_s(self) -> List[float]:
+        return self._inner.copy_s
+
+    def __iter__(self):
+        return self
+
+    @staticmethod
+    def _worker(host_next, retrier, q, stop, chunk) -> None:
+        # a staticmethod over plain arguments: a reference to the
+        # iterator would keep it reachable and its finalizer could never
+        # fire
+        import queue as _queue
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                item = ("ok", retrier.run(host_next, chunk=chunk),
+                        time.perf_counter() - t0)
+            except BaseException as e:  # noqa: BLE001 — relayed verbatim
+                item = ("err", e, 0.0)
+            # a bounded put that notices close(): the worker must not
+            # strand on a full queue
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    break
+                except _queue.Full:
+                    continue
+            if item[0] == "err" or item[1] is None:
+                return
+            chunk += 1
+
+    def _get(self):
+        """The next queue item. With a cancel token installed the wait
+        runs in short slices, each checking the token, so a cancel or a
+        deadline lands while the consumer waits for a decode."""
+        import queue as _queue
+        from ..execution import lifecycle
+        tok = lifecycle.current_token()
+        if tok is None:
+            return self._queue.get()
+        while True:
+            try:
+                return self._queue.get(timeout=lifecycle.wait_slice(None))
+            except _queue.Empty:
+                tok.check("prefetch_wait")
+
+    def __next__(self) -> Batch:
+        import threading
+        if self._closed:
+            raise StopIteration
+        if not self._started:
+            self._started = True
+            self._thread = threading.Thread(
+                target=self._worker, daemon=True,
+                name="spark-tpu-torch-ingest-prefetch",
+                args=(self._inner._host_next, self._retrier,
+                      self._queue, self._stop, 0))
+            self._thread.start()
+        t0 = time.perf_counter()
+        kind, payload, decode_s = self._get()
+        stall_s = time.perf_counter() - t0
+        if kind == "err":
+            self._closed = True
+            raise payload
+        if payload is None:
+            self._closed = True
+            raise StopIteration
+        self.wait_s.append(stall_s)
+        if self._metrics is not None:
+            self._metrics.counter("ingest_stall_ms").inc(
+                round(stall_s * 1e3, 3))
+            self._metrics.counter("ingest_overlap_ms").inc(
+                round(max(0.0, decode_s - stall_s) * 1e3, 3))
+        return self._inner._to_device(payload)
+
+    def close(self, timeout_s: float = 5.0) -> None:
+        """Stop the worker and join it (bounded). The queue is drained
+        first, so a worker blocked mid-put wakes at once."""
+        self._closed = True
+        self._stop.set()
+        t = self._thread
+        if t is not None and t.is_alive():
+            import queue as _queue
+            try:
+                while True:
+                    self._queue.get_nowait()
+            except _queue.Empty:
+                pass
+            t.join(timeout_s)
+            if t.is_alive():
+                import warnings
+                warnings.warn(
+                    f"ingest-prefetch worker failed to exit within "
+                    f"{timeout_s}s of close()")
+        self._thread = None
+
+
+def maybe_prefetch(chunks, conf, recovery=None):
+    """Wrap a chunk stream in the double-buffered prefetcher when
+    `spark_tpu.sql.ingest.prefetch` is on: the one entry every chunk
+    loop routes its `load_chunks` result through."""
+    if not isinstance(chunks, ChunkIterator):
+        return chunks
+    if not bool(conf.get(INGEST_PREFETCH_KEY)):
+        return chunks
+    metrics = getattr(recovery, "metrics", None)
+    return PrefetchChunkIterator(chunks, conf, recovery=recovery,
+                                 metrics=metrics)

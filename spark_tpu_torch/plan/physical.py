@@ -5,13 +5,14 @@
 walks the tree bottom-up, computing a node that several parents share
 (a runtime filter's creation chain) once. `simple_string`/`tree_string`
 match the JAX package, so plan-level parity is a string compare. Ported:
-Range, Scan, Project, Filter, HashAggregate (complete mode, dense-domain
-and sort paths), Sort, Window, Limit, Join, RuntimeFilter, Union and the
+Range, Scan, Input (a spliced stage output), Project, Filter,
+HashAggregate (complete, partial and final modes; dense-domain and sort
+paths), Sort, Window, Limit, Join, RuntimeFilter, Union and the
 single-device Exchange. Each operator states the distribution it needs
 of its children and the partitioning it gives, as in the JAX package
 (reference: `plans/physical/partitioning.scala`), so the planner inserts
 the exchanges that package inserts at mesh size 0; on one device an
-exchange passes its child's batch through. Generate is not ported yet.
+exchange passes its child's batch through. Generate (explode) is ported.
 """
 
 from __future__ import annotations
@@ -200,6 +201,31 @@ class ScanExec(LeafExec):
                 f"pushed={[repr(f) for f in self.pushed_filters]})")
 
 
+class InputExec(LeafExec):
+    """A leaf holding an already-computed device Batch (the result of a
+    streamed aggregate, or its spilled partials) — the analog of a
+    materialized QueryStageExec in the reference's adaptive loop
+    (`AdaptiveSparkPlanExec.scala:64`)."""
+
+    def __init__(self, batch: Batch, schema: T.Schema, label: str = "input"):
+        self._batch = batch
+        self._schema = schema
+        self.label = label
+        self.children = ()
+
+    def schema(self):
+        return self._schema
+
+    def load(self) -> Batch:
+        return self._batch
+
+    def compute(self, ctx, inputs):
+        return self._batch
+
+    def simple_string(self):
+        return f"InputExec({self.label},{self._schema!r})"
+
+
 class UnaryExec(PhysicalPlan):
     @property
     def child(self) -> PhysicalPlan:
@@ -263,19 +289,27 @@ class FilterExec(UnaryExec):
 
 
 class HashAggregateExec(UnaryExec):
-    """Group-by aggregate in the `complete` mode (update + reduce +
-    finalize in one node). Keys with a small static domain take the
-    dense path of `execution/aggregate.py`; others the sort aggregate,
-    whose output table holds `est_groups` (bucketed) groups and flags
+    """Group-by aggregate. Keys with a small static domain take the dense
+    path of `execution/aggregate.py`; others the sort aggregate, whose
+    output table holds `est_groups` (bucketed) groups and flags
     ``agg_overflow_<tag>`` when more arrive, for the executor to run
-    again with the real count."""
+    again with the real count. `mode` follows the reference's
+    partial/final split (`AggUtils.scala`):
+
+    - complete: update + reduce + finalize in one node;
+    - partial:  update + reduce, outputs the raw accumulator columns
+      (each chunk of the out-of-core spill path);
+    - final:    re-reduces accumulator columns by key, then finalizes
+      (over the spilled partials).
+
+    The dense-path steps (`prepare_direct`, `direct_init_tables`,
+    `direct_update_tables`, `direct_finalize_tables`) are the streaming
+    loop's: it folds chunk after chunk into one set of tables."""
 
     def __init__(self, child: PhysicalPlan, group_exprs: Sequence[Expression],
                  agg_exprs: Sequence[AggExpr], mode: str = "complete",
                  est_groups: Optional[int] = None):
-        if mode != "complete":
-            raise NotImplementedError(
-                f"HashAggregateExec mode={mode} is not ported yet")
+        assert mode in ("complete", "partial", "final")
         self.children = (child,)
         self.group_exprs = tuple(group_exprs)
         self.agg_exprs = tuple(agg_exprs)
@@ -283,18 +317,45 @@ class HashAggregateExec(UnaryExec):
         self.est_groups = est_groups
         self.tag = "a0"
 
+    def _acc_col_name(self, i: int, j: int, spec) -> str:
+        return f"__acc_{i}_{j}_{spec.suffix}"
+
     def schema(self):
         cs = self.child.schema()
         fields = [T.Field(g.name(), g.dtype(cs), g.nullable(cs))
                   for g in self.group_exprs]
-        for a in self.agg_exprs:
-            fields.append(T.Field(a.out_name, a.func.result_type(cs),
-                                  a.func.result_nullable(cs)))
+        base = self._base_schema()
+        if self.mode == "partial":
+            for i, a in enumerate(self.agg_exprs):
+                for j, spec in enumerate(a.func.accumulators(base)):
+                    fields.append(T.Field(
+                        self._acc_col_name(i, j, spec),
+                        _np_to_logical(spec.np_dtype), False))
+        else:
+            for a in self.agg_exprs:
+                fields.append(T.Field(a.out_name, a.func.result_type(base),
+                                      a.func.result_nullable(base)))
         return T.Schema(fields)
+
+    def _base_schema(self) -> T.Schema:
+        """The schema the aggregate functions' children resolve against:
+        the pre-aggregation input schema. A final stage looks through its
+        exchange to its partial stage, or to the schema a spliced
+        InputExec keeps (`_agg_base_schema`)."""
+        node: PhysicalPlan = self.children[0]
+        while isinstance(node, ExchangeExec):
+            node = node.children[0]
+        if self.mode == "final":
+            if isinstance(node, HashAggregateExec):
+                return node._base_schema()
+            stashed = getattr(node, "_agg_base_schema", None)
+            if stashed is not None:
+                return stashed
+        return node.schema()
 
     def compute(self, ctx, inputs):
         batch = inputs[0]
-        base = self.child.schema()
+        base = self._base_schema()
         sel = batch.selection
 
         if any(getattr(a.func, "positional", False)
@@ -303,12 +364,26 @@ class HashAggregateExec(UnaryExec):
 
         key_vecs = [g.eval(batch) for g in self.group_exprs]
         specs = [a.func.accumulators(base) for a in self.agg_exprs]
-        contribs = [a.func.update(batch, sel) for a in self.agg_exprs]
+        if self.mode == "final":
+            contribs = []
+            for i in range(len(self.agg_exprs)):
+                row = []
+                for j, spec in enumerate(specs[i]):
+                    data = batch.columns[self._acc_col_name(i, j, spec)].data
+                    if sel is not None:
+                        data = torch.where(
+                            sel, data, torch.full_like(
+                                data, spec.neutral.item()))
+                    row.append(data)
+                contribs.append(row)
+        else:
+            contribs = [a.func.update(batch, sel) for a in self.agg_exprs]
 
         domains = [agg_kernels.key_domain(g, v)
                    for g, v in zip(self.group_exprs, key_vecs)]
         max_domain = int(ctx.conf.get("spark_tpu.sql.aggregate.maxDirectDomain"))
-        nullables = [g.nullable(base) for g in self.group_exprs]
+        cs = self.child.schema()
+        nullables = [g.nullable(cs) for g in self.group_exprs]
         spans = agg_kernels.key_spans(
             nullables, [d for d in domains if d is not None])
         if (all(d is not None for d in domains)
@@ -318,7 +393,9 @@ class HashAggregateExec(UnaryExec):
                     key_vecs, domains, spans, contribs, specs, sel,
                     ctx.device, kernel_mode=str(ctx.conf.get(
                         "spark_tpu.sql.aggregate.kernelMode")),
-                    reuse_count=self._occupancy_reuse(batch))
+                    merge=(self.mode == "final"),
+                    reuse_count=None if self.mode == "final"
+                    else self._occupancy_reuse(batch))
         else:
             num_segments = batch.capacity
             if self.est_groups and self.group_exprs:
@@ -344,11 +421,17 @@ class HashAggregateExec(UnaryExec):
         for g, vec, arr, kv in zip(self.group_exprs, key_vecs, key_arrays,
                                    key_valids):
             cols[g.name()] = Column(arr, vec.dtype, kv, vec.dictionary)
-        for i, a in enumerate(self.agg_exprs):
-            data, validity = a.func.device_finalize(accs[i], base)
-            cols[a.out_name] = Column(
-                data, a.func.result_type(base), validity,
-                getattr(a.func, "output_dictionary", None))
+        if self.mode == "partial":
+            for i in range(len(self.agg_exprs)):
+                for j, spec in enumerate(specs[i]):
+                    cols[self._acc_col_name(i, j, spec)] = Column(
+                        accs[i][j], _np_to_logical(spec.np_dtype))
+        else:
+            for i, a in enumerate(self.agg_exprs):
+                data, validity = a.func.device_finalize(accs[i], base)
+                cols[a.out_name] = Column(
+                    data, a.func.result_type(base), validity,
+                    getattr(a.func, "output_dictionary", None))
         ctx.add_metric("agg_groups", occupied.sum())
         return Batch(cols, occupied, ctx.device)
 
@@ -362,6 +445,10 @@ class HashAggregateExec(UnaryExec):
         the input's capacity (`num_segments = cap`), as in the JAX
         package."""
         from ..expr import cast_vec
+        if self.mode != "complete":
+            raise AnalysisError(
+                "positional aggregates (percentile/median/collect_*) "
+                "have no partial/final decomposition")
         sel = batch.selection
         cap = batch.capacity
         key_vecs = [g.eval(batch) for g in self.group_exprs]
@@ -440,11 +527,125 @@ class HashAggregateExec(UnaryExec):
                     return (i, 0 if isinstance(f, Count) else 1)
         return None
 
+    # -- the dense-path steps of the streaming loop -----------------------
+
+    def prepare_direct(self, probe_batch: Batch, conf,
+                       pad_dict: bool = True) -> Optional["DirectAggPlan"]:
+        """The dense path's layout for a stream whose first chunk (after
+        the replayed chain) is `probe_batch`; None when a key has no
+        static domain or the domain is too large (the sort path).
+        Dictionary domains get headroom for growth across chunks."""
+        base = self._base_schema()
+        cs = self.child.schema()
+        key_vecs = [g.eval(probe_batch) for g in self.group_exprs]
+        domains = []
+        for g, v in zip(self.group_exprs, key_vecs):
+            dom = agg_kernels.key_domain(g, v)
+            if dom is None:
+                return None
+            d, lo = dom
+            if pad_dict and v.dictionary is not None:
+                d = bucket_capacity(max(16, 2 * d))
+            domains.append((d, lo))
+        spans = agg_kernels.key_spans(
+            [g.nullable(cs) for g in self.group_exprs], domains)
+        total = int(np.prod(list(spans) or [1]))
+        if total > int(conf.get("spark_tpu.sql.aggregate.maxDirectDomain")):
+            return None
+        strides = []
+        t = 1
+        for span in spans:
+            strides.append(t)
+            t *= span
+        specs = [a.func.accumulators(base) for a in self.agg_exprs]
+        return DirectAggPlan(
+            domains=domains, spans=spans, strides=strides, total=total,
+            key_dtypes=[v.dtype for v in key_vecs],
+            key_dicts=[v.dictionary for v in key_vecs], specs=specs,
+            device=probe_batch.device)
+
+    def direct_init_tables(self, prep: "DirectAggPlan"):
+        return agg_kernels.direct_init(prep.spans, prep.specs, prep.device)
+
+    def _updates(self, batch: Batch, sel, row_base=None):
+        """Per-row accumulator contributions. Position-packed aggregates
+        (first/last/any_value, `uses_row_base`) get the chunk's row base,
+        so merges across chunks never tie on in-chunk position."""
+        return [a.func.update(batch, sel, row_base=row_base)
+                if a.func.uses_row_base else a.func.update(batch, sel)
+                for a in self.agg_exprs]
+
+    def direct_update_tables(self, tables, batch: Batch,
+                             prep: "DirectAggPlan", conf=None,
+                             row_base=None):
+        """Fold one chunk into the carried tables; returns new tables
+        (the old ones stay as they were, so a replayed chunk starts from
+        them)."""
+        sel = batch.selection
+        key_vecs = [g.eval(batch) for g in self.group_exprs]
+        idx, _, _ = agg_kernels.direct_index(key_vecs, prep.domains,
+                                             prep.spans, sel, prep.device)
+        contribs = self._updates(batch, sel, row_base=row_base)
+        mode = str(conf.get("spark_tpu.sql.aggregate.kernelMode")) \
+            if conf is not None else "auto"
+        return agg_kernels.direct_update(
+            tables, idx, prep.total, contribs, prep.specs, kernel_mode=mode,
+            reuse_count=self._occupancy_reuse(batch))
+
+    def direct_finalize_tables(self, tables, prep: "DirectAggPlan",
+                               dict_overrides: Optional[Dict] = None) -> Batch:
+        """The complete-mode output batch from the carried tables;
+        `dict_overrides` swaps in the dictionaries a stream grew."""
+        cnt, accs = tables
+        base = self._base_schema()
+        occupied = cnt > 0
+        key_arrays, key_valids = agg_kernels.direct_keys(
+            prep.domains, prep.spans, prep.strides, prep.key_dtypes,
+            prep.device)
+        if not self.group_exprs:
+            occupied = torch.ones((1,), dtype=torch.bool, device=prep.device)
+        cols: Dict[str, Column] = {}
+        for g, arr, kv, dt, dic in zip(self.group_exprs, key_arrays,
+                                       key_valids, prep.key_dtypes,
+                                       prep.key_dicts):
+            if dict_overrides and g.name() in dict_overrides:
+                dic = dict_overrides[g.name()]
+            cols[g.name()] = Column(arr, dt, kv, dic)
+        for i, a in enumerate(self.agg_exprs):
+            data, validity = a.func.device_finalize(accs[i], base)
+            cols[a.out_name] = Column(
+                data, a.func.result_type(base), validity,
+                getattr(a.func, "output_dictionary", None))
+        return Batch(cols, occupied, prep.device)
+
     def simple_string(self):
         return (f"HashAggregateExec(mode={self.mode}, "
                 f"groups={[repr(g) for g in self.group_exprs]}, "
                 f"aggs={[repr(a) for a in self.agg_exprs]}, "
                 f"est={self.est_groups})")
+
+
+@dataclass
+class DirectAggPlan:
+    """The dense-domain layout of a streamed aggregate. `domains` entries
+    are (domain, lo) pairs — see `aggregate.key_domain`."""
+
+    domains: List[Tuple[int, int]]
+    spans: List[int]  # domain + null slot for schema-nullable keys
+    strides: List[int]
+    total: int
+    key_dtypes: List[T.DataType]
+    key_dicts: List
+    specs: List
+    device: object
+
+
+def _np_to_logical(np_dtype) -> T.DataType:
+    m = {np.dtype(np.int64): T.LONG, np.dtype(np.float64): T.DOUBLE,
+         np.dtype(np.int32): T.INT, np.dtype(np.float32): T.FLOAT,
+         np.dtype(np.bool_): T.BOOLEAN, np.dtype(np.int16): T.SHORT,
+         np.dtype(np.int8): T.BYTE}
+    return m[np.dtype(np_dtype)]
 
 
 class SortExec(UnaryExec):

@@ -55,6 +55,8 @@ def estimate_rows_physical(node: P.PhysicalPlan) -> Optional[int]:
         return node.source.estimated_rows()
     if isinstance(node, P.RangeExec):
         return node.num_rows()
+    if isinstance(node, P.InputExec):
+        return node.load().capacity
     if isinstance(node, (P.ProjectExec, P.FilterExec, P.SortExec,
                          P.ExchangeExec, P.WindowExec,
                          P.HashAggregateExec, P.RuntimeFilterExec)):

@@ -18,10 +18,20 @@ WITH-clause view is marked `implicit`: the first query that reaches it
 computes it once, later references in the same statement read the
 result, and the data is dropped when the outermost execution ends (the
 mark stays, so the statement run again computes the view once again).
+
+Every QueryExecution takes the next query id of its session
+(`df._qe().query_id`); `session.cancel(query_id)` stops that query,
+running on another thread, at its next cooperative boundary
+(`execution/lifecycle.py`). `session.metrics` holds the session's
+counters (replayed chunks, reused stages, cancelled queries, prefetch
+stall).
 """
 
 from __future__ import annotations
 
+import os
+import threading
+import uuid
 from typing import Dict, Optional, Set
 
 import pandas as pd
@@ -32,6 +42,7 @@ from .columnar import resolve_device
 from .config import RESULT_CACHE_BYTES, Conf
 from .dataframe import DataFrame
 from .io.sources import ArrowTableSource, ParquetSource, TableSource
+from .metrics import MetricsRegistry
 from .plan import logical as L
 from .result_cache import ResultCache
 
@@ -61,6 +72,28 @@ class SparkTpuSession:
         # plan + source stamps -> {kind:tag -> capacity} a converged run
         # settled on; the next execution of the plan starts from them
         self._aqe_caps: Dict[str, Dict[str, int]] = {}
+        #: the session's identity in the cancel registry (pid plus a
+        #: random token: pid alone repeats across runs)
+        self.app_id = f"{os.getpid()}-{uuid.uuid4().hex[:8]}"
+        self._query_seq = 0
+        self._query_seq_lock = threading.Lock()
+        self.metrics = MetricsRegistry()
+
+    def _next_query_id(self) -> int:
+        with self._query_seq_lock:
+            self._query_seq += 1
+            return self._query_seq
+
+    def cancel(self, query_id: int) -> bool:
+        """Request cooperative cancellation of a query executing on this
+        session (the SparkContext.cancelJobGroup seat): the execution
+        raises QueryCancelledError at its next boundary — a chunk, a
+        stage attempt, a retry backoff, the wait for the device — and
+        joins its prefetch worker. False when no execution with that id
+        is registered (finished, or never started). Callable from any
+        thread."""
+        from .execution import lifecycle
+        return lifecycle.cancel(self.app_id, query_id)
 
     # -- data cache -------------------------------------------------------
 

@@ -221,3 +221,114 @@ def write_parquet(path: str, sf: float, seed: int = 42,
     with open(marker, "w") as f:
         f.write("ok\n")
     return path
+
+
+#: the dictionaries of lineitem's string columns in the streamed writer
+RETURNFLAGS = ["A", "N", "R"]
+LINESTATUS = ["F", "O"]
+LINE_COMMENTS = [f"li {i}" for i in range(71)]
+
+
+def _dict(codes: np.ndarray, values) -> pa.Array:
+    return pa.DictionaryArray.from_arrays(
+        pa.array(codes.astype(np.int32)), pa.array(values))
+
+
+def lineitem_piece(sf: float, k: int, pieces: int, seed: int = 42) -> Dict:
+    """Piece `k` of `pieces` of a lineitem table at scale `sf`, as numpy
+    arrays: the lines of the k-th slice of the orders (keys offset by the
+    slice), drawn from `RandomState(seed + k)` with `generate`'s
+    distributions. Strings are codes into RETURNFLAGS, LINESTATUS,
+    SHIPINSTRUCT, SHIPMODES and LINE_COMMENTS, so no Python string is
+    built per row. Money and rates are integer cents/hundredths."""
+    n_ord_total = max(1, int(1_500_000 * sf))
+    n_part = max(1, int(200_000 * sf))
+    n_supp = max(1, int(10_000 * sf))
+    per = -(-n_ord_total // pieces)
+    o0 = k * per
+    n_ord = max(0, min(per, n_ord_total - o0))
+    rs = np.random.RandomState(seed + k)
+    o_date = rs.randint(START, END - 121, n_ord).astype(np.int32)
+    n_line = rs.randint(1, 8, n_ord)
+    orderkey = np.repeat(np.arange(o0 + 1, o0 + n_ord + 1, dtype=np.int64),
+                         n_line)
+    odate = np.repeat(o_date, n_line)
+    n_li = len(orderkey)
+    starts = np.zeros(n_ord, dtype=np.int64)
+    starts[1:] = np.cumsum(n_line)[:-1]
+    linenumber = (np.arange(n_li, dtype=np.int64)
+                  - np.repeat(starts, n_line) + 1).astype(np.int32)
+    partkey = rs.randint(1, n_part + 1, n_li).astype(np.int64)
+    suppkey = rs.randint(1, n_supp + 1, n_li).astype(np.int64)
+    qty = rs.randint(1, 51, n_li).astype(np.int64)
+    extended = qty * (rs.randint(90001, 2100001, n_li).astype(np.int64)
+                      // 100)
+    discount = rs.randint(0, 11, n_li).astype(np.int64)
+    tax = rs.randint(0, 9, n_li).astype(np.int64)
+    ship = odate + rs.randint(1, 122, n_li).astype(np.int32)
+    commit = odate + rs.randint(30, 91, n_li).astype(np.int32)
+    receipt = ship + rs.randint(1, 31, n_li).astype(np.int32)
+    cutoff = (np.datetime64("1995-06-17", "D") - EPOCH).astype(np.int32)
+    returnflag = np.where(receipt <= cutoff,
+                          np.where(rs.rand(n_li) < 0.5, 2, 0), 1)
+    linestatus = (ship > cutoff).astype(np.int32)
+    return {
+        "orderkey": orderkey, "partkey": partkey, "suppkey": suppkey,
+        "linenumber": linenumber, "qty": qty, "extended": extended,
+        "discount": discount, "tax": tax, "ship": ship, "commit": commit,
+        "receipt": receipt, "returnflag": returnflag,
+        "linestatus": linestatus,
+        "shipinstruct": rs.randint(0, len(SHIPINSTRUCT), n_li),
+        "shipmode": rs.randint(0, len(SHIPMODES), n_li),
+        "comment": (np.arange(n_li, dtype=np.int64) + o0) % 71}
+
+
+def lineitem_table(p: Dict) -> pa.Table:
+    """A lineitem piece as an Arrow table with `generate`'s schema (the
+    string columns dictionary-encoded)."""
+    return pa.table({
+        "l_orderkey": pa.array(p["orderkey"]),
+        "l_partkey": pa.array(p["partkey"]),
+        "l_suppkey": pa.array(p["suppkey"]),
+        "l_linenumber": pa.array(p["linenumber"]),
+        "l_quantity": _dec(p["qty"] * 100),
+        "l_extendedprice": _dec(p["extended"]),
+        "l_discount": _dec(p["discount"]),
+        "l_tax": _dec(p["tax"]),
+        "l_returnflag": _dict(p["returnflag"], RETURNFLAGS),
+        "l_linestatus": _dict(p["linestatus"], LINESTATUS),
+        "l_shipdate": _date(p["ship"]),
+        "l_commitdate": _date(p["commit"]),
+        "l_receiptdate": _date(p["receipt"]),
+        "l_shipinstruct": _dict(p["shipinstruct"], SHIPINSTRUCT),
+        "l_shipmode": _dict(p["shipmode"], SHIPMODES),
+        "l_comment": _dict(p["comment"], LINE_COMMENTS),
+    })
+
+
+def write_lineitem_pieces(path: str, sf: float, seed: int = 42,
+                          pieces: int = 0, on_piece=None,
+                          row_group_rows: int = 1 << 20) -> str:
+    """Write lineitem alone at scale `sf` to `path` (one Parquet file) in
+    pieces of about one scale-factor unit each, so that host memory stays
+    bounded at any scale: SF10 is ten pieces of about 6M rows, written as
+    row groups of `row_group_rows` through one ParquetWriter.
+    `on_piece(arrays)` sees each piece's numpy arrays
+    (`lineitem_piece`), for answers computed alongside. `generate` and
+    `write_parquet` are untouched: this table is not theirs row for
+    row."""
+    pieces = pieces or max(1, int(round(sf)))
+    writer = None
+    try:
+        for k in range(pieces):
+            p = lineitem_piece(sf, k, pieces, seed)
+            if on_piece is not None:
+                on_piece(p)
+            table = lineitem_table(p)
+            if writer is None:
+                writer = pq.ParquetWriter(path, table.schema)
+            writer.write_table(table, row_group_size=row_group_rows)
+    finally:
+        if writer is not None:
+            writer.close()
+    return path
