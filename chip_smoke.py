@@ -4,12 +4,13 @@
     python3 chip_smoke.py --phases kernels,fuzz   # chosen phases (PHASES)
     python3 chip_smoke.py --phases kernels     # phases 1-3 only
     python3 chip_smoke.py --phases ooc         # phase 12 (and 1-2)
+    python3 chip_smoke.py --phases udf         # phase 13 (and 1-2)
 
 Phases, in order; any failure exits non-zero before the last line.
 Phases 1 and 2 always run; `--phases` names the others, from PHASES:
 kernels (3), variants (4), main (5), sql (6), tpcds (7), window (8),
-fuzz (9), functions (10), etl (11), ooc (12). Each query of phases 5-8,
-10 and 11's aggregates runs twice: a
+fuzz (9), functions (10), etl (11), ooc (12), udf (13). Each query of
+phases 5-8, 10, 11's aggregates and 13 runs twice: a
 first run, after the device table cache and the session's kept
 capacities are emptied, and a warm run, which reuses the cached scans
 and the kept capacities. Both
@@ -156,8 +157,29 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    half Q1's warm time and a `session.cancel` from a timer thread each
    stop it within dispatchPollMs plus one chunk (printed), leave no
    prefetch thread, and a rerun gives the clean bytes.
+13. udf, Python UDFs on phase 5's TPC-H SF1 tables, each program a first
+   and a warm run in the in-process lane and then in the worker lane
+   (`udf.mode=worker`, 2 workers, 10,000 rows per Arrow batch), whose
+   bytes must equal the in-process lane's, and every run against pandas:
+   U1, a pandas UDF `net(price, discount)` registered for SQL inside a
+   Q1-shaped aggregate (sum and avg of it by l_returnflag, l_linestatus
+   over 6M rows; floats within rtol 1e-9), which must hand
+   `dense_sums_smem` a float row; U2, scalar UDFs as a group key
+   (o_orderpriority's word) and in a filter (year of o_orderdate) over
+   orders, totals exact; U3, scalar UDFs over customer's decimal
+   c_acctbal and a date, exact; U4, `apply_in_pandas` over orders by
+   o_orderpriority (5 groups) and a dense aggregate over its result,
+   which must launch `dense_sums_smem`. Each run prints its phase times
+   with the UDF stage split into the child's run, egress, evaluation and
+   re-ingest, and its `udf_summary`; the worker lane its spawn times;
+   the in-process lane a `[breakdown]` line. Then U5 on U1 in the worker
+   lane: `udf_batch:fatal:3` replays one batch and
+   `udf_worker_spawn:unavailable:1` recovers, each with U1's bytes; a
+   raising UDF surfaces as UdfError with the worker's traceback; a
+   cancel after the fifth batch raises QueryCancelledError and leaves no
+   child process (read from /proc), and a rerun gives U1's bytes.
 Then the kernels are timed again on the exact inputs the first run of
-each query of phases 5-7 and 10-12 gave them (a chunk's input, for a
+each query of phases 5-7 and 10-13 gave them (a chunk's input, for a
 streamed query).
 
 The line before the last is a JSON object with one entry per kernel and
@@ -173,6 +195,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import datetime
 import json
 import statistics
 import subprocess
@@ -252,10 +275,10 @@ SOURCE = "spark_tpu_torch/csrc/dense_groupby.cu"
 #: the phases `--phases` chooses from, in run order (device and build
 #: always run)
 PHASES = ("kernels", "variants", "main", "sql", "tpcds", "window", "fuzz",
-          "functions", "etl", "ooc")
+          "functions", "etl", "ooc", "udf")
 #: the phases that drive the package's main path (run_phases)
 MAIN_PHASES = ("main", "sql", "tpcds", "window", "fuzz", "functions", "etl",
-               "ooc")
+               "ooc", "udf")
 #: the hand kernels each function-library program must launch at SF1
 #: (F2's and F3's aggregates and functions run as torch ops: the
 #: positional sort, the sort aggregate, the date and bit arithmetic)
@@ -265,6 +288,17 @@ FUNCTION_KERNELS = {"f1": ("dense_sums_smem",), "f2": (), "f3": ()}
 FUZZ_RUNS = ((range(0, 200), 40, "auto"), (range(0, 50), 4096, "auto"),
              (range(0, 1000), 40, "matmul"))
 AGG_MODE = "spark_tpu.sql.aggregate.kernelMode"
+#: phase 13: the UDF lane's key, and the worker lane's pool bound and rows
+#: per Arrow batch
+UDF_MODE = "spark_tpu.sql.udf.mode"
+UDF_WORKER_CONF = (("spark_tpu.sql.udf.pool.maxWorkers", 2),
+                   ("spark_tpu.sql.udf.arrow.maxRecordsPerBatch", 10_000))
+#: the date U3's second UDF offsets by c_nationkey days
+U3_START = datetime.date(1995, 1, 1)
+#: the hand kernels each phase-13 program must launch at SF1 (U2's and
+#: U3's are printed: U2's dense key over a UDF's strings, U3 no aggregate)
+UDF_KERNELS = {"u1": ("dense_sums_smem",), "u2": (), "u3": (),
+               "u4": ("dense_sums_smem",)}
 
 
 def log(*parts) -> None:
@@ -2009,6 +2043,357 @@ def ooc_cancel(session, clean_q1, warm_s, chunks) -> None:
         "the rerun gives the clean bytes")
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: Python UDFs
+# ---------------------------------------------------------------------------
+
+U1_SQL = """
+SELECT l_returnflag, l_linestatus,
+       sum(net(CAST(l_extendedprice AS DOUBLE), CAST(l_discount AS DOUBLE)))
+           AS s,
+       avg(net(CAST(l_extendedprice AS DOUBLE), CAST(l_discount AS DOUBLE)))
+           AS a,
+       count(*) AS n
+FROM lineitem WHERE l_shipdate <= DATE '1998-09-02'
+GROUP BY l_returnflag, l_linestatus ORDER BY 1, 2"""
+
+
+def udf_programs(session, apply_s):
+    """Phase 13's programs over the session's TPC-H tables, by name: each
+    a function giving the DataFrame of one run (U4's runs its grouped map
+    as it builds the frame, and appends its seconds to `apply_s`). `net`
+    is registered for SQL here. Every function is defined in this script,
+    so the worker lane ships it by value."""
+    import pandas as pd
+    from spark_tpu_torch import functions as F
+    from spark_tpu_torch import types as T
+    from spark_tpu_torch.functions import col
+    session.udf.register(
+        "net", F.pandas_udf(lambda p, d: p * (1 - d), "double"))
+    prio = F.udf(lambda s: s.split("-")[1].strip(), "string")
+    late = F.udf(lambda d: d.year >= 1995, "boolean")
+    tier = F.udf(lambda b: int(b // 1000), "long")
+    stamp = F.udf(lambda b, d: f"{d.isoformat()}:{b}", "string")
+    start = F.to_date(U3_START.isoformat())
+
+    def ratio(g):
+        price = g["price"]
+        return pd.DataFrame({"o_orderpriority": g["o_orderpriority"],
+                             "o_orderkey": g["o_orderkey"],
+                             "ratio": price / price.mean()})
+
+    def u4():
+        t0 = time.perf_counter()
+        mapped = (session.table("orders")
+                  .select(col("o_orderpriority"), col("o_orderkey"),
+                          col("o_totalprice").cast(T.DOUBLE).alias("price"))
+                  .group_by(col("o_orderpriority"))
+                  .apply_in_pandas(ratio, "o_orderpriority string, "
+                                          "o_orderkey long, ratio double"))
+        apply_s.append(time.perf_counter() - t0)
+        return (mapped.group_by(col("o_orderpriority"))
+                .agg(F.sum(col("ratio")).alias("s"),
+                     F.count(col("o_orderkey")).alias("n"))
+                .order_by(col("o_orderpriority")))
+
+    return {
+        "u1": lambda: session.sql(U1_SQL),
+        "u2": lambda: (session.table("orders")
+                       .filter(late(col("o_orderdate")))
+                       .group_by(prio(col("o_orderpriority")).alias("prio"))
+                       .agg(F.sum(col("o_totalprice")).alias("total"),
+                            F.count(col("o_orderkey")).alias("n"))
+                       .order_by(col("prio"))),
+        "u3": lambda: (session.table("customer")
+                       .select(col("c_custkey"),
+                               tier(col("c_acctbal")).alias("tier"),
+                               stamp(col("c_acctbal"),
+                                     F.date_add(start, col("c_nationkey")))
+                               .alias("stamp"))
+                       .order_by(col("c_custkey"))),
+        "u4": u4,
+    }
+
+
+def udf_goldens(path) -> dict:
+    """pandas answers of U1-U4 from the Parquet files: U1's floats, U2's
+    totals in exact cents, U3's strings from the Decimal objects, U4's
+    per-priority sums of price over its mean."""
+    import os
+    import pandas as pd
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    def read(table, columns):
+        return pq.read_table(os.path.join(path, f"{table}.parquet"),
+                             columns=columns)
+
+    li = read("lineitem", ["l_returnflag", "l_linestatus", "l_extendedprice",
+                           "l_discount", "l_shipdate"])
+    li = li.filter(pa.compute.less_equal(
+        li["l_shipdate"], pa.scalar(datetime.date(1998, 9, 2))))
+    l = pd.DataFrame({
+        "l_returnflag": li["l_returnflag"].to_numpy(),
+        "l_linestatus": li["l_linestatus"].to_numpy(),
+        "p": li["l_extendedprice"].cast(pa.float64()).to_numpy(),
+        "d": li["l_discount"].cast(pa.float64()).to_numpy()})
+    l["net"] = l["p"] * (1 - l["d"])
+    u1 = (l.groupby(["l_returnflag", "l_linestatus"], as_index=False)
+          .agg(s=("net", "sum"), a=("net", "mean"), n=("net", "size"))
+          .sort_values(["l_returnflag", "l_linestatus"])
+          .reset_index(drop=True))
+    o = read("orders", ["o_orderkey", "o_orderpriority", "o_orderdate",
+                        "o_totalprice"]).to_pandas()
+    price = o["o_totalprice"].astype(float)
+    o = o.assign(price=price, cents=(price * 100).round().astype("int64"),
+                 prio=o["o_orderpriority"].str.split("-").str[1].str.strip())
+    late = o[pd.to_datetime(o["o_orderdate"]).dt.year >= 1995]
+    u2 = (late.groupby("prio", as_index=False)
+          .agg(cents=("cents", "sum"), n=("o_orderkey", "size"))
+          .sort_values("prio").reset_index(drop=True))
+    c = read("customer", ["c_custkey", "c_acctbal", "c_nationkey"])
+    bal = c["c_acctbal"].to_pylist()
+    days = [U3_START + datetime.timedelta(days=k)
+            for k in c["c_nationkey"].to_pylist()]
+    u3 = {"c_custkey": c["c_custkey"].to_pylist(),
+          "tier": [int(b // 1000) for b in bal],
+          "stamp": [f"{d.isoformat()}:{b}" for b, d in zip(bal, days)]}
+    o["ratio"] = o["price"] / o.groupby("o_orderpriority")["price"] \
+        .transform("mean")
+    u4 = (o.groupby("o_orderpriority", as_index=False)
+          .agg(s=("ratio", "sum"), n=("o_orderkey", "size"))
+          .sort_values("o_orderpriority").reset_index(drop=True))
+    return {"u1": u1, "u2": u2, "u3": u3, "u4": u4}
+
+
+def check_udf(q, got, want) -> None:
+    """One phase-13 result against its pandas answer: U1's and U4's floats
+    within rtol 1e-9, the rest exactly."""
+    import decimal
+    import numpy as np
+    out = got.to_pandas()
+    if q == "u3":
+        for name, values in want.items():
+            if got.column(name).to_pylist() != values:
+                raise AssertionError(f"{q}: column {name} differs from "
+                                     f"pandas")
+        return
+    keys = {"u1": ["l_returnflag", "l_linestatus"], "u2": ["prio"],
+            "u4": ["o_orderpriority"]}[q]
+    for k in keys + ["n"]:
+        if out[k].tolist() != want[k].tolist():
+            raise AssertionError(f"{q}: column {k} differs from pandas: "
+                                 f"{out[k].tolist()} vs {want[k].tolist()}")
+    if q == "u2":
+        cents = [int(v * 100) for v in out["total"]]
+        if cents != want["cents"].tolist() or not all(
+                isinstance(v, decimal.Decimal) for v in out["total"]):
+            raise AssertionError(f"u2: totals {cents} vs pandas "
+                                 f"{want['cents'].tolist()}")
+        return
+    for k in {"u1": ("s", "a"), "u4": ("s",)}[q]:
+        if not np.allclose(out[k], want[k], rtol=1e-9, atol=0.0):
+            raise AssertionError(f"{q}: column {k} {out[k].tolist()} vs "
+                                 f"pandas {want[k].tolist()}")
+
+
+def child_processes():
+    """Live (not zombie) child processes of this process, from /proc:
+    [(pid, command name)]."""
+    import os
+    me = os.getpid()
+    out = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue  # exited while listed
+        # the command name sits in parentheses and may hold spaces
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        if int(ppid) == me and state != "Z":
+            out.append((int(entry), stat[stat.index("(") + 1:
+                                         stat.rindex(")")]))
+    return out
+
+
+def udf_times(qe) -> str:
+    """A run's phase times (ms) and its udf_summary."""
+    pt = qe.phase_times
+    split = ", ".join(f"{k[4:]} {pt[k] * 1e3:.1f}" for k in
+                      ("udf_child", "udf_egress", "udf_eval", "udf_ingest")
+                      if k in pt)
+    main = ", ".join(f"{k} {pt[k] * 1e3:.1f}" for k in
+                     ("python_udfs", "ingest", "execute", "egress")
+                     if k in pt)
+    s = qe.udf_summary or {}
+    return (f"phase ms: {main} (python_udfs: {split}); udf_summary: "
+            f"batches {s.get('batches')}, rows {s.get('rows')}, exec_ms "
+            f"{s.get('exec_ms')}, restarts {s.get('worker_restarts')}")
+
+
+def set_lane(session, lane) -> None:
+    session.conf.set(UDF_MODE, lane)
+    if lane == "worker":
+        for key, value in UDF_WORKER_CONF:
+            session.conf.set(key, value)
+
+
+def phase_udf(D, S, path, launches, current, captured) -> dict:
+    """Phase 13 on the TPC-H SF1 tables at `path`: U1-U4 a first and a
+    warm run in each lane, the worker lane byte-equal to the in-process
+    lane and both to pandas; then U5, recovery on U1's query in the
+    worker lane. Returns U1's in-process result."""
+    import torch
+    from spark_tpu_torch.tpch import queries as Q
+    session = S.SparkTpuSession.builder().get_or_create()
+    Q.register_tables(session, path)
+    apply_s = []
+    programs = udf_programs(session, apply_s)
+    t0 = time.perf_counter()
+    goldens = udf_goldens(path)
+    log(f"[udf] pandas answers in {time.perf_counter() - t0:.1f} s")
+    metrics = session.metrics
+    results = {}
+    for q, make in programs.items():
+        kernels = UDF_KERNELS[q]
+        for lane in ("inprocess", "worker"):
+            set_lane(session, lane)
+            spawn0 = metrics.counter("udf_worker_spawn_ms").value
+            batches0 = metrics.counter("udf_batches").value
+            del apply_s[:]
+            label = f"udf {q}" if lane == "inprocess" else None
+            first, warm = first_and_warm(D, session, make, current, label)
+            for run, r in (("first", first), ("warm", warm)):
+                check_udf(q, r[0], goldens[q])
+                require_kernels(f"{q} {lane} {run} run", kernels, r[3])
+            tables_match(f"{q} {lane} warm run against its first", warm[0],
+                         first[0])
+            if lane == "inprocess":
+                results[q] = first[0]
+                launches[label] = first[3]
+            elif not first[0].equals(results[q]):
+                raise AssertionError(f"{q}: the worker lane's bytes differ "
+                                     f"from the in-process lane's")
+            if q == "u1" and lane == "inprocess" and not any(
+                    shape[3] >= 1 for shape in
+                    captured[(label, "dense_sums_smem")]):
+                raise AssertionError("u1 gave dense_sums_smem no float row")
+            spawned = metrics.counter("udf_worker_spawn_ms").value - spawn0
+            pool = session._udf_pool
+            log(f"[udf] {q} {lane}: {first[0].num_rows} rows; "
+                f"{runs_text(first, warm)}; launches {first[3]}"
+                + (f"; worker spawns {spawned} ms in all, idle workers' "
+                   f"spawn ms {[round(h.spawn_ms, 1) for h in pool._idle]}"
+                   if lane == "worker" else ""))
+            log(f"[udf] {q} {lane} first run {udf_times(first[1])}")
+            log(f"[udf] {q} {lane} warm run {udf_times(warm[1])}")
+            if apply_s:
+                log(f"[udf] {q} {lane} apply_in_pandas (5 groups, before "
+                    f"the aggregate's run): first run {apply_s[0]:.3f} s, "
+                    f"warm run {apply_s[1]:.3f} s; udf_batches "
+                    f"{metrics.counter('udf_batches').value - batches0}")
+            if lane == "inprocess":
+                set_lane(session, lane)
+                log(f"[breakdown] udf {q}: {breakdown(make(), warm[1])}")
+    set_lane(session, "worker")
+    udf_recovery(session, results["u1"])
+    session._udf_pool.shutdown()  # the phase leaves no worker running
+    torch.cuda.synchronize()
+    return results["u1"]
+
+
+def udf_recovery(session, clean_u1) -> None:
+    """U5, worker lane, U1's query: a worker killed mid-batch replays one
+    batch, a failed spawn is retried, a user exception surfaces with the
+    worker's traceback, and a cancel mid-UDF leaves no child process; each
+    run that finishes gives U1's bytes."""
+    import threading
+    from spark_tpu_torch.execution import lifecycle
+    from spark_tpu_torch.testing import faults
+    from spark_tpu_torch.udf_worker import UdfError
+    metrics = session.metrics
+    pool = session._udf_pool
+    for spec, prep in (("udf_batch:fatal:3", None),
+                       ("udf_worker_spawn:unavailable:1", pool.shutdown)):
+        if prep is not None:
+            prep()  # the next checkout spawns
+        replayed0 = metrics.counter("rec_chunks_replayed").value
+        restarts0 = metrics.counter("udf_worker_restarts").value
+        t0 = time.perf_counter()
+        with faults.inject(session.conf, spec) as plan:
+            qe = session.sql(U1_SQL)._qe()
+            got = qe.collect()
+        seconds = time.perf_counter() - t0
+        site, nth = spec.split(":")[0], int(spec.split(":")[2])
+        if plan.fired_log != [(site, nth, spec.split(":")[1])]:
+            raise AssertionError(f"{spec}: fired {plan.fired_log}")
+        replayed = metrics.counter("rec_chunks_replayed").value - replayed0
+        if replayed != 1 or not got.equals(clean_u1):
+            raise AssertionError(f"{spec}: {replayed} batches replayed, "
+                                 f"bytes equal {got.equals(clean_u1)}")
+        log(f"[udf] u5 {spec}: one batch replayed, U1's bytes; "
+            f"fault_summary {qe.fault_summary}; worker restarts "
+            f"{metrics.counter('udf_worker_restarts').value - restarts0}; "
+            f"{seconds:.3f} s")
+
+    def boom(p, d):
+        raise ValueError("user bug in u5")
+
+    from spark_tpu_torch import functions as F
+    session.udf.register("boom", F.pandas_udf(boom, "double"))
+    try:
+        session.sql("SELECT sum(boom(CAST(l_extendedprice AS DOUBLE), "
+                    "CAST(l_discount AS DOUBLE))) AS s "
+                    "FROM lineitem").collect()
+        raise AssertionError("u5: the raising UDF did not fail the query")
+    except UdfError as e:
+        if "in boom" not in e.worker_traceback or e.etype != "ValueError":
+            raise AssertionError(f"u5: {e!r} without the worker's traceback")
+        log(f"[udf] u5 user exception: {e}; worker traceback ends "
+            f"{e.worker_traceback.strip().splitlines()[-1]!r}")
+
+    qe = session.sql(U1_SQL)._qe()
+    out, fired = {}, {}
+
+    def run():
+        try:
+            out["table"] = qe.collect()
+        except Exception as e:  # noqa: BLE001 — inspected below
+            out["error"] = e
+
+    batches0 = metrics.counter("udf_batches").value
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    deadline = time.monotonic() + 300
+    while metrics.counter("udf_batches").value - batches0 < 5:
+        if time.monotonic() > deadline or not thread.is_alive():
+            raise AssertionError("u5: U1 never reached its fifth batch")
+        time.sleep(0.002)
+    fired["t"] = time.perf_counter()
+    at = metrics.counter("udf_batches").value - batches0
+    if not session.cancel(qe.query_id):
+        raise AssertionError("u5: session.cancel found no running query")
+    thread.join(60)
+    late = time.perf_counter() - fired["t"]
+    if thread.is_alive() or not isinstance(
+            out.get("error"), lifecycle.QueryCancelledError):
+        raise AssertionError(f"u5: the cancel gave {out}")
+    left = child_processes()
+    if left:
+        raise AssertionError(f"u5: child processes outlived the cancel: "
+                             f"{left}")
+    again_qe = session.sql(U1_SQL)._qe()
+    if not again_qe.collect().equals(clean_u1):
+        raise AssertionError("u5: U1 after the cancel differs")
+    log(f"[udf] u5 cancel after {at} batches (of "
+        f"{again_qe.udf_summary['batches']}): "
+        f"QueryCancelledError {late * 1e3:.1f} ms after it ({out['error']}); "
+        f"no child process left (/proc); the rerun gives U1's bytes")
+
+
 def run_phases(D, phases):
     """The main-path phases chosen (5-12); returns the per-kernel launch
     counts of each query's first run and the kernel inputs each query's
@@ -2037,7 +2422,7 @@ def run_phases(D, phases):
     D.dense_groupby_sums = recording
     launches = {}
     try:
-        if {"main", "sql", "functions", "etl", "ooc"} & phases:
+        if {"main", "sql", "functions", "etl", "ooc", "udf"} & phases:
             with tempfile.TemporaryDirectory() as tmp:
                 t0 = time.perf_counter()
                 path = write_parquet(tmp + "/tpch", SF)
@@ -2060,6 +2445,10 @@ def run_phases(D, phases):
                     t0 = time.perf_counter()
                     phase_ooc(D, S, path, launches, current, captured)
                     log(f"[ooc] phase in {time.perf_counter() - t0:.1f} s")
+                if "udf" in phases:
+                    t0 = time.perf_counter()
+                    phase_udf(D, S, path, launches, current, captured)
+                    log(f"[udf] phase in {time.perf_counter() - t0:.1f} s")
         if "main" in phases:
             phase_range(D, S, launches, current)
         if {"tpcds", "window", "functions"} & phases:
@@ -2262,9 +2651,12 @@ def describe_joins(qe) -> str:
     return "; ".join(parts) + f"; attempts {qe.attempts}"
 
 
-def breakdown(df) -> str:
+def breakdown(df, qe=None) -> str:
     """Where one run of `df` spends its time. The query runs once to let
-    the re-plan loop converge; then the converged plan runs twice with
+    the re-plan loop converge (or `qe`, an execution of the same query
+    that already ran, gives its converged plan; a plan with UDF stages
+    runs from that execution's splice, whose InputExec holds the UDF
+    stage's result); then the converged plan runs twice with
     each physical operator timed on the host clock and the card
     synchronised around it (a node that several parents share runs once,
     as in the executor): a cold pass with the device table cache emptied
@@ -2282,8 +2674,10 @@ def breakdown(df) -> str:
     from spark_tpu_torch.io.device_cache import CACHE
     from spark_tpu_torch.io.sources import ParquetSource, _pushed_expression
     from spark_tpu_torch.plan import physical as P
-    qe = df._qe()
-    qe.execute_batch()
+    if qe is None:
+        qe = df._qe()
+        qe.execute_batch()
+    plan = qe.spliced_plan if qe.udf_summary else qe.executed_plan
 
     def timed_pass(cold: bool):
         if cold:
@@ -2316,7 +2710,7 @@ def breakdown(df) -> str:
                 times["ScanExec: Parquet read"] += time.perf_counter() - t0
             return out
 
-        batch = run_plan(qe.executed_plan, ctx, visit)
+        batch = run_plan(plan, ctx, visit)
         t0 = time.perf_counter()
         batch.to_arrow()
         times["egress"] += time.perf_counter() - t0
@@ -2370,7 +2764,7 @@ def kernel_report(D, launches, captured, phases):
         raise AssertionError(f"no kernel input captured for {missing}")
     sql = [(name, label) for label, name in captured
            if label.startswith(("sql ", "tpcds ", "functions ", "etl ",
-                                "ooc "))]
+                                "ooc ", "udf "))]
     inputs = [(name, q, x) for name, q in programs + sql
               for x in captured[(q, name)].values()]
     for name, q, (idx, ir, fr, domain) in inputs:

@@ -391,3 +391,55 @@ FAULT_INJECT = register(
     doc="Deterministic fault injection for chaos testing "
         "(testing/faults.py): comma-separated `site:fault:nth[:arg]` "
         "rules, each firing once. Empty disables.")
+
+UDF_MODE = register(
+    "spark_tpu.sql.udf.mode", "inprocess",
+    doc="Where Python UDFs evaluate. 'inprocess': the original lane — "
+        "user code runs in the engine process over the whole "
+        "materialized table (fast for tiny inputs; a hung or crashing "
+        "UDF takes the serving process with it). 'worker': the "
+        "ArrowEvalPythonExec/PythonRunner seat — input is sliced by "
+        "udf.arrow.maxRecordsPerBatch and pipelined through a pool of "
+        "reusable subprocess workers (udf_worker/), each batch "
+        "individually retryable (udf_batch fault site), cancellable "
+        "between and DURING batches, and a worker crash replays only "
+        "the in-flight batch. Results are byte-identical across "
+        "modes.",
+    validator=lambda v: v in ("inprocess", "worker"))
+
+UDF_MAX_RECORDS_PER_BATCH = register(
+    "spark_tpu.sql.udf.arrow.maxRecordsPerBatch", 10000,
+    doc="Rows per Arrow batch streamed to a UDF worker (the "
+        "spark.sql.execution.arrow.maxRecordsPerBatch seat). Smaller "
+        "batches mean finer retry/cancel granularity and lower "
+        "per-batch replay cost; larger batches amortize pipe framing "
+        "and pandas call overhead. Worker mode only.",
+    validator=lambda v: v >= 1)
+
+UDF_POOL_MAX_WORKERS = register(
+    "spark_tpu.sql.udf.pool.maxWorkers", 2,
+    doc="Upper bound on live UDF worker subprocesses per session pool. "
+        "Checkouts beyond the bound wait (cooperatively — cancel and "
+        "deadline land within ~50ms) for a checkin. Workers are "
+        "reused across queries; the spawn cost (interpreter + "
+        "numpy/pandas/pyarrow import, udf_worker_spawn_ms) is paid "
+        "once per worker, not per query.",
+    validator=lambda v: v >= 1)
+
+UDF_BATCH_TIMEOUT_MS = register(
+    "spark_tpu.sql.udf.batchTimeoutMs", 0,
+    doc="Per-batch wall-clock deadline for one worker EVAL round-trip. "
+        "A wedged worker (infinite loop in user code, stuck import) "
+        "is killed at the deadline and the batch replays on a fresh "
+        "worker under the TIMEOUT retry budget. 0 disables. Worker "
+        "mode only.",
+    validator=lambda v: v >= 0)
+
+UDF_POOL_IDLE_TIMEOUT_MS = register(
+    "spark_tpu.sql.udf.pool.idleTimeoutMs", 60000,
+    doc="Idle reap: a pooled worker unused this long is killed at the "
+        "next checkout (lazily — no reaper thread). 0 keeps idle "
+        "workers forever. Dead idle workers are always reaped at "
+        "checkout regardless of this bound, so a worker that died "
+        "between queries never surfaces as a stale-pipe error.",
+    validator=lambda v: v >= 0)

@@ -450,3 +450,60 @@ class GroupedData:
 
     def count(self) -> DataFrame:
         return self.agg(AggExpr(Count(None), "count"))
+
+    def apply_in_pandas(self, fn, schema) -> DataFrame:
+        """Grouped-map pandas UDF: ``fn(pdf) -> pdf`` per key group
+        (reference: FlatMapGroupsInPandasExec over Arrow batches,
+        `ArrowEvalPythonExec.scala:1` family). The input materializes
+        on the host — the same stage cut the reference makes; under
+        `spark_tpu.sql.udf.mode=worker` each group goes through the
+        session's UDF worker pool. The result is a new in-memory table,
+        ingested to the device by the next query over it. `schema` is
+        "name type, ..." or a T.Schema."""
+        import pandas as pd
+        from .udf import _parse_return_type
+
+        if isinstance(schema, str):
+            fields = []
+            for part in schema.split(","):
+                name, typ = part.strip().rsplit(" ", 1)
+                fields.append(T.Field(name.strip(),
+                                      _parse_return_type(typ), True))
+            out_schema = T.Schema(fields)
+        else:
+            out_schema = schema
+        key_names = [g.name() for g in self._groups]
+        pdf = self._df.select(
+            *([*self._groups] + [ColumnRef(n)
+                                 for n in self._df.plan.schema().names
+                                 if n not in {g.name()
+                                              for g in self._groups}])
+        ).to_pandas() if self._groups else self._df.to_pandas()
+        if key_names:
+            groups = [g.reset_index(drop=True)
+                      for _, g in pdf.groupby(key_names, sort=False,
+                                              dropna=False)]
+        else:
+            groups = [pdf]
+        mode = str(self._df.session.conf.get(
+            "spark_tpu.sql.udf.mode") or "inprocess")
+        if mode == "worker":
+            # out-of-process lane: one EVAL frame per key group through
+            # the session's worker pool (FlatMapGroupsInPandasExec)
+            from .execution.python_eval import eval_grouped_map_worker
+            pieces = eval_grouped_map_worker(
+                self._df.session, fn, groups,
+                [f.name for f in out_schema.fields])
+        else:
+            pieces = [fn(g) for g in groups]
+        out = pd.concat(pieces, ignore_index=True) if pieces else \
+            pd.DataFrame({f.name: [] for f in out_schema.fields})
+        out = out[[f.name for f in out_schema.fields]]
+        for f in out_schema.fields:  # pin declared dtypes
+            if not isinstance(f.dtype, (T.StringType, T.DateType)):
+                out[f.name] = out[f.name].astype(f.dtype.np_dtype)
+        # a plain in-memory scan — never registered, so the session
+        # catalog stays free of internal temp tables
+        return self._df.session.create_dataframe(out, "__grouped_map__")
+
+    applyInPandas = apply_in_pandas

@@ -363,6 +363,10 @@ class QueryExecution:
         #: the plan the last execution ran: `executed_plan` with its
         #: streamed aggregates spliced in as InputExec leaves
         self.spliced_plan: Optional[P.PhysicalPlan] = None
+        #: python-UDF evaluation summary of the last execution
+        #: (execution/python_eval.py): mode, batch/row totals, worker
+        #: restarts, evaluation milliseconds; None without UDFs
+        self.udf_summary: Optional[Dict] = None
 
     @property
     def _conf(self):
@@ -585,6 +589,9 @@ class QueryExecution:
         self._exec_conf = None
         lc_scope = lifecycle.enter_query_scope(session.app_id,
                                                self.query_id, session.conf)
+        self.udf_summary = None
+        for key in [k for k in self.phase_times if k.startswith("udf_")]:
+            del self.phase_times[key]  # python_eval's per-run sums
         self._begin_recovery()
         session._exec_depth += 1
         try:
@@ -653,12 +660,15 @@ class QueryExecution:
 
     def _observe_cancel(self, e: Exception) -> None:
         """A cancelled or deadlined execution: its session counter and a
-        `cancel` action in fault_summary."""
+        `cancel` action in fault_summary. No pooled UDF worker survives
+        it, wherever the cancel landed (a scan, a chunk, the UDF lane):
+        idle workers respawn on demand, so this costs one warm start."""
         from .lifecycle import QueryCancelledError
         self.session.metrics.counter(
             "query_cancelled" if isinstance(e, QueryCancelledError)
             else "query_deadline_exceeded").inc()
         self._record_fault("cancel", e)
+        self.session._udf_pool.shutdown()
 
     def _execute_recover(self) -> Batch:
         """Run `_execute_batch` under the failure taxonomy: each iteration
@@ -877,6 +887,13 @@ class QueryExecution:
             if aqe_key is not None else None
         if saved_caps:
             apply_saved_caps(root0, saved_caps)
+        # UDF stages first: each UDF node's child runs, goes to the host,
+        # and comes back with the UDF columns as an InputExec
+        from .python_eval import extract_python_udfs, plan_has_udfs
+        if plan_has_udfs(root0):
+            t0 = time.perf_counter()
+            root0 = extract_python_udfs(root0, conf, session.device, qe=self)
+            self.phase_times["python_udfs"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         self.spilled_partial_rows = None
         root = self._materialize_streaming(root0)
@@ -989,10 +1006,13 @@ class QueryExecution:
         the ladder's transient rung (`_retry_transient`)."""
         from ..io.device_cache import out_of_core_active
         from .external import try_external_collect
+        from .python_eval import plan_has_udfs
         conf = self.session.conf
         if not out_of_core_active(conf):
             return None
         self._activate_conf()
+        if plan_has_udfs(self.executed_plan):
+            return None  # UDF stages evaluate through execute_batch
         self._begin_recovery()
         t0 = time.perf_counter()
         try:

@@ -18,7 +18,10 @@ and `spark.task.maxFailures`, the DAGScheduler's per-kind reactions).
   cancelled or blew its queryDeadlineMs. Never retried, never degraded.
 - FATAL: everything else, including a sticky CUDA error (an illegal
   memory access, a device-side assert, `cudaErrorLaunchFailure`): the
-  CUDA context is dead after one, so no retry can succeed.
+  CUDA context is dead after one, so no retry can succeed; and a user
+  function's exception in a UDF worker (`udf_worker.UdfError`). A UDF
+  worker that dies mid-batch (`UdfWorkerLost`) says UNAVAILABLE, so it
+  is TRANSIENT.
 
 Synthetic faults from `spark_tpu_torch.testing.faults` carry their class
 on the exception; real errors classify by type and message tokens, so
@@ -76,11 +79,14 @@ def classify(exc: BaseException) -> FailureClass:
     by their carried class; real errors by type and message tokens."""
     import torch
     from ..testing.faults import FaultInjected
+    from ..udf_worker import UdfError
     from .lifecycle import QueryCancelledError, QueryDeadlineError
     if isinstance(exc, (QueryCancelledError, QueryDeadlineError)):
         return FailureClass.CANCELLED
     if isinstance(exc, StageTimeoutError):
         return FailureClass.TIMEOUT
+    if isinstance(exc, UdfError):
+        return FailureClass.FATAL  # a user bug, whatever its message says
     if isinstance(exc, FaultInjected):
         if exc.fault == "resource_exhausted":
             return FailureClass.OOM

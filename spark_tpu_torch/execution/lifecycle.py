@@ -80,6 +80,10 @@ class CancelToken:
         parked in `wait()` wake at once."""
         self._event.set()
 
+    @property
+    def cancelled(self) -> bool:
+        return self._event.is_set()
+
     def remaining_s(self) -> Optional[float]:
         """Deadline budget left (negative = blown); None = no deadline."""
         if self.deadline is None:

@@ -10,9 +10,11 @@ NSDI'12).
   after a chunk succeeds, so a TRANSIENT/TIMEOUT fault replays exactly
   the failed chunk — `spark_tpu.execution.chunkRetry.{enabled,
   maxRetries}`. The `stream_chunk` fault seam fires once per chunk
-  attempt here. Ingest (`next(chunks)`) is not retried: a reader failure
-  poisons the ChunkIterator (io/sources.py) and surfaces to the
-  whole-query ladder, which restarts the stream on a fresh iterator.
+  attempt here. The UDF worker lane (`python_eval.py`) runs each Arrow
+  batch as one chunk at the `udf_batch` site, which its step fires.
+  Ingest (`next(chunks)`) is not retried: a reader failure poisons the
+  ChunkIterator (io/sources.py) and surfaces to the whole-query ladder,
+  which restarts the stream on a fresh iterator.
 - **RecoveryContext** — per-execution recovery state: the fault
   recorder and a memo of completed stage outputs (streamed-aggregate
   splices, join build sides). When the executor re-executes the query
@@ -61,7 +63,8 @@ class ChunkRetrier:
         self.backoff_ms = float(conf.get(BACKOFF_KEY))
         self.recovery = recovery
         # "stream_chunk" for the compute steps, "ingest_prefetch" for the
-        # prefetcher's host decode (io/sources.py)
+        # prefetcher's host decode (io/sources.py), "udf_batch" for the
+        # worker lane's batches (python_eval.py)
         self.site = site
 
     def run(self, step, chunk: int = 0):
@@ -76,6 +79,12 @@ class ChunkRetrier:
             try:
                 if self.site == "ingest_prefetch":
                     faults.fire("ingest_prefetch")
+                elif self.site == "udf_batch":
+                    # the seam fires INSIDE the step (python_eval's worker
+                    # lane): the step kills the in-flight worker before
+                    # the injected error surfaces, so a fatal rule models
+                    # a real SIGKILL mid-batch
+                    pass
                 else:
                     faults.fire("stream_chunk")
                 return step()

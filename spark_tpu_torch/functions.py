@@ -491,6 +491,11 @@ def median(e):
     return _Median(_expr(e))
 
 
+# -- Python UDFs (ArrowEvalPythonExec.scala:1 / worker.py:504 analog) -------
+
+from .udf import pandas_udf, udf  # noqa: E402,F401
+
+
 # -- arrays (collectionOperations.scala / complexTypeCreator.scala) ---------
 
 from . import expr_array as _A  # noqa: E402

@@ -2,12 +2,18 @@
 package's `observability/metrics.py` MetricsRegistry): the recovery
 layer counts replayed chunks and reused stages, the lifecycle layer
 cancelled and deadlined queries, the prefetcher its stall and overlap
-milliseconds."""
+milliseconds, the UDF lanes (`execution/python_eval.py`,
+`udf_worker/pool.py`) their batches, rows, evaluation and worker spawn
+milliseconds and worker restarts (`UDF_COUNTERS`)."""
 
 from __future__ import annotations
 
 import threading
 from typing import Dict
+
+#: the UDF lanes' counters; the session creates them at start
+UDF_COUNTERS = ("udf_batches", "udf_rows", "udf_exec_ms",
+                "udf_worker_spawn_ms", "udf_worker_restarts")
 
 
 class Counter:

@@ -24,7 +24,12 @@ Every QueryExecution takes the next query id of its session
 running on another thread, at its next cooperative boundary
 (`execution/lifecycle.py`). `session.metrics` holds the session's
 counters (replayed chunks, reused stages, cancelled queries, prefetch
-stall).
+stall, UDF batches, rows and worker spawns).
+
+`session.udf.register(name, fn, returnType)` makes a Python function
+callable from SQL (`udf.py`); `session._udf_pool` is the session's pool
+of UDF worker subprocesses (`udf_worker/`), used under
+`spark_tpu.sql.udf.mode=worker`.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from .columnar import resolve_device
 from .config import RESULT_CACHE_BYTES, Conf
 from .dataframe import DataFrame
 from .io.sources import ArrowTableSource, ParquetSource, TableSource
-from .metrics import MetricsRegistry
+from .metrics import UDF_COUNTERS, MetricsRegistry
 from .plan import logical as L
 from .result_cache import ResultCache
 
@@ -78,6 +83,23 @@ class SparkTpuSession:
         self._query_seq = 0
         self._query_seq_lock = threading.Lock()
         self.metrics = MetricsRegistry()
+        # the UDF counters (execution/python_eval.py) exist from the start,
+        # so a reader sees 0 before the first UDF runs
+        for name in UDF_COUNTERS:
+            self.metrics.counter(name)
+        from .udf import UDFRegistration
+        self.udf = UDFRegistration(self)
+        # out-of-process UDF worker pool (udf_worker/pool.py): created
+        # eagerly (a pool object spawns nothing until first checkout);
+        # bounds are refreshed from conf at each worker-mode evaluation.
+        # Workers are reused across this session's queries; idle ones
+        # reap after udf.pool.idleTimeoutMs, and a worker's stdin EOF
+        # on process exit ends the child, so none outlives the engine.
+        from .udf_worker.pool import UdfWorkerPool
+        self._udf_pool = UdfWorkerPool(
+            int(self.conf.get("spark_tpu.sql.udf.pool.maxWorkers")),
+            float(self.conf.get("spark_tpu.sql.udf.pool.idleTimeoutMs")),
+            metrics=self.metrics)
 
     def _next_query_id(self) -> int:
         with self._query_seq_lock:

@@ -856,6 +856,11 @@ class Parser:
         out = lookup(name, args)
         if out is not None:
             return out
+        # session-registered Python UDFs (UDFRegistration.scala analog)
+        if self.session is not None:
+            u = self.session.udf.lookup(name)
+            if u is not None:
+                return u(*args)
         raise ParseError(f"unknown function {name!r}")
 
 

@@ -41,12 +41,17 @@ The seams this package wires:
   (execution/recovery.py), so replays re-fire;
 - `ingest_prefetch` fires once per chunk host-decode attempt on the
   prefetcher's worker thread (io/sources.py);
+- `udf_batch` fires once per attempt of a UDF worker-lane batch, inside
+  the step (execution/python_eval.py): a `fatal` rule kills the
+  in-flight worker, and the batch replays on a fresh one;
+- `udf_worker_spawn` fires before each UDF worker spawn
+  (udf_worker/pool.py);
 - `cancel_point` fires at every cooperative cancellation boundary
   (execution/lifecycle.py `checkpoint`).
 
 The JAX package's `stage_compile` seam has no counterpart: eager torch
-has no compile step. Its mesh, streaming-query, UDF, compile-cache and
-fleet seams come with those slices.
+has no compile step. Its mesh, streaming-query, compile-cache and fleet
+seams come with those slices.
 """
 
 from __future__ import annotations
@@ -62,7 +67,8 @@ INJECT_KEY = "spark_tpu.faults.inject"
 #: the package. `_parse` validates rule sites against it, so a typo'd
 #: site fails at arm time instead of silently never firing.
 KNOWN_SITES = ("scan_load", "stage_run", "join_build", "stream_chunk",
-               "ingest_prefetch", "cancel_point")
+               "ingest_prefetch", "cancel_point", "udf_batch",
+               "udf_worker_spawn")
 
 #: test-registered extra seams (register_site)
 _EXTRA_SITES: set = set()

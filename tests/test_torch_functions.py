@@ -240,12 +240,12 @@ def test_dataframe_wrappers_match_reference(table):
 
 def test_every_reference_wrapper_is_exported():
     """functions.py exports every wrapper of the JAX package's but the
-    event-time `window` and the UDFs."""
+    event-time `window`, with the same parameters."""
     import inspect
 
     from spark_tpu import functions as RF
     from spark_tpu_torch import functions as PF
-    later = {"window", "udf", "pandas_udf"}
+    later = {"window"}
     ref_names = {n for n, v in vars(RF).items()
                  if not n.startswith("_") and callable(v)
                  and not inspect.isclass(v)
