@@ -5,11 +5,14 @@
     python3 chip_smoke.py --phases kernels     # phases 1-3 only
     python3 chip_smoke.py --phases ooc         # phase 12 (and 1-2)
     python3 chip_smoke.py --phases udf         # phase 13 (and 1-2)
+    python3 chip_smoke.py --phases mesh        # phase 14 (and 1-2); on a
+        # host with 4 cards its 4-card cases run too
 
 Phases, in order; any failure exits non-zero before the last line.
 Phases 1 and 2 always run; `--phases` names the others, from PHASES:
 kernels (3), variants (4), main (5), sql (6), tpcds (7), window (8),
-fuzz (9), functions (10), etl (11), ooc (12), udf (13). Each query of
+fuzz (9), functions (10), etl (11), ooc (12), udf (13), mesh (14).
+Each query of
 phases 5-8, 10, 11's aggregates and 13 runs twice: a
 first run, after the device table cache and the session's kept
 capacities are emptied, and a warm run, which reuses the cached scans
@@ -178,6 +181,30 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    raising UDF surfaces as UdfError with the worker's traceback; a
    cancel after the fifth batch raises QueryCancelledError and leaves no
    child process (read from /proc), and a rerun gives U1's bytes.
+14. mesh, on phase 5's TPC-H SF1 tables: a session built with
+   `device("cuda:0")` at `spark_tpu.sql.mesh.size` 4 (four shards, each
+   on its own thread, all on one card) runs DataFrame and SQL Q1, Q3, Q5
+   and Q6 and `range(16M).group_by(id % 65536)`, a first and a warm run
+   each: every plan must show its ExchangeExecs, every run equal the
+   golden (the range numpy's) and, when phase 5 ran, its one-card
+   result, take no recovery action, and launch its kernel
+   (`MESH_KERNELS`; `dense_sums_global` for the range) once per shard at
+   least. Each prints its wall times, attempts, launches by card, and a
+   timed run's per-operator times (the slowest shard's), the bytes the
+   collectives copied between cards with their rate against the NVLink
+   bound, and each card's busy share under torch.profiler. Then
+   `mesh:fatal:1` must re-plan Q1 on one device (`mesh_fallback` 1, the
+   golden), `shuffle:unavailable:1` must retry it, and a session built
+   without a device at mesh.size 8 must raise "devices visible". With 4
+   cards (`python3 chip_smoke.py --phases mesh` on a host with four)
+   the same cases run on a session built without a device, whose shards
+   sit on cuda:0-3 and must each launch the kernel on their own card;
+   then the 22 TPC-H SQL queries at SF1 (first and warm, the golden,
+   `SQL_KERNELS` on every card) and SF10 lineitem (written as phase 12
+   writes it) through SQL Q1 and Q6, resident across the cards (the
+   device cache's budget raised to `MESH_CACHE_BYTES`, so nothing
+   streams), against phase 12's exact golden, with each card's peak
+   allocated bytes.
 Then the kernels are timed again on the exact inputs the first run of
 each query of phases 5-7 and 10-13 gave them (a chunk's input, for a
 streamed query).
@@ -275,10 +302,10 @@ SOURCE = "spark_tpu_torch/csrc/dense_groupby.cu"
 #: the phases `--phases` chooses from, in run order (device and build
 #: always run)
 PHASES = ("kernels", "variants", "main", "sql", "tpcds", "window", "fuzz",
-          "functions", "etl", "ooc", "udf")
+          "functions", "etl", "ooc", "udf", "mesh")
 #: the phases that drive the package's main path (run_phases)
 MAIN_PHASES = ("main", "sql", "tpcds", "window", "fuzz", "functions", "etl",
-               "ooc", "udf")
+               "ooc", "udf", "mesh")
 #: the hand kernels each function-library program must launch at SF1
 #: (F2's and F3's aggregates and functions run as torch ops: the
 #: positional sort, the sort aggregate, the date and bit arithmetic)
@@ -299,6 +326,17 @@ U3_START = datetime.date(1995, 1, 1)
 #: U3's are printed: U2's dense key over a UDF's strings, U3 no aggregate)
 UDF_KERNELS = {"u1": ("dense_sums_smem",), "u2": (), "u3": (),
                "u4": ("dense_sums_smem",)}
+#: phase 14: the mesh's shards, its queries (DataFrame and SQL) with the
+#: kernel each must launch once per shard, the NVLink rate each way a
+#: card (H100 SXM, NVLink 4: 18 links x 25 GB/s), and the device-cache
+#: budget under which SF10 lineitem stays resident across the cards
+MESH_KEY = "spark_tpu.sql.mesh.size"
+MESH_SHARDS = 4
+MESH_QUERIES = ("q1", "q3", "q5", "q6")
+MESH_KERNELS = QUERY_KERNELS
+NVLINK_BYTES_PER_S = 450e9
+CACHE_KEY = "spark_tpu.sql.io.deviceCacheBytes"
+MESH_CACHE_BYTES = 64 << 30
 
 
 def log(*parts) -> None:
@@ -475,6 +513,8 @@ def phase_device():
     name = torch.cuda.get_device_name(0)
     log(f"[device] {name}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    for i, card in enumerate(smi.stdout.strip().splitlines()):
+        log(f"[device] cuda:{i}: {card.strip()}")
     return line, name
 
 
@@ -656,6 +696,7 @@ def cache_stats() -> str:
 def zero_launches(D) -> None:
     for k in D.LAUNCHES:
         D.LAUNCHES[k] = 0
+    D.DEVICE_LAUNCHES.clear()
 
 
 def first_and_warm(D, session, make_df, current=None, label=None):
@@ -2394,6 +2435,396 @@ def udf_recovery(session, clean_u1) -> None:
         f"no child process left (/proc); the rerun gives U1's bytes")
 
 
+def mesh_session(S, path, pinned: bool):
+    """A session at mesh.size MESH_SHARDS over the TPC-H tables at
+    `path`: pinned to cuda:0 (every shard on one card) or built without a
+    device (the shards on cuda:0..3)."""
+    from spark_tpu_torch.tpch.queries import register_tables
+    builder = S.SparkTpuSession.builder()
+    if pinned:
+        builder = builder.device("cuda:0")
+    session = builder.get_or_create()
+    session.conf.set(MESH_KEY, MESH_SHARDS)
+    register_tables(session, path)
+    return session
+
+
+def card_launches(D) -> dict:
+    """This run's launches by kernel and CUDA device index."""
+    return {f"{k}@cuda:{i}": n for (k, i), n in sorted(D.DEVICE_LAUNCHES.items())}
+
+
+def require_shard_launches(label, kernels, counts, per_card, cards) -> None:
+    """Each kernel of `kernels` launched once per shard at least, and on
+    a mesh of distinct cards on every card."""
+    if isinstance(kernels, str):
+        kernels = (kernels,)
+    for kernel in kernels or ():
+        if counts[kernel] < MESH_SHARDS:
+            raise AssertionError(f"{label}: {kernel} launched "
+                                 f"{counts[kernel]} times, fewer than the "
+                                 f"{MESH_SHARDS} shards")
+        for i in cards:
+            if per_card.get(f"{kernel}@cuda:{i}", 0) < 1:
+                raise AssertionError(f"{label}: no {kernel} launch on "
+                                     f"cuda:{i}: {per_card}")
+
+
+def mesh_first_and_warm(D, session, make_df, current, label):
+    """`first_and_warm` with each run's launches by card as a fifth
+    item; neither run may take a recovery action (a mesh fallback
+    would be a silent one-device run)."""
+    import torch
+    out = []
+    reset_state(session)
+    for run in range(2):
+        current[0] = label if run == 0 else None
+        zero_launches(D)
+        t0 = time.perf_counter()
+        qe = make_df()._qe()
+        got = qe.collect()
+        torch.cuda.synchronize()
+        out.append((got, qe, time.perf_counter() - t0, dict(D.LAUNCHES),
+                    card_launches(D)))
+        if qe.fault_summary:
+            raise AssertionError(f"{label}: {qe.fault_summary}")
+        if "ExchangeExec(" not in qe.executed_plan.tree_string():
+            raise AssertionError(f"{label}: no ExchangeExec in the plan")
+    current[0] = None
+    return out
+
+
+def mesh_breakdown(session, make_df, cards) -> str:
+    """Where a warm mesh run's time goes: one run with every operator of
+    every shard timed on the host clock, the shard's card synchronised
+    around it (an exchange's time includes its wait for the slowest
+    shard at the rendezvous), reported per operator type as the slowest
+    shard's total; then each exchange by its tag: its time (the slowest
+    shard's), the bytes its collectives copied between cards, its rate
+    and the NVLink bound for those bytes (NVLINK_BYTES_PER_S into each
+    card, the cards receiving at once); then a run under
+    torch.profiler for each card's busy share."""
+    import collections
+    import threading
+    import torch
+    import spark_tpu_torch.execution.executor as E
+    from spark_tpu_torch.parallel import mesh as M
+    per_shard = collections.defaultdict(float)
+    lock = threading.Lock()
+    orig = E.run_plan
+
+    def timed_run_plan(root, ctx, visit=None, loaded=None):
+        def timed(node, compute):
+            torch.cuda.synchronize(ctx.device)
+            t0 = time.perf_counter()
+            out = compute()
+            torch.cuda.synchronize(ctx.device)
+            seconds = time.perf_counter() - t0
+            with lock:
+                per_shard[(ctx.shard_index, type(node).__name__)] += seconds
+                if type(node).__name__ == "ExchangeExec":
+                    per_shard[(ctx.shard_index, f"exchange {node.tag}")] \
+                        += seconds
+            return out
+        return orig(root, ctx, timed, loaded)
+
+    M.reset_copy_stats()
+    E.run_plan = timed_run_plan
+    try:
+        t0 = time.perf_counter()
+        make_df().collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        E.run_plan = orig
+    ops = collections.defaultdict(float)  # the slowest shard's total
+    for (_, name), seconds in per_shard.items():
+        ops[name] = max(ops[name], seconds)
+    parts = ", ".join(f"{n} {s * 1e3:.1f} ms" for n, s in
+                      sorted(ops.items(), key=lambda kv: -kv[1])
+                      if not n.startswith("exchange "))
+    copied = dict(M.COPY_STATS)
+    total = sum(v[0] for v in copied.values())
+    exchanges = []
+    for name in sorted((n for n in ops if n.startswith("exchange ")),
+                       key=lambda n: int(n.split(" e")[1])):
+        tag = name.split(" ")[1]
+        nbytes = sum(v[0] for k, v in copied.items()
+                     if k.split(" ")[-1] == tag)
+        seconds = ops[name]
+        exchanges.append(
+            f"{tag} {seconds * 1e3:.1f} ms, {nbytes:,} B"
+            + (f" at {nbytes / max(seconds, 1e-9) / 1e9:.2f} GB/s, bound "
+               f"{nbytes / (len(cards) * NVLINK_BYTES_PER_S) * 1e3:.4f} ms"
+               if nbytes else ""))
+    moved = ("exchanges: " + "; ".join(exchanges) if exchanges
+             else "no exchange")
+    moved += (f"; peer copies {total:,} B in "
+              f"{sum(v[1] for v in copied.values())} copies"
+              + (f", the result's gather {copied['gather'][0]:,} B"
+                 if "gather" in copied else "")
+              if total else "; no peer copies (every shard on one card)")
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        make_df().collect()
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    busy, events = device_busy_by_card(prof)
+    if events:
+        cards_text = ", ".join(
+            f"cuda:{i} busy {busy.get(i, 0.0) * 1e3:.2f} ms (idle share "
+            f"{1 - busy.get(i, 0.0) / pwall:.4f})" for i in cards)
+        busy_part = (f"profiled run {pwall * 1e3:.1f} ms wall: {cards_text}"
+                     f", {events} device events")
+    else:
+        busy_part = ("card busy time not measured (the profiler saw no "
+                     "device events)")
+    return (f"timed run {wall * 1e3:.1f} ms wall: {parts}; {moved}; "
+            f"{busy_part}")
+
+
+def device_busy_by_card(prof):
+    """Each card's busy seconds in a torch.profiler trace (the union of
+    its kernel and copy intervals), and the count of device events."""
+    import collections
+    import torch
+    spans = collections.defaultdict(list)
+    n = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans[e.device_index].append((e.time_range.start,
+                                          e.time_range.end))
+            n += 1
+    busy = {}
+    for dev, ss in spans.items():
+        total, end = 0.0, float("-inf")
+        for s, e in sorted(ss):
+            if e > end:
+                total += e - max(s, end)
+                end = e
+        busy[dev] = total / 1e6
+    return busy, n
+
+
+def mesh_golden(G, path, q, got) -> None:
+    gold = G.GOLDEN[q](path)
+    G.compare(G.normalize_decimals(got.to_pandas())[
+        gold.columns.tolist()].reset_index(drop=True), gold)
+
+
+def mesh_range_check(got) -> None:
+    import numpy as np
+    ids = np.arange(RANGE_ROWS, dtype=np.int64)
+    keys = ids % RANGE_MOD
+    cnt = np.bincount(keys, minlength=RANGE_MOD)
+    total = np.zeros(RANGE_MOD, dtype=np.int64)
+    np.add.at(total, keys, ids)
+    got = got.to_pandas().sort_values(got.column_names[0])
+    if not (np.array_equal(got.iloc[:, 0].to_numpy(), np.arange(RANGE_MOD))
+            and np.array_equal(got["count(*)"].to_numpy(), cnt)
+            and np.array_equal(got["sum(id)"].to_numpy(), total)
+            and np.allclose(got["avg(id)"].to_numpy(), total / cnt,
+                            rtol=1e-15, atol=0)):
+        raise AssertionError("mesh range group-by disagrees with numpy")
+
+
+def mesh_cases(D, S, G, Q, path, df_results, launches, current, pinned):
+    """The mesh cases on one session: DataFrame and SQL Q1/Q3/Q5/Q6 and
+    the range group-by, each a first and a warm run against the golden
+    (and phase 5's one-card results when it ran), each launching its
+    kernel once per shard (on every card of a mesh of cards)."""
+    import torch
+    from spark_tpu_torch import functions as F
+    from spark_tpu_torch.functions import col
+    from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
+    where = "1 card" if pinned else f"{MESH_SHARDS} cards"
+    cards = [0] if pinned else list(range(MESH_SHARDS))
+    session = mesh_session(S, path, pinned)
+    cases = [(f"df {q}", q, (lambda q=q: Q.QUERIES[q](session)))
+             for q in MESH_QUERIES]
+    cases += [(f"sql {q}", q, (lambda q=q: session.sql(SQL_QUERIES[q])))
+              for q in MESH_QUERIES]
+    cases.append(("range", "range", lambda: session.range(RANGE_ROWS)
+                  .group_by(col("id") % RANGE_MOD)
+                  .agg(F.count(), F.sum(col("id")), F.avg(col("id")))))
+    for name, q, make in cases:
+        label = f"mesh {where} {name}"
+        first, warm = mesh_first_and_warm(D, session, make, current, label)
+        launches[label] = first[3]
+        kernel = "dense_sums_global" if q == "range" else MESH_KERNELS[q]
+        for run in (first, warm):
+            require_shard_launches(label, kernel, run[3], run[4], cards)
+            if q == "range":
+                mesh_range_check(run[0])
+            else:
+                mesh_golden(G, path, q, run[0])
+        if df_results is not None and q in df_results:
+            mine, want = first[0], df_results[q]
+            if name.startswith("sql "):
+                mine = mine.select(want.column_names)
+            if q == "q5":
+                mine, want = mine.sort_by("n_name"), want.sort_by("n_name")
+            tables_match(f"{label} against the one-card run", mine, want)
+        log(f"[mesh] {label}: golden{' and the one-card run' if df_results and q in df_results else ''} "
+            f"match; {first[0].num_rows} rows; {runs_text(first, warm)}; "
+            f"launches {first[4]}")
+        log(f"[mesh] {label} breakdown: "
+            f"{mesh_breakdown(session, make, cards)}")
+    return session
+
+
+def mesh_faults(G, session, path, Q) -> None:
+    """On a mesh session: `mesh:fatal:1` re-plans on one device
+    (mesh_fallback 1) with the golden; `shuffle:unavailable:1` retries
+    with the golden and no fallback."""
+    import warnings
+    from spark_tpu_torch.testing import faults
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with faults.inject(session.conf, "mesh:fatal:1") as plan:
+            qe = Q.QUERIES["q1"](session)._qe()
+            got = qe.collect()
+        if plan.fired_log != [("mesh", 1, "fatal")] or \
+                qe.fault_summary.get("mesh_fallback") != 1 or \
+                qe.last_metrics.get("mesh_fallback") != 1:
+            raise AssertionError(f"mesh:fatal:1 gave {plan.fired_log}, "
+                                 f"{qe.fault_summary}")
+        mesh_golden(G, path, "q1", got)
+        log(f"[mesh] mesh:fatal:1 on q1: re-planned on one device "
+            f"(fault_summary {qe.fault_summary}), golden")
+        with faults.inject(session.conf, "shuffle:unavailable:1") as plan:
+            qe = Q.QUERIES["q1"](session)._qe()
+            got = qe.collect()
+        if not plan.fired_log or \
+                qe.fault_summary.get("transient_retry", 0) < 1 or \
+                "mesh_fallback" in qe.fault_summary:
+            raise AssertionError(f"shuffle:unavailable:1 gave "
+                                 f"{plan.fired_log}, {qe.fault_summary}")
+        mesh_golden(G, path, "q1", got)
+        log(f"[mesh] shuffle:unavailable:1 on q1: retried "
+            f"(fault_summary {qe.fault_summary}), golden")
+
+
+def mesh_short_pool(S) -> None:
+    """A session built without a device at mesh.size 8 with fewer cards
+    raises the 'devices visible' diagnostic instead of running."""
+    import torch
+    session = S.SparkTpuSession.builder().get_or_create()
+    session.conf.set(MESH_KEY, 8)
+    try:
+        session.range(100).collect()
+    except RuntimeError as e:
+        if "devices visible" not in str(e):
+            raise
+        log(f"[mesh] mesh.size=8 on {torch.cuda.device_count()} card(s), "
+            f"no device given: raises ({str(e)[:80]}...)")
+        return
+    raise AssertionError("mesh.size=8 ran on too few cards")
+
+
+def mesh_sql22(D, S, G, path, launches, current) -> None:
+    """The 22 TPC-H SQL queries at SF1 on a mesh of cards, a first and a
+    warm run each against the golden, each launching SQL_KERNELS' kernel
+    on every card."""
+    from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
+    session = mesh_session(S, path, pinned=False)
+    cards = list(range(MESH_SHARDS))
+    t_phase, warm_total = time.perf_counter(), 0.0
+    for q, kernel in SQL_KERNELS.items():
+        label = f"mesh sql22 {q}"
+        make = lambda q=q: session.sql(SQL_QUERIES[q])
+        first, warm = mesh_first_and_warm(D, session, make, current, label)
+        launches[label] = first[3]
+        for run in (first, warm):
+            require_shard_launches(label, kernel, run[3], run[4], cards)
+            mesh_golden(G, path, q, run[0])
+        warm_total += warm[2]
+        log(f"[mesh] {label}: both runs match golden; {first[0].num_rows} "
+            f"rows; {runs_text(first, warm)}; launches {first[4]}")
+        log(f"[mesh] {label} breakdown: "
+            f"{mesh_breakdown(session, make, cards)}")
+    log(f"[mesh] 22 SQL queries on {MESH_SHARDS} cards in "
+        f"{time.perf_counter() - t_phase:.1f} s; warm runs "
+        f"{warm_total:.3f} s in all")
+
+
+def mesh_sf10(D, S, launches, current) -> None:
+    """SF10 lineitem resident across the cards (not streamed) through SQL
+    Q1 and Q6, a first and a warm run each against phase 12's exact
+    golden, with each card's peak allocated bytes."""
+    import torch
+    from spark_tpu_torch.io.sources import ParquetSource
+    from spark_tpu_torch.tpch.datagen import write_lineitem_pieces
+    from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
+    cards = list(range(MESH_SHARDS))
+    with tempfile.TemporaryDirectory() as tmp:
+        on_piece, ans = q1_q6_golden()
+        t0 = time.perf_counter()
+        path = write_lineitem_pieces(tmp + "/lineitem.parquet", OOC_SF,
+                                     on_piece=on_piece)
+        log(f"[mesh] SF{OOC_SF} lineitem: {ans['rows']} rows generated in "
+            f"{time.perf_counter() - t0:.1f} s")
+        session = S.SparkTpuSession.builder().get_or_create()
+        session.conf.set(MESH_KEY, MESH_SHARDS)
+        session.conf.set(CACHE_KEY, MESH_CACHE_BYTES)
+        session.register_table("lineitem", ParquetSource(path, "lineitem"))
+        for q in ("q1", "q6"):
+            for i in cards:
+                torch.cuda.reset_peak_memory_stats(i)
+            label = f"mesh sf{OOC_SF} {q}"
+            first, warm = mesh_first_and_warm(
+                D, session, lambda q=q: session.sql(SQL_QUERIES[q]),
+                current, label)
+            launches[label] = first[3]
+            for run in (first, warm):
+                if "InputExec(streamed" in run[1].spliced_plan.tree_string():
+                    raise AssertionError(f"{label} streamed")
+                require_shard_launches(label, "dense_sums_smem", run[3],
+                                       run[4], cards)
+                check_q1_q6(q, run[0], ans)
+            tables_match(f"{label} warm run", warm[0], first[0])
+            peaks = ", ".join(
+                f"cuda:{i} {torch.cuda.max_memory_allocated(i):,}"
+                for i in cards)
+            log(f"[mesh] SF{OOC_SF} {q} resident on {MESH_SHARDS} cards: "
+                f"equals the golden; {runs_text(first, warm)} "
+                f"({ans['rows'] / warm[2] / 1e6:.2f} M rows/s warm); "
+                f"launches {first[4]}; peak allocated bytes {peaks}")
+            log(f"[mesh] SF{OOC_SF} {q} breakdown: "
+                f"{mesh_breakdown(session, lambda q=q: session.sql(SQL_QUERIES[q]), cards)}")
+        from spark_tpu_torch.io.device_cache import CACHE
+        CACHE.clear()
+
+
+def phase_mesh(D, S, G, path, df_results, launches, current) -> None:
+    """Phase 14: the mesh. On every run, a session pinned to cuda:0 at
+    mesh.size 4 (every shard on one card), its faults and the short-pool
+    diagnostic; with 4 cards, the same cases on cuda:0-3, the 22 SQL
+    queries and SF10 Q1/Q6 resident across the cards."""
+    import torch
+    from spark_tpu_torch.tpch import queries as Q
+    t0 = time.perf_counter()
+    session = mesh_cases(D, S, G, Q, path, df_results, launches, current,
+                         pinned=True)
+    mesh_faults(G, session, path, Q)
+    mesh_short_pool(S)
+    log(f"[mesh] one card: {time.perf_counter() - t0:.1f} s")
+    if torch.cuda.device_count() < MESH_SHARDS:
+        log(f"[mesh] {torch.cuda.device_count()} card(s): the "
+            f"{MESH_SHARDS}-card cases run on a host with {MESH_SHARDS} "
+            f"cards (--phases mesh)")
+        return
+    t0 = time.perf_counter()
+    mesh_cases(D, S, G, Q, path, df_results, launches, current,
+               pinned=False)
+    mesh_sql22(D, S, G, path, launches, current)
+    mesh_sf10(D, S, launches, current)
+    log(f"[mesh] {MESH_SHARDS} cards: {time.perf_counter() - t0:.1f} s")
+
+
 def run_phases(D, phases):
     """The main-path phases chosen (5-12); returns the per-kernel launch
     counts of each query's first run and the kernel inputs each query's
@@ -2413,16 +2844,23 @@ def run_phases(D, phases):
             kernel = "dense_sums_smem" if domain <= D.SMEM_DOMAIN \
                 else "dense_sums_global"
             # each distinct input shape of a query's calls (q27's ROLLUP
-            # gives dense_sums_global two domains), the last call's data
+            # gives dense_sums_global two domains), the last call's data;
+            # on a mesh each card's, the shard with the most kept rows
+            # (a shard of padding rows alone is not the main path's input)
             shape = (idx.shape[0], domain, len(int_rows), len(float_rows))
-            captured.setdefault((current[0], kernel), {})[shape] = (
-                idx, list(int_rows), list(float_rows), domain)
+            if current[0].startswith("mesh "):
+                shape += (str(idx.device),)
+            kept = int(((idx >= 0) & (idx < domain)).sum())
+            inputs = captured.setdefault((current[0], kernel), {})
+            if shape not in inputs or inputs[shape][4] <= kept:
+                inputs[shape] = (idx, list(int_rows), list(float_rows),
+                                 domain, kept)
         return original(idx, int_rows, float_rows, domain, int_widths)
 
     D.dense_groupby_sums = recording
     launches = {}
     try:
-        if {"main", "sql", "functions", "etl", "ooc", "udf"} & phases:
+        if {"main", "sql", "functions", "etl", "ooc", "udf", "mesh"} & phases:
             with tempfile.TemporaryDirectory() as tmp:
                 t0 = time.perf_counter()
                 path = write_parquet(tmp + "/tpch", SF)
@@ -2449,6 +2887,10 @@ def run_phases(D, phases):
                     t0 = time.perf_counter()
                     phase_udf(D, S, path, launches, current, captured)
                     log(f"[udf] phase in {time.perf_counter() - t0:.1f} s")
+                if "mesh" in phases:
+                    t0 = time.perf_counter()
+                    phase_mesh(D, S, G, path, df_results, launches, current)
+                    log(f"[mesh] phase in {time.perf_counter() - t0:.1f} s")
         if "main" in phases:
             phase_range(D, S, launches, current)
         if {"tpcds", "window", "functions"} & phases:
@@ -2764,15 +3206,17 @@ def kernel_report(D, launches, captured, phases):
         raise AssertionError(f"no kernel input captured for {missing}")
     sql = [(name, label) for label, name in captured
            if label.startswith(("sql ", "tpcds ", "functions ", "etl ",
-                                "ooc ", "udf "))]
+                                "ooc ", "udf ", "mesh "))]
     inputs = [(name, q, x) for name, q in programs + sql
               for x in captured[(q, name)].values()]
-    for name, q, (idx, ir, fr, domain) in inputs:
-        got = D.dense_groupby_sums(idx, ir, fr, domain)
-        torch.cuda.synchronize()
-        want = reference_sums(D, idx, ir, fr, domain)
-        err = compare_sums(f"{name} on {q} inputs", got, want)
-        t = measure(D, idx, ir, fr, domain)
+    for name, q, (idx, ir, fr, domain, _kept) in inputs:
+        # a mesh shard's input lies on its own card: time it there
+        with torch.cuda.device(idx.device):
+            got = D.dense_groupby_sums(idx, ir, fr, domain)
+            torch.cuda.synchronize()
+            want = reference_sums(D, idx, ir, fr, domain)
+            err = compare_sums(f"{name} on {q} inputs", got, want)
+            t = measure(D, idx, ir, fr, domain)
         b, by = bound_ms(idx, len(ir) + len(fr), domain)
         log(f"[report] {name} on {q}'s inputs: n={idx.shape[0]} "
             f"domain={domain} int_rows={len(ir)} float_rows={len(fr)} "
@@ -2780,7 +3224,7 @@ def kernel_report(D, launches, captured, phases):
             f"bound_ms={b:.4f} share={b / t['kernel_ms']:.3f} "
             f"plain_ms={t['plain_ms']:.4f} "
             f"library_ms={t['library_ms']:.4f} "
-            f"launches={launches[q][name]}"
+            f"launches={launches[q][name]} device={idx.device}"
             + (f"; float sums within {err:.3g} of the tree sums, the "
                f"plain version's within {plain_float_error(want):.3g} "
                "relative" if fr else ""))
@@ -2791,7 +3235,8 @@ def kernel_report(D, launches, captured, phases):
             "plain_ms": t["plain_ms"], "bound_ms": b, "bound_by": by,
             "share": b / t["kernel_ms"], "library_ms": t["library_ms"],
             "shape": {"query": q, "n": int(idx.shape[0]), "domain": domain,
-                      "int_rows": len(ir), "float_rows": len(fr)}})
+                      "int_rows": len(ir), "float_rows": len(fr),
+                      "device": str(idx.device)}})
     return entries
 
 

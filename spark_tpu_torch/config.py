@@ -57,7 +57,10 @@ class Conf:
     """Session-scoped overlay over the registry (reference: SQLConf.scala:56).
 
     Unknown keys are allowed (string passthrough) to mirror SparkConf's
-    open string map; known keys are validated and coerced.
+    open string map; known keys are validated and coerced. A key the JAX
+    package registers for a slice this port has not reached
+    (`UNPORTED_KEYS`) may only be set to its default: anything else
+    raises `UnportedConfError`, since the port would ignore it.
     """
 
     def __init__(self, parent: Optional["Conf"] = None):
@@ -70,8 +73,13 @@ class Conf:
             value = entry.coerce(value)
             if entry.validator is not None and not entry.validator(value):
                 raise ValueError(f"invalid value for {key}: {value!r}")
+        elif key in UNPORTED_KEYS:
+            check_unported(key, value)
         self._settings[key] = value
         return self
+
+    def unset(self, key: str) -> None:
+        self._settings.pop(key, None)
 
     def get(self, key: str, default: Any = None) -> Any:
         if key in self._settings:
@@ -205,7 +213,10 @@ RUNTIME_FILTER_SEMI_AWARE = register(
         "left-semi join in the creation chain instead of dropping the "
         "other side's effect (Q5: customer inherits the nation-region "
         "semi). The synthesized semi only ever NARROWS the creation "
-        "keys toward the true build keys — pruning stays sound.")
+        "keys toward the true build keys — pruning stays sound. One "
+        "device only: under a mesh the creation scans are sharded, and "
+        "a per-shard semi could drop keys whose partner rows live on "
+        "another shard.")
 
 RUNTIME_FILTER_FPP = register(
     "spark_tpu.sql.runtimeFilter.expectedFpp", 0.03,
@@ -443,3 +454,173 @@ UDF_POOL_IDLE_TIMEOUT_MS = register(
         "checkout regardless of this bound, so a worker that died "
         "between queries never surfaces as a stale-pipe error.",
     validator=lambda v: v >= 0)
+
+
+# -- the mesh (parallel/), with the JAX package's defaults and docs ---------
+
+SHUFFLE_PARTITIONS = register(
+    "spark_tpu.sql.shuffle.partitions", 8,
+    doc="Number of logical shuffle partitions (mesh data axis size).")
+
+BROADCAST_THRESHOLD = register(
+    "spark_tpu.sql.autoBroadcastJoinThreshold", 64 << 20,
+    doc="Max estimated build-side bytes for broadcast (all_gather) joins; "
+        "analog of spark.sql.autoBroadcastJoinThreshold.")
+
+MESH_SIZE = register(
+    "spark_tpu.sql.mesh.size", 0,
+    doc="Number of shards on the data axis of the mesh. 0 or 1 runs on "
+        "one device; >1 shards leaves over the mesh and lowers exchanges "
+        "to collectives among the shards (all_to_all/all_gather/psum). "
+        "A session built without a device takes cuda:0..N-1; one built "
+        "with a device places every shard there. The analog of "
+        "spark.default.parallelism.")
+
+MESH_EXCLUDE_DEVICES = register(
+    "spark_tpu.sql.mesh.excludeDevices", "",
+    doc="Comma-separated device ids never meshed over (settable directly "
+        "to pin out a bad card). get_mesh builds the mesh over the "
+        "surviving pool, shrinking below mesh.size instead of failing; "
+        "a pool of <= 1 survivors runs on the session's device.")
+
+MESH_FALLBACK_ENABLED = register(
+    "spark_tpu.execution.meshFallback.enabled", True,
+    doc="When a distributed run fails inside the mesh/collective path "
+        "(a broken rendezvous, a collective's peer copy), re-plan the "
+        "query single-device and retry instead of failing. The fallback "
+        "is recorded as a `mesh_fallback` metric and in fault_summary.")
+
+SKEW_JOIN_ENABLED = register(
+    "spark_tpu.sql.adaptive.skewJoin.enabled", True,
+    doc="When a shuffle join's exchange overflows with one receive "
+        "bucket holding more than skewJoin.factor x the mean rows per "
+        "shard, re-plan the join as broadcast (all_gather the build "
+        "side) instead of growing buckets (the OptimizeSkewedJoin.scala:56 "
+        "+ DynamicJoinSelection.scala:1 analog).")
+
+SKEW_JOIN_FACTOR = register(
+    "spark_tpu.sql.adaptive.skewJoin.factor", 4.0,
+    doc="Skew threshold: max-bucket rows / (total rows / shards) above "
+        "which a shuffle join re-plans (skewJoin.enabled).")
+
+SKEW_BROADCAST_BYTES = register(
+    "spark_tpu.sql.adaptive.skewJoin.broadcastThreshold", 256 << 20,
+    doc="Max measured build-side bytes for the skew-triggered broadcast "
+        "re-plan (larger than autoBroadcastJoinThreshold).")
+
+
+# -- keys of slices not yet ported ------------------------------------------
+
+_ELASTIC = "slice 10b (the elastic mesh)"
+_MULTI_HOST = "the multi-host mesh (init_distributed)"
+_STREAMING = "slice 11 (streaming)"
+_OBSERVABILITY = "slice 12a (observability)"
+_ANALYSIS = "slice 12b (analysis)"
+_SERVING = "slice 12c (serving and the compiled-stage cache)"
+
+#: the JAX package's registered keys this port does not register yet:
+#: key -> (the slice that brings it, its default there). Each slice
+#: takes its own keys off this list as it registers them.
+UNPORTED_KEYS: Dict[str, tuple] = {
+    "spark_tpu.sql.execution.bucketGrowth": (_SERVING, 2.0),
+    "spark_tpu.execution.checkpoint.everyChunks": (_ELASTIC, 8),
+    "spark_tpu.execution.meshRestart.enabled": (_ELASTIC, True),
+    "spark_tpu.execution.meshRestart.maxRestarts": (_ELASTIC, 2),
+    "spark_tpu.execution.decommission.shards": (_ELASTIC, ""),
+    "spark_tpu.sql.straggler.rebalance.enabled": (_ELASTIC, True),
+    "spark_tpu.sql.straggler.rebalance.maxSkew": (_ELASTIC, 0.5),
+    "spark_tpu.sql.straggler.rebalance.decayChunks": (_ELASTIC, 0),
+    "spark_tpu.sql.metrics.enabled": (_OBSERVABILITY, True),
+    "spark_tpu.sql.profile.dir": (_OBSERVABILITY, ""),
+    "spark_tpu.sql.eventLog.dir": (_OBSERVABILITY, ""),
+    "spark_tpu.sql.eventLog.maxBytes": (_OBSERVABILITY, 0),
+    "spark_tpu.sql.trace.dir": (_OBSERVABILITY, ""),
+    "spark_tpu.sql.metrics.sink": (_OBSERVABILITY, ""),
+    "spark_tpu.sql.metrics.dir": (_OBSERVABILITY, "spark-metrics"),
+    "spark_tpu.sql.observability.xlaCost": (_OBSERVABILITY, "auto"),
+    "spark_tpu.sql.observability.maxSpans": (_OBSERVABILITY, 1000),
+    "spark_tpu.sql.observability.shardSpans": (_OBSERVABILITY, "auto"),
+    "spark_tpu.sql.observability.maxShardRecords": (_OBSERVABILITY, 4096),
+    "spark_tpu.sql.straggler.factor": (_OBSERVABILITY, 3.0),
+    "spark_tpu.sql.straggler.minChunks": (_OBSERVABILITY, 4),
+    "spark_tpu.sql.straggler.minLatencyMs": (_OBSERVABILITY, 10.0),
+    "spark_tpu.sql.status.enabled": (_OBSERVABILITY, True),
+    "spark_tpu.sql.status.heartbeatMs": (_OBSERVABILITY, 1000),
+    "spark_tpu.sql.status.ringSize": (_OBSERVABILITY, 360),
+    "spark_tpu.sql.flightRecorder.enabled": (_OBSERVABILITY, True),
+    "spark_tpu.sql.flightRecorder.dir": (_OBSERVABILITY, ""),
+    "spark_tpu.sql.flightRecorder.ringSize": (_OBSERVABILITY, 256),
+    "spark_tpu.sql.flightRecorder.eventLogTail": (_OBSERVABILITY, 200),
+    "spark_tpu.sql.analysis.enabled": (_ANALYSIS, True),
+    "spark_tpu.sql.analysis.strict": (_ANALYSIS, False),
+    "spark_tpu.sql.analysis.jaxpr": (_ANALYSIS, "auto"),
+    "spark_tpu.sql.planChangeValidation": (_ANALYSIS, "off"),
+    "spark_tpu.sql.planChangeLog": (_ANALYSIS, False),
+    "spark_tpu.sql.cluster.coordinator": (_MULTI_HOST, ""),
+    "spark_tpu.sql.cluster.numProcesses": (_MULTI_HOST, 1),
+    "spark_tpu.sql.cluster.processId": (_MULTI_HOST, 0),
+    "spark_tpu.service.maxConcurrent": (_SERVING, 2),
+    "spark_tpu.service.queueDepth": (_SERVING, 16),
+    "spark_tpu.service.queueTimeoutMs": (_SERVING, 30000),
+    "spark_tpu.service.host": (_SERVING, "127.0.0.1"),
+    "spark_tpu.service.port": (_SERVING, 0),
+    "spark_tpu.service.hbmBudget": (_SERVING, 0),
+    "spark_tpu.service.maxSessions": (_SERVING, 16),
+    "spark_tpu.service.session.maxConcurrent": (_SERVING, 0),
+    "spark_tpu.service.session.hbmShare": (_SERVING, 0.0),
+    "spark_tpu.service.idPrefix": (_SERVING, ""),
+    "spark_tpu.service.fleet.workers": (_SERVING, 2),
+    "spark_tpu.service.fleet.restartMaxPerWindow": (_SERVING, 3),
+    "spark_tpu.service.fleet.restartWindowMs": (_SERVING, 60000),
+    "spark_tpu.service.fleet.restartBackoffMs": (_SERVING, 200),
+    "spark_tpu.service.fleet.drainTimeoutMs": (_SERVING, 10000),
+    "spark_tpu.service.fleet.failoverReads": (_SERVING, True),
+    "spark_tpu.service.fleet.healthIntervalMs": (_SERVING, 250),
+    "spark_tpu.service.fleet.spawnTimeoutMs": (_SERVING, 90000),
+    "spark_tpu.service.fleet.proxyTimeoutMs": (_SERVING, 600000),
+    "spark_tpu.service.fleet.dir": (_SERVING, ""),
+    "spark_tpu.service.fleet.init": (_SERVING, ""),
+    "spark_tpu.service.queryLogSize": (_SERVING, 512),
+    "spark_tpu.service.slo.latencyMs": (_SERVING, 0),
+    "spark_tpu.service.historySize": (_SERVING, 128),
+    "spark_tpu.sql.compileCache.enabled": (_SERVING, False),
+    "spark_tpu.sql.compileCache.dir": (_SERVING, "spark-compile-cache"),
+    "spark_tpu.sql.compileCache.maxBytes": (_SERVING, 1 << 30),
+    "spark_tpu.sql.compileCache.warmStart": (_SERVING, True),
+    "spark_tpu.streaming.stateStore.snapshotEveryDeltas": (_STREAMING, 10),
+    "spark_tpu.streaming.retainBatches": (_STREAMING, 2),
+    "spark_tpu.streaming.source.file.strict": (_STREAMING, False),
+    "spark_tpu.streaming.source.network.maxReconnects": (_STREAMING, 8),
+    "spark_tpu.streaming.source.network.connectTimeoutMs": (_STREAMING,
+                                                            2000),
+    "spark_tpu.streaming.source.network.idleTimeoutMs": (_STREAMING, 50),
+    "spark_tpu.streaming.source.network.backoffMs": (_STREAMING, 50),
+    "spark_tpu.streaming.trigger.maxRestarts": (_STREAMING, 3),
+    "spark_tpu.streaming.trigger.backoffMs": (_STREAMING, 100),
+    "spark_tpu.streaming.state.spillBytes": (_STREAMING, 0),
+    "spark_tpu.streaming.state.spillPartitions": (_STREAMING, 16),
+}
+
+
+class UnportedConfError(ValueError):
+    """A key of a slice this port has not reached was set to a value
+    other than its default: the port would ignore it, so it refuses."""
+
+
+def check_unported(key: str, value: Any) -> None:
+    """Raise `UnportedConfError` unless `value` is the default of the
+    unported `key` (coerced to the default's type)."""
+    part, default = UNPORTED_KEYS[key]
+    ty = type(default)
+    try:
+        if ty is bool and isinstance(value, str):
+            same = (value.strip().lower() in ("true", "1", "yes")) == default
+        else:
+            same = ty(value) == default
+    except (TypeError, ValueError):
+        same = False
+    if not same:
+        raise UnportedConfError(
+            f"{key}={value!r}: this key belongs to {part}, which "
+            f"spark_tpu_torch has not ported yet; only its default "
+            f"{default!r} may be set")

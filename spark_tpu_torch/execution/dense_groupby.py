@@ -52,6 +52,23 @@ import torch
 #: them); each wrapper adds one exactly where it launches its kernel
 LAUNCHES = {"dense_sums_smem": 0, "dense_sums_global": 0}
 
+#: the same launches by (kernel, CUDA device index): on a mesh each
+#: shard launches on its own card
+DEVICE_LAUNCHES = {}
+
+#: the shards of a mesh launch from their own threads at once: the
+#: counters take this lock, and so does each launch call, since
+#: `dense_sums_smem` sets its kernel's dynamic shared-memory attribute
+#: (a per-device setting, not a per-thread one) just before launching
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _count_launch(kernel: str, device: torch.device) -> None:
+    with _LAUNCH_LOCK:
+        LAUNCHES[kernel] += 1
+        key = (kernel, device.index)
+        DEVICE_LAUNCHES[key] = DEVICE_LAUNCHES.get(key, 0) + 1
+
 PRIVATE_DOMAIN = 48        # private variant: largest domain (chip_smoke.py
                            # phase 4 times it against shared around here)
 SMEM_DOMAIN = 512          # shared variant (and dense_sums_smem): largest
@@ -338,13 +355,14 @@ def _launch(lib, launch: Launch, idx, n, domain, int_rows, float_rows,
             int_out, float_out, stream, sms) -> None:
     ints = [int_rows[k] for k in launch.ints]
     if launch.variant == "global":
-        rc = lib.dense_sums_global(idx.data_ptr(), n, domain,
-                                   _ptr_array(ints), len(ints),
-                                   int_out[launch.ints.start].data_ptr(),
-                                   stream)
+        with _LAUNCH_LOCK:
+            rc = lib.dense_sums_global(idx.data_ptr(), n, domain,
+                                       _ptr_array(ints), len(ints),
+                                       int_out[launch.ints.start].data_ptr(),
+                                       stream)
         if rc != 0:
             raise RuntimeError(f"dense_sums_global launch failed: {rc}")
-        LAUNCHES["dense_sums_global"] += 1
+        _count_launch("dense_sums_global", idx.device)
         return
     floats = [float_rows[k] for k in launch.floats]
     # block partials of the float rows: at most as many blocks as the
@@ -352,15 +370,16 @@ def _launch(lib, launch: Launch, idx, n, domain, int_rows, float_rows,
     scratch = torch.empty(
         (sms * min(32, 2048 // (32 * launch.warps)) * len(floats) * domain,),
         dtype=torch.float64, device=idx.device) if floats else None
-    rc = lib.dense_sums_smem(
-        idx.data_ptr(), n, domain, _ptr_array(ints), len(ints),
-        _ptr_array(floats), len(floats),
-        _VARIANT_CODE[launch.variant], launch.warps,
-        int_out[launch.ints.start].data_ptr() if ints else None,
-        float_out[launch.floats.start].data_ptr() if floats else None,
-        scratch.data_ptr() if floats else None,
-        scratch.numel() if floats else 0, stream)
+    with _LAUNCH_LOCK:
+        rc = lib.dense_sums_smem(
+            idx.data_ptr(), n, domain, _ptr_array(ints), len(ints),
+            _ptr_array(floats), len(floats),
+            _VARIANT_CODE[launch.variant], launch.warps,
+            int_out[launch.ints.start].data_ptr() if ints else None,
+            float_out[launch.floats.start].data_ptr() if floats else None,
+            scratch.data_ptr() if floats else None,
+            scratch.numel() if floats else 0, stream)
     if rc != 0:
         raise RuntimeError(f"dense_sums_smem ({launch.variant}) launch "
                            f"failed: {rc}")
-    LAUNCHES["dense_sums_smem"] += 1
+    _count_launch("dense_sums_smem", idx.device)

@@ -52,6 +52,24 @@ a sticky CUDA error included — raises. Every action lands in
 `fault_summary`. Each execution registers a cancel token
 (`lifecycle.py`), and the wait for a stage's device work polls a CUDA
 event so that a cancel lands within `dispatchPollMs`.
+
+On a mesh (`spark_tpu.sql.mesh.size` > 1, `parallel/`) each attempt runs
+the plan once per shard, each shard on its own thread and device over its
+stripe (`_run_mesh`, the JAX package's `run_shard`): the loaded leaves
+are padded to a multiple of the shards and striped, a replicated output
+is striped back, the outputs concatenate in shard order, flags reduce by
+sum and metrics by max for the capacity-sizing prefixes (`MAX_METRICS`)
+and by sum for the rest. An exchange whose receive block overflowed
+grows it, unless the overflow is a skewed shuffle join's, which re-plans
+the join as broadcast (`_maybe_skew_replan`, `join_strategy_overrides`).
+Explode subtrees run on one device first (`_materialize_generates`). A
+mesh failure (a broken rendezvous, a collective's peer copy, the `mesh`
+fault site) re-plans the query on one device under
+`execution.meshFallback.enabled` (`mesh_fallback` in fault_summary and
+`last_metrics`); the gang restart before that rung is the elastic mesh's.
+A partial aggregate over a scan past the device budget would stream per
+shard in the JAX package; that stream is not ported, and such a plan
+raises instead of running on one device.
 """
 
 from __future__ import annotations
@@ -63,7 +81,7 @@ import pyarrow as pa
 import torch
 
 from ..columnar import Batch, bucket_capacity
-from ..expr import Literal
+from ..expr import AnalysisError, Literal
 from ..io.sources import ArrowTableSource
 from ..plan import logical as L
 from ..plan import physical as P
@@ -121,7 +139,17 @@ def _sync_dispatched(events, conf) -> None:
 
 
 _REPLAN_FLAGS = ("join_overflow_", "join_nonunique_", "join_hashsat_",
-                 "agg_overflow_")
+                 "exch_overflow_", "agg_overflow_")
+
+#: metrics a mesh run reduces by max over the shards (capacity-sizing
+#: stats take the worst shard); every other metric sums
+MAX_METRICS = ("join_rows_", "exch_max_", "agg_groups_", "rtf_build_ms_",
+               "join_build_ms_", "join_probe_ms_", "join_table_slots_")
+
+
+class _ReplanRequest(Exception):
+    """The adaptive re-planner changed a join's strategy: the physical
+    plan rebuilds with `_join_overrides` and execution starts again."""
 
 
 #: most plans `session._aqe_caps` keeps (plan strings are large)
@@ -222,6 +250,40 @@ def load_scans(root: P.PhysicalPlan, conf, device) -> Dict[int, Batch]:
             for s in plan_nodes(root, P.ScanExec)}
 
 
+def load_shards(root: P.PhysicalPlan, conf, mesh) -> List[Dict[int, Batch]]:
+    """Per shard, the stripe of every loaded leaf by node id: scans
+    through the device table cache (one entry per shard and card), the
+    spliced InputExec batches padded and striped; each stripe on its
+    shard's device."""
+    from ..io.device_cache import load_scan_shards
+    from ..parallel.shuffle import move_batch, shard_stripes
+    n = mesh.size
+    out: List[Dict[int, Batch]] = [{} for _ in range(n)]
+    for s in plan_nodes(root, P.ScanExec):
+        for i, b in enumerate(load_scan_shards(s, conf, mesh)):
+            out[i][id(s)] = b
+    for s in plan_nodes(root, P.InputExec):
+        for i, b in enumerate(shard_stripes(s.load(), n)):
+            out[i][id(s)] = move_batch(b, mesh.devices[i])
+    return out
+
+
+def reduce_shard_metrics(per_shard: List[Dict[str, object]]
+                         ) -> Dict[str, object]:
+    """The shards' host metrics as one map: max for `MAX_METRICS`, sum
+    (in shard order) for the rest."""
+    out: Dict[str, object] = {}
+    for m in per_shard:
+        for k, v in m.items():
+            if k not in out:
+                out[k] = v
+            elif k.startswith(MAX_METRICS):
+                out[k] = max(out[k], v)
+            else:
+                out[k] = out[k] + v
+    return out
+
+
 def collect_caps(root: P.PhysicalPlan) -> Dict[str, int]:
     """Every re-plan state of a converged plan, keyed `kind:tag` (the
     JAX package's `_collect_caps`): join output capacities, the
@@ -269,6 +331,7 @@ def apply_flags(root: P.PhysicalPlan, flags: List[str],
     """Set the node state each raised re-plan flag asks for."""
     joins = {j.tag: j for j in plan_nodes(root, P.JoinExec)}
     aggs = {a.tag: a for a in plan_nodes(root, P.HashAggregateExec)}
+    exchanges = {e.tag: e for e in plan_nodes(root, P.ExchangeExec)}
     for k in flags:
         if k.startswith("join_nonunique_"):
             joins[k[len("join_nonunique_"):]].unique_build = False
@@ -280,6 +343,10 @@ def apply_flags(root: P.PhysicalPlan, flags: List[str],
             tag = k[len("join_overflow_"):]
             total = int(metrics[f"join_rows_{tag}"])
             joins[tag].out_cap = bucket_capacity(max(total, 8))
+        elif k.startswith("exch_overflow_"):
+            tag = k[len("exch_overflow_"):]
+            mx = int(metrics[f"exch_max_{tag}"])
+            exchanges[tag].block_cap = bucket_capacity(max(mx, 8))
         else:
             tag = k[len("agg_overflow_"):]
             total = int(metrics[f"agg_groups_{tag}"])
@@ -287,12 +354,13 @@ def apply_flags(root: P.PhysicalPlan, flags: List[str],
 
 
 def shrink_caps_from_rtf(root: P.PhysicalPlan,
-                         metrics: Dict[str, object]) -> None:
-    """Shrink the output capacity of each join a runtime filter guards:
-    the join's capacity was seeded from the unpruned probe capacity, and
-    the survivors (rtf_tested - rtf_pruned) bound what its output holds
-    on the next run. The measured join_rows floor the new value, so a
-    shrunk capacity never overflows on the same data."""
+                         metrics: Dict[str, object], n: int = 1) -> None:
+    """Shrink the output capacity of each join a runtime filter guards,
+    and on a mesh (`n` shards) the receive blocks of the exchanges
+    between them: both were seeded from the unpruned probe capacity,
+    and the survivors (rtf_tested - rtf_pruned) bound what they hold on
+    the next run. The measured join_rows / exch_max floor the new
+    values, so a shrunk capacity never overflows on the same data."""
     def walk(node, ancestors):
         for c in node.children:
             walk(c, ancestors + (node,))
@@ -308,8 +376,16 @@ def shrink_caps_from_rtf(root: P.PhysicalPlan,
         # climb from the filter to the join it guards (narrow ops pass)
         for anc in reversed(ancestors):
             if isinstance(anc, (P.ProjectExec, P.FilterExec,
-                                P.RuntimeFilterExec, P.ExchangeExec)):
-                continue  # an exchange is the identity on one device
+                                P.RuntimeFilterExec)):
+                continue
+            if isinstance(anc, P.ExchangeExec):
+                if n <= 1:
+                    continue  # the identity on one device
+                actual = int(metrics.get(f"exch_max_{anc.tag}", 0))
+                new = bucket_capacity(max(2 * (-(-surv // n)), actual, 8))
+                if anc.block_cap is None or new < anc.block_cap:
+                    anc.block_cap = new
+                continue
             if isinstance(anc, P.JoinExec):
                 actual = int(metrics.get(f"join_rows_{anc.tag}", 0))
                 new = bucket_capacity(max(2 * surv, actual, 8))
@@ -367,6 +443,11 @@ class QueryExecution:
         #: (execution/python_eval.py): mode, batch/row totals, worker
         #: restarts, evaluation milliseconds; None without UDFs
         self.udf_summary: Optional[Dict] = None
+        #: the mesh failure rung re-planned this execution on one device
+        self._mesh_fallback = False
+        #: join tag -> strategy the adaptive skew re-planner forced
+        self._join_overrides: Dict[str, str] = {}
+        self._no_more_replans = False
 
     @property
     def _conf(self):
@@ -473,7 +554,9 @@ class QueryExecution:
     def executed_plan(self) -> P.PhysicalPlan:
         if self._executed is None:
             t0 = time.perf_counter()
-            self._executed = plan_physical(self.optimized_plan, self._conf)
+            self._executed = plan_physical(
+                self.optimized_plan, self._conf,
+                join_strategy_overrides=self._join_overrides or None)
             self.phase_times["planning"] = time.perf_counter() - t0
         return self._executed
 
@@ -584,9 +667,10 @@ class QueryExecution:
         self._activate_conf()
         # every execution starts optimistic: a plan built under an
         # earlier execution's degraded overlay is rebuilt
-        if self._exec_conf is not None:
+        if self._exec_conf is not None or self._mesh_fallback:
             self._executed = None
         self._exec_conf = None
+        self._mesh_fallback = False
         lc_scope = lifecycle.enter_query_scope(session.app_id,
                                                self.query_id, session.conf)
         self.udf_summary = None
@@ -595,6 +679,16 @@ class QueryExecution:
         self._begin_recovery()
         session._exec_depth += 1
         try:
+            for _replan in range(4):
+                try:
+                    return self._execute_recover()
+                except _ReplanRequest:
+                    # re-plan with _join_overrides: the rebuilt plan has
+                    # new nodes, so memoized stage outputs do not splice
+                    self._executed = None
+                    self._recovery.invalidate()
+            # re-plan budget spent: finish with capacity growth only
+            self._no_more_replans = True
             return self._execute_recover()
         except (lifecycle.QueryCancelledError,
                 lifecycle.QueryDeadlineError) as e:
@@ -681,6 +775,8 @@ class QueryExecution:
             lifecycle.checkpoint("stage_attempt")
             try:
                 return self._execute_batch()
+            except _ReplanRequest:
+                raise
             except Exception as e:  # noqa: BLE001 — classified below
                 last = f"{type(e).__name__}: {str(e)[:300]}"
                 self._handle_failure(e)  # raises when unrecoverable
@@ -705,10 +801,24 @@ class QueryExecution:
         is fatal or every applicable budget is spent."""
         import warnings
         from ..config import Conf
+        from .failures import is_mesh_failure
         cls = classify(e)
         msg = f"{type(e).__name__}: {e}"
         if cls is FailureClass.CANCELLED:
             raise e  # lifecycle control outranks every rung
+        mesh_on = int(self._conf.get("spark_tpu.sql.mesh.size")) > 1
+        if mesh_on and not self._mesh_fallback and is_mesh_failure(e) \
+                and bool(self._conf.get(
+                    "spark_tpu.execution.meshFallback.enabled")):
+            # the degrade rung: re-plan on one device (no exchanges, no
+            # sharding), degraded but correct
+            warnings.warn(f"mesh stage failure, re-planning single-device "
+                          f"(mesh_fallback): {msg[:160]}")
+            self._record_fault("mesh_fallback", e)
+            self._mesh_fallback = True
+            self._recovery.begin_recovery_attempt()
+            self._mesh_replan(mesh_size=0)
+            return
         if cls in (FailureClass.TRANSIENT, FailureClass.TIMEOUT):
             self._retry_transient(e, cls)
             return
@@ -750,6 +860,18 @@ class QueryExecution:
                 return
             raise StageOOMError(self._oom_diagnostic(e)) from e
         raise e  # FATAL: surface unchanged
+
+    def _mesh_replan(self, mesh_size: Optional[int] = None) -> None:
+        """Reset for a rung that changes the mesh's shape: memoized stage
+        outputs no longer splice, and the plan rebuilds under a
+        mesh.size overlay when given."""
+        from ..config import Conf
+        self._recovery.invalidate()
+        if mesh_size is not None:
+            overlay = Conf(parent=self._conf)
+            overlay.set("spark_tpu.sql.mesh.size", mesh_size)
+            self._exec_conf = overlay
+        self._executed = None
 
     def _retry_transient(self, e: Exception, cls: FailureClass) -> None:
         """The transient and stage-timeout rung: sleep a jittered backoff
@@ -832,16 +954,28 @@ class QueryExecution:
         self.spilled_partial_rows = partial_table.num_rows
         return final
 
-    def _materialize_streaming(self, node: P.PhysicalPlan) -> P.PhysicalPlan:
+    def _materialize_streaming(self, node: P.PhysicalPlan,
+                               mesh=None) -> P.PhysicalPlan:
         """Run the streamable aggregates chunk by chunk and splice their
         results in as InputExec leaves. Completed streams land in the
         stage-output memo: a re-execution after a downstream failure
-        splices them again without streaming."""
-        from .streaming_agg import (try_stream_aggregate,
+        splices them again without streaming. On a mesh only partial
+        aggregates would stream (per shard, `stream_scan_aggregate_mesh`
+        in the JAX package): not ported, so such a plan raises."""
+        from .streaming_agg import (mesh_stream_applies,
+                                    try_stream_aggregate,
                                     try_stream_aggregate_spill)
         rec = self._recovery
         device = self.session.device
-        if isinstance(node, P.HashAggregateExec):
+        if mesh is not None and isinstance(node, P.HashAggregateExec) \
+                and mesh_stream_applies(node, self._conf, device):
+            raise AnalysisError(
+                f"streaming a scan past the device budget on a mesh "
+                f"(mesh.size={mesh.size}) is slice 10b, not yet ported "
+                f"to spark_tpu_torch: {node.simple_string()[:160]}; raise "
+                f"spark_tpu.sql.io.deviceCacheBytes so the scan stays "
+                f"resident, or run it at mesh.size 0")
+        if mesh is None and isinstance(node, P.HashAggregateExec):
             memo_key = ("stream", id(node))
             hit = rec.memo_get(memo_key, label=node.simple_string())
             if hit is not None:
@@ -854,7 +988,7 @@ class QueryExecution:
             if spill is not None:
                 rec.memo_put(memo_key, ("spill", spill))
                 return self._splice_stream(node, ("spill", spill))
-        new_children = tuple(self._materialize_streaming(c)
+        new_children = tuple(self._materialize_streaming(c, mesh)
                              for c in node.children)
         if any(a is not b for a, b in zip(new_children, node.children)):
             import copy
@@ -862,27 +996,136 @@ class QueryExecution:
             node.children = new_children
         return node
 
-    def _aqe_cache_key(self) -> Optional[str]:
+    def _materialize_generates(self, node: P.PhysicalPlan
+                               ) -> P.PhysicalPlan:
+        """Mesh runs: offsets-encoded list columns cannot shard (their
+        offsets are absolute into the flattened values), so explode
+        subtrees run on one device and the flat exploded result shards
+        as an InputExec — the stage cut the reference makes at
+        GenerateExec.scala:1, with the generate on one device."""
+        new_children = tuple(self._materialize_generates(c)
+                             for c in node.children)
+        if any(a is not b for a, b in zip(new_children, node.children)):
+            import copy
+            node = copy.copy(node)
+            node.children = new_children
+        if isinstance(node, P.GenerateExec):
+            from .streaming_agg import _materialize_subtree
+            b = _materialize_subtree(node, self._conf, self.session.device,
+                                     self._recovery)
+            return P.InputExec(b, node.schema(), label="generated")
+        return node
+
+    def _aqe_cache_key(self, mesh=None) -> Optional[str]:
         """Plan and data identity of the capacities `session._aqe_caps`
-        keeps (the JAX package's key at mesh size 1); None when a scan's
-        source has no identity stamp."""
+        keeps (the JAX package's key, `#mesh{n}` included); None when a
+        scan's source has no identity stamp."""
         tokens = [s.source.cache_token()
                   for s in L.iter_scans(self.optimized_plan)]
         if any(t is None for t in tokens):
             return None
+        n = mesh.size if mesh is not None else 1
         return (self.optimized_plan.tree_string()
-                + f"#mesh1#src{tokens!r}")
+                + f"#mesh{n}#src{tokens!r}")
+
+    def _run_mesh(self, root: P.PhysicalPlan, conf, mesh,
+                  loaded: List[Dict[int, Batch]]):
+        """One attempt on the mesh: `run_plan` on every shard's thread
+        (the JAX package's `run_shard`). Returns the output concatenated
+        in shard order on the session's device, the flags reduced by sum
+        and the metrics by `reduce_shard_metrics`, both on the host."""
+        from ..parallel import AXIS, concat_batches, run_on_shards
+        from ..parallel.shuffle import stripe_batch
+        n = mesh.size
+        # sorted/limited/global-aggregate results are replicated on every
+        # shard; each shard emits its contiguous stripe so the shards'
+        # outputs reassemble the full (ordered) result exactly once
+        replicated_out = isinstance(root.output_partitioning(),
+                                    (P.SinglePartition, P.Replicated))
+
+        def shard(i, group):
+            ctx = P.ExecContext(conf, mesh.devices[i], axis_name=AXIS,
+                                n_shards=n, shard_index=i, group=group)
+            out = run_plan(root, ctx, loaded=loaded[i])
+            if replicated_out:
+                out = stripe_batch(out, ctx)
+            _sync_dispatched(stage_events(ctx.device), conf)
+            return out, host_metrics(ctx.flags), host_metrics(ctx.metrics)
+
+        results = run_on_shards(mesh, shard)
+        out = concat_batches([r[0] for r in results], self.session.device)
+        flags: Dict[str, object] = {}
+        for _, f, _m in results:
+            for k, v in f.items():
+                flags[k] = bool(flags.get(k, False)) or bool(v)
+        return out, flags, reduce_shard_metrics([r[2] for r in results])
+
+    def _maybe_skew_replan(self, root: P.PhysicalPlan, exch_tag: str,
+                           metrics: Dict, mesh) -> bool:
+        """On a skewed shuffle-join exchange (max bucket > factor x mean
+        rows per bucket), force the join to broadcast and request a
+        re-plan — the `OptimizeSkewedJoin.scala:56` /
+        `DynamicJoinSelection` move, expressed as strategy re-selection.
+        Returns True when an override was recorded."""
+        conf = self._conf
+        if self._no_more_replans:
+            return False  # budget spent: capacity growth only
+        if mesh is None or not bool(conf.get(
+                "spark_tpu.sql.adaptive.skewJoin.enabled")):
+            return False
+        n = mesh.size
+        factor = float(conf.get("spark_tpu.sql.adaptive.skewJoin.factor"))
+        limit = int(conf.get(
+            "spark_tpu.sql.adaptive.skewJoin.broadcastThreshold"))
+        mx = int(metrics.get(f"exch_max_{exch_tag}", 0))
+        rows = int(metrics.get(f"exch_rows_{exch_tag}", 0))
+        # exch_max is the largest per-(src, dst) bucket; a uniform
+        # spread puts rows/n^2 in each bucket
+        if rows <= 0 or mx * n * n <= factor * rows:
+            return False  # overflow without skew: capacity growth wins
+        hit = []
+
+        def walk(node, parent):
+            for c in node.children:
+                walk(c, node)
+            if isinstance(node, P.ExchangeExec) and node.tag == exch_tag \
+                    and isinstance(parent, P.JoinExec):
+                hit.append(parent)
+
+        walk(root, None)
+        if not hit:
+            return False
+        join = hit[0]
+        if join.strategy != "shuffle" or join.how in ("right", "full") \
+                or join.tag in self._join_overrides:
+            return False
+        # measured build-side size: its own exchange's routed rows
+        build = join.children[1]
+        build_rows = None
+        if isinstance(build, P.ExchangeExec):
+            build_rows = metrics.get(f"exch_rows_{build.tag}")
+        if build_rows is None:
+            return False  # no measurement: keep capacity growth
+        width = 8 * max(1, len(build.schema().fields))
+        if int(build_rows) * width > limit:
+            return False
+        self._join_overrides[join.tag] = "broadcast"
+        return True
 
     def _execute_batch(self) -> Batch:
+        from ..parallel.mesh import get_mesh
         from ..testing import faults
         from . import lifecycle
-        root0 = self.executed_plan
-        session = self.session
         conf = self._conf
+        session = self.session
+        # a session built with a device places every shard on it
+        mesh = get_mesh(conf, session.device if session.device_pinned
+                        else None)
+        root0 = self.executed_plan
         adaptive = bool(conf.get("spark_tpu.sql.adaptive.enabled"))
         # seed the capacities an earlier execution of this plan over the
         # same data converged on: repeated queries skip the re-plans
-        aqe_key = self._aqe_cache_key()
+        aqe_key = self._aqe_cache_key(mesh)
         saved_caps = session._aqe_caps.get(aqe_key) \
             if aqe_key is not None else None
         if saved_caps:
@@ -894,9 +1137,11 @@ class QueryExecution:
             t0 = time.perf_counter()
             root0 = extract_python_udfs(root0, conf, session.device, qe=self)
             self.phase_times["python_udfs"] = time.perf_counter() - t0
+        if mesh is not None:
+            root0 = self._materialize_generates(root0)
         t0 = time.perf_counter()
         self.spilled_partial_rows = None
-        root = self._materialize_streaming(root0)
+        root = self._materialize_streaming(root0, mesh)
         self.spliced_plan = root
         if root is not root0:
             # chunked ingest and the chunks' compute run in the splice
@@ -904,7 +1149,10 @@ class QueryExecution:
         # cooperative boundary before the scans load
         lifecycle.checkpoint("scan")
         t0 = time.perf_counter()
-        loaded = load_scans(root, conf, session.device)
+        if mesh is None:
+            loaded = load_scans(root, conf, session.device)
+        else:
+            loaded = load_shards(root, conf, mesh)
         session.result_cache_hits += self._cache_hits
         self.phase_times["ingest"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -913,10 +1161,17 @@ class QueryExecution:
         for attempt in range(MAX_ATTEMPTS):
             t_att = time.perf_counter()
             faults.fire("stage_run")  # fault seam: before each run
-            ctx = P.ExecContext(conf, session.device)
-            out = run_plan(root, ctx, loaded=loaded)
-            # the wait for the device is cancellable (dispatchPollMs)
-            _sync_dispatched(stage_events(ctx.device), conf)
+            if mesh is None:
+                ctx = P.ExecContext(conf, session.device)
+                out = run_plan(root, ctx, loaded=loaded)
+                # the wait for the device is cancellable (dispatchPollMs)
+                _sync_dispatched(stage_events(ctx.device), conf)
+                flags = ctx.flags
+                metrics = ctx.metrics
+            else:
+                faults.fire("mesh")  # fault seam: each mesh run
+                out, flags, metrics = self._run_mesh(root, conf, mesh,
+                                                     loaded)
             # the deadline before the stage timeout: an attempt past the
             # end-to-end budget stops the ladder, never retries
             lifecycle.checkpoint("post_dispatch")
@@ -927,7 +1182,7 @@ class QueryExecution:
                         f"stage attempt took {att_ms:.0f}ms > "
                         f"stageTimeoutMs={timeout_ms}: "
                         f"{root.simple_string()}")
-            overflow = [k for k, v in ctx.flags.items()
+            overflow = [k for k, v in flags.items()
                         if k.startswith(_REPLAN_FLAGS) and bool(v)]
             if not overflow:
                 break
@@ -940,14 +1195,20 @@ class QueryExecution:
                     f"capacity overflow in {overflow} with adaptive "
                     f"re-planning disabled "
                     f"(spark_tpu.sql.adaptive.enabled=false)")
-            apply_flags(root, overflow, ctx.metrics)
+            metrics = host_metrics(metrics)
+            for k in overflow:
+                if k.startswith("exch_overflow_") and self._maybe_skew_replan(
+                        root, k[len("exch_overflow_"):], metrics, mesh):
+                    raise _ReplanRequest()
+            apply_flags(root, overflow, metrics)
         else:
             raise RuntimeError(f"capacity retries did not converge; still "
                                f"overflowing: {overflow}")
         self.attempts = attempt + 1
-        self.last_metrics = host_metrics(ctx.metrics)
+        self.last_metrics = host_metrics(metrics)
         if adaptive:
-            shrink_caps_from_rtf(root, self.last_metrics)
+            shrink_caps_from_rtf(root, self.last_metrics,
+                                 mesh.size if mesh is not None else 1)
         if aqe_key is not None:
             # harvest from the unspliced plan too (a streamed aggregate's
             # joins learned their capacities there); merge, as the JAX
@@ -960,6 +1221,9 @@ class QueryExecution:
                 while len(store) > MAX_SAVED_PLANS:
                     store.pop(next(iter(store)))
         self.phase_times["execute"] = time.perf_counter() - t0
+        if self._mesh_fallback:
+            # the degraded one-device result of a mesh-planned query
+            self.last_metrics["mesh_fallback"] = 1
         # fill the data cache on the first action over a marked plan
         self._filled = None
         fp = session._plan_fingerprint(self.logical) \

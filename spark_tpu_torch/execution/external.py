@@ -95,8 +95,11 @@ def try_external_collect(session, plan: P.PhysicalPlan, conf,
     """The query's Arrow result through the chunked host-egress path, or
     None when the plan's shape or the budget does not call for it."""
     from ..io.device_cache import admit_scan_resident, out_of_core_active
+    from ..parallel.mesh import mesh_size
     if not out_of_core_active(conf):
         return None
+    if mesh_size(conf) > 1:
+        return None  # the mesh streams its own such runs
     m = _match_shape(plan)
     if m is None:
         return None

@@ -25,8 +25,10 @@ and `spark.task.maxFailures`, the DAGScheduler's per-kind reactions).
 
 Synthetic faults from `spark_tpu_torch.testing.faults` carry their class
 on the exception; real errors classify by type and message tokens, so
-both flow through one path. The mesh half (`is_mesh_failure`) comes with
-the mesh.
+both flow through one path. `is_mesh_failure` picks the failures of the
+mesh's own path (a broken rendezvous, a collective's peer copy, the
+`mesh` fault site): the candidates for the executor's single-device
+fallback.
 """
 
 from __future__ import annotations
@@ -72,6 +74,25 @@ _STICKY_CUDA_TOKENS = (
     "unspecified launch failure", "cudaErrorIllegalAddress",
     "misaligned address",
 )
+
+
+#: tokens that mark a failure as coming from the collective path (the
+#: port's markers: `parallel/mesh.py` raises MeshCollectiveError with
+#: "collective" for a broken rendezvous or a failed peer copy).
+#: Deliberately narrow: a bare "mesh" token would also take get_mesh's
+#: setup diagnostic ("devices visible"), which must surface.
+_MESH_TOKENS = ("collective", "rendezvous", "peer copy", "all_to_all",
+                "all_gather", "NCCL")
+
+
+def is_mesh_failure(exc: BaseException) -> bool:
+    """True when the failure points at the mesh/collective path, or is a
+    synthetic fault at the `mesh` site."""
+    from ..testing.faults import FaultInjected
+    if isinstance(exc, FaultInjected):
+        return exc.site == "mesh"
+    msg = f"{type(exc).__name__}: {exc}"
+    return any(t in msg for t in _MESH_TOKENS)
 
 
 def classify(exc: BaseException) -> FailureClass:

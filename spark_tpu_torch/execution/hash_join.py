@@ -98,6 +98,12 @@ def kernel_choice(conf, probe_cap: int, build_cap: int,
     return "hash", ("forced" if mode == "hash" else "auto")
 
 
+def resolve_kernel(conf, probe_cap: int, build_cap: int,
+                   hash_fallback=None) -> str:
+    """The kernel `kernel_choice` picks, without its reason."""
+    return kernel_choice(conf, probe_cap, build_cap, hash_fallback)[0]
+
+
 #: splitmix64-style finalizer seed (shared by build and probe — the
 #: one requirement; the value mirrors murmur3's c1)
 _HASH_SEED = 0xCC9E2D51

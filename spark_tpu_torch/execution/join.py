@@ -241,6 +241,7 @@ def _runtime_filter_key(vec: Vec):
     equal strings equally (codes alone would not). `ordered` marks
     dtypes whose raw values support min/max bounds."""
     if vec.dictionary is not None:
+        from ..parallel.shuffle import _dict_value_hashes
         table = _dict_value_hashes(vec.dictionary)
         if table.shape[0] == 0:
             # all-NULL / zero-row string column: validity already masks
@@ -254,24 +255,14 @@ def _runtime_filter_key(vec: Vec):
     return vec.data.to(torch.int64), vec.validity, ordered
 
 
-def _dict_value_hashes(dictionary):
-    """Stable 64-bit hash per dictionary VALUE (host): blake2b-64 of the
-    UTF-8 bytes, the JAX package's `parallel/shuffle.py` hash, so both
-    engines build the same filter."""
-    import hashlib
-    hs = np.empty(len(dictionary), dtype=np.int64)
-    for i, s in enumerate(dictionary.to_pylist()):
-        b = (s if s is not None else "\0").encode("utf-8", "surrogatepass")
-        hs[i] = int.from_bytes(
-            hashlib.blake2b(b, digest_size=8).digest(), "little", signed=True)
-    return torch.from_numpy(hs)
-
-
 def build_runtime_filter(build_batch: Batch, key_expr,
-                         expected_items: int, fpp: float = 0.03
-                         ) -> RuntimeFilter:
+                         expected_items: int, fpp: float = 0.03,
+                         ctx=None) -> RuntimeFilter:
     """Build a RuntimeFilter from the build-side key column. NULL keys
-    are excluded (they never equi-match)."""
+    are excluded (they never equi-match). On a mesh (`ctx.on_mesh`) the
+    shards' Bloom bits combine by pmax (a bitwise OR over the
+    one-bit-per-byte layout) and the bounds by pmin/pmax, so the filter
+    covers every shard's build rows and is the same on every shard."""
     from ..sketch import BloomFilter
     vec = key_expr.eval(build_batch)
     hashed, validity, ordered = _runtime_filter_key(vec)
@@ -295,6 +286,11 @@ def build_runtime_filter(build_batch: Batch, key_expr,
             pos, neg = int(info.max), int(info.min)
         lo = torch.where(bmask, raw, torch.full_like(raw, pos)).min()
         hi = torch.where(bmask, raw, torch.full_like(raw, neg)).max()
+    if ctx is not None and ctx.on_mesh:
+        bloom = BloomFilter(ctx.pmax(bloom.bits), bloom.num_hashes)
+        if lo is not None:
+            lo = ctx.pmin(lo)
+            hi = ctx.pmax(hi)
     return RuntimeFilter(bloom, lo, hi)
 
 

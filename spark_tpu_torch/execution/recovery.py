@@ -25,7 +25,7 @@ NSDI'12).
 Recovery actions flow through the executor's `_record_fault`
 (`chunk_retry`, `stage_reuse`) into `fault_summary`; the session's
 metrics count `rec_chunks_replayed` and `rec_stages_reused`. The mesh
-checkpoints (`MeshCheckpoint`, the checkpoint cursor) come with the
+checkpoints (`MeshCheckpoint`, the checkpoint cursor) come with the elastic
 mesh.
 """
 

@@ -27,8 +27,9 @@ The JAX package compiles one jitted update per stream and caches it per
 conf (`conf_compile_suffix`); eager torch has no compiled stages, so
 neither exists here. The mesh stream, its checkpoints and the resume
 from them (`stream_scan_aggregate_mesh`, `resume_from_mesh_checkpoint`,
-`checkpoint_key`) come with the mesh. The arbiter's leases of
-`_prefer_resident` come with the service.
+`checkpoint_key`) come with the elastic mesh; until then
+`mesh_stream_applies` names the plans they would take. The arbiter's
+leases of `_prefer_resident` come with the service.
 """
 
 from __future__ import annotations
@@ -519,6 +520,32 @@ def _prefer_resident(leaf: "P.ScanExec", conf, device) -> bool:
         if est_b is None or est_b > budget // 2:
             return False
     return admit_scan_resident(conf, leaf)
+
+
+def mesh_stream_applies(agg: "P.HashAggregateExec", conf, device) -> bool:
+    """Whether the JAX package would stream `agg` per shard on a mesh
+    (`stream_scan_aggregate_mesh`'s gate): a partial aggregate over a
+    unary chain from a chunkable scan past the chunk size that does not
+    stay resident. That stream is slice 10b, not ported: the executor
+    raises for such a plan rather than run it on one device."""
+    if agg.mode != "partial":
+        return False
+    if any(getattr(a.func, "positional", False) for a in agg.agg_exprs):
+        return False
+    found = find_streamable_chain(agg, allow_joins=False)
+    if found is None:
+        return False
+    chain, leaf = found
+    if not isinstance(leaf, P.ScanExec):
+        return False  # a Range synthesizes its stripe: nothing to stream
+    if not _streamable_string_keys(agg, agg.child.schema()):
+        return False
+    if not hasattr(leaf.source, "load_chunks"):
+        return False
+    est = leaf.source.estimated_rows()
+    if est is not None and est <= int(conf.get(CHUNK_ROWS_KEY)):
+        return False
+    return not _prefer_resident(leaf, conf, device)
 
 
 def try_stream_aggregate(agg: "P.HashAggregateExec", conf, device,

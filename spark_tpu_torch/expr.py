@@ -147,6 +147,15 @@ class Expression:
     def between(self, lo, hi) -> "Expression":
         return And(GE(self, _wrap(lo)), LE(self, _wrap(hi)))
 
+    def like(self, pattern: str) -> "Like":
+        return Like(self, pattern)
+
+    def startswith(self, prefix: str) -> "Like":
+        return Like(self, prefix.replace("%", r"\%").replace("_", r"\_") + "%")
+
+    def substr(self, start: int, length: int) -> "Substring":
+        return Substring(self, start, length)
+
     def asc(self) -> "SortOrder":
         return SortOrder(self, ascending=True)
 

@@ -13,7 +13,11 @@ an Arrow-backed source gets a fresh token per source object
 (re-registering a table name creates a new source), and a Parquet source
 stamps its file list with (size, mtime) pairs, so rewritten files miss.
 The device is part of the key because one process can hold a CPU session
-and a CUDA session: a hit never hands one device's batch to the other.
+and a CUDA session: a hit never hands one device's batch to the other. A
+mesh caches each shard's stripe on its own device, under a key that also
+holds the shard's index and the mesh size (`load_scan_shards`), so a
+one-device run and a mesh run, or a mesh with every shard on one device,
+never share an entry.
 
 Cached batches are shared by every query that hits them. Operators build
 new tensors and never write into an input batch's tensors, so a cached
@@ -244,3 +248,30 @@ def load_scan(scan, conf, device) -> object:
     if key is not None:
         CACHE.put(key, batch, budget)
     return batch
+
+
+def load_scan_shards(scan, conf, mesh) -> list:
+    """The n stripes of a ScanExec's batch, stripe i on the mesh's device
+    i, each cached under its shard's key. On a miss the scan loads once
+    onto the host, pads to a multiple of n and copies each stripe to its
+    device (the JAX package hands the padded batch to `shard_map`)."""
+    from ..parallel.shuffle import move_batch, shard_stripes
+    n = mesh.size
+    budget = int(conf.get(CACHE_BYTES_KEY))
+    keys = [None] * n
+    if budget > 0:
+        base = [scan_cache_key(scan, d) for d in mesh.devices]
+        if base[0] is not None:
+            keys = [k + (f"shard{i}/{n}",) for i, k in enumerate(base)]
+    if keys[0] is not None:
+        hits = [CACHE.get(k) for k in keys]
+        if all(h is not None for h in hits):
+            return hits
+    import torch
+    host = scan.load(torch.device("cpu"))
+    out = [move_batch(b, d)
+           for b, d in zip(shard_stripes(host, n), mesh.devices)]
+    if keys[0] is not None:
+        for k, b in zip(keys, out):
+            CACHE.put(k, b, budget)
+    return out

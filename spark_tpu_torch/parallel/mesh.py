@@ -1,0 +1,259 @@
+"""The mesh: the devices the engine schedules onto, and the rendezvous
+its shards meet at (the port of `spark_tpu/parallel/mesh.py`).
+
+One 1-D "data" axis, as in the JAX package. The JAX package runs one
+process and `shard_map`s each stage over the mesh; every operator's
+`compute(ctx, inputs)` then calls `lax` collectives on `ctx.axis_name`.
+The port keeps that model in eager torch: `run_on_shards` runs one
+Python thread per shard, each over its own stripe on its own device,
+and the shards meet at a `ShardGroup` for every collective. The group is
+a rendezvous among the threads; tensors move between cards with
+`Tensor.to(device)`, which on one host is a peer copy (NVLink on an
+H100 node). That is the counterpart of `shard_map`; `shard_batch_spec`
+has no counterpart, since there is no `PartitionSpec`: the executor
+pads each loaded leaf to a multiple of the shards and hands each shard
+its contiguous stripe (`parallel/shuffle.py`).
+
+Where the shards live: a session built without a device takes N
+distinct cards, cuda:0 to cuda:N-1, and raises when fewer are visible;
+a session built with one device (`device("cpu")`, `device("cuda:0")`)
+places every shard on that device — the counterpart of the virtual CPU
+devices the JAX package's tests force, reached only by naming the
+device, never as a stand-in when cards are short.
+
+A shard that raises aborts the group, so the others leave their wait at
+once (a waiting shard gets `MeshCollectiveError`); `run_on_shards` joins
+every thread and raises the first error that is not such a consequence.
+A rendezvous that times out breaks the group the same way.
+
+Ordering of a peer copy: torch's copy between two cards runs on the
+source card's current stream after a two-way event barrier between the
+two cards' current streams (ATen's `copy_device_to_device`). Every shard
+queues its work on its card's current stream, and the rendezvous orders
+the host: a shard deposits its tensors only after queueing the work
+that writes them. So each copy is ordered behind the source's work by
+two CUDA events, with no host synchronise.
+
+Multi-host meshes (`init_distributed`, the `spark_tpu.sql.cluster.*`
+keys) are not ported: they would need a process-group transport under
+the shard group.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import threading
+import time
+import warnings
+from typing import Callable, Dict, List, Optional, Sequence, Set
+
+import torch
+
+AXIS = "data"
+
+MESH_KEY = "spark_tpu.sql.mesh.size"
+EXCLUDE_KEY = "spark_tpu.sql.mesh.excludeDevices"
+
+#: seconds a shard waits at a rendezvous for the others before the group
+#: breaks (a shard that raises breaks it at once)
+RENDEZVOUS_TIMEOUT_S = 600.0
+
+
+class MeshCollectiveError(RuntimeError):
+    """A collective among the shards failed: the rendezvous broke (a
+    peer shard raised, or the wait timed out) or a peer copy failed. The
+    message holds "collective", the token `is_mesh_failure` reads."""
+
+
+class Mesh:
+    """The devices of the data axis, in shard order."""
+
+    def __init__(self, devices: Sequence[torch.device]):
+        self.devices = tuple(torch.device(d) for d in devices)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def __repr__(self) -> str:
+        return f"Mesh({[str(d) for d in self.devices]}, axis={AXIS!r})"
+
+
+def mesh_size(conf) -> int:
+    return max(1, int(conf.get(MESH_KEY)))
+
+
+def excluded_device_ids(conf) -> Set[int]:
+    """Device ids never meshed over (spark_tpu.sql.mesh.excludeDevices).
+    Malformed entries warn: a typo'd pin-out silently keeping the bad
+    device in the mesh would be worse than noise."""
+    spec = conf.get(EXCLUDE_KEY)
+    out: Set[int] = set()
+    for part in str(spec or "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        try:
+            out.add(int(part))
+        except ValueError:
+            warnings.warn(f"ignoring non-integer entry {part!r} in "
+                          f"device list {spec!r}")
+    return out
+
+
+def get_mesh(conf, device=None) -> Optional[Mesh]:
+    """The 1-D data mesh from conf, or None at mesh.size <= 1.
+
+    `device` is the device a session was built with, if it was: every
+    shard then sits on it. Without one the mesh takes distinct cards; a
+    pool short before exclusions is a setup error, while exclusions
+    shrink the mesh to the surviving pool (<= 1 survivor: None)."""
+    n = mesh_size(conf)
+    if n <= 1:
+        return None
+    if device is not None:
+        return Mesh([torch.device(device)] * n)
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if visible < n:
+        names = [torch.cuda.get_device_name(i) for i in range(min(visible, 4))]
+        raise RuntimeError(
+            f"mesh.size={n} but only {visible} devices visible "
+            f"({names}...); build the session with "
+            f"SparkTpuSession.builder().device('cuda:0') to place every "
+            f"shard on one card, or lower {MESH_KEY}")
+    pool = [torch.device("cuda", i) for i in range(visible)]
+    excluded = excluded_device_ids(conf)
+    if excluded:
+        pool = [d for d in pool if d.index not in excluded]
+        n = min(n, len(pool))
+        if n <= 1:
+            return None
+    return Mesh(pool[:n])
+
+
+def shard_hosts(mesh: Mesh) -> List[int]:
+    """Per-shard host identity for telemetry records: 0 for every shard
+    of a one-process mesh."""
+    return [0] * mesh.size
+
+
+def device_scope(device: torch.device):
+    """Make `device` current for the calling thread (a CUDA card), so
+    the shard's work queues on that card's current stream."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+#: bytes and tensors copied between devices by the collectives, by
+#: collective and exchange tag ("all_to_all e0", "all_gather e1",
+#: "psum", "gather" for the result), since the process started or the
+#: caller reset them (`reset_copy_stats`)
+COPY_STATS: Dict[str, List[int]] = {}
+_COPY_LOCK = threading.Lock()
+
+
+def reset_copy_stats() -> None:
+    with _COPY_LOCK:
+        COPY_STATS.clear()
+
+
+def gather_to(values: Sequence, device: torch.device, what: str) -> list:
+    """Each shard's tensor moved to `device`, in shard order. A failed
+    peer copy is a collective failure."""
+    out = []
+    moved = copies = 0
+    for src, t in enumerate(values):
+        if t.device == device:
+            out.append(t)
+            continue
+        try:
+            out.append(t.to(device))
+        except Exception as e:  # noqa: BLE001 — re-raised as a mesh failure
+            raise MeshCollectiveError(
+                f"collective {what}: peer copy from shard {src} to "
+                f"{device} failed: {type(e).__name__}: {e}") from e
+        moved += t.numel() * t.element_size()
+        copies += 1
+    if copies:
+        with _COPY_LOCK:
+            stat = COPY_STATS.setdefault(what, [0, 0])
+            stat[0] += moved
+            stat[1] += copies
+    return out
+
+
+class ShardGroup:
+    """The rendezvous of one mesh run: `exchange(i, value)` returns every
+    shard's value in shard order once all shards have deposited theirs
+    (the host half of every collective). Two barriers per exchange: the
+    second keeps a fast shard's next deposit from overwriting a slot a
+    slow shard has not read yet."""
+
+    def __init__(self, n: int, timeout_s: float = RENDEZVOUS_TIMEOUT_S):
+        self.n = n
+        self._barrier = threading.Barrier(n, timeout=timeout_s)
+        self._slots: List[object] = [None] * n
+
+    def _wait(self, what: str) -> None:
+        try:
+            self._barrier.wait()
+        except threading.BrokenBarrierError:
+            raise MeshCollectiveError(
+                f"collective rendezvous broken at {what}: a peer shard "
+                f"failed or the wait timed out") from None
+
+    def exchange(self, i: int, value) -> list:
+        self._slots[i] = value
+        self._wait("deposit")
+        out = list(self._slots)
+        self._wait("read")
+        return out
+
+    def abort(self) -> None:
+        self._barrier.abort()
+
+
+def run_on_shards(mesh: Mesh, fn: Callable[[int, ShardGroup], object],
+                  timeout_s: float = RENDEZVOUS_TIMEOUT_S) -> list:
+    """Run `fn(shard_index, group)` on one thread per shard, each under
+    its device and a copy of the caller's context (cancel token, case
+    sensitivity); return the results in shard order (the counterpart of
+    `shard_map`). The first shard error aborts the group; every thread
+    is joined before the first original error is raised."""
+    n = mesh.size
+    group = ShardGroup(n, timeout_s)
+    results: List[object] = [None] * n
+    errors: List[BaseException] = []
+    lock = threading.Lock()
+
+    def body(i: int) -> None:
+        try:
+            with device_scope(mesh.devices[i]):
+                results[i] = fn(i, group)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            with lock:
+                errors.append(e)
+            group.abort()
+
+    threads = []
+    for i in range(n):
+        ctx = contextvars.copy_context()
+        t = threading.Thread(target=ctx.run, args=(body, i),
+                             name=f"mesh-shard-{i}", daemon=True)
+        threads.append(t)
+        t.start()
+    deadline = time.monotonic() + timeout_s + 60.0
+    for t in threads:
+        t.join(max(0.0, deadline - time.monotonic()))
+    if any(t.is_alive() for t in threads):
+        group.abort()
+        raise MeshCollectiveError(
+            f"collective run did not finish: shard threads still alive "
+            f"after {timeout_s:.0f}s")
+    if errors:
+        original = [e for e in errors
+                    if not isinstance(e, MeshCollectiveError)]
+        raise (original or errors)[0]
+    return results

@@ -4,19 +4,31 @@
 `compute` runs eagerly on whole Batches of torch tensors; the executor
 walks the tree bottom-up, computing a node that several parents share
 (a runtime filter's creation chain) once. `simple_string`/`tree_string`
-match the JAX package, so plan-level parity is a string compare. Ported:
+match the JAX package, so plan-level parity is a string compare
+(`describe()` prints the JAX package's compiled-stage key). Ported:
 Range, Scan, Input (a spliced stage output), Project, Filter,
 HashAggregate (complete, partial and final modes; dense-domain and sort
-paths), Sort, Window, Limit, Join, RuntimeFilter, Union and the
-single-device Exchange. Each operator states the distribution it needs
-of its children and the partitioning it gives, as in the JAX package
-(reference: `plans/physical/partitioning.scala`), so the planner inserts
-the exchanges that package inserts at mesh size 0; on one device an
-exchange passes its child's batch through. Generate (explode) is ported.
+paths), Sort, Window, Limit, Join (shuffle and broadcast strategies),
+RuntimeFilter, Union, Generate (explode) and Exchange. Each operator
+states the distribution it needs of its children and the partitioning it
+gives, as in the JAX package (reference:
+`plans/physical/partitioning.scala`), so the planner inserts the
+exchanges that package inserts.
+
+On a mesh (`parallel/`) every shard runs the same tree over its own
+rows, each on its own thread and device, and `ExecContext` carries the
+shard's index and its group: the counterpart of the `lax` collectives
+the JAX package's operators call inside `shard_map`. Leaves synthesize
+(Range) or receive (Scan, Input) only the shard's stripe; an exchange
+lowers to the collectives of `parallel/shuffle.py`; Limit over a range
+layout, the null-aware anti join and the runtime filter reduce across
+the shards. On one device the context has no axis and an exchange
+passes its child's batch through.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -35,10 +47,10 @@ from ..execution import sort as sort_kernels
 
 
 # ---------------------------------------------------------------------------
-# Partitioning algebra at mesh size 0 (reference: partitioning.scala). On
-# one device every operator's output is one partition, which meets every
-# requirement but a broadcast; the hash and range layouts come with the
-# mesh.
+# Partitioning algebra (reference: partitioning.scala). On one device every
+# operator's output is one partition, which meets every requirement but a
+# broadcast; on a mesh the leaves are sharded (UnknownPartitioning) and the
+# planner inserts hash, range and gather exchanges.
 # ---------------------------------------------------------------------------
 
 class Distribution:
@@ -56,8 +68,21 @@ class AllTuples(Distribution):
 
 
 @dataclass(frozen=True)
+class ClusteredDistribution(Distribution):
+    keys: Tuple[str, ...]
+
+
+@dataclass(frozen=True)
 class BroadcastDistribution(Distribution):
-    """Full copy on every partition."""
+    """Full copy on every shard."""
+
+
+@dataclass(frozen=True)
+class OrderedDistribution(Distribution):
+    """Rows range-partitioned by sort key: shard i's keys all <= shard
+    i+1's (reference: OrderedDistribution in partitioning.scala:79)."""
+
+    order_key: Tuple[str, ...]  # repr of the SortOrders (equality basis)
 
 
 class Partitioning:
@@ -76,6 +101,19 @@ class SinglePartition(Partitioning):
 
 
 @dataclass(frozen=True)
+class HashPartitioning(Partitioning):
+    keys: Tuple[str, ...] = ()
+    num_partitions: int = 1
+
+    def satisfies(self, dist):
+        if isinstance(dist, UnspecifiedDistribution):
+            return True
+        if isinstance(dist, ClusteredDistribution):
+            return set(self.keys).issubset(set(dist.keys)) and len(self.keys) > 0
+        return False
+
+
+@dataclass(frozen=True)
 class Replicated(Partitioning):
     num_partitions: int = 1
 
@@ -83,17 +121,91 @@ class Replicated(Partitioning):
         return isinstance(dist, (UnspecifiedDistribution, BroadcastDistribution))
 
 
+@dataclass(frozen=True)
+class RangePartitioning(Partitioning):
+    """Contiguous key ranges over the mesh axis in shard order
+    (reference: RangePartitioning, partitioning.scala:255). `orders`
+    carries the SortOrder objects for the exchange; equality and hashing
+    use their repr (SortOrder overloads no __eq__)."""
+
+    order_key: Tuple[str, ...] = ()
+    num_partitions: int = 1
+    orders: Tuple = dataclasses.field(default=(), compare=False, hash=False)
+
+    def satisfies(self, dist):
+        if isinstance(dist, UnspecifiedDistribution):
+            return True
+        if isinstance(dist, OrderedDistribution):
+            return self.order_key == dist.order_key
+        return False
+
+
+@dataclass(frozen=True)
+class UnknownPartitioning(Partitioning):
+    num_partitions: int = 1
+
+
 class ExecContext:
     """Per-execution state threaded through `compute` calls: the conf,
     the device every operator's tensors live on, runtime flags (0-d
     bool tensors the executor reads after the run, e.g. a join's output
-    overflow) and per-operator metrics."""
+    overflow) and per-operator metrics.
 
-    def __init__(self, conf: Conf, device):
+    On a mesh, `axis_name`/`n_shards`/`shard_index` identify the shard
+    and `group` is the rendezvous of its mesh (`parallel/mesh.py`): the
+    methods below are the counterparts of `lax.axis_index`, `psum`,
+    `pmax`, `pmin` and `all_gather`. Every shard must call the same
+    collectives in the same order, as under `shard_map`."""
+
+    def __init__(self, conf: Conf, device, axis_name: Optional[str] = None,
+                 n_shards: int = 1, shard_index: int = 0, group=None):
         self.conf = conf
         self.device = torch.device(device)
+        self.axis_name = axis_name
+        self.n_shards = n_shards
+        self.shard_index = shard_index
+        self.group = group
         self.flags: Dict[str, object] = {}
         self.metrics: Dict[str, object] = {}
+
+    @property
+    def on_mesh(self) -> bool:
+        return self.axis_name is not None and self.n_shards > 1
+
+    def axis_index(self) -> int:
+        return self.shard_index
+
+    def exchange(self, value) -> list:
+        """Every shard's `value`, in shard order (host objects)."""
+        return self.group.exchange(self.shard_index, value)
+
+    def all_gather(self, t):
+        """Every shard's tensor on this shard's device, concatenated in
+        shard order along dim 0 (0-d tensors are stacked)."""
+        from ..parallel.mesh import gather_to
+        parts = gather_to(self.exchange(t), self.device, "all_gather")
+        if t.dim() == 0:
+            return torch.stack(parts)
+        return torch.cat(parts)
+
+    def _reduce(self, t, op: str):
+        from ..parallel.mesh import gather_to
+        parts = gather_to(self.exchange(t), self.device, op)
+        out = parts[0]
+        for p in parts[1:]:  # shard order: float sums repeat bit for bit
+            out = out + p if op == "psum" else (
+                torch.maximum(out, p) if op == "pmax"
+                else torch.minimum(out, p))
+        return out
+
+    def psum(self, t):
+        return self._reduce(t, "psum")
+
+    def pmax(self, t):
+        return self._reduce(t, "pmax")
+
+    def pmin(self, t):
+        return self._reduce(t, "pmin")
 
     def add_flag(self, name: str, value) -> None:
         if name in self.flags:
@@ -120,6 +232,14 @@ class PhysicalPlan:
     def compute(self, ctx: ExecContext, inputs: List[Batch]) -> Batch:
         raise NotImplementedError
 
+    def describe(self) -> str:
+        """Stable structural fingerprint of the subtree, printed as the
+        JAX package prints its compiled-stage key."""
+        parts = [self.simple_string()]
+        for c in self.children:
+            parts.append(c.describe())
+        return "(" + " ".join(parts) + ")"
+
     def simple_string(self) -> str:
         return type(self).__name__
 
@@ -135,6 +255,16 @@ class PhysicalPlan:
 class LeafExec(PhysicalPlan):
     """Leaves either synthesize data (Range) or load a Batch from a
     source (Scan)."""
+
+    #: mesh data-axis size the planner targeted (1 = one device). When
+    #: >1, the leaf's rows are sharded over the axis, so its output
+    #: partitioning is unknown and exchanges get inserted above it.
+    dist_n: int = 1
+
+    def output_partitioning(self):
+        if self.dist_n > 1:
+            return UnknownPartitioning(self.dist_n)
+        return SinglePartition()
 
 
 class RangeExec(LeafExec):
@@ -152,6 +282,12 @@ class RangeExec(LeafExec):
         n = self.num_rows()
         cap = bucket_capacity(n)
         offs = torch.arange(cap, dtype=torch.int64, device=ctx.device)
+        if ctx.on_mesh:
+            # synthesize only this shard's contiguous stripe
+            cap += (-cap) % ctx.n_shards
+            local = cap // ctx.n_shards
+            offs = ctx.axis_index() * local + torch.arange(
+                local, dtype=torch.int64, device=ctx.device)
         ids = self.start + self.step * offs
         sel = offs < n
         return Batch({"id": Column(ids, T.LONG, bits=self._id_bits())}, sel,
@@ -230,6 +366,9 @@ class UnaryExec(PhysicalPlan):
     @property
     def child(self) -> PhysicalPlan:
         return self.children[0]
+
+    def output_partitioning(self):
+        return self.child.output_partitioning()
 
 
 class ProjectExec(UnaryExec):
@@ -377,7 +516,7 @@ class HashAggregateExec(UnaryExec):
                     row.append(data)
                 contribs.append(row)
         else:
-            contribs = [a.func.update(batch, sel) for a in self.agg_exprs]
+            contribs = self._updates(batch, sel, ctx)
 
         domains = [agg_kernels.key_domain(g, v)
                    for g, v in zip(self.group_exprs, key_vecs)]
@@ -507,9 +646,29 @@ class HashAggregateExec(UnaryExec):
         ctx.add_metric("agg_groups", occupied.sum())
         return Batch(out_cols, occupied, ctx.device)
 
-    def required_child_distributions(self):
+    def output_partitioning(self):
+        if self.mode == "partial":
+            # per-shard accumulator tables: rows for one key exist on
+            # every shard, so nothing stronger than the child's layout
+            return self.child.output_partitioning()
         if not self.group_exprs:
-            return [AllTuples()]
+            return SinglePartition()
+        return self.child.output_partitioning()
+
+    def required_child_distributions(self):
+        if self.mode in ("complete", "final"):
+            if not self.group_exprs:
+                return [AllTuples()]
+            names = []
+            for g in self.group_exprs:
+                name = plain_column_name(g)
+                if name is None:
+                    # a computed group key has no child column to hash
+                    # (mesh positional aggregates reach complete mode
+                    # directly): gather instead of a broken exchange
+                    return [AllTuples()]
+                names.append(name)
+            return [ClusteredDistribution(tuple(names))]
         return [UnspecifiedDistribution()]
 
     def _occupancy_reuse(self, batch) -> Optional[Tuple[int, int]]:
@@ -567,10 +726,19 @@ class HashAggregateExec(UnaryExec):
     def direct_init_tables(self, prep: "DirectAggPlan"):
         return agg_kernels.direct_init(prep.spans, prep.specs, prep.device)
 
-    def _updates(self, batch: Batch, sel, row_base=None):
+    def _updates(self, batch: Batch, sel, ctx=None, row_base=None):
         """Per-row accumulator contributions. Position-packed aggregates
-        (first/last/any_value, `uses_row_base`) get the chunk's row base,
-        so merges across chunks never tie on in-chunk position."""
+        (first/last/any_value, `uses_row_base`) get a globally unique row
+        base: `row_base` spaces host-driven chunks and the shard index
+        spaces mesh shards, so merges never tie on in-chunk position."""
+        if ctx is not None and ctx.on_mesh and any(
+                a.func.uses_row_base for a in self.agg_exprs):
+            if ctx.n_shards * batch.capacity >= (1 << 30):
+                raise RuntimeError(
+                    "first/last aggregation input exceeds the 2^30 "
+                    "packed-position bound "
+                    f"({ctx.n_shards} shards x {batch.capacity} rows)")
+            row_base = (row_base or 0) + ctx.axis_index() * batch.capacity
         return [a.func.update(batch, sel, row_base=row_base)
                 if a.func.uses_row_base else a.func.update(batch, sel)
                 for a in self.agg_exprs]
@@ -649,7 +817,11 @@ def _np_to_logical(np_dtype) -> T.DataType:
 
 
 class SortExec(UnaryExec):
-    """Global sort of one device's batch (reference: SortExec.scala:40)."""
+    """Global sort: range-partition over the mesh (sampled bounds +
+    all_to_all), then sort locally — shard i's keys <= shard i+1's, so
+    the ordered concatenation of the shards is the global order
+    (reference: SortExec.scala:40 + RangePartitioning). On one device
+    the requirement is met already and this is the local sort."""
 
     def __init__(self, child: PhysicalPlan, orders: Sequence[SortOrder]):
         self.children = (child,)
@@ -658,8 +830,11 @@ class SortExec(UnaryExec):
     def schema(self):
         return self.child.schema()
 
+    def order_key(self) -> Tuple[str, ...]:
+        return tuple(repr(o) for o in self.orders)
+
     def required_child_distributions(self):
-        return [AllTuples()]
+        return [OrderedDistribution(self.order_key())]
 
     def compute(self, ctx, inputs):
         batch = inputs[0]
@@ -767,9 +942,18 @@ class WindowExec(UnaryExec):
         return self.wexprs[0][0].spec
 
     def required_child_distributions(self):
-        if not self._spec()._partition:
+        """Partitions co-locate through a hash exchange on the PARTITION
+        BY columns; an empty or computed PARTITION BY needs all rows."""
+        spec = self._spec()
+        if not spec._partition:
             return [AllTuples()]
-        return [UnspecifiedDistribution()]
+        names = []
+        for p in spec._partition:
+            name = plain_column_name(p)
+            if name is None:
+                return [AllTuples()]
+            names.append(name)
+        return [ClusteredDistribution(tuple(names))]
 
     def compute(self, ctx, inputs):
         from ..execution import window as win
@@ -944,7 +1128,11 @@ class WindowExec(UnaryExec):
 
 
 class LimitExec(UnaryExec):
-    """First-n selected rows."""
+    """First-n. Over a range-partitioned (sorted) child it stays
+    distributed: shard i keeps rows whose global rank — its local rank
+    plus the gathered counts of lower shards — is under n, with no
+    gather of the data (reference: the GlobalLimit/LocalLimit split in
+    limit.scala). Otherwise it collapses to one logical partition."""
 
     def __init__(self, child: PhysicalPlan, n: int):
         self.children = (child,)
@@ -954,6 +1142,8 @@ class LimitExec(UnaryExec):
         return self.child.schema()
 
     def required_child_distributions(self):
+        if isinstance(self.child.output_partitioning(), RangePartitioning):
+            return [UnspecifiedDistribution()]
         return [AllTuples()]
 
     def compute(self, ctx, inputs):
@@ -961,6 +1151,12 @@ class LimitExec(UnaryExec):
         sel = batch.selection_mask()
         s = sel.to(torch.int32)
         local_rank = torch.cumsum(s, 0) - s
+        if ctx.on_mesh and isinstance(self.child.output_partitioning(),
+                                      RangePartitioning):
+            counts = ctx.all_gather(s.sum())
+            offset = counts[:ctx.axis_index()].sum()
+            keep = local_rank < torch.clamp(self.n - offset, min=0)
+            return batch.with_selection(sel & keep)
         return batch.with_selection(sel & (local_rank < self.n))
 
     def simple_string(self):
@@ -981,15 +1177,11 @@ class JoinExec(PhysicalPlan):
     (None/True = try it; False after a duplicate build key); and
     `hash_fallback` (False after the hash table saturated)."""
 
-    #: printed for parity with the JAX package, whose mesh planner also
-    #: picks "broadcast"; one device has only "shuffle"
-    strategy = "shuffle"
-
     def __init__(self, left: PhysicalPlan, right: PhysicalPlan,
                  left_keys: Sequence[Expression],
                  right_keys: Sequence[Expression],
                  how: str, condition: Optional[Expression],
-                 out_schema: T.Schema):
+                 out_schema: T.Schema, strategy: str = "shuffle"):
         self.children = (left, right)
         self.left_keys = tuple(left_keys)
         self.right_keys = tuple(right_keys)
@@ -1008,6 +1200,13 @@ class JoinExec(PhysicalPlan):
         self.tag = "j0"
         #: (kernel, reason) of the last run, for reports
         self.last_kernel: Optional[Tuple[str, str]] = None
+        # "shuffle": co-partition both sides (ShuffledHashJoinExec.scala:37
+        # analog); "broadcast": replicate the small build side with an
+        # all_gather and leave the probe side in place
+        # (BroadcastHashJoinExec.scala:40 analog). Picked by the planner
+        # from source row estimates against autoBroadcastJoinThreshold;
+        # on one device the two coincide.
+        self.strategy = strategy
 
     @property
     def left(self):
@@ -1020,24 +1219,46 @@ class JoinExec(PhysicalPlan):
     def schema(self):
         return self._schema
 
-    def _has_column_keys(self) -> bool:
-        """True when some key pair is a plain column on both sides (the
-        pairs a mesh would hash on)."""
-        return any(plain_column_name(l) is not None
-                   and plain_column_name(r) is not None
-                   for l, r in zip(self.left_keys, self.right_keys))
+    def _clusterable_key_names(self):
+        """Key positions usable for hash partitioning: both sides must be
+        plain column references (the exchange hashes child columns by
+        name; a computed key has no column to hash)."""
+        lk, rk = [], []
+        for l, r in zip(self.left_keys, self.right_keys):
+            ln, rn = plain_column_name(l), plain_column_name(r)
+            if ln is not None and rn is not None:
+                lk.append(ln)
+                rk.append(rn)
+        return tuple(lk), tuple(rk)
 
     def required_child_distributions(self):
-        if not self._has_column_keys():
+        if self.strategy == "broadcast":
+            return [UnspecifiedDistribution(), BroadcastDistribution()]
+        lk, rk = self._clusterable_key_names()
+        if not lk:
             if self.how in ("right", "full"):
-                # a replicated build would append its unmatched rows once
-                # per partition: co-locate everything instead
+                # a replicated build would append its locally-unmatched
+                # rows on every shard: with no key columns to hash on,
+                # co-locate everything and let the striped output dedupe
                 return [AllTuples(), AllTuples()]
             # no hashable key columns (e.g. a cross join's literal keys):
             # every probe row must see every build row -> replicate build
             return [UnspecifiedDistribution(), BroadcastDistribution()]
-        # key columns: one partition holds every key
-        return [UnspecifiedDistribution(), UnspecifiedDistribution()]
+        return [ClusteredDistribution(lk), ClusteredDistribution(rk)]
+
+    def output_partitioning(self):
+        lp = self.left.output_partitioning()
+        rp = self.right.output_partitioning()
+        if isinstance(lp, SinglePartition) and \
+                isinstance(rp, (SinglePartition, Replicated)):
+            # both sides fully co-located: every shard computed the same
+            # complete result (valid for every join type incl. outer)
+            return SinglePartition()
+        if self.how in ("right", "full"):
+            # appended null-extended rows carry NULL left keys on whatever
+            # shard held the unmatched build row: no layout guarantee
+            return UnknownPartitioning()
+        return lp
 
     def _eval_keys(self, probe_batch, build_batch):
         def bcast(v: Vec, cap: int) -> Vec:
@@ -1138,23 +1359,29 @@ class JoinExec(PhysicalPlan):
         if self.how == "left_anti":
             sel = psel & ~found
             if self.null_aware:
-                sel = sel & self._null_aware_mask(lvecs[0], build_batch,
+                sel = sel & self._null_aware_mask(ctx, lvecs[0], build_batch,
                                                   rvecs[0])
             return probe_batch.with_selection(sel)
         if self.how == "left":
             return Batch(cols, psel, ctx.device)
         return Batch(cols, psel & found, ctx.device)
 
-    def _null_aware_mask(self, probe_key_vec, build_batch, build_key_vec):
+    def _null_aware_mask(self, ctx, probe_key_vec, build_batch,
+                         build_key_vec):
         """Per-probe-row NOT IN adjustment (SQL three-valued logic): a
         NULL anywhere in the build keys empties the result; a NULL probe
-        key survives only when the build side is empty."""
+        key survives only when the build side is empty. On a mesh both
+        reduce over the shards: NULL build rows hash to one shard but
+        empty every shard's output."""
         bsel = build_batch.selection_mask()
         if build_key_vec.validity is not None:
             has_null = (bsel & ~build_key_vec.validity).any()
         else:
             has_null = torch.zeros((), dtype=torch.bool, device=bsel.device)
         empty = ~bsel.any()
+        if ctx.on_mesh:
+            has_null = ctx.psum(has_null.to(torch.int32)) > 0
+            empty = ctx.psum((~empty).to(torch.int32)) == 0
         mask = (~has_null).expand((probe_key_vec.data.shape[0],))
         if probe_key_vec.validity is not None:
             mask = mask & (probe_key_vec.validity | empty)
@@ -1219,7 +1446,7 @@ class JoinExec(PhysicalPlan):
                 return probe_batch.with_selection(psel & found)
             sel = psel & ~found
             if self.null_aware:
-                sel = sel & self._null_aware_mask(lvecs[0], build_batch,
+                sel = sel & self._null_aware_mask(ctx, lvecs[0], build_batch,
                                                   rvecs[0])
             return probe_batch.with_selection(sel)
 
@@ -1307,7 +1534,7 @@ class JoinExec(PhysicalPlan):
                 return probe_batch.with_selection(psel & any_pass)
             sel = psel & ~any_pass
             if self.null_aware:
-                sel = sel & self._null_aware_mask(lvecs[0], build_batch,
+                sel = sel & self._null_aware_mask(ctx, lvecs[0], build_batch,
                                                   rvecs[0])
             return probe_batch.with_selection(sel)
 
@@ -1402,18 +1629,22 @@ class RuntimeFilterExec(PhysicalPlan):
     def schema(self):
         return self.children[0].schema()
 
+    def output_partitioning(self):
+        return self.children[0].output_partitioning()
+
     def compute(self, ctx, inputs):
         import time as _time
         probe, build = inputs
-        # the planner estimate is pre-filter; the batch capacity is a
-        # tighter bound on insertable rows — don't size the bit array
-        # past it
-        n_items = build.capacity if self.est_items is None else \
-            min(self.est_items, build.capacity)
+        # the planner estimate is pre-filter; the batch capacity (times
+        # the shards, whose bits combine) is a tighter bound on
+        # insertable rows — don't size the bit array past it
+        global_cap = build.capacity * max(1, ctx.n_shards)
+        n_items = global_cap if self.est_items is None else \
+            min(self.est_items, global_cap)
         t0 = _time.perf_counter()
         filt = join_kernels.build_runtime_filter(
             build, self.build_key, expected_items=max(int(n_items), 8),
-            fpp=self.fpp)
+            fpp=self.fpp, ctx=ctx)
         build_ms = (_time.perf_counter() - t0) * 1e3
         keep = join_kernels.apply_runtime_filter(filt, probe,
                                                  self.probe_key)
@@ -1432,17 +1663,20 @@ class RuntimeFilterExec(PhysicalPlan):
 
 
 class ExchangeExec(UnaryExec):
-    """Repartitioning boundary (reference: BroadcastExchangeExec.scala:78).
-    The planner inserts one where a child's partitioning does not meet
-    its parent's requirement, on one device only the replicated build
-    side of a join without key columns. There every partition is the
-    whole batch, so it passes its child's batch through."""
+    """Repartitioning boundary (reference: ShuffleExchangeExec.scala:115
+    for the hash case, BroadcastExchangeExec.scala:78 for Replicated).
+
+    On one device this is the identity; on a mesh it lowers to the
+    collectives of `parallel/shuffle.py`:
+      HashPartitioning           -> partition by key hash + all_to_all
+      RangePartitioning          -> sampled bounds + all_to_all
+      SinglePartition/Replicated -> all_gather"""
 
     def __init__(self, child: PhysicalPlan, partitioning: Partitioning):
         self.children = (child,)
         self.partitioning = partitioning
-        #: per-(src,dst) receive block size of a mesh exchange; always
-        #: None on one device, printed as the JAX package prints it
+        #: per-(src,dst) receive block size; None = seeded from the input
+        #: capacity (2x uniform spread), grown by the executor on overflow
         self.block_cap: Optional[int] = None
         self.tag = "e0"
 
@@ -1453,7 +1687,22 @@ class ExchangeExec(UnaryExec):
         return self.partitioning
 
     def compute(self, ctx, inputs):
-        return inputs[0]
+        if not ctx.on_mesh:
+            return inputs[0]
+        from ..parallel import shuffle
+        if isinstance(self.partitioning, HashPartitioning):
+            return shuffle.exchange_hash(inputs[0], self.partitioning.keys,
+                                         ctx, block_cap=self.block_cap,
+                                         tag=self.tag)
+        if isinstance(self.partitioning, RangePartitioning):
+            return shuffle.exchange_range(inputs[0],
+                                          self.partitioning.orders, ctx,
+                                          block_cap=self.block_cap,
+                                          tag=self.tag)
+        if isinstance(self.partitioning, (SinglePartition, Replicated)):
+            return shuffle.all_gather_batch(inputs[0], ctx, tag=self.tag)
+        raise AnalysisError(
+            f"no collective lowering for {self.partitioning!r}")
 
     def simple_string(self):
         return f"ExchangeExec({self.partitioning!r}, block={self.block_cap})"
@@ -1472,10 +1721,31 @@ class UnionExec(PhysicalPlan):
     def schema(self):
         return self._schema
 
+    def output_partitioning(self):
+        # a per-shard concatenation of sharded children is not a single
+        # partition: claiming one would skip needed exchanges above and
+        # make the executor stripe the (distinct) per-shard output
+        lp = self.children[0].output_partitioning()
+        rp = self.children[1].output_partitioning()
+        if isinstance(lp, SinglePartition) and isinstance(rp, SinglePartition):
+            return SinglePartition()
+        return UnknownPartitioning(
+            max(lp.num_partitions, rp.num_partitions))
+
     def compute(self, ctx, inputs):
         from ..columnar import unify_string_columns
         lb, rb = inputs
         dev = ctx.device
+        if ctx.on_mesh:
+            # a SinglePartition child is replicated on every shard: take
+            # this shard's stripe so the union holds one copy of it
+            from ..parallel.shuffle import stripe_batch
+            parts = [c.output_partitioning() for c in self.children]
+            if not all(isinstance(p, SinglePartition) for p in parts):
+                if isinstance(parts[0], (SinglePartition, Replicated)):
+                    lb = stripe_batch(lb, ctx)
+                if isinstance(parts[1], (SinglePartition, Replicated)):
+                    rb = stripe_batch(rb, ctx)
         cols = {}
         for out_f, ln, rn in zip(self._schema.fields, lb.names, rb.names):
             lc, rc = lb.columns[ln], rb.columns[rn]

@@ -271,7 +271,8 @@ def extract_creation_side(node: P.PhysicalPlan, key: Expression,
     Every hop preserves the superset property (see module docstring).
     With `semi_aware`, a descent through an equi-join whose other side
     is selective keeps that side's effect as a synthesized left-semi
-    (`runtimeFilter.semiAwareCreation`)."""
+    (`runtimeFilter.semiAwareCreation`; one device only — the caller
+    gates on mesh size, see the conf doc)."""
     if _cheap_chain(node) and _resolves(key, node.schema()):
         return node, key
     if isinstance(node, (P.ExchangeExec, P.SortExec, P.LimitExec,
@@ -355,8 +356,9 @@ def inject_runtime_filters(plan: P.PhysicalPlan, conf
     threshold = int(conf.get(THRESHOLD_KEY))
     fpp = float(conf.get(FPP_KEY))
     # synthesized creation semis are sound only when every shard sees
-    # the full other side — always, on the port's one device
-    semi_aware = bool(conf.get(SEMI_KEY))
+    # the full other side — i.e. on one device (see the conf doc)
+    semi_aware = bool(conf.get(SEMI_KEY)) \
+        and int(conf.get("spark_tpu.sql.mesh.size")) <= 1
 
     def walk(node):
         new_children = tuple(walk(c) for c in node.children)

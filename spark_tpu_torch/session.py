@@ -3,7 +3,11 @@ of `spark_tpu/session.py`; reference: `SparkSession.scala:83`).
 
 A session runs on one device: the current CUDA card unless the builder
 asks for another (`SparkTpuSession.builder().device("cpu")`). Without a
-device and without CUDA, building a session raises.
+device and without CUDA, building a session raises. At
+`spark_tpu.sql.mesh.size` N > 1 a query runs on a mesh of N shards: on
+cards cuda:0 to cuda:N-1 when the session was built without a device
+(fewer cards raise "devices visible"), or all on the device it was built
+with — the counterpart of the JAX package's virtual CPU devices.
 
 `sql(text)` parses and lowers one statement (`sql/parser.py`) to the
 same logical plans the DataFrame API builds; a DDL/DML command runs at
@@ -56,6 +60,9 @@ class SparkTpuSession:
     def __init__(self, conf: Optional[Conf] = None, device=None):
         self.conf = conf or Conf()
         self.device = resolve_device(device)
+        #: built with an explicit device: a mesh then places every shard
+        #: on it; without one a mesh takes cuda:0..N-1 (parallel/mesh.py)
+        self.device_pinned = device is not None
         self.catalog: Catalog = Catalog(self)
         # plan-fingerprint data cache (reference: CacheManager.scala):
         # the marked plans, and the tables materialized for them; a

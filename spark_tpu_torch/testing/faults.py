@@ -47,11 +47,17 @@ The seams this package wires:
 - `udf_worker_spawn` fires before each UDF worker spawn
   (udf_worker/pool.py);
 - `cancel_point` fires at every cooperative cancellation boundary
-  (execution/lifecycle.py `checkpoint`).
+  (execution/lifecycle.py `checkpoint`);
+- `mesh` fires before each run of the plan on a mesh
+  (execution/executor.py), where the JAX package fires it once per mesh
+  stage compile; a fault there takes the mesh failure ladder;
+- `shuffle` fires once per exchange per mesh run, on shard 0, before any
+  row moves (parallel/shuffle.py), as the JAX package fires it once per
+  exchange lowering.
 
 The JAX package's `stage_compile` seam has no counterpart: eager torch
-has no compile step. Its mesh, streaming-query, compile-cache and fleet
-seams come with those slices.
+has no compile step. Its elastic-mesh, streaming-query, compile-cache
+and fleet seams come with those slices.
 """
 
 from __future__ import annotations
@@ -68,7 +74,7 @@ INJECT_KEY = "spark_tpu.faults.inject"
 #: site fails at arm time instead of silently never firing.
 KNOWN_SITES = ("scan_load", "stage_run", "join_build", "stream_chunk",
                "ingest_prefetch", "cancel_point", "udf_batch",
-               "udf_worker_spawn")
+               "udf_worker_spawn", "mesh", "shuffle")
 
 #: test-registered extra seams (register_site)
 _EXTRA_SITES: set = set()

@@ -1,0 +1,214 @@
+"""The port faults P1-P4 that the mesh slice repairs first, each held
+against the JAX package on the CPU: the `like`/`startswith`/`substr`
+column methods (P1); keys of unported slices refused unless set to
+their default (P2); `Conf.unset` and `hash_join.resolve_kernel` (P3);
+`PhysicalPlan.describe()` (P4), equal to the JAX package's for the 22
+TPC-H SQL plans at mesh 0 and 8."""
+
+import numpy as np
+import pandas as pd
+import pytest
+
+from spark_tpu import config as ref_config
+from spark_tpu.execution import hash_join as ref_hash_join
+from spark_tpu_torch import config as port_config
+from spark_tpu_torch.execution import hash_join as port_hash_join
+from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
+from torch_mesh_parity import MESH, PORT, REF
+from torch_mesh_parity import sessions as mesh_sessions
+from torch_sql_parity import assert_tables_match, sessions, write_data
+
+EST = "spark_tpu.sql.aggregate.estimatedGroups"
+CHUNK = "spark_tpu.sql.execution.streamingChunkRows"
+
+#: the keys this slice registers (the mesh's)
+MESH_KEYS = ("spark_tpu.sql.mesh.size", "spark_tpu.sql.mesh.excludeDevices",
+             "spark_tpu.sql.shuffle.partitions",
+             "spark_tpu.sql.autoBroadcastJoinThreshold",
+             "spark_tpu.sql.adaptive.skewJoin.enabled",
+             "spark_tpu.sql.adaptive.skewJoin.factor",
+             "spark_tpu.sql.adaptive.skewJoin.broadcastThreshold",
+             "spark_tpu.execution.meshFallback.enabled")
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return mesh_sessions()
+
+
+def both(pair, build):
+    port, ref = pair
+    return build(port, PORT).collect(), build(ref, REF).collect()
+
+
+# -- P1 -----------------------------------------------------------------------
+
+def test_substring_groupby_merges_colliding_codes(pair):
+    pdf = pd.DataFrame({"s": ["aa1", "aa2", "bb1", "aa3"],
+                        "v": np.array([1, 2, 3, 4], dtype=np.int64)})
+    got, want = both(pair, lambda s, x: s.create_dataframe(pdf, "p1sub")
+                     .group_by(x.col("s").substr(1, 2).alias("p"))
+                     .agg(x.F.sum(x.col("v")).alias("sv"))
+                     .sort(x.col("p")))
+    assert_tables_match(got, want)
+    assert got.column("p").to_pylist() == ["aa", "bb"]
+    assert got.column("sv").to_pylist() == [7, 3]
+
+
+def test_streamed_substr_groupby_multichunk(pair):
+    strs = [f"aa{i}" for i in range(100)] + \
+        [f"bb{i}" for i in range(100)] + [f"cc{i}" for i in range(100)]
+    pdf = pd.DataFrame({"s": strs, "v": np.ones(300, dtype=np.int64)})
+    for s in pair:
+        s.conf.set(CHUNK, 64)
+    try:
+        got, want = both(pair, lambda s, x: s.create_dataframe(pdf, "p1st")
+                         .group_by(x.col("s").substr(1, 2).alias("p"))
+                         .agg(x.F.count().alias("c")).sort(x.col("p")))
+    finally:
+        for s in pair:
+            s.conf.unset(CHUNK)
+    assert_tables_match(got, want)
+    assert got.column("p").to_pylist() == ["aa", "bb", "cc"]
+    assert got.column("c").to_pylist() == [100, 100, 100]
+
+
+def test_like_and_startswith(pair):
+    pdf = pd.DataFrame({"s": ["a%b", "a_c", "abc", "xa%"],
+                        "v": np.arange(4, dtype=np.int64)})
+    got, want = both(pair, lambda s, x: s.create_dataframe(pdf, "p1like")
+                     .filter(x.col("s").startswith("a%")
+                             | x.col("s").like("%c"))
+                     .sort(x.col("v")))
+    assert_tables_match(got, want)
+    assert got.column("s").to_pylist() == ["a%b", "a_c", "abc"]
+
+
+# -- P2 -----------------------------------------------------------------------
+
+def test_every_reference_key_is_registered_or_listed():
+    ref = ref_config.registry()
+    port = port_config.registry()
+    listed = port_config.UNPORTED_KEYS
+    assert set(port) | set(listed) == set(ref)
+    assert not set(port) & set(listed)
+    for key, (part, default) in listed.items():
+        if key != "spark_tpu.sql.planChangeValidation":
+            # (tests/conftest.py raises that one's registry default to
+            # "full" through SPARK_TPU_PLAN_VALIDATION; its own is "off")
+            assert default == ref[key].default, key
+        assert part.startswith(("slice", "the multi-host")), key
+    for key in MESH_KEYS:
+        assert key in port and key not in listed
+        assert port[key].default == ref[key].default
+
+
+@pytest.mark.parametrize("key,value,part", [
+    ("spark_tpu.sql.planChangeValidation", "full", "slice 12b"),
+    ("spark_tpu.execution.meshRestart.enabled", False, "slice 10b"),
+    ("spark_tpu.sql.cluster.coordinator", "host0:8476", "multi-host"),
+    ("spark_tpu.sql.metrics.enabled", "false", "slice 12a"),
+    ("spark_tpu.streaming.retainBatches", 5, "slice 11"),
+    ("spark_tpu.sql.compileCache.enabled", True, "slice 12c"),
+])
+def test_unported_key_raises_unless_default(key, value, part):
+    conf = port_config.Conf()
+    with pytest.raises(port_config.UnportedConfError, match=part):
+        conf.set(key, value)
+    assert not conf.is_explicitly_set(key)
+    default = port_config.UNPORTED_KEYS[key][1]
+    conf.set(key, default)  # the default means what the port does
+    assert conf.get(key) == default
+
+
+def test_unknown_keys_stay_an_open_map():
+    """A key neither package registers passes through, as in SparkConf."""
+    conf = port_config.Conf()
+    conf.set("myapp.report.owner", "x")
+    assert conf.get("myapp.report.owner") == "x"
+
+
+# -- P3 -----------------------------------------------------------------------
+
+def test_conf_unset():
+    conf = port_config.Conf()
+    conf.set(EST, 64)
+    assert conf.get(EST) == 64 and conf.is_explicitly_set(EST)
+    conf.unset(EST)
+    conf.unset(EST)  # unsetting twice is fine
+    assert conf.get(EST) == port_config.registry()[EST].default
+    assert not conf.is_explicitly_set(EST)
+
+
+@pytest.mark.parametrize("probe,build,fallback", [
+    (1 << 10, 1 << 8, None), (1 << 20, 1 << 10, None),
+    (1 << 20, 1 << 19, None), (1 << 21, 1 << 12, False)])
+@pytest.mark.parametrize("mode", ["auto", "hash", "sort"])
+def test_resolve_kernel(probe, build, fallback, mode):
+    key = "spark_tpu.sql.join.kernelMode"
+    pc, rc = port_config.Conf(), ref_config.Conf()
+    pc.set(key, mode)
+    rc.set(key, mode)
+    got = port_hash_join.resolve_kernel(pc, probe, build, fallback)
+    assert got == port_hash_join.kernel_choice(pc, probe, build,
+                                               fallback)[0]
+    assert got == ref_hash_join.resolve_kernel(rc, probe, build, fallback)
+
+
+def test_agg_overflow_retry(pair):
+    rs = np.random.RandomState(5)
+    pdf = pd.DataFrame({
+        "k": (rs.permutation(3000) * 1_000_003).astype(np.int64),
+        "v": np.ones(3000, dtype=np.int64)})
+    for s in pair:
+        s.register_table("ovf_t", pdf)
+        s.conf.set(EST, 64)
+    try:
+        got, want = both(pair, lambda s, x: s.table("ovf_t")
+                         .group_by(x.col("k")).agg(x.F.count().alias("c"))
+                         .sort(x.col("k")))
+    finally:
+        for s in pair:
+            s.conf.unset(EST)
+    assert_tables_match(got, want)
+    assert got.num_rows == 3000 and sum(got.column("c").to_pylist()) == 3000
+    assert all(not s.conf.is_explicitly_set(EST) for s in pair)
+
+
+def test_adaptive_disabled_raises(pair):
+    rs = np.random.RandomState(6)
+    pdf = pd.DataFrame({
+        "k": (rs.permutation(2000) * 7_000_003).astype(np.int64)})
+    for s in pair:
+        s.register_table("noadapt_t", pdf)
+        s.conf.set(EST, 32)
+        s.conf.set("spark_tpu.sql.adaptive.enabled", False)
+    try:
+        for s, x in zip(pair, (PORT, REF)):
+            with pytest.raises(RuntimeError, match="adaptive"):
+                (s.table("noadapt_t").group_by(x.col("k"))
+                 .agg(x.F.count().alias("c")).collect())
+    finally:
+        for s in pair:
+            s.conf.set("spark_tpu.sql.adaptive.enabled", True)
+            s.conf.unset(EST)
+
+
+# -- P4 -----------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tpch_path(tmp_path_factory):
+    return write_data(tmp_path_factory, 0.002)
+
+
+@pytest.mark.parametrize("n", [0, 8])
+def test_describe_matches_reference(tpch_path, n):
+    """describe() of the 22 TPC-H SQL plans, as planned (no run), equals
+    the JAX package's at mesh 0 and 8."""
+    port, ref = sessions(tpch_path, f"desc{n}", confs=((MESH, n),))
+    for q in sorted(SQL_QUERIES, key=lambda q: int(q[1:])):
+        pd_, rd = (s.sql(SQL_QUERIES[q])._qe().executed_plan.describe()
+                   for s in (port, ref))
+        assert pd_ == rd, q
+        assert pd_.startswith("(") and pd_.endswith(")")
+        assert ("ExchangeExec(" in pd_) == (n > 1), q
