@@ -7,11 +7,13 @@
     python3 chip_smoke.py --phases udf         # phase 13 (and 1-2)
     python3 chip_smoke.py --phases mesh        # phase 14 (and 1-2); on a
         # host with 4 cards its 4-card cases run too
+    python3 chip_smoke.py --phases obs         # phase 15 (and 1-2)
 
 Phases, in order; any failure exits non-zero before the last line.
 Phases 1 and 2 always run; `--phases` names the others, from PHASES:
 kernels (3), variants (4), main (5), sql (6), tpcds (7), window (8),
-fuzz (9), functions (10), etl (11), ooc (12), udf (13), mesh (14).
+fuzz (9), functions (10), etl (11), ooc (12), udf (13), mesh (14),
+obs (15).
 Each query of
 phases 5-8, 10, 11's aggregates and 13 runs twice: a
 first run, after the device table cache and the session's kept
@@ -205,6 +207,30 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    device cache's budget raised to `MESH_CACHE_BYTES`, so nothing
    streams), against phase 12's exact golden, with each card's peak
    allocated bytes.
+15. obs, the observability spine on phase 5's TPC-H SF1 tables (written
+   here when phase 15 runs alone): SQL Q1, Q5, Q6 and
+   `range(16M).group_by(id % 65536)` in a session with every
+   observability output on (event log, Chrome traces,
+   `metrics.sink=prometheus,jsonl`, `observability.xlaCost=on`, and a
+   torch.profiler trace of Q1's first run) and in one with every
+   observability key off: a first run in each, then OBS_RUNS warm runs
+   of each interleaved. Every run starts with the launch counters at 0
+   and must launch its kernel (`OBS_KERNELS`); the first run in the
+   `on` session is held to the golden (the range to numpy), and every
+   other run must give its bytes. `[obs]` lines print each program's
+   warm medians on and off and their ratio, its event's bytes and each
+   observability step's own milliseconds a run (`OBS_STEPS`: the
+   query-end post, `_build_event`, the event-log, trace, metrics-sink
+   and flight-recorder listeners, the stage event, the cost capture).
+   Then an injected `stage_run:fatal:1` must leave one flight-recorder
+   bundle; the log must pass `scripts/events_tool.py validate` (a
+   subprocess), replay through `spark_tpu_torch.history` with one line
+   per execution, and give every execution a `peak_hbm_bytes` between 1
+   byte and the card's capacity (`hbm_summary`, printed per query);
+   every Chrome trace and the profile must parse; `metrics.prom` must
+   count every execution's latency; and DF Q1 at 4 shards pinned to
+   cuda:0 with `observability.shardSpans=on` must log one `transfer`
+   record per shard for each exchange that routes rows.
 Then the kernels are timed again on the exact inputs the first run of
 each query of phases 5-7 and 10-13 gave them (a chunk's input, for a
 streamed query).
@@ -302,10 +328,10 @@ SOURCE = "spark_tpu_torch/csrc/dense_groupby.cu"
 #: the phases `--phases` chooses from, in run order (device and build
 #: always run)
 PHASES = ("kernels", "variants", "main", "sql", "tpcds", "window", "fuzz",
-          "functions", "etl", "ooc", "udf", "mesh")
+          "functions", "etl", "ooc", "udf", "mesh", "obs")
 #: the phases that drive the package's main path (run_phases)
 MAIN_PHASES = ("main", "sql", "tpcds", "window", "fuzz", "functions", "etl",
-               "ooc", "udf", "mesh")
+               "ooc", "udf", "mesh", "obs")
 #: the hand kernels each function-library program must launch at SF1
 #: (F2's and F3's aggregates and functions run as torch ops: the
 #: positional sort, the sort aggregate, the date and bit arithmetic)
@@ -337,6 +363,22 @@ MESH_KERNELS = QUERY_KERNELS
 NVLINK_BYTES_PER_S = 450e9
 CACHE_KEY = "spark_tpu.sql.io.deviceCacheBytes"
 MESH_CACHE_BYTES = 64 << 30
+#: phase 15: the SQL queries it runs (with the range group-by), the
+#: kernel each must launch, its warm runs per session, and the conf of
+#: the session with every observability key off
+OBS_SQL = ("q1", "q5", "q6")
+OBS_KERNELS = {"q1": "dense_sums_smem", "q5": "dense_sums_smem",
+               "q6": "dense_sums_smem", "range": "dense_sums_global"}
+OBS_RUNS = 9
+#: the observability steps phase 15 times (`obs_steps`), in print order
+OBS_STEPS = ("query end", "_build_event", "event log", "trace write",
+             "metrics sinks", "flight recorder", "stage event",
+             "cost reset", "cost read")
+OBS_OFF = (("spark_tpu.sql.metrics.enabled", False),
+           ("spark_tpu.sql.observability.xlaCost", "off"),
+           ("spark_tpu.sql.observability.shardSpans", "off"),
+           ("spark_tpu.sql.status.enabled", False),
+           ("spark_tpu.sql.flightRecorder.enabled", False))
 
 
 def log(*parts) -> None:
@@ -2267,7 +2309,7 @@ def udf_times(qe) -> str:
                       ("udf_child", "udf_egress", "udf_eval", "udf_ingest")
                       if k in pt)
     main = ", ".join(f"{k} {pt[k] * 1e3:.1f}" for k in
-                     ("python_udfs", "ingest", "execute", "egress")
+                     ("python_udfs", "ingest", "execution", "egress")
                      if k in pt)
     s = qe.udf_summary or {}
     return (f"phase ms: {main} (python_udfs: {split}); udf_summary: "
@@ -2824,6 +2866,271 @@ def phase_mesh(D, S, G, path, df_results, launches, current) -> None:
     mesh_sf10(D, S, launches, current)
     log(f"[mesh] {MESH_SHARDS} cards: {time.perf_counter() - t0:.1f} s")
 
+def obs_session(S, path, confs):
+    """A one-card session over the TPC-H tables at `path` with `confs`."""
+    from spark_tpu_torch.tpch.queries import register_tables
+    session = S.SparkTpuSession.builder().get_or_create()
+    for key, value in confs:
+        session.conf.set(key, value)
+    register_tables(session, path)
+    return session
+
+
+def obs_programs():
+    """Phase 15's programs: label -> make(session) -> DataFrame."""
+    from spark_tpu_torch import functions as F
+    from spark_tpu_torch.functions import col
+    from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
+    out = {q: (lambda s, q=q: s.sql(SQL_QUERIES[q])) for q in OBS_SQL}
+    out["range"] = lambda s: s.range(RANGE_ROWS).group_by(
+        col("id") % RANGE_MOD).agg(F.count(), F.sum(col("id")),
+                                   F.avg(col("id")))
+    return out
+
+
+def obs_steps() -> dict:
+    """The observability steps phase 15 times: step -> (owner, attribute).
+    `query end` is the whole post (the event's build and every built-in
+    listener); the listeners are its parts."""
+    from spark_tpu_torch.execution.executor import QueryExecution
+    from spark_tpu_torch.observability import sinks
+    from spark_tpu_torch.observability.device_cost import AttemptCost
+    from spark_tpu_torch.observability.flight_recorder import FlightRecorder
+    return {"query end": (QueryExecution, "_post_query_end"),
+            "_build_event": (QueryExecution, "_build_event"),
+            "event log": (sinks.EventLogListener, "on_query_end"),
+            "trace write": (sinks.ChromeTraceListener, "on_query_end"),
+            "metrics sinks": (sinks.MetricsSinkListener, "on_query_end"),
+            "flight recorder": (FlightRecorder, "on_query_end"),
+            "stage event": (QueryExecution, "_post_stage_completed"),
+            "cost reset": (AttemptCost, "__init__"),
+            "cost read": (AttemptCost, "finish")}
+
+
+def obs_run(D, session, make, kernel, label):
+    """One run of `make(session)` with the launch counters at 0; it must
+    launch `kernel`. Returns (Arrow result, seconds)."""
+    import torch
+    zero_launches(D)
+    t0 = time.perf_counter()
+    got = make(session)._qe().collect()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    require_kernels(label, kernel, dict(D.LAUNCHES))
+    return got, seconds
+
+
+def phase_obs(D, S, G, path, launches, current, capture) -> None:
+    """Phase 15: the observability spine on the card. SQL Q1, Q5, Q6 and
+    the range group-by in a session with every output on (event log,
+    Chrome traces, `metrics.sink=prometheus,jsonl`, `xlaCost=on`, a
+    torch.profiler trace for Q1's first run) and one with every
+    observability key off; every run gives the golden answer (the
+    first through the golden, the rest by bytes equal to it), the same
+    bytes in both sessions, and launches its kernel. Then the checks:
+    the log validates under `scripts/events_tool.py` and replays
+    through `history`; `hbm_summary` gives every execution a peak
+    between 1 byte and the card's capacity; every trace parses; the
+    Prometheus file counts every execution's latency; an injected
+    `stage_run:fatal:1` leaves a flight-recorder bundle; and DF Q1 at 4
+    shards pinned to cuda:0 writes `transfer` records for its
+    exchanges. `capture` keeps each program's first kernel inputs
+    (under `obs <label>`) for the kernel report."""
+    import os
+    import statistics
+    import torch
+    from spark_tpu_torch import history
+    from spark_tpu_torch.execution.executor import QueryExecution
+    from spark_tpu_torch.observability import sinks
+    from spark_tpu_torch.observability.device_cost import \
+        device_hbm_capacity
+    from spark_tpu_torch.observability.metrics import parse_prometheus
+    from spark_tpu_torch.testing import faults
+    from spark_tpu_torch.tpch import queries as Q
+    t_phase = time.perf_counter()
+    programs = obs_programs()
+    with tempfile.TemporaryDirectory() as tmp:
+        on_confs = (
+            ("spark_tpu.sql.eventLog.dir", f"{tmp}/ev"),
+            ("spark_tpu.sql.trace.dir", f"{tmp}/tr"),
+            ("spark_tpu.sql.metrics.sink", "prometheus,jsonl"),
+            ("spark_tpu.sql.metrics.dir", f"{tmp}/m"),
+            ("spark_tpu.sql.observability.xlaCost", "on"),
+            ("spark_tpu.sql.flightRecorder.dir", f"{tmp}/fr"))
+        on = obs_session(S, path, on_confs)
+        off = obs_session(S, path, OBS_OFF)
+        # each observability step's own time per warm run of the `on`
+        # session (summed over a run's calls), and each event's bytes
+        label = [None]
+        cost = {k: {step: [] for step in OBS_STEPS} | {"bytes": []}
+                for k in programs}
+        originals = {step: getattr(owner, attr)
+                     for step, (owner, attr) in obs_steps().items()}
+
+        def timed(step, fn):
+            def wrapper(*a, **k):
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                if label[0] is not None:
+                    calls = cost[label[0]][step]
+                    calls[-1] += time.perf_counter() - t0
+                    if step == "_build_event":
+                        cost[label[0]]["bytes"].append(len(json.dumps(
+                            out, default=sinks.json_default)))
+                return out
+            return wrapper
+
+        for step, (owner, attr) in obs_steps().items():
+            setattr(owner, attr, timed(step, originals[step]))
+        executions = 0
+        try:
+            for name, make in programs.items():
+                kernel = OBS_KERNELS[name]
+                if name == "q1":
+                    on.conf.set("spark_tpu.sql.profile.dir", f"{tmp}/prof")
+                current[0] = f"obs {name}" if capture else None
+                zero_launches(D)
+                first, _ = obs_run(D, on, make, kernel, f"obs {name}")
+                launches[f"obs {name}"] = dict(D.LAUNCHES)
+                current[0] = None
+                on.conf.set("spark_tpu.sql.profile.dir", "")
+                executions += 1
+                if name == "range":
+                    mesh_range_check(first)
+                else:
+                    mesh_golden(G, path, name, first)
+                got, _ = obs_run(D, off, make, kernel, f"obs {name} off")
+                tables_match(f"obs {name}: off against on", got, first)
+                times = {"on": [], "off": []}
+                for _ in range(OBS_RUNS):
+                    for mode, session in (("on", on), ("off", off)):
+                        label[0] = name if mode == "on" else None
+                        if mode == "on":
+                            for step in OBS_STEPS:
+                                cost[name][step].append(0.0)
+                        got, seconds = obs_run(D, session, make, kernel,
+                                               f"obs {name} {mode}")
+                        label[0] = None
+                        executions += mode == "on"
+                        times[mode].append(seconds)
+                        if not got.equals(first):
+                            raise AssertionError(
+                                f"obs {name} ({mode}): bytes differ from "
+                                f"the first run's")
+                t_on = statistics.median(times["on"])
+                t_off = statistics.median(times["off"])
+                c = cost[name]
+                steps = ", ".join(
+                    f"{step} {statistics.median(c[step]) * 1e3:.3f}"
+                    for step in OBS_STEPS)
+                log(f"[obs] {name}: warm wall, median of {OBS_RUNS}: "
+                    f"everything on {t_on * 1e3:.2f} ms, everything off "
+                    f"{t_off * 1e3:.2f} ms, ratio {t_on / t_off:.4f}; "
+                    f"event {statistics.median(c['bytes']):.0f} bytes; "
+                    f"ms a run: {steps}; equal bytes on and off, "
+                    f"{kernel} launched every run")
+        finally:
+            for step, (owner, attr) in obs_steps().items():
+                setattr(owner, attr, originals[step])
+        # an injected fatal: its error line, and a bundle
+        with faults.inject(on.conf, "stage_run:fatal:1"):
+            try:
+                programs["q6"](on)._qe().collect()
+            except faults.FaultInjected:
+                pass
+            else:
+                raise AssertionError("obs: stage_run:fatal:1 did not raise")
+        bundles = [b for b in os.listdir(f"{tmp}/fr")
+                   if b.startswith(f"bundle-{on.app_id}-")]
+        if len(bundles) != 1:
+            raise AssertionError(f"obs: bundles after the fatal: {bundles}")
+        with open(f"{tmp}/fr/{bundles[0]}/MANIFEST.json") as f:
+            manifest = json.load(f)
+        if manifest["reason"] != "fatal" or \
+                "FaultInjected" not in manifest["error"]:
+            raise AssertionError(f"obs: bundle manifest {manifest}")
+        log(f"[obs] stage_run:fatal:1: bundle {bundles[0]} with "
+            f"{len(manifest['files'])} files ({', '.join(manifest['files'])})")
+        # the log: valid, replayed, one line per execution, peaks in range
+        tool = subprocess.run(
+            [sys.executable, "scripts/events_tool.py", "validate",
+             f"{tmp}/ev"], capture_output=True, text=True, timeout=120)
+        if tool.returncode != 0:
+            raise AssertionError(f"obs: events_tool validate: "
+                                 f"{tool.stdout[-2000:]}{tool.stderr[-2000:]}")
+        events = history.read_event_log(f"{tmp}/ev")
+        statuses = list(events["status"])
+        if statuses != ["ok"] * executions + ["error"]:
+            raise AssertionError(f"obs: logged statuses {statuses}")
+        capacity = device_hbm_capacity(on.device)
+        hbm = history.hbm_summary(events)
+        # the fatal fired before its attempt ran: no stage of its own
+        if len(hbm) != executions or not all(
+                1 <= p <= capacity for p in hbm["peak_hbm_bytes"]):
+            raise AssertionError(f"obs: hbm_summary {hbm.to_dict('list')}"
+                                 f" against capacity {capacity}")
+        peaks = hbm.groupby("plan", sort=False)["peak_hbm_bytes"].max()
+        for plan, peak in peaks.items():
+            log(f"[obs] peak {peak:,} bytes of {capacity:,} "
+                f"({peak / capacity:.4f}): {plan[:60]}")
+        # traces parse; the profile is a Chrome trace too
+        traces = sorted(os.listdir(f"{tmp}/tr"))
+        for name in traces:
+            with open(f"{tmp}/tr/{name}") as f:
+                if not json.load(f)["traceEvents"]:
+                    raise AssertionError(f"obs: empty trace {name}")
+        (prof,) = os.listdir(f"{tmp}/prof")
+        with open(f"{tmp}/prof/{prof}") as f:
+            prof_events = len(json.load(f)["traceEvents"])
+        # the metrics file counts every execution (the fatal's too)
+        prom = parse_prometheus(f"{tmp}/m/metrics.prom")
+        n = executions + 1
+        if prom.get("spark_tpu_status_latency_ms_count") != n or \
+                prom.get("spark_tpu_queries_total") != n:
+            raise AssertionError(
+                f"obs: metrics.prom counts "
+                f"{prom.get('spark_tpu_status_latency_ms_count')} latencies,"
+                f" {prom.get('spark_tpu_queries_total')} queries; ran {n}")
+        log(f"[obs] log: {len(events)} lines valid and replayed, "
+            f"{os.path.getsize(f'{tmp}/ev/app-{on.app_id}.jsonl'):,} bytes;"
+            f" {len(traces)} traces parse; profile trace {prof_events} "
+            f"events; metrics.prom counts {n} latencies")
+        obs_mesh_transfers(D, S, G, path, Q, tmp)
+    log(f"[obs] phase in {time.perf_counter() - t_phase:.1f} s")
+
+
+def obs_mesh_transfers(D, S, G, path, Q, tmp) -> None:
+    """DF Q1 at 4 shards pinned to cuda:0 with shardSpans on: each of
+    its exchanges gives one transfer record per shard, in the log."""
+    from spark_tpu_torch import history
+    session = mesh_session(S, path, pinned=True)
+    session.conf.set("spark_tpu.sql.observability.shardSpans", "on")
+    session.conf.set("spark_tpu.sql.eventLog.dir", f"{tmp}/mesh_ev")
+    zero_launches(D)
+    qe = Q.QUERIES["q1"](session)._qe()
+    got = qe.collect()
+    require_shard_launches("obs mesh q1", "dense_sums_smem",
+                           dict(D.LAUNCHES), card_launches(D), [0])
+    mesh_golden(G, path, "q1", got)
+    transfer = [r for r in qe.spans.shard_records
+                if r["phase"] == "transfer"]
+    sources = sorted({r["source"] for r in transfer})
+    by_source = {src: [r["rows"] for r in transfer if r["source"] == src]
+                 for src in sources}
+    # one record per shard for each exchange that routes rows (a hash or
+    # range exchange; a gather's rows are the result's)
+    if not sources or any(len(rows) != MESH_SHARDS
+                          for rows in by_source.values()) \
+            or not sum(sum(rows) for rows in by_source.values()):
+        raise AssertionError(f"obs mesh q1: transfer records {by_source}")
+    shards = history.shard_summary(history.read_event_log(
+        f"{tmp}/mesh_ev"))
+    if len(shards) != len(transfer):
+        raise AssertionError("obs mesh q1: the log lacks its records")
+    log(f"[obs] mesh DF Q1, {MESH_SHARDS} shards on cuda:0: "
+        + "; ".join(f"{src} rows by shard {rows}"
+                    for src, rows in by_source.items()))
+
 
 def run_phases(D, phases):
     """The main-path phases chosen (5-12); returns the per-kernel launch
@@ -2860,7 +3167,8 @@ def run_phases(D, phases):
     D.dense_groupby_sums = recording
     launches = {}
     try:
-        if {"main", "sql", "functions", "etl", "ooc", "udf", "mesh"} & phases:
+        if {"main", "sql", "functions", "etl", "ooc", "udf", "mesh",
+                "obs"} & phases:
             with tempfile.TemporaryDirectory() as tmp:
                 t0 = time.perf_counter()
                 path = write_parquet(tmp + "/tpch", SF)
@@ -2891,6 +3199,10 @@ def run_phases(D, phases):
                     t0 = time.perf_counter()
                     phase_mesh(D, S, G, path, df_results, launches, current)
                     log(f"[mesh] phase in {time.perf_counter() - t0:.1f} s")
+                if "obs" in phases:
+                    # its kernel inputs are main's and sql's when those ran
+                    phase_obs(D, S, G, path, launches, current,
+                              capture=not {"main", "sql"} & phases)
         if "main" in phases:
             phase_range(D, S, launches, current)
         if {"tpcds", "window", "functions"} & phases:
@@ -3206,7 +3518,7 @@ def kernel_report(D, launches, captured, phases):
         raise AssertionError(f"no kernel input captured for {missing}")
     sql = [(name, label) for label, name in captured
            if label.startswith(("sql ", "tpcds ", "functions ", "etl ",
-                                "ooc ", "udf ", "mesh "))]
+                                "ooc ", "udf ", "mesh ", "obs "))]
     inputs = [(name, q, x) for name, q in programs + sql
               for x in captured[(q, name)].values()]
     for name, q, (idx, ir, fr, domain, _kept) in inputs:

@@ -509,12 +509,180 @@ SKEW_BROADCAST_BYTES = register(
         "re-plan (larger than autoBroadcastJoinThreshold).")
 
 
+# -- observability (observability/), with the JAX package's defaults ------
+
+METRICS_ENABLED = register(
+    "spark_tpu.sql.metrics.enabled", True,
+    doc="Record per-operator output row counts during execution "
+        "(surfaced by explain(runtime=True); analog of SQLMetrics).")
+
+PROFILE_DIR = register(
+    "spark_tpu.sql.profile.dir", "",
+    doc="When set, wrap query execution in a torch.profiler trace "
+        "written to this directory as Chrome trace-event JSON (one trace "
+        "per execute; the JAX package writes a jax.profiler trace).")
+
+EVENT_LOG_DIR = register(
+    "spark_tpu.sql.eventLog.dir", "",
+    doc="When set, append one JSON line per query execution (plan "
+        "fingerprint, phase timings, per-operator metrics, spans, stage "
+        "device-memory costs, fault summary) to <dir>/app-<session>.jsonl "
+        "— the EventLoggingListener analog; read back with "
+        "spark_tpu_torch.history.read_event_log.")
+
+EVENT_LOG_MAX_BYTES = register(
+    "spark_tpu.sql.eventLog.maxBytes", 0,
+    doc="Event-log rotation threshold: when the live app-<session>.jsonl "
+        "reaches this size, it rolls to app-<session>.N.jsonl and a "
+        "fresh live file starts (read_event_log replays rolled files in "
+        "N order). 0 disables rotation (unbounded file, the reference's "
+        "spark.eventLog.rolling.enabled=false default).")
+
+TRACE_DIR = register(
+    "spark_tpu.sql.trace.dir", "",
+    doc="When set, write one Chrome-trace-event JSON per query "
+        "execution (<dir>/query-<session>-<id>.trace.json) covering the "
+        "per-stage spans: analysis -> optimize -> plan -> ingest -> "
+        "dispatch -> egress, AQE re-plans and retries. Load in Perfetto "
+        "or chrome://tracing.")
+
+METRICS_SINK = register(
+    "spark_tpu.sql.metrics.sink", "",
+    doc="Comma-separated metrics sinks flushed at every query end: "
+        "'jsonl' (snapshot lines appended to metrics.jsonl) and/or "
+        "'prometheus' (text exposition atomically rewritten to "
+        "metrics.prom, scrapeable via a textfile collector). Empty "
+        "disables. The MetricsSystem/sink-configuration analog.",
+    validator=lambda v: all(
+        s.strip() in ("jsonl", "prometheus")
+        for s in str(v).split(",") if s.strip()))
+
+METRICS_DIR = register(
+    "spark_tpu.sql.metrics.dir", "spark-metrics",
+    doc="Output directory for the metrics sinks "
+        "(spark_tpu.sql.metrics.sink).")
+
+XLA_COST_MODE = register(
+    "spark_tpu.sql.observability.xlaCost", "auto",
+    doc="Capture each executed attempt's device-memory cost "
+        "(observability/device_cost.py: the peak bytes the CUDA "
+        "allocator held above the attempt's start, the loaded scans' "
+        "and the result's bytes; the JAX package's XLA cost/memory "
+        "analysis has no eager counterpart). 'auto' captures only when "
+        "an observability output is configured (eventLog.dir, "
+        "trace.dir, metrics.sink) or the OOM ladder is descending; "
+        "'on' always; 'off' never. The key keeps the JAX package's name "
+        "and meaning.",
+    validator=lambda v: v in ("auto", "on", "off"))
+
+MAX_SPANS = register(
+    "spark_tpu.sql.observability.maxSpans", 1000,
+    doc="Per-query bound on recorded lifecycle spans (a pathological "
+        "retry loop must not grow the trace unboundedly; the recorder "
+        "counts what it drops).")
+
+SHARD_SPANS = register(
+    "spark_tpu.sql.observability.shardSpans", "auto",
+    doc="Per-shard telemetry for mesh runs: each exchange's per-shard "
+        "routed rows and bytes become transfer-phase records (and the "
+        "mesh stream's per-(shard, chunk) records, slice 10b). Records "
+        "land in the event log ('shards', schema v3), feed the "
+        "StragglerMonitor and the history.shard_summary()/"
+        "straggler_report() views. 'auto' records only when an "
+        "observability output or a user listener is active; 'on' "
+        "always; 'off' never.",
+    validator=lambda v: v in ("auto", "on", "off"))
+
+MAX_SHARD_RECORDS = register(
+    "spark_tpu.sql.observability.maxShardRecords", 4096,
+    doc="Per-query bound on buffered per-shard telemetry records (a "
+        "long mesh stream over many chunks must not grow the event "
+        "line unboundedly; the recorder counts what it drops).",
+    validator=lambda v: v >= 0)
+
+STRAGGLER_FACTOR = register(
+    "spark_tpu.sql.straggler.factor", 3.0,
+    doc="Straggler detection threshold for the StragglerMonitor "
+        "(observability/straggler.py): a shard whose rolling median "
+        "per-chunk latency exceeds factor x the median of all shards' "
+        "medians is flagged (straggler_flagged counter + on_straggler "
+        "listener event). The speculation-threshold seat of "
+        "spark.speculation.multiplier — detection only; chunk-range "
+        "rebalancing is the elastic-mesh follow-on. <= 0 disables "
+        "detection.",
+    type_=float)
+
+STRAGGLER_MIN_CHUNKS = register(
+    "spark_tpu.sql.straggler.minChunks", 4,
+    doc="Minimum per-shard chunk-latency samples before the "
+        "StragglerMonitor may flag a shard (spark.speculation.quantile "
+        "seat: early chunks are warmup-noisy).",
+    validator=lambda v: v >= 1)
+
+STRAGGLER_MIN_LATENCY_MS = register(
+    "spark_tpu.sql.straggler.minLatencyMs", 10.0,
+    doc="Noise floor for straggler flagging: a shard is only flagged "
+        "when its median per-chunk wait is at least this many "
+        "milliseconds — near-zero medians (every shard keeping up) "
+        "must not flag on ratio alone.",
+    validator=lambda v: v >= 0)
+
+STATUS_ENABLED = register(
+    "spark_tpu.sql.status.enabled", True,
+    doc="Feed the engine status store: record end-to-end and per-phase "
+        "query latency histograms (status_latency_ms / "
+        "status_phase_ms_*) and SLO burn counters at every query end, "
+        "and let the status heartbeat sample health gauges into its "
+        "ring time-series. Off silences the recording, not the readers "
+        "(they return whatever was recorded).")
+
+STATUS_HEARTBEAT_MS = register(
+    "spark_tpu.sql.status.heartbeatMs", 1000,
+    doc="Interval of the status store's heartbeat thread (the "
+        "Heartbeater analog): every tick samples queries in flight, "
+        "cache hit rates and the wired providers into the fixed-"
+        "capacity ring time-series.",
+    validator=lambda v: v >= 10)
+
+STATUS_RING_SIZE = register(
+    "spark_tpu.sql.status.ringSize", 360,
+    doc="Capacity of each status-store ring time-series (oldest "
+        "samples drop past it); 360 x the 1s default heartbeat = a "
+        "rolling 6-minute window per series.",
+    validator=lambda v: v >= 2)
+
+FLIGHTREC_ENABLED = register(
+    "spark_tpu.sql.flightRecorder.enabled", True,
+    doc="Keep the always-on flight recorder ring (recent events/spans/"
+        "fault records per subsystem, bounded, near-zero hot-path "
+        "cost) and dump a diagnostic bundle on FATAL errors, OOM-"
+        "ladder exhaustion, non-convergent recovery, or on demand. Off "
+        "disables both ring and dumps.")
+
+FLIGHTREC_DIR = register(
+    "spark_tpu.sql.flightRecorder.dir", "",
+    doc="Directory diagnostic bundles are dumped under (one versioned "
+        "bundle-<app>-<n>-<reason>/ per dump). Empty uses "
+        "<tmpdir>/spark-tpu-flightrec.")
+
+FLIGHTREC_RING_SIZE = register(
+    "spark_tpu.sql.flightRecorder.ringSize", 256,
+    doc="Per-subsystem bound on flight-recorder ring records (oldest "
+        "drop past it).",
+    validator=lambda v: v >= 8)
+
+FLIGHTREC_EVENT_TAIL = register(
+    "spark_tpu.sql.flightRecorder.eventLogTail", 200,
+    doc="How many trailing event-log lines a diagnostic bundle "
+        "includes (when eventLog.dir is set).",
+    validator=lambda v: v >= 0)
+
+
 # -- keys of slices not yet ported ------------------------------------------
 
 _ELASTIC = "slice 10b (the elastic mesh)"
 _MULTI_HOST = "the multi-host mesh (init_distributed)"
 _STREAMING = "slice 11 (streaming)"
-_OBSERVABILITY = "slice 12a (observability)"
 _ANALYSIS = "slice 12b (analysis)"
 _SERVING = "slice 12c (serving and the compiled-stage cache)"
 
@@ -530,27 +698,6 @@ UNPORTED_KEYS: Dict[str, tuple] = {
     "spark_tpu.sql.straggler.rebalance.enabled": (_ELASTIC, True),
     "spark_tpu.sql.straggler.rebalance.maxSkew": (_ELASTIC, 0.5),
     "spark_tpu.sql.straggler.rebalance.decayChunks": (_ELASTIC, 0),
-    "spark_tpu.sql.metrics.enabled": (_OBSERVABILITY, True),
-    "spark_tpu.sql.profile.dir": (_OBSERVABILITY, ""),
-    "spark_tpu.sql.eventLog.dir": (_OBSERVABILITY, ""),
-    "spark_tpu.sql.eventLog.maxBytes": (_OBSERVABILITY, 0),
-    "spark_tpu.sql.trace.dir": (_OBSERVABILITY, ""),
-    "spark_tpu.sql.metrics.sink": (_OBSERVABILITY, ""),
-    "spark_tpu.sql.metrics.dir": (_OBSERVABILITY, "spark-metrics"),
-    "spark_tpu.sql.observability.xlaCost": (_OBSERVABILITY, "auto"),
-    "spark_tpu.sql.observability.maxSpans": (_OBSERVABILITY, 1000),
-    "spark_tpu.sql.observability.shardSpans": (_OBSERVABILITY, "auto"),
-    "spark_tpu.sql.observability.maxShardRecords": (_OBSERVABILITY, 4096),
-    "spark_tpu.sql.straggler.factor": (_OBSERVABILITY, 3.0),
-    "spark_tpu.sql.straggler.minChunks": (_OBSERVABILITY, 4),
-    "spark_tpu.sql.straggler.minLatencyMs": (_OBSERVABILITY, 10.0),
-    "spark_tpu.sql.status.enabled": (_OBSERVABILITY, True),
-    "spark_tpu.sql.status.heartbeatMs": (_OBSERVABILITY, 1000),
-    "spark_tpu.sql.status.ringSize": (_OBSERVABILITY, 360),
-    "spark_tpu.sql.flightRecorder.enabled": (_OBSERVABILITY, True),
-    "spark_tpu.sql.flightRecorder.dir": (_OBSERVABILITY, ""),
-    "spark_tpu.sql.flightRecorder.ringSize": (_OBSERVABILITY, 256),
-    "spark_tpu.sql.flightRecorder.eventLogTail": (_OBSERVABILITY, 200),
     "spark_tpu.sql.analysis.enabled": (_ANALYSIS, True),
     "spark_tpu.sql.analysis.strict": (_ANALYSIS, False),
     "spark_tpu.sql.analysis.jaxpr": (_ANALYSIS, "auto"),

@@ -70,10 +70,31 @@ fault site) re-plans the query on one device under
 A partial aggregate over a scan past the device budget would stream per
 shard in the JAX package; that stream is not ported, and such a plan
 raises instead of running on one device.
+
+Observability (`observability/`, the JAX package's spine): each
+execution records spans (`self.spans`: analysis, optimize, plan,
+streaming, ingest, one dispatch per attempt, egress; marks for
+`aqe_replan`, `aqe_overflow`, `retry:<action>` and `cancelled`) and
+posts its lifecycle on `session.listeners`: `on_query_start`,
+`on_stage_completed` per attempt, `on_fault` per recovery action and
+`on_query_end` with status ok, error, cancelled or deadline_exceeded and
+the event-log record `_build_event` makes. With no observability output
+configured and no user listener, no event is built (`_events_enabled`).
+Eager torch compiles no stage, so `on_stage_compiled` is never posted.
+Under `spark_tpu.sql.observability.xlaCost` each attempt's device-memory
+cost is captured (`device_cost.py`, `self.stage_costs`); on a mesh, each
+exchange's per-shard rows and bytes become `transfer` records under
+`observability.shardSpans`; `spark_tpu.sql.profile.dir` wraps the
+attempts in a torch.profiler trace. A surfaced failure (not a cancel)
+asks the session's flight recorder for a diagnostic bundle. `collect()`
+posts the query's end after the egress to Arrow, so the record's phase
+times and spans include it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -87,6 +108,8 @@ from ..plan import logical as L
 from ..plan import physical as P
 from ..plan.optimizer import default_optimizer
 from ..plan.planner import plan_physical
+from ..observability.device_cost import (AttemptCost, batch_bytes,
+                                          device_hbm_capacity)
 from .failures import (FailureClass, RetryPolicy, StageOOMError,
                        StageTimeoutError, classify)
 
@@ -163,15 +186,18 @@ def run_plan(root: P.PhysicalPlan, ctx: P.ExecContext,
     share it. `loaded` maps node ids to batches computed already (the
     scans `load_scans` loaded), which are not computed again.
     `visit(node, compute)` wraps each node's computation when given (a
-    profiler's seam). Each node it computes (not the loaded scans, which
-    the JAX package feeds in as inputs) keeps its live output rows as
-    the metric `rows_<op_tag>` (the SQLMetrics analog), counted inside
-    the computation `visit` times."""
+    profiler's seam). Under `spark_tpu.sql.metrics.enabled` each node it
+    computes (not the loaded scans, which the JAX package feeds in as
+    inputs) keeps its live output rows as the metric `rows_<op_tag>`
+    (the SQLMetrics analog), counted inside the computation `visit`
+    times."""
     memo: Dict[int, Batch] = dict(loaded or {})
+
+    per_op = bool(ctx.conf.get("spark_tpu.sql.metrics.enabled"))
 
     def compute(node: P.PhysicalPlan, inputs: List[Batch]) -> Batch:
         out = node.compute(ctx, inputs)
-        if hasattr(node, "op_tag"):
+        if per_op and hasattr(node, "op_tag"):
             ctx.add_metric(f"rows_{node.op_tag}",
                            out.capacity if out.selection is None
                            else out.selection.sum())
@@ -418,6 +444,26 @@ class QueryExecution:
         #: cached tables `_apply_cache` substituted into this plan
         self._cache_hits = 0
         self.query_id: int = session._next_query_id()
+        # observability: per-phase spans (Chrome-trace exportable) and
+        # the device-memory cost of the stages this execution ran
+        from ..observability import SpanRecorder
+        self.spans = SpanRecorder(
+            self.query_id,
+            max_spans=int(session.conf.get(
+                "spark_tpu.sql.observability.maxSpans")),
+            max_shard_records=int(session.conf.get(
+                "spark_tpu.sql.observability.maxShardRecords")))
+        #: stage key -> its last attempt's device-memory cost record
+        self.stage_costs: Dict[str, Dict] = {}
+        # set per execute_batch: False keeps event construction off the
+        # hot path when nothing is listening
+        self._observe_events = False
+        #: collect() posts the query's end itself, after the egress
+        self._end_deferred = False
+        #: the spliced plan of the last converged run (the event's plan)
+        self._end_root: Optional[P.PhysicalPlan] = None
+        #: each shard's host metrics of the last mesh attempt
+        self._shard_metrics: Optional[List[Dict[str, object]]] = None
         # failure handling: a degraded rerun overlays conf (the OOM
         # ladder's spill rung) without touching the session's
         self._exec_conf = None
@@ -468,7 +514,9 @@ class QueryExecution:
             self._activate_conf()
             self.logical.schema()  # eager name/type resolution raises here
             self._analyzed = self.logical
-            self.phase_times["analysis"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            self.phase_times["analysis"] = t1 - t0
+            self.spans.record("analysis", t0, t1)
         return self._analyzed
 
     def _apply_cache(self, plan: L.LogicalPlan) -> L.LogicalPlan:
@@ -547,7 +595,9 @@ class QueryExecution:
             self._optimized = optimizer.execute(plan)
             self.rule_trace = optimizer.trace()
             self.reorder_decisions = log
-            self.phase_times["optimization"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            self.phase_times["optimization"] = t1 - t0
+            self.spans.record("optimize", t0, t1)
         return self._optimized
 
     @property
@@ -557,7 +607,9 @@ class QueryExecution:
             self._executed = plan_physical(
                 self.optimized_plan, self._conf,
                 join_strategy_overrides=self._join_overrides or None)
-            self.phase_times["planning"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            self.phase_times["planning"] = t1 - t0
+            self.spans.record("plan", t0, t1)
         return self._executed
 
     def explain(self, extended: bool = False, runtime: bool = False,
@@ -566,8 +618,9 @@ class QueryExecution:
         runtime observables when `runtime` and the query ran), the
         logical and optimized plans when `extended`, the join reorder's
         decisions, and the optimizer's rule trace when `rules`. The JAX
-        package's `QueryExecution.explain`; its XLA stage costs have no
-        counterpart here."""
+        package's `QueryExecution.explain`; in place of its XLA stage
+        costs, the device-memory cost of each stage that ran under
+        `observability.xlaCost`."""
         if analysis:
             from ..expr import AnalysisError
             raise AnalysisError(
@@ -581,6 +634,18 @@ class QueryExecution:
         if runtime and self.last_metrics:
             out.append("== Physical Plan (runtime metrics) ==")
             out.append(self._runtime_tree(self.executed_plan))
+            if self.stage_costs:
+                out.append("== Stage cost (device memory) ==")
+                for info in self.stage_costs.values():
+                    bits = [f"stage {info.get('key_hash', '?')}"]
+                    for k, label in (("peak_hbm_bytes", "peak HBM"),
+                                     ("argument_bytes", "args"),
+                                     ("output_bytes", "out")):
+                        if info.get(k) is not None:
+                            bits.append(f"{label}={info[k]:,}")
+                    if info.get("memory_error"):
+                        bits.append(f"none: {info['memory_error']}")
+                    out.append("  " + ", ".join(bits))
         else:
             out += ["== Physical Plan ==",
                     self.executed_plan.tree_string()]
@@ -677,22 +742,38 @@ class QueryExecution:
         for key in [k for k in self.phase_times if k.startswith("udf_")]:
             del self.phase_times[key]  # python_eval's per-run sums
         self._begin_recovery()
+        self._observe_events = self._events_enabled()
+        if self._observe_events:
+            from ..observability.listener import QueryStartEvent
+            session.listeners.post("on_query_start", QueryStartEvent(
+                query_id=self.query_id, ts=time.time(),
+                plan=self.logical.tree_string()))
         session._exec_depth += 1
         try:
             for _replan in range(4):
                 try:
-                    return self._execute_recover()
+                    out = self._execute_recover()
+                    break
                 except _ReplanRequest:
                     # re-plan with _join_overrides: the rebuilt plan has
                     # new nodes, so memoized stage outputs do not splice
                     self._executed = None
                     self._recovery.invalidate()
-            # re-plan budget spent: finish with capacity growth only
-            self._no_more_replans = True
-            return self._execute_recover()
+                    self.spans.mark("aqe_replan", kind="join_strategy")
+            else:
+                # re-plan budget spent: finish with capacity growth only
+                self._no_more_replans = True
+                out = self._execute_recover()
+            if not self._end_deferred:
+                self._post_query_end(self._end_root)
+            return out
         except (lifecycle.QueryCancelledError,
                 lifecycle.QueryDeadlineError) as e:
             self._observe_cancel(e)
+            raise
+        except Exception as e:  # noqa: BLE001 — observe, then surface
+            self._post_query_end(None, status="error", error=e)
+            self._flightrec_dump(e)
             raise
         finally:
             lifecycle.exit_query_scope(lc_scope)
@@ -736,14 +817,17 @@ class QueryExecution:
     # -- failure recovery ---------------------------------------------------
 
     def _record_fault(self, action: str, exc=None, **extra) -> None:
-        """Count one recovery action into fault_summary and keep a
-        bounded event record (drops past 32 are counted)."""
+        """Count one recovery action into fault_summary, keep a bounded
+        event record (drops past 32 are counted; both land in the event
+        log), mark the retry on the span trace and post the typed
+        FaultEvent."""
         self.fault_summary[action] = int(self.fault_summary.get(action, 0)) + 1
+        error = "" if exc is None else f"{type(exc).__name__}: {exc}"[:200]
+        site = getattr(exc, "site", None)
         if len(self.fault_events) < 32:
             ev = {"action": action}
             if exc is not None:
-                ev["error"] = f"{type(exc).__name__}: {exc}"[:200]
-                site = getattr(exc, "site", None)
+                ev["error"] = error
                 if site is not None:
                     ev["site"] = site
             ev.update(extra)
@@ -751,18 +835,64 @@ class QueryExecution:
         else:
             self.fault_summary["events_dropped"] = int(
                 self.fault_summary.get("events_dropped", 0)) + 1
+        self.spans.mark(f"retry:{action}", error=error[:120])
+        if self._observe_events:
+            from ..observability.listener import FaultEvent
+            self.session.listeners.post("on_fault", FaultEvent(
+                query_id=self.query_id, ts=time.time(), action=action,
+                error=error, site=site))
 
     def _observe_cancel(self, e: Exception) -> None:
-        """A cancelled or deadlined execution: its session counter and a
-        `cancel` action in fault_summary. No pooled UDF worker survives
-        it, wherever the cancel landed (a scan, a chunk, the UDF lane):
-        idle workers respawn on demand, so this costs one warm start."""
+        """A cancelled or deadlined execution: its session counter, a
+        `cancel` action in fault_summary, a `cancelled` mark on the span
+        trace, and a query-end event whose status is "cancelled" or
+        "deadline_exceeded". No pooled UDF worker survives it, wherever
+        the cancel landed (a scan, a chunk, the UDF lane): idle workers
+        respawn on demand, so this costs one warm start. A cancel is
+        lifecycle, not a crash: it never dumps a flight-recorder
+        bundle."""
         from .lifecycle import QueryCancelledError
+        cancelled = isinstance(e, QueryCancelledError)
         self.session.metrics.counter(
-            "query_cancelled" if isinstance(e, QueryCancelledError)
+            "query_cancelled" if cancelled
             else "query_deadline_exceeded").inc()
         self._record_fault("cancel", e)
+        self.spans.mark("cancelled",
+                        reason="cancel" if cancelled else "deadline")
         self.session._udf_pool.shutdown()
+        self._post_query_end(
+            None, status="cancelled" if cancelled else "deadline_exceeded",
+            error=e)
+
+    def _flightrec_dump(self, e: Exception) -> None:
+        """Crash-time diagnostics for a surfaced failure (the recovery
+        ladder gave up): classify the terminal error and ask the
+        session's flight recorder for a bundle. Cancels and deadlines
+        take `_observe_cancel` and never dump. Works with events off:
+        the recorder's rings may be sparse then, but the plan and the
+        fault summary ride along in `extra`. A failed dump warns."""
+        try:
+            from ..observability.flight_recorder import FlightRecorder
+            rec = FlightRecorder.of(self.session)
+            if rec is None:
+                return
+            if isinstance(e, StageOOMError):
+                reason = "oom"
+            elif ("recovery did not converge" in str(e)
+                  and isinstance(e, RuntimeError)):
+                reason = "recovery_nonconvergent"
+            else:
+                reason = "fatal"
+            rec.dump(reason, extra={
+                "query_id": self.query_id,
+                "plan": self.logical.tree_string()[:2000],
+                "fault_summary": {
+                    k: v for k, v in self.fault_summary.items()
+                    if k != "events"},
+            }, error=e)
+        except Exception as dump_err:  # noqa: BLE001 — diagnostics only
+            import warnings
+            warnings.warn(f"flight-recorder trigger failed: {dump_err}")
 
     def _execute_recover(self) -> Batch:
         """Run `_execute_batch` under the failure taxonomy: each iteration
@@ -1053,6 +1183,7 @@ class QueryExecution:
             return out, host_metrics(ctx.flags), host_metrics(ctx.metrics)
 
         results = run_on_shards(mesh, shard)
+        self._shard_metrics = [r[2] for r in results]
         out = concat_batches([r[0] for r in results], self.session.device)
         flags: Dict[str, object] = {}
         for _, f, _m in results:
@@ -1145,7 +1276,9 @@ class QueryExecution:
         self.spliced_plan = root
         if root is not root0:
             # chunked ingest and the chunks' compute run in the splice
-            self.phase_times["streaming"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            self.phase_times["streaming"] = t1 - t0
+            self.spans.record("streaming", t0, t1)
         # cooperative boundary before the scans load
         lifecycle.checkpoint("scan")
         t0 = time.perf_counter()
@@ -1154,56 +1287,84 @@ class QueryExecution:
         else:
             loaded = load_shards(root, conf, mesh)
         session.result_cache_hits += self._cache_hits
-        self.phase_times["ingest"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.phase_times["ingest"] = t1 - t0
+        self.spans.record("ingest", t0, t1, scans=len(
+            plan_nodes(root, P.ScanExec)))
         t0 = time.perf_counter()
         timeout_ms = int(conf.get("spark_tpu.execution.stageTimeoutMs"))
+        observe_cost = self._observe_cost()
+        arg_bytes = self._loaded_bytes(loaded) if observe_cost else 0
+        profile_dir = str(conf.get("spark_tpu.sql.profile.dir"))
         overflow: List[str] = []
-        for attempt in range(MAX_ATTEMPTS):
-            t_att = time.perf_counter()
-            faults.fire("stage_run")  # fault seam: before each run
-            if mesh is None:
-                ctx = P.ExecContext(conf, session.device)
-                out = run_plan(root, ctx, loaded=loaded)
-                # the wait for the device is cancellable (dispatchPollMs)
-                _sync_dispatched(stage_events(ctx.device), conf)
-                flags = ctx.flags
-                metrics = ctx.metrics
+        with self._profiler(profile_dir, mesh) as prof:
+            for attempt in range(MAX_ATTEMPTS):
+                t_att = time.perf_counter()
+                faults.fire("stage_run")  # fault seam: before each run
+                # the peak statistics are the card's: reset them before
+                # any shard thread starts
+                cost = AttemptCost(mesh.devices if mesh is not None
+                                   else (session.device,)) \
+                    if observe_cost else None
+                if mesh is None:
+                    ctx = P.ExecContext(conf, session.device)
+                    out = run_plan(root, ctx, loaded=loaded)
+                    # the wait for the device is cancellable
+                    # (dispatchPollMs)
+                    _sync_dispatched(stage_events(ctx.device), conf)
+                    flags = ctx.flags
+                    metrics = ctx.metrics
+                else:
+                    faults.fire("mesh")  # fault seam: each mesh run
+                    out, flags, metrics = self._run_mesh(root, conf, mesh,
+                                                         loaded)
+                self.spans.record("dispatch", t_att, time.perf_counter(),
+                                  attempt=attempt)
+                key = self._stage_key(root, mesh) \
+                    if cost is not None or self._observe_events else None
+                if cost is not None:
+                    self._record_stage_cost(
+                        key, cost.finish(arg_bytes, batch_bytes(out)))
+                # the deadline before the stage timeout: an attempt past
+                # the end-to-end budget stops the ladder, never retries
+                lifecycle.checkpoint("post_dispatch")
+                if timeout_ms > 0:
+                    att_ms = (time.perf_counter() - t_att) * 1e3
+                    if att_ms > timeout_ms:
+                        raise StageTimeoutError(
+                            f"stage attempt took {att_ms:.0f}ms > "
+                            f"stageTimeoutMs={timeout_ms}: "
+                            f"{root.simple_string()}")
+                overflow = [k for k, v in flags.items()
+                            if k.startswith(_REPLAN_FLAGS) and bool(v)]
+                self._post_stage_completed(key, attempt, t_att, metrics,
+                                           overflow)
+                if not overflow:
+                    break
+                self.spans.mark("aqe_overflow", flags=overflow[:8])
+                # unique-build / hash-saturation fallbacks are correctness
+                # re-plans, not capacity growth — never gated by the conf
+                if not adaptive and any(
+                        not k.startswith(("join_nonunique_",
+                                          "join_hashsat_"))
+                        for k in overflow):
+                    raise RuntimeError(
+                        f"capacity overflow in {overflow} with adaptive "
+                        f"re-planning disabled "
+                        f"(spark_tpu.sql.adaptive.enabled=false)")
+                metrics = host_metrics(metrics)
+                for k in overflow:
+                    if k.startswith("exch_overflow_") and \
+                            self._maybe_skew_replan(
+                                root, k[len("exch_overflow_"):], metrics,
+                                mesh):
+                        raise _ReplanRequest()
+                apply_flags(root, overflow, metrics)
             else:
-                faults.fire("mesh")  # fault seam: each mesh run
-                out, flags, metrics = self._run_mesh(root, conf, mesh,
-                                                     loaded)
-            # the deadline before the stage timeout: an attempt past the
-            # end-to-end budget stops the ladder, never retries
-            lifecycle.checkpoint("post_dispatch")
-            if timeout_ms > 0:
-                att_ms = (time.perf_counter() - t_att) * 1e3
-                if att_ms > timeout_ms:
-                    raise StageTimeoutError(
-                        f"stage attempt took {att_ms:.0f}ms > "
-                        f"stageTimeoutMs={timeout_ms}: "
-                        f"{root.simple_string()}")
-            overflow = [k for k, v in flags.items()
-                        if k.startswith(_REPLAN_FLAGS) and bool(v)]
-            if not overflow:
-                break
-            # unique-build / hash-saturation fallbacks are correctness
-            # re-plans, not capacity growth — never gated by the conf
-            if not adaptive and any(
-                    not k.startswith(("join_nonunique_", "join_hashsat_"))
-                    for k in overflow):
-                raise RuntimeError(
-                    f"capacity overflow in {overflow} with adaptive "
-                    f"re-planning disabled "
-                    f"(spark_tpu.sql.adaptive.enabled=false)")
-            metrics = host_metrics(metrics)
-            for k in overflow:
-                if k.startswith("exch_overflow_") and self._maybe_skew_replan(
-                        root, k[len("exch_overflow_"):], metrics, mesh):
-                    raise _ReplanRequest()
-            apply_flags(root, overflow, metrics)
-        else:
-            raise RuntimeError(f"capacity retries did not converge; still "
-                               f"overflowing: {overflow}")
+                raise RuntimeError(f"capacity retries did not converge; "
+                                   f"still overflowing: {overflow}")
+        if prof is not None:
+            self._export_profile(prof, profile_dir)
         self.attempts = attempt + 1
         self.last_metrics = host_metrics(metrics)
         if adaptive:
@@ -1220,7 +1381,11 @@ class QueryExecution:
                 store.setdefault(aqe_key, {}).update(converged)
                 while len(store) > MAX_SAVED_PLANS:
                     store.pop(next(iter(store)))
-        self.phase_times["execute"] = time.perf_counter() - t0
+        self.phase_times["execution"] = time.perf_counter() - t0
+        if mesh is not None and self._shard_obs_on():
+            # each exchange's per-shard rows and bytes become
+            # transfer-phase records; they never enter last_metrics
+            self._record_exchange_shards(self._shard_metrics or [])
         if self._mesh_fallback:
             # the degraded one-device result of a mesh-planned query
             self.last_metrics["mesh_fallback"] = 1
@@ -1231,8 +1396,11 @@ class QueryExecution:
         if fp in session._cache_requests and fp not in session._data_cache:
             t0 = time.perf_counter()
             self._filled = out.to_arrow()
-            self.phase_times["egress"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            self.phase_times["egress"] = t1 - t0
+            self.spans.record("egress", t0, t1)
             session._data_cache[fp] = self._filled
+        self._end_root = root
         return out
 
     def collect(self) -> pa.Table:
@@ -1252,12 +1420,26 @@ class QueryExecution:
                 raise
             if ext is not None:
                 return ext
-            batch = self.execute_batch()
+            self._end_deferred = True
+            try:
+                batch = self.execute_batch()
+            finally:
+                self._end_deferred = False
             if self._filled is not None:
-                return self._filled  # already egressed into the data cache
+                # already egressed into the data cache
+                self._post_query_end(self._end_root)
+                return self._filled
             t0 = time.perf_counter()
-            table = batch.to_arrow()
-            self.phase_times["egress"] = time.perf_counter() - t0
+            try:
+                table = batch.to_arrow()
+            except Exception as e:  # noqa: BLE001 — observe, then surface
+                self._post_query_end(None, status="error", error=e)
+                self._flightrec_dump(e)
+                raise
+            t1 = time.perf_counter()
+            self.phase_times["egress"] = t1 - t0
+            self.spans.record("egress", t0, t1)
+            self._post_query_end(self._end_root)
             return table
         finally:
             lifecycle.exit_query_scope(lc_scope)
@@ -1278,6 +1460,9 @@ class QueryExecution:
         if plan_has_udfs(self.executed_plan):
             return None  # UDF stages evaluate through execute_batch
         self._begin_recovery()
+        # the chunked egress never reaches execute_batch: its faults and
+        # a cancel still post, as in the JAX package
+        self._observe_events = self._events_enabled()
         t0 = time.perf_counter()
         try:
             while True:
@@ -1298,3 +1483,225 @@ class QueryExecution:
         if out is not None:
             self.phase_times["external"] = time.perf_counter() - t0
         return out
+
+    # -- observability ------------------------------------------------------
+
+    def _events_enabled(self) -> bool:
+        """Whether lifecycle events are worth constructing at all: an
+        observability output is configured, or a listener that is not
+        built in is registered. With neither, posting would render plan
+        strings and span dicts per query for subscribers that each
+        check the conf and do nothing."""
+        conf = self.session.conf
+        if str(conf.get("spark_tpu.sql.eventLog.dir")) \
+                or str(conf.get("spark_tpu.sql.trace.dir")) \
+                or str(conf.get("spark_tpu.sql.metrics.sink")):
+            return True
+        return any(not getattr(li, "_builtin", False)
+                   for li in self.session.listeners.listeners)
+
+    def _shard_obs_on(self) -> bool:
+        """Gate for per-shard telemetry (mesh runs only): 'on' always,
+        'off' never, 'auto' whenever lifecycle events are observed."""
+        mode = str(self._conf.get(
+            "spark_tpu.sql.observability.shardSpans"))
+        if mode == "off":
+            return False
+        if mode == "on":
+            return True
+        return self._observe_events
+
+    def _observe_cost(self) -> bool:
+        """Gate for the device-memory capture (`xlaCost`): 'on' always,
+        'off' never, 'auto' only when an observability output is
+        configured or the OOM ladder is descending."""
+        mode = str(self._conf.get("spark_tpu.sql.observability.xlaCost"))
+        if mode == "off":
+            return False
+        if mode == "on":
+            return True
+        conf = self.session.conf
+        return bool(str(conf.get("spark_tpu.sql.eventLog.dir"))
+                    or str(conf.get("spark_tpu.sql.trace.dir"))
+                    or str(conf.get("spark_tpu.sql.metrics.sink"))
+                    or self._oom_rung > 0)
+
+    @staticmethod
+    def _stage_key(root: P.PhysicalPlan, mesh) -> str:
+        """The stage's identity: the spliced plan's structural
+        fingerprint and the mesh's size (the JAX package keys its
+        compiled stages on the same two)."""
+        return root.describe() + (f"#mesh{mesh.size}" if mesh is not None
+                                  else "")
+
+    @staticmethod
+    def _key_hash(key: str) -> str:
+        import hashlib
+        return hashlib.md5(key.encode()).hexdigest()[:10]
+
+    @staticmethod
+    def _loaded_bytes(loaded) -> int:
+        """Bytes of the loaded leaves an attempt reads (every shard's
+        stripes on a mesh); a batch shared by several leaves counts
+        once."""
+        maps = loaded if isinstance(loaded, list) else [loaded]
+        seen, total = set(), 0
+        for m in maps:
+            for b in m.values():
+                if id(b) not in seen:
+                    seen.add(id(b))
+                    total += batch_bytes(b)
+        return total
+
+    def _record_stage_cost(self, key: str, info: Dict) -> None:
+        info["key_hash"] = self._key_hash(key)
+        info["stage"] = key[:160]
+        self.stage_costs[key] = info
+
+    def _profiler(self, profile_dir: str, mesh):
+        """A torch.profiler context over the attempts when
+        `spark_tpu.sql.profile.dir` is set (CUDA activity too when the
+        query runs on a card), else a context that yields None."""
+        if not profile_dir:
+            return contextlib.nullcontext()
+        from torch.profiler import ProfilerActivity, profile
+        devices = mesh.devices if mesh is not None else (self.session.device,)
+        activities = [ProfilerActivity.CPU]
+        if any(torch.device(d).type == "cuda" for d in devices):
+            activities.append(ProfilerActivity.CUDA)
+        return profile(activities=activities)
+
+    def _export_profile(self, prof, profile_dir: str) -> None:
+        """Write the attempts' profile as Chrome trace-event JSON, one
+        file per execute (`torch-<app>-<query>-<ms>.trace.json`); a
+        write failure warns."""
+        path = os.path.join(
+            profile_dir, f"torch-{self.session.app_id}-{self.query_id:05d}"
+            f"-{int(time.time() * 1e3)}.trace.json")
+        try:
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(path)
+        except OSError as e:
+            import warnings
+            warnings.warn(f"profile trace write failed: {e}")
+
+    def _record_exchange_shards(self, per_shard: List[Dict[str, object]]
+                                ) -> None:
+        """Each exchange's per-shard routed rows and bytes
+        (`exch_rows_<tag>`/`exch_bytes_<tag>`, which `parallel/
+        shuffle.py` counts on every shard) as transfer-phase records on
+        the span recorder — the records the JAX package unpacks from its
+        one-hot `shard_rows_`/`shard_bytes_` vectors. One process drives
+        the port's mesh, so every shard's host is 0."""
+        if not per_shard:
+            return
+        for k in per_shard[0]:
+            if not k.startswith("exch_rows_"):
+                continue
+            tag = k[len("exch_rows_"):]
+            self.spans.add_shard_records([{
+                "shard": i, "host": 0, "chunk": None, "phase": "transfer",
+                "rows": int(m.get(k, 0)),
+                "bytes": (int(m[f"exch_bytes_{tag}"])
+                          if f"exch_bytes_{tag}" in m else None),
+                "source": f"exchange:{tag}",
+            } for i, m in enumerate(per_shard)])
+
+    def _post_stage_completed(self, key: Optional[str], attempt: int,
+                              t_att: float, metrics: Dict,
+                              overflow: List[str]) -> None:
+        if not self._observe_events:
+            return
+        from ..observability.listener import StageCompletedEvent
+        self.session.listeners.post(
+            "on_stage_completed", StageCompletedEvent(
+                query_id=self.query_id, ts=time.time(), stage_key=key,
+                key_hash=self._key_hash(key), attempt=attempt,
+                elapsed_ms=round((time.perf_counter() - t_att) * 1e3, 2),
+                metrics=host_metrics(metrics), overflow=list(overflow)))
+
+    def _build_event(self, root: Optional[P.PhysicalPlan],
+                     status: str = "ok", error=None) -> Dict:
+        """The event-log record of this execution, in the JAX package's
+        schema: one JSON-line serializable dict
+        (`sinks.json_default` covers numpy and torch scalars)."""
+        from ..observability.sinks import EVENT_LOG_SCHEMA_VERSION
+        event = {
+            "schema_version": EVENT_LOG_SCHEMA_VERSION,
+            "query_id": self.query_id,
+            "ts": time.time(),
+            "status": status,
+            "plan": root.describe() if root is not None else
+            self.logical.tree_string(),
+            "phase_times_s": {k: round(v, 4)
+                              for k, v in self.phase_times.items()},
+            "metrics": self.last_metrics,
+        }
+        if error is not None:
+            event["error"] = f"{type(error).__name__}: {error}"[:300]
+        if root is not None:
+            try:
+                # runtime-annotated physical tree (rows/caps notes)
+                event["plan_tree"] = self._runtime_tree(root)
+            except Exception:  # noqa: BLE001 — annotation is best-effort
+                pass
+        if self.spans.spans:
+            event["spans"] = self.spans.to_dicts()
+            if self.spans.dropped:
+                event["spans_dropped"] = self.spans.dropped
+        if self.spans.shard_records:
+            # per-shard records (schema v3): the exchanges' transfer
+            # rows and bytes
+            event["shards"] = list(self.spans.shard_records)
+            if self.spans.shard_dropped:
+                event["shards_dropped"] = self.spans.shard_dropped
+        if self.reorder_decisions is not None:
+            event["reorder"] = {
+                "enabled": bool(self.session.conf.get(
+                    "spark_tpu.sql.cbo.joinReorder")),
+                "changed": any(d.get("changed")
+                               for d in self.reorder_decisions),
+                "regions": list(self.reorder_decisions)}
+        if self.rule_trace:
+            # per-(batch, rule) optimizer records (schema v7)
+            event["rule_trace"] = [dict(r) for r in self.rule_trace]
+        if self.stage_costs:
+            # per-stage device-memory records (history.hbm_summary /
+            # compile_summary read these)
+            event["stages"] = list(self.stage_costs.values())
+            cap = device_hbm_capacity(self.session.device)
+            if cap is not None:
+                event["device_hbm_capacity_bytes"] = cap
+        if self.udf_summary:
+            # python-UDF lane record (schema v5)
+            event["udf"] = dict(self.udf_summary)
+        if self.fault_summary:
+            # every retry/eviction/degradation/fallback this execution
+            # survived (history.fault_summary reads these)
+            event["fault_summary"] = dict(
+                self.fault_summary,
+                retry_backoff_ms=round(
+                    self._retry_policy.total_sleep_ms, 1)
+                if self._retry_policy is not None else 0.0,
+                events=self.fault_events)
+        return event
+
+    def _post_query_end(self, root: Optional[P.PhysicalPlan],
+                        status: str = "ok", error=None) -> None:
+        """Build the event and post `on_query_end` (the JSONL writer,
+        the Chrome-trace writer, the metrics sinks and the flight
+        recorder are subscribers; replay with
+        `spark_tpu_torch.history.read_event_log`). A failing build
+        warns: observability never fails the query."""
+        if not self._observe_events:
+            return
+        from ..observability.listener import QueryEndEvent
+        try:
+            event = self._build_event(root, status, error)
+        except Exception as e:  # noqa: BLE001 — observability only
+            import warnings
+            warnings.warn(f"event build failed: {e}")
+            return
+        self.session.listeners.post("on_query_end", QueryEndEvent(
+            query_id=self.query_id, ts=event["ts"], status=status,
+            event=event, spans=self.spans))

@@ -344,6 +344,7 @@ def _eval_udfs_worker(udfs: List[PythonUDF], batch: Batch,
             metrics.counter("udf_batches").inc()
             metrics.counter("udf_rows").inc(ln)
             metrics.counter("udf_exec_ms").inc(int((t1 - t0) * 1e3))
+            qe.spans.record("udf_batch", t0, t1, chunk=ci, rows=ln)
             return out
         return step
 

@@ -44,6 +44,7 @@ from ..expr_agg import AggExpr
 from ..execution import aggregate as agg_kernels
 from ..execution import join as join_kernels
 from ..execution import sort as sort_kernels
+from ..observability.metrics import is_registered_metric
 
 
 # ---------------------------------------------------------------------------
@@ -214,6 +215,14 @@ class ExecContext:
             self.flags[name] = value
 
     def add_metric(self, name: str, value) -> None:
+        # registered prefixes only (observability/metrics.py): an
+        # unregistered name would flow into the event log but silently
+        # miss every history summary — fail where it is emitted instead
+        if not is_registered_metric(name):
+            raise ValueError(
+                f"unregistered metric name {name!r}: add its prefix to "
+                f"observability.metrics.METRIC_PREFIXES and a history "
+                f"summary consumer")
         self.metrics[name] = value
 
 

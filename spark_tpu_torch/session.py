@@ -26,9 +26,17 @@ mark stays, so the statement run again computes the view once again).
 Every QueryExecution takes the next query id of its session
 (`df._qe().query_id`); `session.cancel(query_id)` stops that query,
 running on another thread, at its next cooperative boundary
-(`execution/lifecycle.py`). `session.metrics` holds the session's
-counters (replayed chunks, reused stages, cancelled queries, prefetch
-stall, UDF batches, rows and worker spawns).
+(`execution/lifecycle.py`). `session.metrics` is the session's metrics
+registry (`observability/metrics.py`: replayed chunks, reused stages,
+cancelled queries, prefetch stall, UDF batches, rows and worker spawns,
+query counts and latency histograms). `session.listeners` is its
+listener bus (`observability/listener.py`): the executor posts each
+query's lifecycle events there, and the built-in subscribers — the
+event log, the Chrome trace, the metrics sinks, the flight recorder
+and the straggler monitor — act on them when the conf asks
+(`spark_tpu.sql.eventLog.dir`, `trace.dir`, `metrics.sink`,
+`flightRecorder.*`); `add_listener` subscribes a user's
+`QueryListener`.
 
 `session.udf.register(name, fn, returnType)` makes a Python function
 callable from SQL (`udf.py`); `session._udf_pool` is the session's pool
@@ -38,9 +46,7 @@ of UDF worker subprocesses (`udf_worker/`), used under
 
 from __future__ import annotations
 
-import os
 import threading
-import uuid
 from typing import Dict, Optional, Set
 
 import pandas as pd
@@ -51,7 +57,9 @@ from .columnar import resolve_device
 from .config import RESULT_CACHE_BYTES, Conf
 from .dataframe import DataFrame
 from .io.sources import ArrowTableSource, ParquetSource, TableSource
-from .metrics import UDF_COUNTERS, MetricsRegistry
+from .observability import ListenerBus, MetricsRegistry
+from .observability.metrics import UDF_COUNTERS
+from .observability.sinks import install_default_listeners, make_app_id
 from .plan import logical as L
 from .result_cache import ResultCache
 
@@ -84,12 +92,18 @@ class SparkTpuSession:
         # plan + source stamps -> {kind:tag -> capacity} a converged run
         # settled on; the next execution of the plan starts from them
         self._aqe_caps: Dict[str, Dict[str, int]] = {}
-        #: the session's identity in the cancel registry (pid plus a
-        #: random token: pid alone repeats across runs)
-        self.app_id = f"{os.getpid()}-{uuid.uuid4().hex[:8]}"
+        #: the session's identity in the cancel registry and the event
+        #: log's file names (pid plus a random token: pid alone repeats
+        #: across runs)
+        self.app_id = make_app_id()
         self._query_seq = 0
         self._query_seq_lock = threading.Lock()
+        # observability spine (observability/): the listener bus every
+        # event-log line, trace file and metrics flush hangs off, and
+        # the session's metrics registry
+        self.listeners = ListenerBus()
         self.metrics = MetricsRegistry()
+        install_default_listeners(self)
         # the UDF counters (execution/python_eval.py) exist from the start,
         # so a reader sees 0 before the first UDF runs
         for name in UDF_COUNTERS:
@@ -112,6 +126,17 @@ class SparkTpuSession:
         with self._query_seq_lock:
             self._query_seq += 1
             return self._query_seq
+
+    def add_listener(self, listener) -> None:
+        """Register a QueryListener on the session bus (the
+        SparkContext.addSparkListener seat)."""
+        self.listeners.register(listener)
+
+    def remove_listener(self, listener) -> None:
+        self.listeners.unregister(listener)
+
+    addListener = add_listener
+    removeListener = remove_listener
 
     def cancel(self, query_id: int) -> bool:
         """Request cooperative cancellation of a query executing on this
