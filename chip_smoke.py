@@ -8,12 +8,14 @@
     python3 chip_smoke.py --phases mesh        # phase 14 (and 1-2); on a
         # host with 4 cards its 4-card cases run too
     python3 chip_smoke.py --phases obs         # phase 15 (and 1-2)
+    python3 chip_smoke.py --phases elastic     # phase 16 (and 1-2); on a
+        # host with 4 cards its cases run on cuda:0-3
 
 Phases, in order; any failure exits non-zero before the last line.
 Phases 1 and 2 always run; `--phases` names the others, from PHASES:
 kernels (3), variants (4), main (5), sql (6), tpcds (7), window (8),
 fuzz (9), functions (10), etl (11), ooc (12), udf (13), mesh (14),
-obs (15).
+obs (15), elastic (16).
 Each query of
 phases 5-8, 10, 11's aggregates and 13 runs twice: a
 first run, after the device table cache and the session's kept
@@ -195,8 +197,10 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    timed run's per-operator times (the slowest shard's), the bytes the
    collectives copied between cards with their rate against the NVLink
    bound, and each card's busy share under torch.profiler. Then
-   `mesh:fatal:1` must re-plan Q1 on one device (`mesh_fallback` 1, the
-   golden), `shuffle:unavailable:1` must retry it, and a session built
+   `mesh:fatal:1` must gang-restart Q1 on the mesh (`mesh_restart` 1)
+   and, with `meshRestart.enabled` false, re-plan it on one device
+   (`mesh_fallback` 1), each with the golden; `shuffle:unavailable:1`
+   must retry it, and a session built
    without a device at mesh.size 8 must raise "devices visible". With 4
    cards (`python3 chip_smoke.py --phases mesh` on a host with four)
    the same cases run on a session built without a device, whose shards
@@ -231,6 +235,30 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    count every execution's latency; and DF Q1 at 4 shards pinned to
    cuda:0 with `observability.shardSpans=on` must log one `transfer`
    record per shard for each exchange that routes rows.
+16. elastic, the mesh stream and the elastic mesh on SF10 lineitem
+   (phase 12's data, written here when phase 12 does not run) at
+   mesh.size 4: on one card a session built with `device("cuda:0")`
+   (four shards on it), on a host with four cards a session built
+   without a device (the shards on cuda:0-3). The device cache stays at
+   its default, below the scan, so every query streams per shard
+   (`InputExec(streamed_partial_agg,...)`). SQL Q1 and Q6, a first and a
+   warm run each, must equal phase 12's exact golden and launch
+   `dense_sums_smem` once per shard and chunk at least (on every card of
+   a mesh of cards); each prints its wall times, per chunk its host
+   decode, host copy, stripe copies and each shard's device update,
+   the per-shard telemetry records and the peak allocated bytes. Then
+   Q1's recovery, each against the golden: `mesh_checkpoint:fatal:2`
+   with a checkpoint every chunk must gang-restart once (no fallback)
+   and resume on the mesh replaying at most one chunk; with every
+   restart attempt failed at `mesh_restart` the query must land on one
+   device and resume from the checkpoint (`resume_from_mesh_checkpoint`);
+   `session.decommission_shards([3])` from a listener after chunk 1
+   must drain at a boundary, leave mesh.size 3 (on cards, cuda:3
+   excluded and the tail on three cards) and resume from the forced
+   checkpoint; and in 2^22-row chunks (15; `straggler.minChunks` is 4)
+   a `shard_chunk:slow` fault on shard 2 every chunk must make the
+   rebalancer move rows off it (`shard_rebalance`, `rebalance_rows` >
+   0). The phase prints its time.
 Then the kernels are timed again on the exact inputs the first run of
 each query of phases 5-7 and 10-13 gave them (a chunk's input, for a
 streamed query).
@@ -328,10 +356,10 @@ SOURCE = "spark_tpu_torch/csrc/dense_groupby.cu"
 #: the phases `--phases` chooses from, in run order (device and build
 #: always run)
 PHASES = ("kernels", "variants", "main", "sql", "tpcds", "window", "fuzz",
-          "functions", "etl", "ooc", "udf", "mesh", "obs")
+          "functions", "etl", "ooc", "udf", "mesh", "obs", "elastic")
 #: the phases that drive the package's main path (run_phases)
 MAIN_PHASES = ("main", "sql", "tpcds", "window", "fuzz", "functions", "etl",
-               "ooc", "udf", "mesh", "obs")
+               "ooc", "udf", "mesh", "obs", "elastic")
 #: the hand kernels each function-library program must launch at SF1
 #: (F2's and F3's aggregates and functions run as torch ops: the
 #: positional sort, the sort aggregate, the date and bit arithmetic)
@@ -374,6 +402,16 @@ OBS_RUNS = 9
 OBS_STEPS = ("query end", "_build_event", "event log", "trace write",
              "metrics sinks", "flight recorder", "stage event",
              "cost reset", "cost read")
+#: phase 16: the elastic keys it sets, the chunk rows of its straggler
+#: case (15 chunks of SF10 Q1), the straggling shard and its injected
+#: wait a chunk
+CKPT_KEY = "spark_tpu.execution.checkpoint.everyChunks"
+RESTART_MAX_KEY = "spark_tpu.execution.meshRestart.maxRestarts"
+SPANS_KEY = "spark_tpu.sql.observability.shardSpans"
+CHUNK_KEY = "spark_tpu.sql.execution.streamingChunkRows"
+ELASTIC_SLOW_CHUNK_ROWS = 1 << 22
+ELASTIC_SLOW_SHARD = 2
+ELASTIC_SLOW_MS = 100
 OBS_OFF = (("spark_tpu.sql.metrics.enabled", False),
            ("spark_tpu.sql.observability.xlaCost", "off"),
            ("spark_tpu.sql.observability.shardSpans", "off"),
@@ -1604,6 +1642,29 @@ def etl_explain(session) -> None:
 # Phase 12: out-of-core execution and recovery
 # ---------------------------------------------------------------------------
 
+class Sf10:
+    """SF10 lineitem (`write_lineitem_pieces`) and its exact Q1/Q6 golden
+    (`q1_q6_golden`), written under `tmp` at the first `get` and shared
+    by phases 12, 14 and 16."""
+
+    def __init__(self, tmp: str):
+        self.tmp = tmp
+        self._data = None
+
+    def get(self, tag: str):
+        """(the Parquet path, the golden's dict)."""
+        if self._data is None:
+            from spark_tpu_torch.tpch.datagen import write_lineitem_pieces
+            on_piece, ans = q1_q6_golden()
+            t0 = time.perf_counter()
+            path = write_lineitem_pieces(self.tmp + "/lineitem.parquet",
+                                         OOC_SF, on_piece=on_piece)
+            log(f"[{tag}] SF{OOC_SF} lineitem: {ans['rows']} rows generated "
+                f"in {time.perf_counter() - t0:.1f} s")
+            self._data = (path, ans)
+        return self._data
+
+
 def q1_q6_golden():
     """Exact SQL Q1/Q6 answers built piece by piece from the generator's
     integer arrays: numpy int64 partial sums over one piece at most
@@ -1772,7 +1833,7 @@ def require_launches(label, counts, kernel, want) -> None:
                              f"{expected}")
 
 
-def phase_ooc(D, S, sf1_path, launches, current, captured) -> None:
+def phase_ooc(D, S, sf1_path, launches, current, captured, sf10) -> None:
     """Phase 12: SF10 lineitem streamed (Q1/Q6 against the exact golden,
     one dense_sums_smem launch per chunk), Q1 under kernelMode=scatter,
     the range stream, phase 5's SF1 data under a small deviceBudget,
@@ -1781,69 +1842,62 @@ def phase_ooc(D, S, sf1_path, launches, current, captured) -> None:
     import torch
     from spark_tpu_torch.io.device_cache import estimated_scan_bytes
     from spark_tpu_torch.io.sources import ParquetSource
-    from spark_tpu_torch.tpch.datagen import write_lineitem_pieces
     from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
-    with tempfile.TemporaryDirectory() as tmp:
-        on_piece, ans = q1_q6_golden()
-        t0 = time.perf_counter()
-        path = write_lineitem_pieces(tmp + "/lineitem.parquet", OOC_SF,
-                                     on_piece=on_piece)
-        log(f"[ooc] SF{OOC_SF} lineitem: {ans['rows']} rows generated in "
-            f"{time.perf_counter() - t0:.1f} s")
-        session = S.SparkTpuSession.builder().get_or_create()
-        session.register_table("lineitem", ParquetSource(path, "lineitem"))
-        results, warm_s = {}, {}
-        for q in ("q1", "q6"):
-            reset_state(session)
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            first, warm = first_and_warm(
-                D, session, lambda: session.sql(SQL_QUERIES[q]), current,
-                f"ooc {q}")
-            launches[f"ooc {q}"] = first[3]
-            chunks = expected_chunks(q, ans)
-            # one wrapper call per chunk: its launch plan, once a chunk
-            per_chunk = plan_size(D, captured, f"ooc {q}", "dense_sums_smem")
-            for run, (got, qe, seconds, counts) in (("first", first),
-                                                    ("warm", warm)):
-                label = f"SF{OOC_SF} {q} {run} run"
-                require_stream(label, qe, "streamed_agg", chunks)
-                require_launches(label, counts, "dense_sums_smem",
-                                 chunks * per_chunk)
-                if qe.fault_summary:
-                    raise AssertionError(f"{label}: {qe.fault_summary}")
-                check_q1_q6(q, got, ans)
-            tables_match(f"SF{OOC_SF} {q} warm run", warm[0], first[0])
-            results[q], warm_s[q] = first[0], warm[2]
-            leaf = [n for n in plan_leaves(first[1].executed_plan)][0]
-            stall = sum(stall_s(r) for st in warm[1].stream_stats
-                        for r in st["chunks"])
-            log(f"[ooc] {q} SF{OOC_SF}: equals the golden; first run "
-                f"{first[2]:.3f} s, warm run {warm[2]:.3f} s (the stream "
-                f"rides no device cache, so the warm run ingests again; "
-                f"{ans['rows'] / warm[2] / 1e6:.2f} M rows/s); "
-                f"{n_chunks(warm[1])} chunks, {per_chunk} launches a "
-                f"chunk, launches {first[3]}; peak allocated "
-                f"{torch.cuda.max_memory_allocated() - base:,} bytes over "
-                f"{base:,} held, whole-input estimate "
-                f"{estimated_scan_bytes(leaf):,} bytes; prefetch stall "
-                f"{stall * 1e3:.1f} ms in the warm run")
-            log(f"[ooc] {q} warm run chunks: {chunk_lines(warm[1])}")
-            from torch.profiler import ProfilerActivity, profile
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                session.sql(SQL_QUERIES[q]).collect()
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            log(f"[ooc] {q} profiled run: "
-                f"{busy_text(*device_busy(prof), wall)}")
-        ooc_scatter(D, S, path, results["q1"])
-        ooc_range(D, S, launches, current, captured)
-        ooc_budget(D, S, sf1_path)
-        ooc_faults(D, session, sf1_path, S, results["q1"])
-        ooc_cancel(session, results["q1"], warm_s["q1"],
-                   expected_chunks("q1", ans))
+    path, ans = sf10.get("ooc")
+    session = S.SparkTpuSession.builder().get_or_create()
+    session.register_table("lineitem", ParquetSource(path, "lineitem"))
+    results, warm_s = {}, {}
+    for q in ("q1", "q6"):
+        reset_state(session)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        first, warm = first_and_warm(
+            D, session, lambda: session.sql(SQL_QUERIES[q]), current,
+            f"ooc {q}")
+        launches[f"ooc {q}"] = first[3]
+        chunks = expected_chunks(q, ans)
+        # one wrapper call per chunk: its launch plan, once a chunk
+        per_chunk = plan_size(D, captured, f"ooc {q}", "dense_sums_smem")
+        for run, (got, qe, seconds, counts) in (("first", first),
+                                                ("warm", warm)):
+            label = f"SF{OOC_SF} {q} {run} run"
+            require_stream(label, qe, "streamed_agg", chunks)
+            require_launches(label, counts, "dense_sums_smem",
+                             chunks * per_chunk)
+            if qe.fault_summary:
+                raise AssertionError(f"{label}: {qe.fault_summary}")
+            check_q1_q6(q, got, ans)
+        tables_match(f"SF{OOC_SF} {q} warm run", warm[0], first[0])
+        results[q], warm_s[q] = first[0], warm[2]
+        leaf = [n for n in plan_leaves(first[1].executed_plan)][0]
+        stall = sum(stall_s(r) for st in warm[1].stream_stats
+                    for r in st["chunks"])
+        log(f"[ooc] {q} SF{OOC_SF}: equals the golden; first run "
+            f"{first[2]:.3f} s, warm run {warm[2]:.3f} s (the stream "
+            f"rides no device cache, so the warm run ingests again; "
+            f"{ans['rows'] / warm[2] / 1e6:.2f} M rows/s); "
+            f"{n_chunks(warm[1])} chunks, {per_chunk} launches a "
+            f"chunk, launches {first[3]}; peak allocated "
+            f"{torch.cuda.max_memory_allocated() - base:,} bytes over "
+            f"{base:,} held, whole-input estimate "
+            f"{estimated_scan_bytes(leaf):,} bytes; prefetch stall "
+            f"{stall * 1e3:.1f} ms in the warm run")
+        log(f"[ooc] {q} warm run chunks: {chunk_lines(warm[1])}")
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            session.sql(SQL_QUERIES[q]).collect()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        log(f"[ooc] {q} profiled run: "
+            f"{busy_text(*device_busy(prof), wall)}")
+    ooc_scatter(D, S, path, results["q1"])
+    ooc_range(D, S, launches, current, captured)
+    ooc_budget(D, S, sf1_path)
+    ooc_faults(D, session, sf1_path, S, results["q1"])
+    ooc_cancel(session, results["q1"], warm_s["q1"],
+               expected_chunks("q1", ans))
 
 
 def plan_leaves(node):
@@ -2719,24 +2773,34 @@ def mesh_cases(D, S, G, Q, path, df_results, launches, current, pinned):
 
 
 def mesh_faults(G, session, path, Q) -> None:
-    """On a mesh session: `mesh:fatal:1` re-plans on one device
-    (mesh_fallback 1) with the golden; `shuffle:unavailable:1` retries
-    with the golden and no fallback."""
+    """On a mesh session: `mesh:fatal:1` gang-restarts the mesh
+    (mesh_restart 1, no fallback) with the golden, and with the restart
+    off re-plans on one device (mesh_fallback 1) with the golden;
+    `shuffle:unavailable:1` retries with the golden and no fallback."""
     import warnings
     from spark_tpu_torch.testing import faults
+    restart_key = "spark_tpu.execution.meshRestart.enabled"
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        with faults.inject(session.conf, "mesh:fatal:1") as plan:
-            qe = Q.QUERIES["q1"](session)._qe()
-            got = qe.collect()
-        if plan.fired_log != [("mesh", 1, "fatal")] or \
-                qe.fault_summary.get("mesh_fallback") != 1 or \
-                qe.last_metrics.get("mesh_fallback") != 1:
-            raise AssertionError(f"mesh:fatal:1 gave {plan.fired_log}, "
-                                 f"{qe.fault_summary}")
-        mesh_golden(G, path, "q1", got)
-        log(f"[mesh] mesh:fatal:1 on q1: re-planned on one device "
-            f"(fault_summary {qe.fault_summary}), golden")
+        for restart, action in ((True, "mesh_restart"),
+                                (False, "mesh_fallback")):
+            session.conf.set(restart_key, restart)
+            with faults.inject(session.conf, "mesh:fatal:1") as plan:
+                qe = Q.QUERIES["q1"](session)._qe()
+                got = qe.collect()
+            other = "mesh_fallback" if restart else "mesh_restart"
+            if plan.fired_log != [("mesh", 1, "fatal")] or \
+                    qe.fault_summary.get(action) != 1 or \
+                    other in qe.fault_summary or \
+                    (qe.last_metrics.get("mesh_fallback") == 1) == restart:
+                raise AssertionError(f"mesh:fatal:1 with restarts "
+                                     f"{restart} gave {plan.fired_log}, "
+                                     f"{qe.fault_summary}")
+            mesh_golden(G, path, "q1", got)
+            log(f"[mesh] mesh:fatal:1 on q1, meshRestart.enabled="
+                f"{restart}: {'gang-restarted on the mesh' if restart else 're-planned on one device'} "
+                f"(fault_summary {qe.fault_summary}), golden")
+        session.conf.set(restart_key, True)
         with faults.inject(session.conf, "shuffle:unavailable:1") as plan:
             qe = Q.QUERIES["q1"](session)._qe()
             got = qe.collect()
@@ -2793,55 +2857,48 @@ def mesh_sql22(D, S, G, path, launches, current) -> None:
         f"{warm_total:.3f} s in all")
 
 
-def mesh_sf10(D, S, launches, current) -> None:
+def mesh_sf10(D, S, launches, current, sf10) -> None:
     """SF10 lineitem resident across the cards (not streamed) through SQL
     Q1 and Q6, a first and a warm run each against phase 12's exact
     golden, with each card's peak allocated bytes."""
     import torch
     from spark_tpu_torch.io.sources import ParquetSource
-    from spark_tpu_torch.tpch.datagen import write_lineitem_pieces
     from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
     cards = list(range(MESH_SHARDS))
-    with tempfile.TemporaryDirectory() as tmp:
-        on_piece, ans = q1_q6_golden()
-        t0 = time.perf_counter()
-        path = write_lineitem_pieces(tmp + "/lineitem.parquet", OOC_SF,
-                                     on_piece=on_piece)
-        log(f"[mesh] SF{OOC_SF} lineitem: {ans['rows']} rows generated in "
-            f"{time.perf_counter() - t0:.1f} s")
-        session = S.SparkTpuSession.builder().get_or_create()
-        session.conf.set(MESH_KEY, MESH_SHARDS)
-        session.conf.set(CACHE_KEY, MESH_CACHE_BYTES)
-        session.register_table("lineitem", ParquetSource(path, "lineitem"))
-        for q in ("q1", "q6"):
-            for i in cards:
-                torch.cuda.reset_peak_memory_stats(i)
-            label = f"mesh sf{OOC_SF} {q}"
-            first, warm = mesh_first_and_warm(
-                D, session, lambda q=q: session.sql(SQL_QUERIES[q]),
-                current, label)
-            launches[label] = first[3]
-            for run in (first, warm):
-                if "InputExec(streamed" in run[1].spliced_plan.tree_string():
-                    raise AssertionError(f"{label} streamed")
-                require_shard_launches(label, "dense_sums_smem", run[3],
-                                       run[4], cards)
-                check_q1_q6(q, run[0], ans)
-            tables_match(f"{label} warm run", warm[0], first[0])
-            peaks = ", ".join(
-                f"cuda:{i} {torch.cuda.max_memory_allocated(i):,}"
-                for i in cards)
-            log(f"[mesh] SF{OOC_SF} {q} resident on {MESH_SHARDS} cards: "
-                f"equals the golden; {runs_text(first, warm)} "
-                f"({ans['rows'] / warm[2] / 1e6:.2f} M rows/s warm); "
-                f"launches {first[4]}; peak allocated bytes {peaks}")
-            log(f"[mesh] SF{OOC_SF} {q} breakdown: "
-                f"{mesh_breakdown(session, lambda q=q: session.sql(SQL_QUERIES[q]), cards)}")
-        from spark_tpu_torch.io.device_cache import CACHE
-        CACHE.clear()
+    path, ans = sf10.get("mesh")
+    session = S.SparkTpuSession.builder().get_or_create()
+    session.conf.set(MESH_KEY, MESH_SHARDS)
+    session.conf.set(CACHE_KEY, MESH_CACHE_BYTES)
+    session.register_table("lineitem", ParquetSource(path, "lineitem"))
+    for q in ("q1", "q6"):
+        for i in cards:
+            torch.cuda.reset_peak_memory_stats(i)
+        label = f"mesh sf{OOC_SF} {q}"
+        first, warm = mesh_first_and_warm(
+            D, session, lambda q=q: session.sql(SQL_QUERIES[q]),
+            current, label)
+        launches[label] = first[3]
+        for run in (first, warm):
+            if "InputExec(streamed" in run[1].spliced_plan.tree_string():
+                raise AssertionError(f"{label} streamed")
+            require_shard_launches(label, "dense_sums_smem", run[3],
+                                   run[4], cards)
+            check_q1_q6(q, run[0], ans)
+        tables_match(f"{label} warm run", warm[0], first[0])
+        peaks = ", ".join(
+            f"cuda:{i} {torch.cuda.max_memory_allocated(i):,}"
+            for i in cards)
+        log(f"[mesh] SF{OOC_SF} {q} resident on {MESH_SHARDS} cards: "
+            f"equals the golden; {runs_text(first, warm)} "
+            f"({ans['rows'] / warm[2] / 1e6:.2f} M rows/s warm); "
+            f"launches {first[4]}; peak allocated bytes {peaks}")
+        log(f"[mesh] SF{OOC_SF} {q} breakdown: "
+            f"{mesh_breakdown(session, lambda q=q: session.sql(SQL_QUERIES[q]), cards)}")
+    from spark_tpu_torch.io.device_cache import CACHE
+    CACHE.clear()
 
 
-def phase_mesh(D, S, G, path, df_results, launches, current) -> None:
+def phase_mesh(D, S, G, path, df_results, launches, current, sf10) -> None:
     """Phase 14: the mesh. On every run, a session pinned to cuda:0 at
     mesh.size 4 (every shard on one card), its faults and the short-pool
     diagnostic; with 4 cards, the same cases on cuda:0-3, the 22 SQL
@@ -2863,7 +2920,7 @@ def phase_mesh(D, S, G, path, df_results, launches, current) -> None:
     mesh_cases(D, S, G, Q, path, df_results, launches, current,
                pinned=False)
     mesh_sql22(D, S, G, path, launches, current)
-    mesh_sf10(D, S, launches, current)
+    mesh_sf10(D, S, launches, current, sf10)
     log(f"[mesh] {MESH_SHARDS} cards: {time.perf_counter() - t0:.1f} s")
 
 def obs_session(S, path, confs):
@@ -3132,6 +3189,280 @@ def obs_mesh_transfers(D, S, G, path, Q, tmp) -> None:
                     for src, rows in by_source.items()))
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the mesh stream and the elastic mesh
+# ---------------------------------------------------------------------------
+
+def elastic_session(S, path, pinned: bool, confs=()):
+    """A session at mesh.size MESH_SHARDS over SF10 lineitem with the
+    per-shard telemetry on: pinned to cuda:0, or built without a device
+    (the shards on cuda:0..3)."""
+    from spark_tpu_torch.io.sources import ParquetSource
+    builder = S.SparkTpuSession.builder()
+    if pinned:
+        builder = builder.device("cuda:0")
+    session = builder.get_or_create()
+    session.conf.set(MESH_KEY, MESH_SHARDS)
+    session.conf.set(SPANS_KEY, "on")
+    for key, value in confs:
+        session.conf.set(key, value)
+    session.register_table("lineitem", ParquetSource(path, "lineitem"))
+    return session
+
+
+def elastic_chunk_lines(qe) -> str:
+    """Per chunk of a mesh stream: the host decode, the consumer's stall,
+    the host copy (Arrow to host tensors), the slowest shard's stripe
+    copy to its card, the update's host time and each shard's device
+    update time (CUDA events on its card)."""
+    parts = []
+    for stream in qe.stream_stats:
+        if stream["kind"] != "mesh":
+            continue
+        for i, r in enumerate(stream["chunks"]):
+            dev = [ev[0].elapsed_time(ev[1])
+                   for ev in r.get("shard_events") or () if ev is not None]
+            parts.append(
+                f"chunk {i}: decode {r.get('decode_s', 0) * 1e3:.1f} ms, "
+                f"stall {stall_s(r) * 1e3:.1f} ms, host copy "
+                f"{r.get('copy_s', 0) * 1e3:.1f} ms, stripe copy "
+                f"{max(r['stripe_copy_s']) * 1e3:.1f} ms, update host "
+                f"{r['update_s'] * 1e3:.1f} ms"
+                + (f", device by shard {'/'.join(f'{x:.2f}' for x in dev)} "
+                   f"ms" if dev else ""))
+    return "; ".join(parts)
+
+
+def compute_records(qe) -> list:
+    return [r for r in qe.spans.shard_records if r["phase"] == "compute"]
+
+
+def shard_record_text(qe) -> str:
+    """The per-shard telemetry: records, live rows and summed wait by
+    shard."""
+    by = {}
+    for r in compute_records(qe):
+        n, rows, wait = by.get(r["shard"], (0, 0, 0.0))
+        by[r["shard"]] = (n + 1, rows + r["rows"], wait + r["wait_ms"])
+    return ", ".join(f"shard {i}: {n} records, {rows:,} rows, wait "
+                     f"{wait:.1f} ms" for i, (n, rows, wait) in
+                     sorted(by.items()))
+
+
+def run_q1(session, spec=""):
+    """SQL Q1 once (under the fault spec when given): (result, qe,
+    seconds, fired rules)."""
+    import torch
+    import warnings
+    from spark_tpu_torch.testing import faults
+    from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
+    fired = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the ladder's warnings
+        t0 = time.perf_counter()
+        if spec:
+            with faults.inject(session.conf, spec) as plan:
+                qe = session.sql(SQL_QUERIES["q1"])._qe()
+                got = qe.collect()
+                fired = list(plan.fired_log)
+        else:
+            qe = session.sql(SQL_QUERIES["q1"])._qe()
+            got = qe.collect()
+        torch.cuda.synchronize()
+    return got, qe, time.perf_counter() - t0, fired
+
+
+def elastic_streams(D, S, path, ans, launches, current, pinned, cards):
+    """Case 1: SQL Q1 and Q6 streamed per shard, a first and a warm run
+    each. Returns Q1's warm seconds."""
+    import torch
+    from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
+    where = "1 card" if pinned else f"{MESH_SHARDS} cards"
+    session = elastic_session(S, path, pinned)
+    warm_q1 = None
+    for q in ("q1", "q6"):
+        label = f"elastic {where} {q}"
+        for i in cards:
+            torch.cuda.reset_peak_memory_stats(i)
+        base = {i: torch.cuda.memory_allocated(i) for i in cards}
+        first, warm = mesh_first_and_warm(
+            D, session, lambda q=q: session.sql(SQL_QUERIES[q]), current,
+            label)
+        launches[label] = first[3]
+        chunks = expected_chunks(q, ans)
+        for run in (first, warm):
+            require_stream(label, run[1], "streamed_partial_agg", chunks)
+            require_shard_launches(label, "dense_sums_smem", run[3], run[4],
+                                   cards)
+            if run[3]["dense_sums_smem"] < MESH_SHARDS * chunks:
+                raise AssertionError(
+                    f"{label}: {run[3]['dense_sums_smem']} launches, fewer "
+                    f"than one per shard and chunk ({MESH_SHARDS} x "
+                    f"{chunks})")
+            check_q1_q6(q, run[0], ans)
+        tables_match(f"{label} warm run", warm[0], first[0])
+        peaks = ", ".join(
+            f"cuda:{i} {torch.cuda.max_memory_allocated(i) - base[i]:,}"
+            for i in cards)
+        log(f"[elastic] {label} streamed per shard: equals the golden; "
+            f"{runs_text(first, warm)} ({ans['rows'] / warm[2] / 1e6:.2f} M "
+            f"rows/s warm); {n_chunks(warm[1])} chunks; launches "
+            f"{first[4]}; peak allocated bytes over those held {peaks}")
+        log(f"[elastic] {label} warm run chunks: "
+            f"{elastic_chunk_lines(warm[1])}")
+        log(f"[elastic] {label} warm run per-shard telemetry: "
+            f"{shard_record_text(warm[1])}")
+        if q == "q1":
+            warm_q1 = warm[2]
+    return warm_q1
+
+
+def elastic_kill(D, S, path, ans, pinned, cards, warm_q1) -> None:
+    """Case 2: a shard lost at the 2nd snapshot, a checkpoint every
+    chunk: one gang restart, no fallback, a resume on the mesh that
+    replays at most one chunk."""
+    session = elastic_session(S, path, pinned, ((CKPT_KEY, 1),))
+    zero_launches(D)
+    got, qe, seconds, fired = run_q1(session, "mesh_checkpoint:fatal:2")
+    fs = qe.fault_summary
+    restore = [ev for ev in qe.fault_events
+               if ev["action"] == "checkpoint_restore"]
+    if fired != [("mesh_checkpoint", 2, "fatal")] or \
+            fs.get("mesh_restart") != 1 or "mesh_fallback" in fs or \
+            len(restore) != 1 or restore[0].get("driver") != "mesh" or \
+            restore[0]["chunks_replayed"] > 1:
+        raise AssertionError(f"kill case: fired {fired}, {fs}, {restore}")
+    check_q1_q6("q1", got, ans)
+    require_shard_launches("kill case", "dense_sums_smem", dict(D.LAUNCHES),
+                           card_launches(D), cards)
+    log(f"[elastic] kill mid-stream (mesh_checkpoint:fatal:2, a checkpoint "
+        f"a chunk): restarted on the mesh, resumed at chunk "
+        f"{restore[0]['cursor']} replaying {restore[0]['chunks_replayed']} "
+        f"chunk(s); equals the golden; {seconds:.3f} s against the clean "
+        f"warm run's {warm_q1:.3f} s (+{seconds - warm_q1:.3f} s); "
+        f"fault_summary {fs}; launches {card_launches(D)}")
+
+
+def elastic_exhausted(S, path, ans, pinned) -> None:
+    """Case 3: every restart attempt fails at its seam: the query lands
+    on one device and resumes from the checkpoint."""
+    session = elastic_session(S, path, pinned, ((CKPT_KEY, 1),))
+    limit = int(session.conf.get(RESTART_MAX_KEY))
+    spec = "mesh_checkpoint:fatal:2," + ",".join(
+        f"mesh_restart:fatal:{i}" for i in range(1, limit + 1))
+    got, qe, seconds, fired = run_q1(session, spec)
+    fs = qe.fault_summary
+    text = qe.spliced_plan.tree_string()
+    if fs.get("mesh_restart") != limit or fs.get("mesh_fallback") != 1 or \
+            fs.get("checkpoint_restore") != 1 or \
+            "InputExec(spilled_partials," not in text:
+        raise AssertionError(f"restart budget case: fired {fired}, {fs}, "
+                             f"{text}")
+    check_q1_q6("q1", got, ans)
+    log(f"[elastic] restart budget spent ({limit} failed restarts): landed "
+        f"on one device and resumed from the checkpoint "
+        f"(resume_from_mesh_checkpoint); equals the golden; {seconds:.3f} "
+        f"s; fault_summary {fs}")
+
+
+def elastic_drain(D, S, path, ans, pinned, cards) -> None:
+    """Case 4: shard 3 drained from a listener after chunk 1: the drain
+    applies at a chunk boundary, mesh.size drops to 3 (on cards, cuda:3
+    excluded) and the stream resumes from the forced checkpoint."""
+    from spark_tpu_torch.observability import QueryListener
+    session = elastic_session(S, path, pinned)
+
+    class Drainer(QueryListener):
+        done = False
+
+        def on_shard_records(self, event):
+            if not self.done and event.chunk >= 1:
+                self.done = True
+                session.decommission_shards([3])
+
+    drainer = Drainer()
+    session.add_listener(drainer)
+    zero_launches(D)
+    try:
+        got, qe, seconds, _ = run_q1(session)
+    finally:
+        session.remove_listener(drainer)
+    fs = qe.fault_summary
+    by_chunk = {}
+    for r in compute_records(qe):
+        by_chunk.setdefault(r["chunk"], set()).add(r["shard"])
+    last = by_chunk.get(max(by_chunk)) if by_chunk else None
+    mesh_after = int(session.conf.get(MESH_KEY))
+    excluded = session.conf.get("spark_tpu.sql.mesh.excludeDevices")
+    if not drainer.done or fs.get("decommission") != 1 or \
+            fs.get("checkpoint_restore") != 1 or mesh_after != 3 or \
+            excluded != "3" or last != {0, 1, 2}:
+        raise AssertionError(f"drain case: {fs}, mesh.size {mesh_after}, "
+                             f"excluded {excluded!r}, shards by chunk "
+                             f"{by_chunk}")
+    check_q1_q6("q1", got, ans)
+    per_card = card_launches(D)
+    if not pinned and any(per_card.get(f"dense_sums_smem@cuda:{i}", 0) < 1
+                          for i in cards[:3]):
+        raise AssertionError(f"drain case: launches {per_card}")
+    log(f"[elastic] decommission of shard 3 after chunk 1: drained at a "
+        f"boundary, mesh.size {mesh_after}, excluded device ids "
+        f"{excluded!r}, shards by chunk "
+        f"{ {c: sorted(v) for c, v in sorted(by_chunk.items())} }; resumed "
+        f"from the forced checkpoint; equals the golden; {seconds:.3f} s; "
+        f"fault_summary {fs}; launches {per_card}")
+
+
+def elastic_straggler(S, path, ans, pinned) -> None:
+    """Case 5: 2^22-row chunks, shard 2 slowed every chunk by the
+    `shard_chunk` seam: the monitor flags it and the rebalancer moves
+    rows off it."""
+    session = elastic_session(S, path, pinned,
+                              ((CHUNK_KEY, ELASTIC_SLOW_CHUNK_ROWS),))
+    rows = sum(acc[5] for acc in ans["q1"].values())
+    chunks = -(-rows // ELASTIC_SLOW_CHUNK_ROWS)
+    spec = ",".join(
+        f"shard_chunk:slow:{c * MESH_SHARDS + ELASTIC_SLOW_SHARD + 1}:"
+        f"{ELASTIC_SLOW_MS}" for c in range(chunks))
+    moved0 = session.metrics.counter("rebalance_rows").value
+    got, qe, seconds, fired = run_q1(session, spec)
+    moved = session.metrics.counter("rebalance_rows").value - moved0
+    fs = qe.fault_summary
+    mine = sorted((r["chunk"], r["rows"]) for r in compute_records(qe)
+                  if r["shard"] == ELASTIC_SLOW_SHARD)
+    if fs.get("shard_rebalance") != 1 or moved <= 0 or \
+            n_chunks(qe) != chunks:
+        raise AssertionError(f"straggler case: {fs}, rebalance_rows "
+                             f"{moved}, {n_chunks(qe)} chunks, shard "
+                             f"{ELASTIC_SLOW_SHARD} rows {mine}")
+    check_q1_q6("q1", got, ans)
+    log(f"[elastic] straggler (shard {ELASTIC_SLOW_SHARD} slowed "
+        f"{ELASTIC_SLOW_MS} ms a chunk, {chunks} chunks of "
+        f"{ELASTIC_SLOW_CHUNK_ROWS} rows): flagged and rebalanced, "
+        f"rebalance_rows {moved:,}; shard {ELASTIC_SLOW_SHARD} live rows by "
+        f"chunk {[n for _, n in mine]}; equals the golden; {seconds:.3f} s;"
+        f" fault_summary {fs}")
+
+
+def phase_elastic(D, S, launches, current, sf10) -> None:
+    """Phase 16: the mesh stream and the elastic mesh on SF10 lineitem at
+    mesh.size 4: pinned to cuda:0 on a one-card host, on cuda:0-3 on a
+    host with four cards."""
+    import torch
+    path, ans = sf10.get("elastic")
+    pinned = torch.cuda.device_count() < MESH_SHARDS
+    cards = [0] if pinned else list(range(MESH_SHARDS))
+    t0 = time.perf_counter()
+    warm_q1 = elastic_streams(D, S, path, ans, launches, current, pinned,
+                              cards)
+    elastic_kill(D, S, path, ans, pinned, cards, warm_q1)
+    elastic_exhausted(S, path, ans, pinned)
+    elastic_drain(D, S, path, ans, pinned, cards)
+    elastic_straggler(S, path, ans, pinned)
+    log(f"[elastic] {'4 shards on 1 card' if pinned else '4 cards'}: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def run_phases(D, phases):
     """The main-path phases chosen (5-12); returns the per-kernel launch
     counts of each query's first run and the kernel inputs each query's
@@ -3155,7 +3486,7 @@ def run_phases(D, phases):
             # on a mesh each card's, the shard with the most kept rows
             # (a shard of padding rows alone is not the main path's input)
             shape = (idx.shape[0], domain, len(int_rows), len(float_rows))
-            if current[0].startswith("mesh "):
+            if current[0].startswith(("mesh ", "elastic ")):
                 shape += (str(idx.device),)
             kept = int(((idx >= 0) & (idx < domain)).sum())
             inputs = captured.setdefault((current[0], kernel), {})
@@ -3166,6 +3497,8 @@ def run_phases(D, phases):
 
     D.dense_groupby_sums = recording
     launches = {}
+    sf10_dir = tempfile.TemporaryDirectory()
+    sf10 = Sf10(sf10_dir.name)
     try:
         if {"main", "sql", "functions", "etl", "ooc", "udf", "mesh",
                 "obs"} & phases:
@@ -3189,7 +3522,8 @@ def run_phases(D, phases):
                     log(f"[etl] phase in {time.perf_counter() - t0:.1f} s")
                 if "ooc" in phases:
                     t0 = time.perf_counter()
-                    phase_ooc(D, S, path, launches, current, captured)
+                    phase_ooc(D, S, path, launches, current, captured,
+                              sf10)
                     log(f"[ooc] phase in {time.perf_counter() - t0:.1f} s")
                 if "udf" in phases:
                     t0 = time.perf_counter()
@@ -3197,12 +3531,17 @@ def run_phases(D, phases):
                     log(f"[udf] phase in {time.perf_counter() - t0:.1f} s")
                 if "mesh" in phases:
                     t0 = time.perf_counter()
-                    phase_mesh(D, S, G, path, df_results, launches, current)
+                    phase_mesh(D, S, G, path, df_results, launches, current,
+                               sf10)
                     log(f"[mesh] phase in {time.perf_counter() - t0:.1f} s")
                 if "obs" in phases:
                     # its kernel inputs are main's and sql's when those ran
                     phase_obs(D, S, G, path, launches, current,
                               capture=not {"main", "sql"} & phases)
+        if "elastic" in phases:
+            t0 = time.perf_counter()
+            phase_elastic(D, S, launches, current, sf10)
+            log(f"[elastic] phase in {time.perf_counter() - t0:.1f} s")
         if "main" in phases:
             phase_range(D, S, launches, current)
         if {"tpcds", "window", "functions"} & phases:
@@ -3224,6 +3563,7 @@ def run_phases(D, phases):
             log(f"[fuzz] phase in {time.perf_counter() - t0:.1f} s")
     finally:
         D.dense_groupby_sums = original
+        sf10_dir.cleanup()
     return launches, captured
 
 
@@ -3518,7 +3858,8 @@ def kernel_report(D, launches, captured, phases):
         raise AssertionError(f"no kernel input captured for {missing}")
     sql = [(name, label) for label, name in captured
            if label.startswith(("sql ", "tpcds ", "functions ", "etl ",
-                                "ooc ", "udf ", "mesh ", "obs "))]
+                                "ooc ", "udf ", "mesh ", "obs ",
+                                "elastic "))]
     inputs = [(name, q, x) for name, q in programs + sql
               for x in captured[(q, name)].values()]
     for name, q, (idx, ir, fr, domain, _kept) in inputs:

@@ -389,6 +389,53 @@ CHUNK_RETRY_MAX = register(
         "backoff RetryPolicy per chunk). 0 disables chunk retry.",
     validator=lambda v: v >= 0)
 
+CHECKPOINT_EVERY_CHUNKS = register(
+    "spark_tpu.execution.checkpoint.everyChunks", 8,
+    doc="Mesh streaming checkpoint cadence: every N consumed chunks, "
+        "snapshot the per-shard accumulator state device->host as a "
+        "partial-aggregate Arrow table (bytes counted in "
+        "rec_ckpt_bytes). A gang restart resumes the mesh stream at the "
+        "last checkpointed chunk cursor, and so does the single-device "
+        "fallback, instead of chunk 0 (recorded as "
+        "`checkpoint_restore`). 0 disables checkpointing (recovery "
+        "restarts the stream from scratch).",
+    validator=lambda v: v >= 0)
+
+MESH_RESTART_ENABLED = register(
+    "spark_tpu.execution.meshRestart.enabled", True,
+    doc="Gang restart (parallel/elastic.py): on a mesh/collective "
+        "failure, re-execute the query still mesh-planned — up to "
+        "meshRestart.maxRestarts attempts with exponential backoff — "
+        "before degrading to the single-device fallback. The mesh "
+        "stream resumes at its last checkpoint "
+        "(checkpoint.everyChunks), so a shard lost mid-stream replays "
+        "at most one checkpoint interval on the mesh. Restarts are "
+        "recorded as `mesh_restart` actions (mesh_restart_attempts "
+        "counter); disabled, a mesh failure degrades straight to one "
+        "device.")
+
+MESH_RESTART_MAX = register(
+    "spark_tpu.execution.meshRestart.maxRestarts", 2,
+    doc="Gang-restart budget per query execution: mesh failures past "
+        "it fall through to the single-device fallback rung. Backoff "
+        "follows spark_tpu.execution.backoffMs (exponential, "
+        "jittered).",
+    validator=lambda v: v >= 0)
+
+DECOMMISSION_SHARDS = register(
+    "spark_tpu.execution.decommission.shards", "",
+    doc="Graceful-decommission drain request (comma-separated mesh "
+        "positions, e.g. '3' or '3,5'; session.decommission_shards() "
+        "sets it): a running mesh stream drains at its next chunk "
+        "boundary — checkpoint forced at the current cursor, "
+        "`decommission` recorded, the shards' device ids excluded at "
+        "session level (spark_tpu.sql.mesh.excludeDevices) — and the "
+        "query continues on the reduced gang from the checkpoint. The "
+        "BlockManagerDecommissioner analog. One-shot: cleared once "
+        "applied; a request with no position valid for the next mesh "
+        "query's gang is discarded with a warning (never left armed "
+        "for a future larger mesh).")
+
 OOM_SPILL_ENABLED = register(
     "spark_tpu.execution.oom.spillOnExhausted", True,
     doc="Rung 2 of the device-memory degradation ladder: after a "
@@ -478,8 +525,11 @@ MESH_SIZE = register(
 
 MESH_EXCLUDE_DEVICES = register(
     "spark_tpu.sql.mesh.excludeDevices", "",
-    doc="Comma-separated device ids never meshed over (settable directly "
-        "to pin out a bad card). get_mesh builds the mesh over the "
+    doc="Comma-separated device ids never meshed over (written by the "
+        "decommission drain; settable directly to pin out a bad card). "
+        "A card's id is its CUDA ordinal; a session built with one "
+        "device gives its mesh positions the virtual ids 0..P-1 (P the "
+        "largest mesh.size it ran). get_mesh builds the mesh over the "
         "surviving pool, shrinking below mesh.size instead of failing; "
         "a pool of <= 1 survivors runs on the session's device.")
 
@@ -488,7 +538,9 @@ MESH_FALLBACK_ENABLED = register(
     doc="When a distributed run fails inside the mesh/collective path "
         "(a broken rendezvous, a collective's peer copy), re-plan the "
         "query single-device and retry instead of failing. The fallback "
-        "is recorded as a `mesh_fallback` metric and in fault_summary.")
+        "is recorded as a `mesh_fallback` metric and in fault_summary. "
+        "The last rung of the mesh ladder, after the gang restarts "
+        "(execution.meshRestart.*); each rung has its own key.")
 
 SKEW_JOIN_ENABLED = register(
     "spark_tpu.sql.adaptive.skewJoin.enabled", True,
@@ -584,8 +636,8 @@ MAX_SPANS = register(
 SHARD_SPANS = register(
     "spark_tpu.sql.observability.shardSpans", "auto",
     doc="Per-shard telemetry for mesh runs: each exchange's per-shard "
-        "routed rows and bytes become transfer-phase records (and the "
-        "mesh stream's per-(shard, chunk) records, slice 10b). Records "
+        "routed rows and bytes become transfer-phase records, and the "
+        "mesh stream's per-(shard, chunk) compute records. Records "
         "land in the event log ('shards', schema v3), feed the "
         "StragglerMonitor and the history.shard_summary()/"
         "straggler_report() views. 'auto' records only when an "
@@ -607,9 +659,8 @@ STRAGGLER_FACTOR = register(
         "per-chunk latency exceeds factor x the median of all shards' "
         "medians is flagged (straggler_flagged counter + on_straggler "
         "listener event). The speculation-threshold seat of "
-        "spark.speculation.multiplier — detection only; chunk-range "
-        "rebalancing is the elastic-mesh follow-on. <= 0 disables "
-        "detection.",
+        "spark.speculation.multiplier; the ElasticRebalancer acts on "
+        "the flag (straggler.rebalance.*). <= 0 disables detection.",
     type_=float)
 
 STRAGGLER_MIN_CHUNKS = register(
@@ -625,6 +676,41 @@ STRAGGLER_MIN_LATENCY_MS = register(
         "when its median per-chunk wait is at least this many "
         "milliseconds — near-zero medians (every shard keeping up) "
         "must not flag on ratio alone.",
+    validator=lambda v: v >= 0)
+
+STRAGGLER_REBALANCE_ENABLED = register(
+    "spark_tpu.sql.straggler.rebalance.enabled", True,
+    doc="Straggler mitigation (parallel/elastic.py): when the "
+        "StragglerMonitor flags a shard mid-stream, re-assign "
+        "subsequent chunks' rows away from it — the flagged shard's "
+        "live-row share drops by straggler.rebalance.maxSkew, spread "
+        "over the healthy shards. Partial aggregation is "
+        "row-assignment independent: integer/decimal results are "
+        "bit-exact; float sums may move in the last ulp (summation "
+        "order), as with any mesh-size change. Recorded as "
+        "`shard_rebalance` with the rebalance_rows counter.")
+
+STRAGGLER_REBALANCE_MAX_SKEW = register(
+    "spark_tpu.sql.straggler.rebalance.maxSkew", 0.5,
+    doc="How much of a flagged shard's fair row share the rebalancer "
+        "may shift to healthy shards (0.5 = the straggler steps over "
+        "half its fair share). Bounds the skew so one bad detection "
+        "cannot starve a shard entirely; 0 disables movement.",
+    validator=lambda v: 0.0 <= v < 1.0,
+    type_=float)
+
+STRAGGLER_REBALANCE_DECAY_CHUNKS = register(
+    "spark_tpu.sql.straggler.rebalance.decayChunks", 0,
+    doc="Straggler rebalance weight decay: a flagged shard's skew "
+        "penalty fades linearly back to zero over this many healthy "
+        "chunks after the flag, so a recovered shard earns its fair "
+        "row share back instead of staying penalized for the rest of "
+        "the stream. Per-shard slot capacity stays sized for the "
+        "full-penalty trajectory (shapes stay stable mid-decay); when "
+        "every penalty reaches zero the zero-cost unflagged path "
+        "resumes. A re-flag mid-decay resets that shard's penalty to "
+        "full. 0 keeps a flagged shard penalized until the stream "
+        "ends.",
     validator=lambda v: v >= 0)
 
 STATUS_ENABLED = register(
@@ -680,7 +766,6 @@ FLIGHTREC_EVENT_TAIL = register(
 
 # -- keys of slices not yet ported ------------------------------------------
 
-_ELASTIC = "slice 10b (the elastic mesh)"
 _MULTI_HOST = "the multi-host mesh (init_distributed)"
 _STREAMING = "slice 11 (streaming)"
 _ANALYSIS = "slice 12b (analysis)"
@@ -691,13 +776,6 @@ _SERVING = "slice 12c (serving and the compiled-stage cache)"
 #: takes its own keys off this list as it registers them.
 UNPORTED_KEYS: Dict[str, tuple] = {
     "spark_tpu.sql.execution.bucketGrowth": (_SERVING, 2.0),
-    "spark_tpu.execution.checkpoint.everyChunks": (_ELASTIC, 8),
-    "spark_tpu.execution.meshRestart.enabled": (_ELASTIC, True),
-    "spark_tpu.execution.meshRestart.maxRestarts": (_ELASTIC, 2),
-    "spark_tpu.execution.decommission.shards": (_ELASTIC, ""),
-    "spark_tpu.sql.straggler.rebalance.enabled": (_ELASTIC, True),
-    "spark_tpu.sql.straggler.rebalance.maxSkew": (_ELASTIC, 0.5),
-    "spark_tpu.sql.straggler.rebalance.decayChunks": (_ELASTIC, 0),
     "spark_tpu.sql.analysis.enabled": (_ANALYSIS, True),
     "spark_tpu.sql.analysis.strict": (_ANALYSIS, False),
     "spark_tpu.sql.analysis.jaxpr": (_ANALYSIS, "auto"),

@@ -63,13 +63,19 @@ and by sum for the rest. An exchange whose receive block overflowed
 grows it, unless the overflow is a skewed shuffle join's, which re-plans
 the join as broadcast (`_maybe_skew_replan`, `join_strategy_overrides`).
 Explode subtrees run on one device first (`_materialize_generates`). A
-mesh failure (a broken rendezvous, a collective's peer copy, the `mesh`
-fault site) re-plans the query on one device under
-`execution.meshFallback.enabled` (`mesh_fallback` in fault_summary and
-`last_metrics`); the gang restart before that rung is the elastic mesh's.
-A partial aggregate over a scan past the device budget would stream per
-shard in the JAX package; that stream is not ported, and such a plan
-raises instead of running on one device.
+partial aggregate over a scan past the device budget streams per shard
+(`streaming_agg.stream_scan_aggregate_mesh`) and is spliced in as
+`InputExec(streamed_partial_agg,...)`, each shard's rows staying on its
+device. A mesh failure (a broken rendezvous, a collective's peer copy,
+the `mesh`, `mesh_checkpoint` and `decommission` fault sites) climbs the
+elastic ladder (`parallel/elastic.py`): a gang restart still on the mesh
+(`execution.meshRestart.*`; the mesh stream resumes at its checkpoint,
+and a smaller healthy pool shrinks the gang), then the re-plan on one
+device (`execution.meshFallback.enabled`; `mesh_fallback` in
+fault_summary and `last_metrics`), whose stream resumes from the same
+checkpoint. A drain request (`session.decommission_shards`) surfaces at
+a chunk boundary; the executor excludes the drained device ids and runs
+on again over the smaller gang.
 
 Observability (`observability/`, the JAX package's spine): each
 execution records spans (`self.spans`: analysis, optimize, plan,
@@ -102,7 +108,7 @@ import pyarrow as pa
 import torch
 
 from ..columnar import Batch, bucket_capacity
-from ..expr import AnalysisError, Literal
+from ..expr import Literal
 from ..io.sources import ArrowTableSource
 from ..plan import logical as L
 from ..plan import physical as P
@@ -279,8 +285,8 @@ def load_scans(root: P.PhysicalPlan, conf, device) -> Dict[int, Batch]:
 def load_shards(root: P.PhysicalPlan, conf, mesh) -> List[Dict[int, Batch]]:
     """Per shard, the stripe of every loaded leaf by node id: scans
     through the device table cache (one entry per shard and card), the
-    spliced InputExec batches padded and striped; each stripe on its
-    shard's device."""
+    spliced InputExec batches padded and striped, each stripe on its
+    shard's device; a mesh stream's per-shard partials as they are."""
     from ..io.device_cache import load_scan_shards
     from ..parallel.shuffle import move_batch, shard_stripes
     n = mesh.size
@@ -289,7 +295,9 @@ def load_shards(root: P.PhysicalPlan, conf, mesh) -> List[Dict[int, Batch]]:
         for i, b in enumerate(load_scan_shards(s, conf, mesh)):
             out[i][id(s)] = b
     for s in plan_nodes(root, P.InputExec):
-        for i, b in enumerate(shard_stripes(s.load(), n)):
+        parts = s.shards if s.shards is not None and len(s.shards) == n \
+            else shard_stripes(s.load(), n)
+        for i, b in enumerate(parts):
             out[i][id(s)] = move_batch(b, mesh.devices[i])
     return out
 
@@ -792,6 +800,7 @@ class QueryExecution:
         """Fresh failure state for one run of the ladder (execute_batch
         or the external collect): injection armed from the conf, an
         empty fault_summary, a new stage-output memo and retry budget."""
+        from ..parallel.elastic import ElasticMeshState
         from ..testing import faults
         from .recovery import RecoveryContext
         conf = self.session.conf
@@ -800,6 +809,7 @@ class QueryExecution:
         self.fault_events = []
         self._recovery = RecoveryContext(metrics=self.session.metrics,
                                          record=self._record_fault)
+        self._elastic = ElasticMeshState(conf)
         self._oom_rung = 0
         self._retry_policy = RetryPolicy(
             max_retries=self._max_retries(conf),
@@ -925,30 +935,84 @@ class QueryExecution:
             f"fault_summary={self.fault_summary}; last error: "
             + (last or "<none>"))
 
+    def _mesh_pool(self):
+        """Where this session's meshes live, as get_mesh takes it: (the
+        pinned device or None, the pinned session's virtual pool)."""
+        session = self.session
+        if not session.device_pinned:
+            return None, 0
+        return session.device, session.mesh_pool
+
     def _handle_failure(self, e: Exception) -> None:
         """One step of the recovery ladder: returns after applying a
         recovery action (the caller runs again), raises when the failure
         is fatal or every applicable budget is spent."""
         import warnings
         from ..config import Conf
+        from ..parallel import elastic as EL
         from .failures import is_mesh_failure
         cls = classify(e)
         msg = f"{type(e).__name__}: {e}"
         if cls is FailureClass.CANCELLED:
             raise e  # lifecycle control outranks every rung
-        mesh_on = int(self._conf.get("spark_tpu.sql.mesh.size")) > 1
-        if mesh_on and not self._mesh_fallback and is_mesh_failure(e) \
-                and bool(self._conf.get(
-                    "spark_tpu.execution.meshFallback.enabled")):
-            # the degrade rung: re-plan on one device (no exchanges, no
-            # sharding), degraded but correct
-            warnings.warn(f"mesh stage failure, re-planning single-device "
-                          f"(mesh_fallback): {msg[:160]}")
-            self._record_fault("mesh_fallback", e)
-            self._mesh_fallback = True
+        conf = self._conf
+        mesh_on = int(conf.get("spark_tpu.sql.mesh.size")) > 1
+        if mesh_on and isinstance(e, EL.MeshDecommissionRequest):
+            # a planned drain, not a failure: exclude the draining ids
+            # at session level (the drain outlives this query), clear the
+            # request, and run again on the smaller gang, which resumes
+            # from the checkpoint the drain forced
+            warnings.warn(
+                f"decommissioning mesh shard(s) {sorted(e.shards)} "
+                f"(device ids {sorted(e.device_ids)}): draining at the "
+                f"chunk boundary and continuing on the reduced gang")
+            self._record_fault("decommission", None,
+                               shards=sorted(e.shards),
+                               devices=sorted(e.device_ids))
+            EL.apply_decommission(self.session.conf, e.device_ids,
+                                  *self._mesh_pool())
             self._recovery.begin_recovery_attempt()
-            self._mesh_replan(mesh_size=0)
+            self._mesh_replan()  # the gang shrank: shapes differ
             return
+        if mesh_on and not self._mesh_fallback and is_mesh_failure(e):
+            # the mesh ladder: a gang restart first (the mesh stream
+            # resumes at its checkpoint on the mesh), the one-device
+            # fallback last; each rung has its own key
+            healthy = EL.healthy_device_count(conf, *self._mesh_pool())
+            # a pool of <= 1 cannot hold a gang: the fallback rung below
+            # is that re-mesh
+            restartable = healthy is None or healthy > 1
+            slept = self._elastic.try_restart(self._record_fault) \
+                if restartable else None
+            if slept is not None:
+                warnings.warn(
+                    f"mesh stage failure, gang-restarting the mesh "
+                    f"(attempt {self._elastic.restarts}/"
+                    f"{self._elastic.max_restarts}, backoff "
+                    f"{slept:.0f}ms): {msg[:160]}")
+                self._record_fault("mesh_restart", e,
+                                   attempt=self._elastic.restarts,
+                                   backoff_ms=round(slept, 1))
+                self.session.metrics.counter("mesh_restart_attempts").inc()
+                self._recovery.begin_recovery_attempt()
+                # a pool that lost devices shrinks the gang (shapes
+                # change, so the memoized outputs go)
+                n_conf = int(conf.get("spark_tpu.sql.mesh.size"))
+                if healthy is not None and 1 < healthy < n_conf:
+                    self._mesh_replan(mesh_size=healthy)
+                return
+            if bool(conf.get("spark_tpu.execution.meshFallback.enabled")):
+                # the degrade rung: re-plan on one device (no exchanges,
+                # no sharding), degraded but correct
+                warnings.warn(f"mesh stage failure, re-planning "
+                              f"single-device (mesh_fallback): "
+                              f"{msg[:160]}")
+                self._record_fault("mesh_fallback", e)
+                self._mesh_fallback = True
+                self._recovery.begin_recovery_attempt()
+                self._mesh_replan(mesh_size=0)
+                return
+            # no degrade rung: the classification rungs below decide
         if cls in (FailureClass.TRANSIENT, FailureClass.TIMEOUT):
             self._retry_transient(e, cls)
             return
@@ -1061,12 +1125,25 @@ class QueryExecution:
 
     def _splice_stream(self, node: P.PhysicalPlan, tagged):
         """Splice one streamed-aggregate result into the plan. `tagged` is
-        ("direct", Batch) or ("spill", (host partial table, partial
-        node)) — the value the stage-output memo keeps, so a recovery
-        re-execution rebuilds the splice without streaming again."""
+        ("direct", Batch), ("mesh", per-shard partial batches or one
+        Batch) or ("spill", (host partial table, partial node)) — the
+        value the stage-output memo keeps, so a recovery re-execution
+        rebuilds the splice without streaming again."""
         kind, result = tagged
         if kind == "direct":
             return P.InputExec(result, node.schema(), label="streamed_agg")
+        if kind == "mesh":
+            # each shard's partial rows stay on its device: the shards
+            # get them as they are (load_shards)
+            shards = result if isinstance(result, list) else None
+            spliced = P.InputExec(None if shards else result,
+                                  node.schema(),
+                                  label="streamed_partial_agg",
+                                  shards=shards)
+            # the final aggregate above resolves its functions against
+            # the pre-aggregation schema
+            spliced._agg_base_schema = node._base_schema()
+            return spliced
         # spilled partials re-reduce in a final aggregate (the partial ->
         # exchange -> final split of AggUtils.scala, host Arrow buffers in
         # the exchange's seat)
@@ -1089,27 +1166,27 @@ class QueryExecution:
         """Run the streamable aggregates chunk by chunk and splice their
         results in as InputExec leaves. Completed streams land in the
         stage-output memo: a re-execution after a downstream failure
-        splices them again without streaming. On a mesh only partial
-        aggregates would stream (per shard, `stream_scan_aggregate_mesh`
-        in the JAX package): not ported, so such a plan raises."""
-        from .streaming_agg import (mesh_stream_applies,
+        splices them again without streaming. On a mesh, partial
+        aggregates stream per shard; after a mesh fallback, a
+        single-device stream resumes from the failed mesh stream's
+        checkpoint."""
+        from .streaming_agg import (resume_from_mesh_checkpoint,
+                                    stream_scan_aggregate_mesh,
                                     try_stream_aggregate,
                                     try_stream_aggregate_spill)
         rec = self._recovery
         device = self.session.device
-        if mesh is not None and isinstance(node, P.HashAggregateExec) \
-                and mesh_stream_applies(node, self._conf, device):
-            raise AnalysisError(
-                f"streaming a scan past the device budget on a mesh "
-                f"(mesh.size={mesh.size}) is slice 10b, not yet ported "
-                f"to spark_tpu_torch: {node.simple_string()[:160]}; raise "
-                f"spark_tpu.sql.io.deviceCacheBytes so the scan stays "
-                f"resident, or run it at mesh.size 0")
         if mesh is None and isinstance(node, P.HashAggregateExec):
             memo_key = ("stream", id(node))
             hit = rec.memo_get(memo_key, label=node.simple_string())
             if hit is not None:
                 return self._splice_stream(node, hit)
+            if self._mesh_fallback:
+                resumed = resume_from_mesh_checkpoint(node, self._conf,
+                                                      device, rec)
+                if resumed is not None:
+                    rec.memo_put(memo_key, ("spill", resumed))
+                    return self._splice_stream(node, ("spill", resumed))
             result = try_stream_aggregate(node, self._conf, device, rec)
             if result is not None:
                 rec.memo_put(memo_key, ("direct", result))
@@ -1118,6 +1195,17 @@ class QueryExecution:
             if spill is not None:
                 rec.memo_put(memo_key, ("spill", spill))
                 return self._splice_stream(node, ("spill", spill))
+        if mesh is not None and isinstance(node, P.HashAggregateExec) \
+                and node.mode == "partial":
+            memo_key = ("stream_mesh", id(node))
+            hit = rec.memo_get(memo_key, label=node.simple_string())
+            if hit is not None:
+                return self._splice_stream(node, hit)
+            result = stream_scan_aggregate_mesh(node, mesh, self._conf,
+                                                device, rec)
+            if result is not None:
+                rec.memo_put(memo_key, ("mesh", result))
+                return self._splice_stream(node, ("mesh", result))
         new_children = tuple(self._materialize_streaming(c, mesh)
                              for c in node.children)
         if any(a is not b for a, b in zip(new_children, node.children)):
@@ -1244,14 +1332,21 @@ class QueryExecution:
         return True
 
     def _execute_batch(self) -> Batch:
-        from ..parallel.mesh import get_mesh
+        from ..parallel.mesh import get_mesh, mesh_size
         from ..testing import faults
         from . import lifecycle
         conf = self._conf
         session = self.session
-        # a session built with a device places every shard on it
-        mesh = get_mesh(conf, session.device if session.device_pinned
-                        else None)
+        # a session built with a device places every shard on it, over a
+        # pool of virtual ids as large as the largest mesh it ran
+        if session.device_pinned:
+            session.mesh_pool = max(session.mesh_pool, mesh_size(conf))
+        mesh = get_mesh(conf, *self._mesh_pool())
+        if mesh is not None:
+            # a drain request no gang of this size can apply must not
+            # stay armed for a later, larger mesh
+            from ..parallel.elastic import discard_stale_decommission
+            discard_stale_decommission(session.conf, mesh)
         root0 = self.executed_plan
         adaptive = bool(conf.get("spark_tpu.sql.adaptive.enabled"))
         # seed the capacities an earlier execution of this plan over the
@@ -1272,7 +1367,16 @@ class QueryExecution:
             root0 = self._materialize_generates(root0)
         t0 = time.perf_counter()
         self.spilled_partial_rows = None
-        root = self._materialize_streaming(root0, mesh)
+        # the mesh stream finds its per-shard telemetry in the context
+        from ..observability.spans import (ShardStreamTelemetry,
+                                           use_shard_telemetry)
+        telem = None
+        if mesh is not None and self._shard_obs_on():
+            telem = ShardStreamTelemetry(
+                recorder=self.spans, mesh=mesh, query_id=self.query_id,
+                bus=session.listeners)
+        with use_shard_telemetry(telem):
+            root = self._materialize_streaming(root0, mesh)
         self.spliced_plan = root
         if root is not root0:
             # chunked ingest and the chunks' compute run in the splice

@@ -87,10 +87,13 @@ _MESH_TOKENS = ("collective", "rendezvous", "peer copy", "all_to_all",
 
 def is_mesh_failure(exc: BaseException) -> bool:
     """True when the failure points at the mesh/collective path, or is a
-    synthetic fault at the `mesh` site."""
+    synthetic fault at the `mesh`, `mesh_checkpoint` (a shard lost at a
+    snapshot point) or `decommission` (a drain that died at its
+    boundary) site: the candidates of the mesh ladder (gang restart,
+    then the one-device fallback)."""
     from ..testing.faults import FaultInjected
     if isinstance(exc, FaultInjected):
-        return exc.site == "mesh"
+        return exc.site in ("mesh", "mesh_checkpoint", "decommission")
     msg = f"{type(exc).__name__}: {exc}"
     return any(t in msg for t in _MESH_TOKENS)
 

@@ -1,5 +1,5 @@
-"""Partial-progress recovery: chunk-granular retry and stage-output reuse
-(the port of the single-device half of `spark_tpu/execution/recovery.py`;
+"""Partial-progress recovery: chunk-granular retry, stage-output reuse and
+mesh checkpoints (the port of `spark_tpu/execution/recovery.py`;
 reference: lineage plus task-level retry re-runs one partition, and
 completed shuffle files survive a downstream failure — Zaharia et al.,
 NSDI'12).
@@ -21,27 +21,47 @@ NSDI'12).
   after a failure, completed upstream stages replay from the memo
   instead of running again. A re-plan that changes shapes invalidates
   it (epoch bump).
+- **MeshCheckpoint** — every `checkpoint.everyChunks` chunks the mesh
+  stream (`streaming_agg.stream_scan_aggregate_mesh`) snapshots its
+  per-shard accumulator state to the host, as the partial-aggregate
+  Arrow table a final aggregate consumes. A gang restart resumes the
+  mesh stream at the checkpointed chunk cursor, and so does the
+  single-device fallback (`resume_from_mesh_checkpoint`), instead of
+  chunk 0. The `mesh_checkpoint` fault seam fires at each snapshot
+  point. Checkpoints survive re-plans (they are host data under a
+  plan-independent key) and end with the execution.
 
 Recovery actions flow through the executor's `_record_fault`
-(`chunk_retry`, `stage_reuse`) into `fault_summary`; the session's
-metrics count `rec_chunks_replayed` and `rec_stages_reused`. The mesh
-checkpoints (`MeshCheckpoint`, the checkpoint cursor) come with the elastic
-mesh.
+(`chunk_retry`, `stage_reuse`, `checkpoint_restore`) into
+`fault_summary`; the session's metrics count `rec_chunks_replayed`,
+`rec_stages_reused` and `rec_ckpt_bytes`.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 from .failures import FailureClass, RetryPolicy, classify
 
 CHUNK_RETRY_ENABLED_KEY = "spark_tpu.execution.chunkRetry.enabled"
 CHUNK_RETRY_MAX_KEY = "spark_tpu.execution.chunkRetry.maxRetries"
+CHECKPOINT_EVERY_KEY = "spark_tpu.execution.checkpoint.everyChunks"
 BACKOFF_KEY = "spark_tpu.execution.backoffMs"
 
 #: failure classes a chunk replay can recover (OOM descends the
 #: executor's ladder instead)
 _RETRYABLE = (FailureClass.TRANSIENT, FailureClass.TIMEOUT)
+
+
+@dataclass
+class MeshCheckpoint:
+    """Device-to-host snapshot of a mesh stream's accumulator state: the
+    partial-aggregate rows covering the first `cursor` chunks."""
+
+    key: str
+    cursor: int  # chunks folded into `table` (a resume skips these)
+    table: Any  # pyarrow.Table of partial-aggregate rows
 
 
 class ChunkRetrier:
@@ -112,7 +132,8 @@ class ChunkRetrier:
 class RecoveryContext:
     """Per-execution recovery state, made by the executor at every
     execute_batch / external-collect entry and threaded through the
-    streaming loops: the fault recorder and the stage-output memo."""
+    streaming loops: the fault recorder, the stage-output memo and the
+    mesh checkpoint store."""
 
     def __init__(self, metrics=None, record=None):
         self.metrics = metrics  # the session's MetricsRegistry (or None)
@@ -127,6 +148,11 @@ class RecoveryContext:
         self.in_recovery = False
         self.attempt = 0
         self._reuse_logged: set = set()
+        self.checkpoints: Dict[str, MeshCheckpoint] = {}
+        # checkpoint key -> chunks consumed: a restore reports how many
+        # chunks its resume covers again (progress - cursor). Survives
+        # invalidate(), like the checkpoints it is measured against.
+        self._progress: Dict[str, int] = {}
         #: per-stream chunk timings the chunk loops record
         #: (`streaming_agg._ChunkClock`), kept by the executor as
         #: `stream_stats`
@@ -166,12 +192,53 @@ class RecoveryContext:
         self._memo[key] = (self.epoch, self.attempt, value)
 
     def invalidate(self) -> None:
-        """A re-plan changed shapes (the OOM ladder's deviceBudget
-        re-route): memoized outputs no longer splice into the new plan."""
+        """A re-plan changed shapes (a join strategy, the mesh's size, the
+        OOM ladder's deviceBudget re-route): memoized outputs no longer
+        splice into the new plan. Checkpoints survive: they are host
+        Arrow data under a plan-independent key."""
         self.epoch += 1
         self._memo.clear()
 
+    # -- mesh checkpoints ---------------------------------------------------
+
+    def save_checkpoint(self, key: str, cursor: int, snapshot) -> None:
+        """Snapshot a mesh stream's accumulator state at `cursor` consumed
+        chunks. `snapshot` is a thunk giving the host Arrow partial
+        table; it runs after the `mesh_checkpoint` seam, so a fault
+        injected there leaves the previous checkpoint in place."""
+        from ..testing import faults
+        faults.fire("mesh_checkpoint")
+        table = snapshot()
+        self.checkpoints[key] = MeshCheckpoint(key=key, cursor=int(cursor),
+                                               table=table)
+        if self.metrics is not None:
+            self.metrics.counter("rec_ckpt_bytes").inc(int(table.nbytes))
+
+    def get_checkpoint(self, key: str) -> Optional[MeshCheckpoint]:
+        return self.checkpoints.get(key)
+
+    def note_progress(self, key: str, chunks: int) -> None:
+        """Advance a stream's consumed-chunk watermark (monotone)."""
+        if int(chunks) > self._progress.get(key, 0):
+            self._progress[key] = int(chunks)
+
+    def progress(self, key: str) -> int:
+        return self._progress.get(key, 0)
+
+    def restore_replayed(self, key: str, cursor: int) -> int:
+        """Chunks a resume at `cursor` covers again (the failed attempt
+        had consumed up to the watermark), counted into
+        rec_chunks_replayed: the bound of at most checkpoint.everyChunks
+        chunks per mesh recovery is a metric."""
+        replayed = max(0, self.progress(key) - int(cursor))
+        if replayed and self.metrics is not None:
+            self.metrics.counter("rec_chunks_replayed").inc(replayed)
+        return replayed
+
     def release(self) -> None:
-        """Drop retained stage outputs (device batches) when the
-        execution ends: the memo spans recovery loops, not executions."""
+        """Drop retained stage outputs (device batches), checkpoint
+        tables and progress when the execution ends: they span recovery
+        loops, not executions."""
         self._memo.clear()
+        self.checkpoints.clear()
+        self._progress.clear()

@@ -1,13 +1,13 @@
-"""Streaming (chunked) aggregation (the port of the single-device
-part of `spark_tpu/execution/streaming_agg.py`; reference: the
-produce/consume loop of `WholeStageCodegenExec` and
+"""Streaming (chunked) aggregation (the port of
+`spark_tpu/execution/streaming_agg.py`; reference: the produce/consume
+loop of `WholeStageCodegenExec` and
 `TungstenAggregationIterator.scala:82`, which never materialize a scan).
 
 A scan past the device budget is not loaded whole: its chunks (host
 ingested, or synthesized on the device for a Range) go one at a time
 through the aggregate's chain of Project/Filter (and probe-side joins,
 whose build sides are materialized once), and each chunk is folded into
-accumulator tables carried across chunks. Two loops:
+accumulator tables carried across chunks. Three loops:
 
 - **direct stream** (`stream_range_aggregate`, `stream_scan_aggregate`):
   the aggregate takes the dense-domain path; each chunk calls
@@ -21,14 +21,23 @@ accumulator tables carried across chunks. Two loops:
   domain (TPC-H Q3's l_orderkey). Each chunk is reduced by a partial-mode
   sort aggregate and its partials copied to host Arrow; the executor
   re-reduces them in a final-mode aggregate. Engages under a deviceBudget
-  the scan does not fit.
+  the scan does not fit, and resumes a failed mesh stream on one device
+  from its checkpoint (`resume_from_mesh_checkpoint`).
+- **mesh stream** (`stream_scan_aggregate_mesh`): a partial aggregate on
+  a mesh. Each chunk is decoded on the host, padded (or re-assigned
+  away from a straggler, `parallel/elastic.py`) and striped over the
+  shards; one `run_on_shards` call a chunk has every shard copy its
+  stripe to its own device and fold it into its own tables with
+  `direct_update_tables` (the hand kernel on a card). The stream ends
+  with each shard's partial rows on its device, which the exchange and
+  final aggregate above consume. Every `checkpoint.everyChunks` chunks
+  the tables are snapshotted to the host (execution/recovery.py), a
+  drain request is honoured at each chunk boundary, and the per-shard
+  live-row counts feed `spans.ShardStreamTelemetry`.
 
-The JAX package compiles one jitted update per stream and caches it per
-conf (`conf_compile_suffix`); eager torch has no compiled stages, so
-neither exists here. The mesh stream, its checkpoints and the resume
-from them (`stream_scan_aggregate_mesh`, `resume_from_mesh_checkpoint`,
-`checkpoint_key`) come with the elastic mesh; until then
-`mesh_stream_applies` names the plans they would take. The arbiter's
+The JAX package compiles one jitted update per stream (one `shard_map`ped
+step on a mesh) and caches it per conf (`conf_compile_suffix`); eager
+torch has no compiled stages, so neither exists here. The arbiter's
 leases of `_prefer_resident` come with the service.
 """
 
@@ -43,7 +52,7 @@ import torch
 from .. import types as T
 from ..columnar import Batch, Column, bucket_capacity
 from ..plan import physical as P
-from .recovery import ChunkRetrier
+from .recovery import CHECKPOINT_EVERY_KEY, ChunkRetrier
 
 CHUNK_ROWS_KEY = "spark_tpu.sql.execution.streamingChunkRows"
 
@@ -211,7 +220,10 @@ class _ChunkClock:
     """Per-chunk timings of one stream, kept on the recovery context's
     `chunk_stats` list: the consumer's wait for the chunk (host decode
     and copy when nothing prefetches), its host decode and copy, and the
-    update's host time, with CUDA events around the update on a card."""
+    update's host time, with CUDA events around the update on a card.
+    The mesh stream adds each shard's stripe copy seconds
+    (`stripe_copy_s`) and CUDA events around each shard's update
+    (`shard_events`)."""
 
     def __init__(self, recovery, kind: str, chunks=None):
         self.records = []
@@ -228,12 +240,12 @@ class _ChunkClock:
             ev[0].record()
         return time.perf_counter(), ev
 
-    def stop(self, token, wait_s: float) -> None:
+    def stop(self, token, wait_s: float, **extra) -> None:
         t0, ev = token
         if ev is not None:
             ev[1].record()
         rec = {"wait_s": wait_s, "update_s": time.perf_counter() - t0,
-               "events": ev}
+               "events": ev, **extra}
         i = len(self.records)
         for name in ("decode_s", "copy_s"):
             vals = getattr(self._chunks, name, None)
@@ -376,7 +388,8 @@ def _stream_scan_aggregate_inner(agg, chain, conf, device, recovery,
 
 def stream_scan_aggregate_spill(agg: "P.HashAggregateExec", chain: List,
                                 leaf: P.ScanExec, conf, device,
-                                recovery=None):
+                                recovery=None, skip_chunks: int = 0,
+                                seed_partials: Optional[List] = None):
     """Out-of-core aggregation for keys without a static domain (TPC-H
     Q3's l_orderkey): probe chunks stream through device-resident build
     sides, each chunk is reduced by a partial-mode sort aggregate (its
@@ -385,19 +398,30 @@ def stream_scan_aggregate_spill(agg: "P.HashAggregateExec", chain: List,
     of the reference's executor disk (`UnsafeExternalSorter.java:1`,
     `ExternalAppendOnlyMap.scala:55`). Returns (the concatenated host
     partial table, the partial node) for the caller to re-reduce in a
-    final-mode aggregate; None when nothing streamed."""
+    final-mode aggregate; None when nothing streamed.
+
+    The checkpoint restore resumes a failed mesh stream on one device
+    through this loop: `skip_chunks` moves the cursor past what the
+    checkpoint covers, and `seed_partials` (the checkpoint's partial
+    rows) go before the spilled chunks."""
     chunks = _open_chunks(leaf, conf, device, recovery)
     try:
-        return _stream_scan_aggregate_spill_inner(agg, chain, conf, device,
-                                                  recovery, chunks)
+        return _stream_scan_aggregate_spill_inner(
+            agg, chain, conf, device, recovery, chunks, skip_chunks,
+            seed_partials)
     finally:
         if hasattr(chunks, "close"):
             chunks.close()
 
 
 def _stream_scan_aggregate_spill_inner(agg, chain, conf, device, recovery,
-                                       chunks):
+                                       chunks, skip_chunks=0,
+                                       seed_partials=None):
     import pyarrow as pa
+    if skip_chunks:
+        if not hasattr(chunks, "skip_chunks") or \
+                chunks.skip_chunks(skip_chunks) < skip_chunks:
+            return None  # the stream is shorter than the cursor
     first, wait = _next_chunk(iter(chunks))
 
     partial = copy.copy(agg)
@@ -407,6 +431,11 @@ def _stream_scan_aggregate_spill_inner(agg, chain, conf, device, recovery,
     partial.est_groups = None
 
     if first is None:
+        if seed_partials:
+            # the resume landed at the end of the stream: the checkpoint
+            # covers every chunk
+            return pa.concat_tables(list(seed_partials),
+                                    promote_options="permissive"), partial
         return None
 
     joins, builds, saved_caps = prepare_chunk_joins(
@@ -424,8 +453,8 @@ def _stream_scan_aggregate_spill_inner(agg, chain, conf, device, recovery,
     # only this chunk (its partial was not yet spilled)
     retrier = ChunkRetrier(conf, recovery)
     clock = _ChunkClock(recovery, "spill", chunks)
-    spilled: List = []
-    ci, b = 0, first
+    spilled: List = list(seed_partials or [])
+    ci, b = int(skip_chunks), first
     while b is not None:
         tick = clock.start(device)
         spilled.append(retrier.run(lambda bb=b: run_chunk(bb), chunk=ci))
@@ -522,30 +551,316 @@ def _prefer_resident(leaf: "P.ScanExec", conf, device) -> bool:
     return admit_scan_resident(conf, leaf)
 
 
-def mesh_stream_applies(agg: "P.HashAggregateExec", conf, device) -> bool:
-    """Whether the JAX package would stream `agg` per shard on a mesh
-    (`stream_scan_aggregate_mesh`'s gate): a partial aggregate over a
-    unary chain from a chunkable scan past the chunk size that does not
-    stay resident. That stream is slice 10b, not ported: the executor
-    raises for such a plan rather than run it on one device."""
-    if agg.mode != "partial":
-        return False
+def checkpoint_key(agg: "P.HashAggregateExec", leaf: P.ScanExec,
+                   chunk_rows: int) -> str:
+    """The plan-independent identity of a resumable stream: the mesh
+    partial aggregate that saves a checkpoint and the single-device
+    complete aggregate that restores it are different nodes of different
+    plans, but stream the same source rows under the same chunk
+    boundaries into the same aggregation. The source's identity, the
+    pruned columns, the pushed filters (their values), the group and
+    aggregate names and the chunk size pin all of that; any mismatch
+    (the OOM ladder shrank streamingChunkRows) leaves the checkpoint
+    unmatched, and the recovery restarts from chunk 0."""
+    token = leaf.source.cache_token()
+    src = repr(token) if token is not None else f"name:{leaf.source.name}"
+    cols = sorted(leaf.required_columns or [])
+    filters = sorted(f.name() for f in (leaf.pushed_filters or ()))
+    groups = [g.name() for g in agg.group_exprs]
+    aggs = [f"{type(a.func).__name__}:{a.out_name}" for a in agg.agg_exprs]
+    return (f"{src}|cols{cols}|f{filters}"
+            f"|g{groups}|a{aggs}|c{chunk_rows}")
+
+
+def _with_dict_overrides(batch: Batch, dict_overrides: dict) -> Batch:
+    """Swap a stream's grown dictionaries into a partial batch's
+    dictionary-encoded columns (earlier codes stay valid: DictUnifier
+    grows append-only)."""
+    if not dict_overrides:
+        return batch
+    cols = dict(batch.columns)
+    for name, dic in dict_overrides.items():
+        if name in cols and cols[name].dictionary is not None:
+            c = cols[name]
+            cols[name] = Column(c.data, c.dtype, c.validity, dic)
+    return Batch(cols, batch.selection, batch.device)
+
+
+def resume_from_mesh_checkpoint(agg: "P.HashAggregateExec", conf, device,
+                                recovery=None):
+    """The mesh fallback's restore: when the failed mesh stream left a
+    checkpoint matching this (single-device, complete-mode) aggregate,
+    stream only the chunks past its cursor through the partial-spill
+    loop, the checkpoint's partial rows first, for the caller to
+    re-reduce in a final aggregate. Returns (partial table, partial
+    node) like stream_scan_aggregate_spill, or None when no checkpoint
+    applies."""
+    if recovery is None or not recovery.checkpoints:
+        return None
+    if agg.mode != "complete":
+        return None
+    if any(a.func.uses_row_base for a in agg.agg_exprs):
+        return None  # never checkpointed (packed positions are per run)
     if any(getattr(a.func, "positional", False) for a in agg.agg_exprs):
-        return False
+        return None
+    found = find_streamable_chain(agg)
+    if found is None:
+        return None
+    chain, leaf = found
+    if not isinstance(leaf, P.ScanExec) or \
+            not hasattr(leaf.source, "load_chunks"):
+        return None
+    chunk_rows = int(conf.get(CHUNK_ROWS_KEY))
+    ck = recovery.get_checkpoint(checkpoint_key(agg, leaf, chunk_rows))
+    if ck is None:
+        return None
+    out = stream_scan_aggregate_spill(agg, chain, leaf, conf, device,
+                                      recovery=recovery,
+                                      skip_chunks=ck.cursor,
+                                      seed_partials=[ck.table])
+    if out is None:
+        return None
+    replayed = recovery.restore_replayed(ck.key, ck.cursor)
+    recovery.record("checkpoint_restore", None, cursor=int(ck.cursor),
+                    ckpt_rows=int(ck.table.num_rows),
+                    chunks_replayed=replayed)
+    return out
+
+
+def _head_rows(batch: Batch, k: int) -> Batch:
+    """The first `k` rows of a batch (views of its tensors)."""
+    from ..parallel.shuffle import _slice_rows
+    k = min(k, batch.capacity)
+    return Batch({name: _slice_rows(col, 0, k)
+                  for name, col in batch.columns.items()},
+                 batch.selection_mask()[:k], batch.device)
+
+
+def _row_width(b: Batch) -> int:
+    return sum(c.data.element_size() + (1 if c.validity is not None else 0)
+               for c in b.columns.values())
+
+
+def stream_scan_aggregate_mesh(agg: "P.HashAggregateExec", mesh, conf,
+                               device, recovery=None):
+    """A partial aggregate over a chunked scan on a mesh: each chunk is
+    striped over the shards and folded into per-shard accumulator
+    tables, so only the tables stay on the devices between chunks.
+    Returns each shard's partial batch on its own device (a list), the
+    checkpoint's rows and the resumed tail's as one batch after a
+    resume, or None when the stream does not apply (the gate: a partial
+    aggregate over a unary chain of a chunkable scan past the chunk size
+    that does not stay resident). `device` is the session's, which the
+    residency gate reads."""
+    if agg.mode != "partial":
+        return None
+    if any(getattr(a.func, "positional", False) for a in agg.agg_exprs):
+        return None  # no accumulator decomposition: whole input only
+    # unary chains only: a streamed join would need its build on every
+    # shard
     found = find_streamable_chain(agg, allow_joins=False)
     if found is None:
-        return False
+        return None
     chain, leaf = found
     if not isinstance(leaf, P.ScanExec):
-        return False  # a Range synthesizes its stripe: nothing to stream
+        return None  # a Range synthesizes its stripe: nothing to stream
     if not _streamable_string_keys(agg, agg.child.schema()):
-        return False
+        return None
     if not hasattr(leaf.source, "load_chunks"):
-        return False
+        return None
+    chunk_rows = int(conf.get(CHUNK_ROWS_KEY))
     est = leaf.source.estimated_rows()
-    if est is not None and est <= int(conf.get(CHUNK_ROWS_KEY)):
-        return False
-    return not _prefer_resident(leaf, conf, device)
+    if est is not None and est <= chunk_rows:
+        return None
+    if _prefer_resident(leaf, conf, device):
+        return None
+
+    from ..observability.spans import current_shard_telemetry
+    needs_base = any(a.func.uses_row_base for a in agg.agg_exprs)
+    every = int(conf.get(CHECKPOINT_EVERY_KEY))
+    # position-packed aggregates take no checkpoint and no rebalance:
+    # their packed row bases encode the assignment
+    ck_key = checkpoint_key(agg, leaf, chunk_rows) \
+        if recovery is not None and not needs_base else None
+    save_key = ck_key if every > 0 else None
+    # a gang restart (or a drain's re-execution) enters again with the
+    # failed stream's checkpoint: skip the chunks it covers and add its
+    # rows at the end, so the recovery replays at most everyChunks
+    # chunks on the mesh
+    ck = recovery.get_checkpoint(ck_key) if ck_key is not None else None
+    # chunks decode on the host; each shard copies its own stripe to its
+    # device
+    chunks = _open_chunks(leaf, conf, torch.device("cpu"), recovery)
+    try:
+        return _stream_scan_aggregate_mesh_inner(
+            agg, chain, mesh, conf, recovery, chunks,
+            current_shard_telemetry(), needs_base, every, ck_key, save_key,
+            ck)
+    finally:
+        # join the prefetch worker on every exit: a mesh fault, a drain
+        # or a cancel unwinding mid-stream must not leak it
+        if hasattr(chunks, "close"):
+            chunks.close()
+
+
+def _stream_scan_aggregate_mesh_inner(agg, chain, mesh, conf, recovery,
+                                      chunks, telem, needs_base, every,
+                                      ck_key, save_key, ck):
+    import dataclasses
+    import pyarrow as pa
+    from ..parallel import elastic as EL
+    from ..parallel.mesh import run_on_shards
+    from ..parallel.shuffle import move_batch, shard_stripes
+    from ..testing import faults
+    n = mesh.size
+    if ck is not None:
+        if not hasattr(chunks, "skip_chunks") or \
+                chunks.skip_chunks(ck.cursor) < ck.cursor:
+            return None  # the stream is shorter than the cursor
+
+    def record_restore():
+        replayed = recovery.restore_replayed(ck_key, ck.cursor)
+        recovery.record("checkpoint_restore", None,
+                        cursor=int(ck.cursor),
+                        ckpt_rows=int(ck.table.num_rows),
+                        chunks_replayed=replayed, driver="mesh")
+
+    t_in0 = time.perf_counter()
+    first, wait = _next_chunk(iter(chunks))
+    if first is None:
+        if ck is not None:
+            # the resume landed at the end of the stream: the
+            # checkpoint's partial rows are the stream's result
+            record_restore()
+            return Batch.from_arrow(ck.table, mesh.devices[0])
+        return None
+    # the layout reads dtypes and dictionaries only: a few rows do
+    prep = agg.prepare_direct(
+        _replay_chain(chain, P.ExecContext(conf, first.device),
+                      _head_rows(first, 8)), conf)
+    if prep is None:
+        return None
+    # one layout per shard device: each shard keeps its tables on its own
+    preps = [dataclasses.replace(prep, device=d) for d in mesh.devices]
+    tables = [agg.direct_init_tables(p) for p in preps]
+    check_dicts = _dict_growth_guard(agg, prep)
+    chunk_base = 0
+
+    # straggler rebalancing: inert until the ElasticRebalancer flags a
+    # shard through on_straggler; then each chunk's rows move away from
+    # it (position-packed aggregates keep the even split)
+    rebal = EL.RebalanceState(n, conf, recovery=recovery) \
+        if not needs_base else None
+
+    def step(tables, b, ci):
+        nonlocal chunk_base
+        padded = EL.pad_chunk_for_shards(b, n, rebal)
+        if needs_base and chunk_base + padded.capacity >= _ROW_BASE_BOUND:
+            raise RuntimeError(
+                "first/last over a streamed mesh scan exceeds the 2^30 "
+                "packed-position bound")
+        stripes = shard_stripes(padded, n)
+        base = chunk_base
+
+        def shard(i, group):
+            dev = mesh.devices[i]
+            t0 = time.perf_counter()
+            local = move_batch(stripes[i], dev)
+            copy_s = time.perf_counter() - t0
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) \
+                if dev.type == "cuda" else None
+            if ev is not None:
+                ev[0].record()
+            local = _replay_chain(chain, P.ExecContext(conf, dev), local)
+            # unique packed positions: chunks stride the padded chunk's
+            # capacity, shards the stripe's
+            new = agg.direct_update_tables(
+                tables[i], local, preps[i], conf,
+                row_base=base + i * local.capacity)
+            if ev is not None:
+                ev[1].record()
+            # this shard's live rows, left on its device (no sync): the
+            # per-shard telemetry times readiness off it
+            live = local.selection_mask().sum(dtype=torch.int64)
+            return new, live, copy_s, ev
+
+        t_disp = time.perf_counter()
+        results = run_on_shards(mesh, shard)
+        if telem is not None:
+            # the previous chunk's counts flush inside this call
+            telem.chunk_dispatched(ci, [r[1] for r in results],
+                                   _row_width(b), t_disp)
+        chunk_base += padded.capacity
+        return ([r[0] for r in results],
+                {"stripe_copy_s": [r[2] for r in results],
+                 "shard_events": [r[3] for r in results]})
+
+    def partials():
+        overrides = dict(chunks.dictionaries) if hasattr(
+            chunks, "dictionaries") else {}
+        return [_with_dict_overrides(agg.direct_partial_batch(t, p),
+                                     overrides)
+                for t, p in zip(tables, preps)]
+
+    def snapshot():
+        # the accumulators to the host as partial rows (the shape a final
+        # aggregate consumes), decoded against the dictionaries grown so
+        # far; a resumed stream's tables cover the chunks past the
+        # cursor only, so the seed checkpoint's rows go first
+        parts = ([ck.table] if ck is not None else []) + \
+            [b.to_arrow() for b in partials()]
+        return pa.concat_tables(parts, promote_options="permissive")
+
+    if ck is not None:
+        # the cursor was skipped and the layout holds: the resume runs
+        record_restore()
+    retrier = ChunkRetrier(conf, recovery)
+    clock = _ChunkClock(recovery, "mesh", chunks)
+    ci = int(ck.cursor) if ck is not None else 0
+    b = first
+    with EL.use_rebalance(rebal):
+        while b is not None:
+            # graceful decommission at the chunk boundary: the seam fires
+            # first (a fault there is the drain machinery dying, and
+            # takes the mesh ladder), then a checkpoint at the cursor, so
+            # the reduced gang resumes here; the request surfaces to the
+            # executor on this thread
+            drain, drain_ids = EL.pending_decommission(conf, mesh)
+            if drain:
+                faults.fire("decommission")
+                if save_key is not None and ci > 0:
+                    recovery.save_checkpoint(save_key, ci, snapshot)
+                raise EL.MeshDecommissionRequest(drain, drain_ids)
+            if telem is not None:
+                telem.chunk_ingested(ci, b.capacity,
+                                     b.capacity * _row_width(b), t_in0,
+                                     t_in0 + wait)
+            check_dicts(b)
+            tick = clock.start(torch.device("cpu"))
+            tables, extra = retrier.run(lambda bb=b: step(tables, bb, ci),
+                                        chunk=ci)
+            clock.stop(tick, wait, **extra)
+            ci += 1
+            if ck_key is not None:
+                # the consumed-chunk watermark bounds what a later
+                # restore reports as replayed
+                recovery.note_progress(ck_key, ci)
+            if save_key is not None and ci % every == 0:
+                recovery.save_checkpoint(save_key, ci, snapshot)
+            t_in0 = time.perf_counter()
+            b, wait = _next_chunk(chunks)  # ingest is not retried
+
+    if telem is not None:
+        telem.finish()  # the last chunk's records
+    out = partials()
+    if ck is not None:
+        # the seed checkpoint's rows and the resumed tail's: the final
+        # aggregate above reduces both
+        return Batch.from_arrow(pa.concat_tables(
+            [ck.table] + [o.to_arrow() for o in out],
+            promote_options="permissive"), mesh.devices[0])
+    return out
 
 
 def try_stream_aggregate(agg: "P.HashAggregateExec", conf, device,

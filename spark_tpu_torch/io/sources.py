@@ -596,6 +596,8 @@ class PrefetchChunkIterator:
         inner.stop = self._stop
         self._thread: "threading.Thread | None" = None
         self.wait_s: List[float] = []
+        #: the chunk index the worker starts at (past skipped chunks)
+        self._chunk = 0
 
     @property
     def dictionaries(self):
@@ -608,6 +610,16 @@ class PrefetchChunkIterator:
     @property
     def copy_s(self) -> List[float]:
         return self._inner.copy_s
+
+    def skip_chunks(self, n: int) -> int:
+        """The checkpoint restore's cursor advance: valid only before the
+        worker starts (the loops skip right after opening the stream);
+        afterwards the worker may hold a decoded chunk, so it raises."""
+        if self._started:
+            raise RuntimeError("skip_chunks after prefetch started")
+        skipped = self._inner.skip_chunks(n)
+        self._chunk += skipped
+        return skipped
 
     def __iter__(self):
         return self
@@ -662,7 +674,7 @@ class PrefetchChunkIterator:
                 target=self._worker, daemon=True,
                 name="spark-tpu-torch-ingest-prefetch",
                 args=(self._inner._host_next, self._retrier,
-                      self._queue, self._stop, 0))
+                      self._queue, self._stop, self._chunk))
             self._thread.start()
         t0 = time.perf_counter()
         kind, payload, decode_s = self._get()

@@ -323,9 +323,9 @@ def _query_class(plan) -> str:
 def install_default_listeners(session) -> None:
     """Register the built-in subscribers on a session's bus (order
     matters only for determinism: event log, trace, metrics, flight
-    recorder, straggler monitor). The JAX package registers its elastic
-    rebalancer last, AFTER the monitor that feeds it; the port's comes
-    with the elastic mesh (slice 10b) and registers here then."""
+    recorder, straggler monitor, elastic rebalancer — the rebalancer
+    after the monitor that feeds it)."""
+    from ..parallel.elastic import ElasticRebalancer
     from .flight_recorder import FlightRecorder
     from .straggler import StragglerMonitor
     session.listeners.register(EventLogListener(session))
@@ -333,6 +333,7 @@ def install_default_listeners(session) -> None:
     session.listeners.register(MetricsSinkListener(session))
     session.listeners.register(FlightRecorder(session))
     session.listeners.register(StragglerMonitor(session))
+    session.listeners.register(ElasticRebalancer())
 
 
 def make_app_id() -> str:

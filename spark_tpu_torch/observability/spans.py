@@ -159,11 +159,9 @@ def use_shard_telemetry(telem: Optional["ShardStreamTelemetry"]):
 
 
 class ShardStreamTelemetry:
-    """Per-shard/per-chunk flight recorder for the mesh chunk drivers.
-
-    The port's mesh stream is slice 10b: nothing in the port feeds this
-    class yet, and its tests drive it with synthetic chunks. The
-    contract is the JAX package's. Each chunk dispatch hands over the
+    """Per-shard/per-chunk flight recorder for the mesh stream
+    (`streaming_agg.stream_scan_aggregate_mesh`, which finds it through
+    `current_shard_telemetry`). Each chunk dispatch hands over the
     step's per-shard live-row counts — one 0-d (or [1]) int tensor per
     shard, on the shard's device, so appending them costs no copy —
     and the PREVIOUS chunk's counts are flushed at the next chunk
@@ -181,7 +179,10 @@ class ShardStreamTelemetry:
     The `shard_chunk` fault seam fires once per (chunk, shard) inside
     the timed wait window, so an injected `slow` fault models exactly
     one straggling shard (hit ordinal = chunk * n_shards + shard + 1).
-    The port's mesh has one process, so every shard's host is 0.
+    The port's mesh has one process, so every shard's host is 0. Shards
+    pinned to one card share its stream: the first shard's wait holds
+    every shard's work and the others read back at once, so there a
+    straggler is only what an injected `slow` fault makes.
     """
 
     def __init__(self, recorder: SpanRecorder, mesh, query_id: int,

@@ -1,13 +1,13 @@
 """Straggler detection over the per-shard telemetry stream (the port of
-`spark_tpu/observability/straggler.py`; the elastic rebalancer that acts
-on its `on_straggler` events is slice 10b).
+`spark_tpu/observability/straggler.py`; the elastic rebalancer,
+`parallel/elastic.py`, acts on its `on_straggler` events).
 
 The speculation seat (`TaskSetManager.checkSpeculatableTasks`, SURVEY
 section 2.5), sized to gang SPMD: there are no independent task
 attempts to re-launch — a slow shard stalls every chunk of the gang —
 so the monitor's job is DETECTION: identify which mesh position (and
-host) is consistently slow so the elastic-mesh layer can rebalance
-chunk ranges away from it (the ROADMAP follow-on), and so operators
+host) is consistently slow so the elastic rebalancer can move chunk
+rows away from it (`parallel/elastic.py`), and so operators
 see the flag live (`straggler_flagged` counter, `on_straggler` event)
 instead of diagnosing a 3x-slow query from wall-clock alone.
 

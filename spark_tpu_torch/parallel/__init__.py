@@ -13,7 +13,9 @@ shard, each running the executor's `run_plan` over its own stripe on
 its own device (`mesh.run_on_shards`), meeting the other shards at a
 rendezvous for every collective (`mesh.ShardGroup`); rows move between
 cards by peer copies (`shuffle.py`). See `mesh.py` for where shards
-live and how a peer copy is ordered.
+live, what a position's device id is and how a peer copy is ordered;
+`elastic.py` for the gang restart, graceful decommission and straggler
+rebalancing.
 """
 
 from .mesh import AXIS, Mesh, get_mesh, mesh_size, run_on_shards

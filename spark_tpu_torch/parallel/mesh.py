@@ -21,6 +21,17 @@ places every shard on that device — the counterpart of the virtual CPU
 devices the JAX package's tests force, reached only by naming the
 device, never as a stand-in when cards are short.
 
+What a mesh position's device id is (`Mesh.ids`, the ids
+`spark_tpu.sql.mesh.excludeDevices` and a decommission name): on cards,
+the CUDA ordinal. On a pinned mesh, a virtual id: the session's pool is
+the virtual devices 0..P-1, P the largest mesh.size the session has run
+(`pinned_pool`), and get_mesh takes the first mesh.size ids of that pool
+that are not excluded. So a pinned session behaves as a host with P
+devices, as the JAX package's tests' 8 virtual CPU devices do: at
+mesh.size 8, excluding id 0 leaves a mesh of 7 (ids 1-7), excluding
+0-6 leaves one device (no mesh), and draining position 3 excludes id 3,
+lowers mesh.size to 7 and meshes over ids 0-2 and 4-7.
+
 A shard that raises aborts the group, so the others leave their wait at
 once (a waiting shard gets `MeshCollectiveError`); `run_on_shards` joins
 every thread and raises the first error that is not such a consequence.
@@ -67,10 +78,15 @@ class MeshCollectiveError(RuntimeError):
 
 
 class Mesh:
-    """The devices of the data axis, in shard order."""
+    """The devices of the data axis, in shard order, with each position's
+    device id (a card's ordinal, or a pinned mesh's virtual id; the
+    position when not given)."""
 
-    def __init__(self, devices: Sequence[torch.device]):
+    def __init__(self, devices: Sequence[torch.device],
+                 ids: Optional[Sequence[int]] = None):
         self.devices = tuple(torch.device(d) for d in devices)
+        self.ids = tuple(int(i) for i in ids) if ids is not None \
+            else tuple(range(len(self.devices)))
 
     @property
     def size(self) -> int:
@@ -102,18 +118,34 @@ def excluded_device_ids(conf) -> Set[int]:
     return out
 
 
-def get_mesh(conf, device=None) -> Optional[Mesh]:
+def device_pool(device=None, pinned_pool: int = 0) -> List[int]:
+    """The device ids a mesh may take: a pinned session's virtual ids
+    0..pinned_pool-1, else the visible cards' ordinals."""
+    if device is not None:
+        return list(range(pinned_pool))
+    return list(range(torch.cuda.device_count()
+                      if torch.cuda.is_available() else 0))
+
+
+def get_mesh(conf, device=None, pinned_pool: int = 0) -> Optional[Mesh]:
     """The 1-D data mesh from conf, or None at mesh.size <= 1.
 
     `device` is the device a session was built with, if it was: every
-    shard then sits on it. Without one the mesh takes distinct cards; a
-    pool short before exclusions is a setup error, while exclusions
-    shrink the mesh to the surviving pool (<= 1 survivor: None)."""
+    shard then sits on it, over the virtual ids of its pool of
+    `pinned_pool` devices (at least mesh.size). Without one the mesh
+    takes distinct cards; a pool short before exclusions is a setup
+    error. Either way exclusions shrink the mesh to the surviving pool
+    (<= 1 survivor: None)."""
     n = mesh_size(conf)
     if n <= 1:
         return None
     if device is not None:
-        return Mesh([torch.device(device)] * n)
+        ids = [i for i in device_pool(device, max(pinned_pool, n))
+               if i not in excluded_device_ids(conf)]
+        n = min(n, len(ids))
+        if n <= 1:
+            return None
+        return Mesh([torch.device(device)] * n, ids[:n])
     visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if visible < n:
         names = [torch.cuda.get_device_name(i) for i in range(min(visible, 4))]
@@ -129,7 +161,7 @@ def get_mesh(conf, device=None) -> Optional[Mesh]:
         n = min(n, len(pool))
         if n <= 1:
             return None
-    return Mesh(pool[:n])
+    return Mesh(pool[:n], [d.index for d in pool[:n]])
 
 
 def shard_hosts(mesh: Mesh) -> List[int]:

@@ -352,20 +352,28 @@ class InputExec(LeafExec):
     materialized QueryStageExec in the reference's adaptive loop
     (`AdaptiveSparkPlanExec.scala:64`)."""
 
-    def __init__(self, batch: Batch, schema: T.Schema, label: str = "input"):
+    def __init__(self, batch: Optional[Batch], schema: T.Schema,
+                 label: str = "input", shards: Optional[List[Batch]] = None):
         self._batch = batch
         self._schema = schema
         self.label = label
         self.children = ()
+        #: a mesh stream's result: one batch per shard, each on its
+        #: shard's device, handed to the shards as they are (the batch
+        #: is then their concatenation, made only when asked for)
+        self.shards = shards
 
     def schema(self):
         return self._schema
 
     def load(self) -> Batch:
+        if self._batch is None:
+            from ..parallel.shuffle import concat_batches
+            self._batch = concat_batches(self.shards, self.shards[0].device)
         return self._batch
 
     def compute(self, ctx, inputs):
-        return self._batch
+        return self.load()
 
     def simple_string(self):
         return f"InputExec({self.label},{self._schema!r})"
@@ -794,6 +802,28 @@ class HashAggregateExec(UnaryExec):
                 data, a.func.result_type(base), validity,
                 getattr(a.func, "output_dictionary", None))
         return Batch(cols, occupied, prep.device)
+
+    def direct_partial_batch(self, tables, prep: "DirectAggPlan",
+                             dict_overrides: Optional[Dict] = None) -> Batch:
+        """The partial-mode output batch of carried tables: the group
+        keys, the raw accumulator columns and the occupancy as selection
+        (what the exchange and the final aggregate above consume)."""
+        cnt, accs = tables
+        key_arrays, key_valids = agg_kernels.direct_keys(
+            prep.domains, prep.spans, prep.strides, prep.key_dtypes,
+            prep.device)
+        cols: Dict[str, Column] = {}
+        for g, arr, kv, dt, dic in zip(self.group_exprs, key_arrays,
+                                       key_valids, prep.key_dtypes,
+                                       prep.key_dicts):
+            if dict_overrides and g.name() in dict_overrides:
+                dic = dict_overrides[g.name()]
+            cols[g.name()] = Column(arr, dt, kv, dic)
+        for i, a in enumerate(self.agg_exprs):
+            for j, spec in enumerate(prep.specs[i]):
+                cols[self._acc_col_name(i, j, spec)] = Column(
+                    accs[i][j], _np_to_logical(spec.np_dtype))
+        return Batch(cols, cnt > 0, prep.device)
 
     def simple_string(self):
         return (f"HashAggregateExec(mode={self.mode}, "

@@ -71,6 +71,10 @@ class SparkTpuSession:
         #: built with an explicit device: a mesh then places every shard
         #: on it; without one a mesh takes cuda:0..N-1 (parallel/mesh.py)
         self.device_pinned = device is not None
+        #: a pinned session's mesh pool: its mesh positions are the
+        #: virtual device ids 0..mesh_pool-1, mesh_pool the largest
+        #: mesh.size it ran (parallel/mesh.py)
+        self.mesh_pool = 0
         self.catalog: Catalog = Catalog(self)
         # plan-fingerprint data cache (reference: CacheManager.scala):
         # the marked plans, and the tables materialized for them; a
@@ -148,6 +152,15 @@ class SparkTpuSession:
         thread."""
         from .execution import lifecycle
         return lifecycle.cancel(self.app_id, query_id)
+
+    def decommission_shards(self, shards) -> None:
+        """Drain the given mesh positions gracefully (parallel/elastic.py):
+        a running mesh stream checkpoints at its next chunk boundary and
+        continues on the reduced gang; the drained device ids stay
+        excluded for later queries. The BlockManagerDecommissioner
+        seat."""
+        from .parallel.elastic import decommission_shards
+        decommission_shards(self, shards)
 
     # -- data cache -------------------------------------------------------
 

@@ -53,11 +53,24 @@ The seams this package wires:
   stage compile; a fault there takes the mesh failure ladder;
 - `shuffle` fires once per exchange per mesh run, on shard 0, before any
   row moves (parallel/shuffle.py), as the JAX package fires it once per
-  exchange lowering.
+  exchange lowering;
+- `mesh_checkpoint` fires at each mesh-stream snapshot point, before
+  the snapshot is taken (execution/recovery.py), so a fault there
+  models a shard lost mid-stream and leaves the previous checkpoint;
+- `shard_chunk` fires once per (chunk, shard) inside the per-shard
+  telemetry's timed wait (observability/spans.py): hit chunk*n+shard+1
+  is one shard of one chunk, and a `slow` rule makes that shard a
+  straggler;
+- `mesh_restart` fires at each gang-restart attempt
+  (parallel/elastic.py): a fault there fails that attempt, consuming
+  its budget, so the ladder still lands on the single-device rung;
+- `decommission` fires at the drain boundary of a mesh stream, before
+  the forced checkpoint (execution/streaming_agg.py); a fault there
+  takes the mesh failure ladder.
 
 The JAX package's `stage_compile` seam has no counterpart: eager torch
-has no compile step. Its elastic-mesh, streaming-query, compile-cache
-and fleet seams come with those slices.
+has no compile step. Its streaming-query, compile-cache and fleet seams
+come with those slices.
 """
 
 from __future__ import annotations
@@ -74,7 +87,8 @@ INJECT_KEY = "spark_tpu.faults.inject"
 #: site fails at arm time instead of silently never firing.
 KNOWN_SITES = ("scan_load", "stage_run", "join_build", "stream_chunk",
                "ingest_prefetch", "cancel_point", "udf_batch",
-               "udf_worker_spawn", "mesh", "shuffle")
+               "udf_worker_spawn", "mesh", "shuffle", "mesh_checkpoint",
+               "shard_chunk", "mesh_restart", "decommission")
 
 #: test-registered extra seams (register_site)
 _EXTRA_SITES: set = set()

@@ -4,8 +4,8 @@ at the `mesh` site re-plans on one device (`mesh_fallback`) and keeps
 the golden; with the fallback off it surfaces; a `shuffle` fault
 retries; a short device pool raises its setup diagnostic. Then the
 port's own: a shard that raises ends the query (no hang), a rendezvous
-that times out and a failed peer copy are mesh failures, and a scan the
-JAX package would stream per shard raises "not yet ported"."""
+that times out and a failed peer copy are mesh failures, and a scan past
+the device budget streams per shard."""
 
 import threading
 import time
@@ -18,7 +18,6 @@ from spark_tpu.testing import faults as ref_faults
 from spark_tpu.testing.faults import FaultInjected as RefFaultInjected
 from spark_tpu.tpch import queries as RQ
 from spark_tpu_torch.execution.failures import is_mesh_failure
-from spark_tpu_torch.expr import AnalysisError
 from spark_tpu_torch.parallel import mesh as M
 from spark_tpu_torch.plan import physical as P
 from spark_tpu_torch.testing import faults
@@ -47,9 +46,10 @@ def quiet():
 
 def _pair(path, tag):
     port, ref = sessions(path, tag, confs=((MESH, 8), (BACKOFF, 1)))
-    # the JAX package's gang restart would win first; the port has no
-    # restart rung (slice 10b), so only the reference needs it off
-    ref.conf.set(RESTART, False)
+    # these cases hold the one-device fallback rung: the gang restart
+    # before it would take the fault first, in both packages
+    for s in (port, ref):
+        s.conf.set(RESTART, False)
     return port, ref
 
 
@@ -184,12 +184,20 @@ def test_peer_copy_failure_takes_the_fallback(tpch_path, monkeypatch):
 
 
 def test_mesh_stream_is_not_yet_ported(tpch_path):
-    """A scan past the device budget that the JAX package would stream
-    per shard raises instead of running on one device."""
+    """A scan past the device budget streams per shard on the mesh (the
+    name is from before the mesh stream was ported, when such a plan
+    raised): the spliced plan holds the per-shard partials, the result
+    passes the golden and equals the one-device stream's rows."""
     port, _ = _pair(tpch_path, "mstream")
     port.conf.set("spark_tpu.sql.execution.streamingChunkRows", 1024)
     port.conf.set("spark_tpu.sql.io.deviceCacheBytes", 0)
-    with pytest.raises(AnalysisError, match="not yet ported"):
-        PQ.QUERIES["q1"](port).collect()
+    qe = PQ.QUERIES["q1"](port)._qe()
+    got = qe.collect()
+    assert "InputExec(streamed_partial_agg," in \
+        qe.spliced_plan.tree_string()
+    assert qe.fault_summary == {}
+    check_golden(got, "q1", tpch_path)
     port.conf.set(MESH, 0)  # one device streams it
-    check_golden(PQ.QUERIES["q1"](port).collect(), "q1", tpch_path)
+    one = PQ.QUERIES["q1"](port).collect()
+    check_golden(one, "q1", tpch_path)
+    assert_tables_match(got, one)

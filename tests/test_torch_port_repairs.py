@@ -105,7 +105,7 @@ def test_every_reference_key_is_registered_or_listed():
 
 @pytest.mark.parametrize("key,value,part", [
     ("spark_tpu.sql.planChangeValidation", "full", "slice 12b"),
-    ("spark_tpu.execution.meshRestart.enabled", False, "slice 10b"),
+    ("spark_tpu.sql.analysis.strict", True, "slice 12b"),
     ("spark_tpu.sql.cluster.coordinator", "host0:8476", "multi-host"),
     ("spark_tpu.service.slo.latencyMs", 100, "slice 12c"),
     ("spark_tpu.streaming.retainBatches", 5, "slice 11"),

@@ -7,8 +7,8 @@ rings, provider isolation, heartbeat and disabled state, the latency
 histograms, flight-recorder bundles (an injected fatal, on demand, the
 rings' bounds, results equal with the recorder on and off), and the
 straggler rule `evaluate_waits` on seeded waits, the monitor and the
-per-shard telemetry on synthetic chunks (the port's mesh stream, which
-would feed them, is slice 10b).
+per-shard telemetry on synthetic chunks (the mesh stream feeds them in
+`tests/test_torch_elastic.py` and `test_torch_mesh_stream.py`).
 
 The SLO target (`spark_tpu.service.slo.latencyMs`) is the service's
 key, slice 12c: the port reads it as 0, so burn counting stays off.
