@@ -10,12 +10,13 @@
     python3 chip_smoke.py --phases obs         # phase 15 (and 1-2)
     python3 chip_smoke.py --phases elastic     # phase 16 (and 1-2); on a
         # host with 4 cards its cases run on cuda:0-3
+    python3 chip_smoke.py --phases stream      # phase 17 (and 1-2)
 
 Phases, in order; any failure exits non-zero before the last line.
 Phases 1 and 2 always run; `--phases` names the others, from PHASES:
 kernels (3), variants (4), main (5), sql (6), tpcds (7), window (8),
 fuzz (9), functions (10), etl (11), ooc (12), udf (13), mesh (14),
-obs (15), elastic (16).
+obs (15), elastic (16), stream (17).
 Each query of
 phases 5-8, 10, 11's aggregates and 13 runs twice: a
 first run, after the device table cache and the session's kept
@@ -67,13 +68,14 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    programs' results of phase 5 (columns in the DataFrame's order, Q5's
    rows by `n_name`). Each run starts with the launch counters at 0 and
    must launch the kernel `SQL_KERNELS` names; a query prints its runs'
-   wall times, re-plan attempts, launches, joins and breakdown as phase
-   5 does;
+   wall times, re-plan attempts, launches and joins, and Q1, Q5, Q8, Q18
+   and Q21 (`BREAKDOWN_QUERIES`) their breakdown, as phase 5 does;
 7. main path, TPC-DS: SF1 generated with the port's datagen (seed 42,
    2,878,376 store_sales rows), the 21 queries of `tpcds/sql_queries.py`
    through `session.sql`, each compared with the port's pandas golden
    and required to launch the kernel `TPCDS_KERNELS` names, with the
-   same `[sql]`, `[joins]` and `[breakdown]` lines as phase 6; the six
+   same `[sql]` and `[joins]` lines as phase 6 (`[breakdown]` for q27
+   and q61); the six
    DataFrame forms must give their SQL text's rows, and q19 and q68 the
    same Arrow bytes under `join.kernelMode=sort` and `=hash`;
 8. windows at SF1: one DataFrame program computes row_number, rank, lag
@@ -259,9 +261,38 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    a `shard_chunk:slow` fault on shard 2 every chunk must make the
    rebalancer move rows off it (`shard_rebalance`, `rebalance_rows` >
    0). The phase prints its time.
+17. stream, structured streaming over TPC-H SF1 lineitem (phase 5's
+   data, written here when phase 17 runs alone) sorted by l_orderkey,
+   with `l_ts` (l_shipdate as timestamp[us]) added, as 24 Parquet files
+   that move into a watched directory 4 at a time, one
+   `process_available()` (one trigger) a wave, every case on a session
+   on the card. S1: `file_stream` in complete mode grouped by
+   `pmod(l_orderkey, 2^20 - 1)` (2^20 slots with the NULL slot) with
+   two decimal sums and a count, equal to pandas over the rows delivered
+   after triggers 3 and 6, `dense_sums_global` launched every trigger,
+   device memory after trigger 6 within the state's bytes of trigger
+   1's, trigger 5 under torch.profiler for the idle share. S2: grouped
+   by `pmod(l_suppkey, 200)` with sum, a decimal avg and a count and a
+   HAVING count above it, exact against pandas after every trigger,
+   `dense_sums_smem` every trigger. Each trigger of S1 and S2 prints its
+   slice decode, ingest, update, state copy, diff and write, finalize
+   and emit times (host clock, the card synchronised at each boundary),
+   the delta's bytes, its launches and `memory_allocated`. S3:
+   `with_watermark("l_ts", "30 days")` and `window("l_ts", "7 days")`
+   in append mode into a FileStreamSink, against a numpy model of the
+   watermark, equal to the same stream through a CPU session, and again
+   with `state.spillBytes` 1 (the spill tier engaged) giving the same
+   rows. S4: S1 over 3 files in 3 triggers, killed by a fatal fault at
+   trigger 2 at each of the four `stream_*` seams and finished by a
+   fresh query on the checkpoint: equal to the golden, committed batch
+   ids 0, 1, ... once each, `streaming_restore_ms` printed. S5: S2's
+   query unattended (`start(trigger_ms=200)`) over a socket fed with
+   the 24 files' tables by a FrameProducer, one `stream_net_recv`
+   failure and one killed connection mid-stream: equal to S2's result,
+   every frame once, the status store showing the live stream.
 Then the kernels are timed again on the exact inputs the first run of
 each query of phases 5-7 and 10-13 gave them (a chunk's input, for a
-streamed query).
+streamed query), and on S1's and S2's trigger inputs.
 
 The line before the last is a JSON object with one entry per kernel and
 main-path input; the last line is `{"ok": true, "device": {...}}`, and
@@ -289,6 +320,10 @@ PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_SCALAR_OPS = 67e12      # H100 SXM non-tensor fp32 rate, as the ALU rate
 FLOAT_RTOL = 1e-12
 REPS = 20
+#: runs of the plain version and the library call a timing takes (their
+#: medians are yardsticks, some 100x the kernel's time on large inputs;
+#: cut from REPS to fit the full run in its time limit)
+YARDSTICK_REPS = 5
 #: spin cycles queued ahead of each kernel_ms sample, about 1 ms at the
 #: H100's 1.98 GHz SM clock
 SPIN_CYCLES = 2_000_000
@@ -322,6 +357,12 @@ SQL_KERNELS = {f"q{i}": None for i in range(1, 23)}
 SQL_KERNELS.update({q: "dense_sums_smem" for q in (
     "q1", "q4", "q5", "q6", "q11", "q12", "q14", "q17", "q19", "q22")})
 SQL_KERNELS["q21"] = "dense_sums_global"
+#: the queries of phases 6 and 7 that get a `[breakdown]` (four more runs
+#: each: converge, cold pass, cached pass, profiled run), the ones
+#: PERF.md's tables name; cut from every query to fit the full run in
+#: its time limit. Phase 10's programs all get one.
+BREAKDOWN_QUERIES = {"sql": ("q1", "q5", "q8", "q18", "q21"),
+                     "tpcds": ("q27", "q61")}
 #: the queries whose SQL result must equal the DataFrame program's
 SQL_EQUALS_DATAFRAME = ("q1", "q3", "q5", "q6")
 TPCDS_SF = 1.0
@@ -356,10 +397,11 @@ SOURCE = "spark_tpu_torch/csrc/dense_groupby.cu"
 #: the phases `--phases` chooses from, in run order (device and build
 #: always run)
 PHASES = ("kernels", "variants", "main", "sql", "tpcds", "window", "fuzz",
-          "functions", "etl", "ooc", "udf", "mesh", "obs", "elastic")
+          "functions", "etl", "ooc", "udf", "mesh", "obs", "elastic",
+          "stream")
 #: the phases that drive the package's main path (run_phases)
 MAIN_PHASES = ("main", "sql", "tpcds", "window", "fuzz", "functions", "etl",
-               "ooc", "udf", "mesh", "obs", "elastic")
+               "ooc", "udf", "mesh", "obs", "elastic", "stream")
 #: the hand kernels each function-library program must launch at SF1
 #: (F2's and F3's aggregates and functions run as torch ops: the
 #: positional sort, the sort aggregate, the date and bit arithmetic)
@@ -417,6 +459,28 @@ OBS_OFF = (("spark_tpu.sql.metrics.enabled", False),
            ("spark_tpu.sql.observability.shardSpans", "off"),
            ("spark_tpu.sql.status.enabled", False),
            ("spark_tpu.sql.flightRecorder.enabled", False))
+
+#: phase 17: the feed's files and the files a trigger takes; S1's
+#: modulus (2^20 - 1 value slots and the NULL slot a pmod key keeps:
+#: dense_sums_global's full 2^20); S2's modulus and HAVING bound; S3's
+#: watermark delay, window and spill budget (bytes: the event-time state
+#: of weekly windows holds a few hundred bytes, so only a budget below
+#: that engages the spill tier); S4's files, wave and seams (one file a
+#: trigger, cut from two to fit the full run's time limit); S5's
+#: trigger interval
+STREAM_FILES = 24
+STREAM_WAVE = 4
+STREAM_S1_MOD = (1 << 20) - 1
+STREAM_S2_MOD = 200
+STREAM_S2_MIN_ROWS = 5000
+STREAM_DELAY = "30 days"
+STREAM_WINDOW = "7 days"
+STREAM_SPILL_BYTES = 1
+STREAM_S4_FILES = 3
+STREAM_S4_WAVE = 1
+STREAM_SEAMS = ("stream_source_list", "stream_offset_write",
+                "stream_state_commit", "stream_sink_emit")
+STREAM_S5_TRIGGER_MS = 200
 
 
 def log(*parts) -> None:
@@ -576,8 +640,9 @@ def measure(D, idx, ints, floats, domain):
             D, D.plan_launches(domain, len(ints), len(floats)), idx, ints,
             floats, domain),
         "plain_ms": time_ms(
-            lambda: D.dense_groupby_sums_plain(idx, ints, floats, domain)),
-        "library_ms": time_ms(library),
+            lambda: D.dense_groupby_sums_plain(idx, ints, floats, domain),
+            reps=YARDSTICK_REPS, warmup=1),
+        "library_ms": time_ms(library, reps=YARDSTICK_REPS, warmup=1),
     }
 
 
@@ -943,8 +1008,8 @@ def run_sql_query(D, session, q, text, label, kernels, launches, current,
     `reset_state` and a warm run, each with the launch counters at 0 and
     each launching every kernel of `kernels` (a name, a tuple of names,
     or None); both results against the golden; then the `[sql]`,
-    `[joins]` and `[breakdown]` lines. Returns the first run's result and
-    the warm run's wall time."""
+    `[joins]` and (for BREAKDOWN_QUERIES) `[breakdown]` lines. Returns the
+    first run's result and the warm run's wall time."""
     from spark_tpu_torch.execution.executor import plan_nodes
     from spark_tpu_torch.plan.physical import JoinExec
     first, warm = first_and_warm(D, session, lambda: session.sql(text),
@@ -958,7 +1023,9 @@ def run_sql_query(D, session, q, text, label, kernels, launches, current,
         f"{launches[label]}")
     if plan_nodes(first[1].executed_plan, JoinExec):
         log(f"[joins] {label}: {describe_joins(first[1])}")
-    log(f"[breakdown] {label}: {breakdown(session.sql(text))}")
+    phase, name = label.split(" ", 1)
+    if name in BREAKDOWN_QUERIES.get(phase, (name,)):
+        log(f"[breakdown] {label}: {breakdown(session.sql(text))}")
     return first[0], warm[2]
 
 
@@ -2570,9 +2637,16 @@ def mesh_first_and_warm(D, session, make_df, current, label):
     """`first_and_warm` with each run's launches by card as a fifth
     item; neither run may take a recovery action (a mesh fallback
     would be a silent one-device run)."""
+    import gc
     import torch
     out = []
     reset_state(session)
+    # pinned SQL Q5 at 4 shards peaks near the card's capacity: return
+    # the blocks the caching allocator still holds split from earlier
+    # work, so that a run's large allocations find whole segments
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     for run in range(2):
         current[0] = label if run == 0 else None
         zero_launches(D)
@@ -2766,7 +2840,8 @@ def mesh_cases(D, S, G, Q, path, df_results, launches, current, pinned):
             tables_match(f"{label} against the one-card run", mine, want)
         log(f"[mesh] {label}: golden{' and the one-card run' if df_results and q in df_results else ''} "
             f"match; {first[0].num_rows} rows; {runs_text(first, warm)}; "
-            f"launches {first[4]}")
+            f"launches {first[4]}; peak allocated on cuda:0 "
+            f"{torch.cuda.max_memory_allocated():,} bytes")
         log(f"[mesh] {label} breakdown: "
             f"{mesh_breakdown(session, make, cards)}")
     return session
@@ -3463,6 +3538,586 @@ def phase_elastic(D, S, launches, current, sf10) -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def stream_session(S, device=None):
+    """A fresh session for a phase-17 case (the card unless `device`)."""
+    builder = S.SparkTpuSession.builder()
+    if device is not None:
+        builder = builder.device(device)
+    return builder.get_or_create()
+
+
+def unscaled(values, scale: int):
+    """Decimal values (Python Decimals, from a result's pandas column)
+    as their unscaled int64 integers, exactly."""
+    import numpy as np
+    return np.array([int(v.scaleb(scale)) for v in values], dtype=np.int64)
+
+
+def arrow_unscaled(col):
+    """A decimal128 Arrow column's unscaled integers, read from its
+    16-byte little-endian words (every value here fits the low word)."""
+    import numpy as np
+    arr = col.combine_chunks() if hasattr(col, "combine_chunks") else col
+    words = np.frombuffer(arr.buffers()[1], dtype=np.int64)
+    words = words[2 * arr.offset: 2 * (arr.offset + len(arr))]
+    if (words[1::2] != np.where(words[0::2] < 0, -1, 0)).any():
+        raise AssertionError("decimal value beyond 64 bits")
+    return words[0::2].copy()
+
+
+class StreamData:
+    """Phase 17's feed: TPC-H SF1 lineitem in l_orderkey order, with
+    `l_ts` (l_shipdate as timestamp[us]), cut into STREAM_FILES Parquet
+    files under `staging`, and the integer columns the goldens need."""
+
+    def __init__(self, path: str, staging: str):
+        import os
+        import numpy as np
+        import pyarrow as pa
+        import pyarrow.compute as pc
+        import pyarrow.parquet as pq
+        t0 = time.perf_counter()
+        table = pq.read_table(os.path.join(path, "lineitem.parquet"))
+        table = table.take(pc.sort_indices(
+            table, sort_keys=[("l_orderkey", "ascending")]))
+        days = table.column("l_shipdate").cast(pa.int32()).to_numpy()
+        ts = days.astype(np.int64) * 86_400_000_000
+        table = table.append_column("l_ts", pa.array(ts, pa.timestamp("us")))
+        self.schema = table.schema
+        self.rows = table.num_rows
+        self.cols = {
+            "orderkey": table.column("l_orderkey").to_numpy(),
+            "suppkey": table.column("l_suppkey").to_numpy(),
+            "qty": arrow_unscaled(table.column("l_quantity")),
+            "price": arrow_unscaled(table.column("l_extendedprice")),
+            "disc": arrow_unscaled(table.column("l_discount")),
+            "ts": ts}
+        bounds = np.linspace(0, self.rows, STREAM_FILES + 1).astype(np.int64)
+        self.bounds = bounds
+        os.makedirs(staging, exist_ok=True)
+        self.files = []
+        self.tables = []
+        for i in range(STREAM_FILES):
+            part = table.slice(int(bounds[i]), int(bounds[i + 1] - bounds[i]))
+            name = os.path.join(staging, f"lineitem-{i:03d}.parquet")
+            pq.write_table(part, name)
+            self.files.append(name)
+            self.tables.append(part)
+        log(f"[stream] feed: {self.rows:,} lineitem rows in l_orderkey "
+            f"order as {STREAM_FILES} Parquet files of "
+            f"{int(bounds[1] - bounds[0]):,} rows, written in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    def upto(self, n_files: int) -> dict:
+        end = int(self.bounds[n_files])
+        return {k: v[:end] for k, v in self.cols.items()}
+
+
+class Watched:
+    """A watched directory the feed's files move into, a wave at a time
+    (an atomic rename: a file is whole when the source first lists it)."""
+
+    def __init__(self, data: StreamData, root: str, files=None):
+        import os
+        import shutil
+        self.dir = os.path.join(root, "in")
+        os.makedirs(self.dir, exist_ok=True)
+        self.pending = []
+        for i, src in enumerate(files if files is not None else data.files):
+            dst = os.path.join(root, f"staged-{i:03d}.parquet")
+            shutil.copyfile(src, dst)
+            self.pending.append(dst)
+        self.moved = 0
+
+    def wave(self, n: int) -> int:
+        import os
+        for src in self.pending[self.moved:self.moved + n]:
+            os.rename(src, os.path.join(self.dir, os.path.basename(src)))
+        self.moved = min(len(self.pending), self.moved + n)
+        return self.moved
+
+
+def s1_query(F, src, ck, sink=None):
+    return (src.to_df()
+            .group_by(F.pmod(F.col("l_orderkey"), STREAM_S1_MOD).alias("g"))
+            .agg(F.sum(F.col("l_quantity")).alias("sum_qty"),
+                 F.sum(F.col("l_extendedprice")).alias("sum_price"),
+                 F.count().alias("n"))
+            .write_stream(ck, sink_path=sink))
+
+
+def s2_query(F, src, ck):
+    return (src.to_df()
+            .group_by(F.pmod(F.col("l_suppkey"), STREAM_S2_MOD).alias("g"))
+            .agg(F.sum(F.col("l_quantity")).alias("sum_qty"),
+                 F.avg(F.col("l_discount")).alias("avg_disc"),
+                 F.count().alias("n"))
+            .filter(F.col("n") >= STREAM_S2_MIN_ROWS)
+            .write_stream(ck))
+
+
+def s3_query(F, src, ck, sink):
+    return (src.to_df()
+            .with_watermark("l_ts", STREAM_DELAY)
+            .group_by(F.window(F.col("l_ts"), STREAM_WINDOW).alias("w"))
+            .agg(F.sum(F.col("l_quantity")).alias("sum_qty"),
+                 F.count().alias("n"))
+            .write_stream(ck, output_mode="append", sink_path=sink))
+
+
+def check_s1(label, got, cols) -> None:
+    """S1's complete-mode result against pandas over the rows delivered."""
+    import numpy as np
+    import pandas as pd
+    want = (pd.DataFrame({"g": cols["orderkey"] % STREAM_S1_MOD,
+                          "q": cols["qty"], "p": cols["price"]})
+            .groupby("g").agg(q=("q", "sum"), p=("p", "sum"),
+                              n=("q", "size")).reset_index())
+    got = got.sort_values("g").reset_index(drop=True)
+    for name, g, w in (("keys", got["g"].to_numpy(), want["g"].to_numpy()),
+                       ("sum_qty", unscaled(got["sum_qty"], 2),
+                        want["q"].to_numpy()),
+                       ("sum_price", unscaled(got["sum_price"], 2),
+                        want["p"].to_numpy()),
+                       ("count", got["n"].to_numpy(), want["n"].to_numpy())):
+        if len(g) != len(w) or not np.array_equal(g, w):
+            raise AssertionError(f"{label}: {name} differ from pandas "
+                                 f"({len(g)} against {len(w)} groups)")
+
+
+def s2_golden(cols):
+    """S2's answer: per supplier bucket the exact sums, the HALF_UP
+    decimal(19,6) average of l_discount, the count, then the HAVING."""
+    import numpy as np
+    import pandas as pd
+    want = (pd.DataFrame({"g": cols["suppkey"] % STREAM_S2_MOD,
+                          "q": cols["qty"], "d": cols["disc"]})
+            .groupby("g").agg(q=("q", "sum"), d=("d", "sum"),
+                              n=("q", "size")).reset_index())
+    want = want[want["n"] >= STREAM_S2_MIN_ROWS].reset_index(drop=True)
+    avg = []
+    for d, n in zip(want["d"].tolist(), want["n"].tolist()):
+        quo, rem = divmod(d * 10_000, n)  # scale 2 -> scale 6
+        avg.append(quo + (1 if 2 * rem >= n else 0))
+    want["avg"] = np.array(avg, dtype=np.int64)
+    return want
+
+
+def check_s2(label, got, cols) -> None:
+    import numpy as np
+    want = s2_golden(cols)
+    got = got.sort_values("g").reset_index(drop=True)
+    for name, g, w in (("keys", got["g"].to_numpy(), want["g"].to_numpy()),
+                       ("sum_qty", unscaled(got["sum_qty"], 2),
+                        want["q"].to_numpy()),
+                       ("avg_disc", unscaled(got["avg_disc"], 6),
+                        want["avg"].to_numpy()),
+                       ("count", got["n"].to_numpy(), want["n"].to_numpy())):
+        if len(g) != len(w) or not np.array_equal(g, w):
+            raise AssertionError(f"{label}: {name} differ from pandas "
+                                 f"({len(g)} against {len(w)} groups)")
+
+
+def s3_model(data: StreamData, waves):
+    """The watermark model of S3 in numpy, trigger by trigger: rows older
+    than the watermark at the trigger's start drop; the watermark moves
+    to the batch's newest l_ts less the delay; a window is emitted once,
+    when its end falls at or below the watermark. Returns the emitted
+    windows ({start_us: [sum_qty, count]}) and the dropped rows."""
+    import numpy as np
+    from spark_tpu_torch.expr_fns import parse_duration_us
+    delay = parse_duration_us(STREAM_DELAY)
+    dur = parse_duration_us(STREAM_WINDOW)
+    wm = -(1 << 62)
+    state, emitted, dropped = {}, {}, 0
+    lo = 0
+    for n_files in waves:
+        hi = int(data.bounds[n_files])
+        ts = data.cols["ts"][lo:hi]
+        qty = data.cols["qty"][lo:hi]
+        lo = hi
+        keep = ts >= wm
+        dropped += int((~keep).sum())
+        w = (ts[keep] // dur) * dur
+        keys, inv = np.unique(w, return_inverse=True)
+        sums = np.zeros(len(keys), np.int64)
+        np.add.at(sums, inv, qty[keep])
+        counts = np.bincount(inv, minlength=len(keys))
+        for k, s, c in zip(keys.tolist(), sums.tolist(), counts.tolist()):
+            acc = state.setdefault(k, [0, 0])
+            acc[0] += s
+            acc[1] += c
+        wm = max(wm, int(ts.max()) - delay)
+        for k in [k for k in state if k + dur <= wm]:
+            emitted[k] = state.pop(k)
+    return emitted, dropped
+
+
+def s3_rows(sink_pdf):
+    """A sink's S3 rows as {window start us: [sum_qty, count]}."""
+    import numpy as np
+    starts = sink_pdf["w"].to_numpy().astype("datetime64[us]") \
+        .astype(np.int64)
+    return {int(k): [int(s), int(c)] for k, s, c in zip(
+        starts, unscaled(sink_pdf["sum_qty"], 2), sink_pdf["n"])}
+
+
+def run_waves(D, q, watched, waves, label, records, prof_at=None,
+              per_trigger=None):
+    """Move each wave into the watched directory and run one
+    `process_available()`: one trigger a wave. Returns per-trigger dicts
+    (phase times, launches, allocated bytes, wall)."""
+    import torch
+    q.sync_phases = True
+    out = []
+    for i, n in enumerate(waves):
+        watched.wave(n)
+        before = dict(D.LAUNCHES)
+        n_records = len(records)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if prof_at == i:
+            # the card's activity alone: tracing every host op of a
+            # trigger's Python would stretch its wall several times over
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                q.process_available()
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            log(f"[stream] {label} trigger {i + 1} profiled: "
+                f"{busy_text(*device_busy(prof), wall)}")
+        else:
+            q.process_available()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        new = records[n_records:]
+        if len(new) != 1:
+            raise AssertionError(f"{label} wave {i + 1}: {len(new)} "
+                                 f"batches committed, expected one")
+        t = dict(q.last_times or {})
+        t.update(wall_ms=wall * 1e3, record=new[0],
+                 allocated=torch.cuda.memory_allocated(),
+                 launches={k: D.LAUNCHES[k] - before[k] for k in before})
+        out.append(t)
+        if per_trigger is not None:
+            per_trigger(i, q)
+    return out
+
+
+def trigger_line(label, i, t) -> str:
+    r = t["record"]
+    return (f"[stream] {label} trigger {i + 1}: rows {r['rows_in']:,}, "
+            f"slice decode {t.get('decode', 0):.1f} ms, ingest "
+            f"{t.get('ingest', 0):.1f} ms, update {t.get('update', 0):.1f}"
+            f" ms, state save: copy {t.get('state_copy', 0):.1f} ms, diff "
+            f"{t.get('state_diff', 0):.1f} ms, write "
+            f"{t.get('state_write', 0):.1f} ms ({r['kind']}, "
+            f"{r['state_bytes']:,} bytes, changed groups "
+            f"{r['changed_groups']}), finalize {t.get('finalize', 0):.1f} "
+            f"ms, emit {t.get('emit', 0):.2f} ms; wall {t['wall_ms']:.1f} "
+            f"ms; launches {t['launches']}; memory_allocated "
+            f"{t['allocated']:,} bytes")
+
+
+class BatchRecords:
+    """A listener keeping every committed batch's `streaming` record."""
+
+    def __init__(self):
+        from spark_tpu_torch.observability import QueryListener
+
+        class _L(QueryListener):
+            def on_streaming_batch(inner, event):
+                self.records.append(event.record)
+
+        self.records = []
+        self.listener = _L()
+
+
+def stream_s1(D, S, data, tmp, launches, current) -> None:
+    """S1: the per-order running total at dense_sums_global's full
+    domain, checked after triggers 3 and 6."""
+    import os
+    rec = BatchRecords()
+    session = stream_session(S)
+    session.add_listener(rec.listener)
+    root = os.path.join(tmp, "s1")
+    watched = Watched(data, root)
+    src = session.file_stream(watched.dir, schema_df=data.schema)
+    q = s1_query(S.functions, src, os.path.join(root, "ck"))
+    waves = [STREAM_WAVE * (i + 1) for i in range(STREAM_FILES // STREAM_WAVE)]
+    state_bytes = []
+
+    def after(i, q):
+        if i == 0:
+            state_bytes.append(sum(
+                t.numel() * t.element_size()
+                for t in [q._tables[0]] + [a for row in q._tables[1]
+                                           for a in row]))
+        if i + 1 in (3, 6):
+            check_s1(f"S1 after trigger {i + 1}", q.latest(),
+                     data.upto(waves[i]))
+
+    zero_launches(D)
+    current[0] = "stream s1"
+    try:
+        per = run_waves(D, q, watched, [STREAM_WAVE] * len(waves), "S1",
+                        rec.records, prof_at=4, per_trigger=after)
+    finally:
+        current[0] = None
+    launches["stream s1"] = dict(D.LAUNCHES)
+    for i, t in enumerate(per):
+        log(trigger_line("S1", i, t))
+        if t["launches"]["dense_sums_global"] < 1:
+            raise AssertionError(f"S1 trigger {i + 1} did not launch "
+                                 f"dense_sums_global: {t['launches']}")
+    growth = per[-1]["allocated"] - per[0]["allocated"]
+    if abs(growth) > state_bytes[0]:
+        raise AssertionError(
+            f"S1: device memory moved {growth:,} bytes from trigger 1 to "
+            f"trigger 6, more than the state's {state_bytes[0]:,}")
+    log(f"[stream] S1: equals pandas after triggers 3 and 6; state "
+        f"{state_bytes[0]:,} bytes on the card ({STREAM_S1_MOD + 1} slots); "
+        f"memory_allocated moved {growth:+,} bytes from trigger 1 to 6; "
+        f"launches {launches['stream s1']}")
+
+
+def stream_s2(D, S, data, tmp, launches, current):
+    """S2: the supplier dashboard (201 slots, dense_sums_smem's shared
+    variant) with a HAVING above it, exact against pandas."""
+    import os
+    rec = BatchRecords()
+    session = stream_session(S)
+    session.add_listener(rec.listener)
+    root = os.path.join(tmp, "s2")
+    watched = Watched(data, root)
+    src = session.file_stream(watched.dir, schema_df=data.schema)
+    q = s2_query(S.functions, src, os.path.join(root, "ck"))
+    n_waves = STREAM_FILES // STREAM_WAVE
+
+    def after(i, q):
+        check_s2(f"S2 after trigger {i + 1}", q.latest(),
+                 data.upto(STREAM_WAVE * (i + 1)))
+
+    zero_launches(D)
+    current[0] = "stream s2"
+    try:
+        per = run_waves(D, q, watched, [STREAM_WAVE] * n_waves, "S2",
+                        rec.records, per_trigger=after)
+    finally:
+        current[0] = None
+    launches["stream s2"] = dict(D.LAUNCHES)
+    for i, t in enumerate(per):
+        log(trigger_line("S2", i, t))
+        if t["launches"]["dense_sums_smem"] < 1:
+            raise AssertionError(f"S2 trigger {i + 1} did not launch "
+                                 f"dense_sums_smem: {t['launches']}")
+    log(f"[stream] S2: equals pandas after every trigger; launches "
+        f"{launches['stream s2']}")
+    return q.latest()
+
+
+def stream_s3_run(S, data, root, device=None, spill=None):
+    """One S3 run over the 24 files (6 triggers); returns the sink's rows,
+    the query and the seconds it took."""
+    import os
+    from spark_tpu_torch.streaming import SPILL_BYTES_KEY, read_sink
+    session = stream_session(S, device)
+    if spill is not None:
+        session.conf.set(SPILL_BYTES_KEY, spill)
+    watched = Watched(data, root)
+    src = session.file_stream(watched.dir, schema_df=data.schema)
+    sink = os.path.join(root, "sink")
+    q = s3_query(S.functions, src, os.path.join(root, "ck"), sink)
+    t0 = time.perf_counter()
+    for _ in range(STREAM_FILES // STREAM_WAVE):
+        watched.wave(STREAM_WAVE)
+        q.process_available()
+    seconds = time.perf_counter() - t0
+    got = read_sink(sink)
+    return got.sort_values("w").reset_index(drop=True), q, seconds, session
+
+
+def stream_s3(S, data, tmp) -> None:
+    """S3: weekly windows of l_ts under a 30-day watermark, append mode
+    into a FileStreamSink: against the watermark model, against a CPU
+    session of the port, and spilled against resident."""
+    import os
+    import pandas as pd
+    waves = [STREAM_WAVE * (i + 1) for i in range(STREAM_FILES // STREAM_WAVE)]
+    want, dropped = s3_model(data, waves)
+    got, q, sec, _ = stream_s3_run(S, data, os.path.join(tmp, "s3"))
+    if s3_rows(got) != want:
+        raise AssertionError(f"S3: the sink's {len(got)} windows differ "
+                             f"from the watermark model's {len(want)}")
+    cpu, _, cpu_sec, _ = stream_s3_run(S, data, os.path.join(tmp, "s3cpu"),
+                                       device="cpu")
+    pd.testing.assert_frame_equal(got, cpu)
+    spilled, qs, sp_sec, ss = stream_s3_run(
+        S, data, os.path.join(tmp, "s3spill"), spill=STREAM_SPILL_BYTES)
+    if qs._spill is None:
+        raise AssertionError("S3 spilled run never engaged the spill tier")
+    pd.testing.assert_frame_equal(spilled, got)
+    log(f"[stream] S3: {len(got)} windows emitted, equal to the watermark "
+        f"model ({dropped:,} late rows dropped) and to a CPU session's "
+        f"sink; card run {sec:.2f} s, CPU run {cpu_sec:.2f} s; spilled "
+        f"run (spillBytes {STREAM_SPILL_BYTES}) {sp_sec:.2f} s, "
+        f"{ss.metrics.counter('streaming_spill_bytes').value:,} bytes "
+        f"spilled, the same rows; the card run's triggers: "
+        f"{q.last_times}")
+
+
+def stream_s4(S, data, tmp) -> None:
+    """S4: S1 over 3 files in 3 triggers, fatal at trigger 2 at each
+    stream_* seam, finished by a fresh query on the checkpoint."""
+    import os
+    from spark_tpu_torch.streaming import FileStreamSink
+    from spark_tpu_torch.testing import faults
+    files = data.files[:STREAM_S4_FILES]
+    want = data.upto(STREAM_S4_FILES)
+    for seam in STREAM_SEAMS:
+        rec = BatchRecords()
+        session = stream_session(S)
+        session.add_listener(rec.listener)
+        root = os.path.join(tmp, f"s4-{seam}")
+        watched = Watched(data, root, files)
+        ck, sink = os.path.join(root, "ck"), os.path.join(root, "sink")
+
+        def build():
+            src = session.file_stream(watched.dir, schema_df=data.schema)
+            return s1_query(S.functions, src, ck, sink)
+
+        t0 = time.perf_counter()
+        q = build()
+        watched.wave(STREAM_S4_WAVE)
+        q.process_available()
+        watched.wave(STREAM_S4_WAVE)
+        try:
+            with faults.inject(session.conf, f"{seam}:fatal:1"):
+                q.process_available()
+            raise AssertionError(f"S4 {seam}: the fault never fired")
+        except faults.FaultInjected:
+            pass
+        del q
+        restore0 = session.metrics.counter("streaming_restore_ms").value
+        q2 = build()
+        restore = session.metrics.counter("streaming_restore_ms").value \
+            - restore0
+        watched.wave(STREAM_S4_WAVE)
+        q2.process_available()
+        check_s1(f"S4 {seam}", q2.latest(), want)
+        ids = [r["batch_id"] for r in rec.records]
+        if ids != list(range(len(ids))):
+            raise AssertionError(f"S4 {seam}: committed batch ids {ids}")
+        manifest = sorted(FileStreamSink(session, sink, "complete")
+                          ._manifest._ids())
+        if len(set(manifest)) != len(manifest):
+            raise AssertionError(f"S4 {seam}: sink manifest {manifest}")
+        if restore <= 0:
+            raise AssertionError(f"S4 {seam}: no streaming_restore_ms")
+        log(f"[stream] S4 {seam}: fatal at trigger 2, a fresh query "
+            f"restored in {restore:.1f} ms (streaming_restore_ms) and "
+            f"finished; equals the golden; committed batch ids {ids}; "
+            f"{time.perf_counter() - t0:.2f} s")
+
+
+def stream_s5(S, data, tmp, s2_result) -> None:
+    """S5: S2's query unattended (start(trigger_ms)) over a socket fed by
+    a FrameProducer, one injected stream_net_recv drop and one killed
+    connection mid-stream; the status store shows the live stream."""
+    import os
+    import pandas as pd
+    from spark_tpu_torch import streaming
+    from spark_tpu_torch.io.network_source import FrameProducer
+    from spark_tpu_torch.observability.status_store import StatusStore
+    from spark_tpu_torch.testing import faults
+    session = stream_session(S)
+    prod = FrameProducer()
+    port = prod.start()
+    t0 = time.perf_counter()
+    try:
+        src = session.network_stream("127.0.0.1", port, data.schema)
+        root = os.path.join(tmp, "s5")
+        q = s2_query(S.functions, src, os.path.join(root, "ck"))
+        q.start(trigger_ms=STREAM_S5_TRIGGER_MS)
+        live = []
+        sent = 0
+        rc0 = session.metrics.counter("streaming_reconnects").value
+
+        def wait_for(n):
+            deadline = time.monotonic() + 60
+            while q._committed_end < n and time.monotonic() < deadline:
+                if q.status != "RUNNING":
+                    raise AssertionError(f"S5: {q.status} "
+                                         f"{q.exception()}")
+                live.append(StatusStore._streaming_lag()
+                            .get("streams_live", 0.0))
+                time.sleep(0.02)
+            if q._committed_end < n:
+                raise AssertionError(f"S5: committed {q._committed_end} "
+                                     f"of {n} frames")
+
+        def send_wave():
+            nonlocal sent
+            for t in data.tables[sent:sent + STREAM_WAVE]:
+                prod.send(t)
+            sent += STREAM_WAVE
+            wait_for(sent)
+
+        for wave in range(STREAM_FILES // STREAM_WAVE):
+            if wave == 2:
+                # one transient drop of the socket reader mid-stream
+                with faults.inject(session.conf,
+                                   "stream_net_recv:unavailable:1"):
+                    send_wave()
+            else:
+                send_wave()
+            if wave == 3:
+                prod.kill_connection()
+        prod.end()
+        wait_for(sent + 1)  # the end-of-stream marker
+        restarts = q.state()["restarts"]
+        q.stop()
+    finally:
+        prod.close()
+    if q.status != "STOPPED":
+        raise AssertionError(f"S5: {q.status} {q.exception()}")
+    got = q.latest().sort_values("g").reset_index(drop=True)
+    check_s2("S5", got, data.upto(STREAM_FILES))
+    pd.testing.assert_frame_equal(
+        got, s2_result.sort_values("g").reset_index(drop=True))
+    reconnects = session.metrics.counter("streaming_reconnects").value - rc0
+    seen = [e for e in src._seen if not e.get("end")]
+    if len(seen) != STREAM_FILES or src.quarantined():
+        raise AssertionError(f"S5: {len(seen)} frames seen, "
+                             f"{len(src.quarantined())} quarantined")
+    if restarts < 1 or reconnects < 1 or max(live) < 1:
+        raise AssertionError(f"S5: restarts {restarts}, reconnects "
+                             f"{reconnects}, streams_live {max(live)}")
+    if streaming.live_queries():
+        raise AssertionError("S5: a stream is still live after stop()")
+    log(f"[stream] S5: {STREAM_FILES} frames over localhost, "
+        f"{q.state()['ticks']} ticks at {STREAM_S5_TRIGGER_MS} ms, "
+        f"{q._committed_batch + 1} batches; the injected stream_net_recv "
+        f"drop restarted the tick ({restarts} restart), the killed "
+        f"connection reconnected ({reconnects}); equals S2's golden and "
+        f"its file-stream result, no frame lost or repeated; the status "
+        f"store showed streams_live {max(live):.0f} while it ran; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_stream(D, S, path, tmp, launches, current) -> None:
+    """Phase 17: structured streaming over TPC-H SF1 lineitem (S1-S5)."""
+    import os
+    t0 = time.perf_counter()
+    data = StreamData(path, os.path.join(tmp, "stream-feed"))
+    stream_s1(D, S, data, tmp, launches, current)
+    s2 = stream_s2(D, S, data, tmp, launches, current)
+    stream_s3(S, data, tmp)
+    stream_s4(S, data, tmp)
+    stream_s5(S, data, tmp, s2)
+    log(f"[stream] phase cases in {time.perf_counter() - t0:.1f} s")
+
+
 def run_phases(D, phases):
     """The main-path phases chosen (5-12); returns the per-kernel launch
     counts of each query's first run and the kernel inputs each query's
@@ -3501,7 +4156,7 @@ def run_phases(D, phases):
     sf10 = Sf10(sf10_dir.name)
     try:
         if {"main", "sql", "functions", "etl", "ooc", "udf", "mesh",
-                "obs"} & phases:
+                "obs", "stream"} & phases:
             with tempfile.TemporaryDirectory() as tmp:
                 t0 = time.perf_counter()
                 path = write_parquet(tmp + "/tpch", SF)
@@ -3509,13 +4164,20 @@ def run_phases(D, phases):
                     f"{time.perf_counter() - t0:.1f} s")
                 df_results = None
                 if "main" in phases:
+                    t0 = time.perf_counter()
                     df_results = phase_dataframes(D, S, Q, path, launches,
                                                   current)
+                    log(f"[main] phase in {time.perf_counter() - t0:.1f} s")
                 if "sql" in phases:
+                    t0 = time.perf_counter()
                     phase_sql(D, S, G, path, df_results, launches, current)
+                    log(f"[sql] phase in {time.perf_counter() - t0:.1f} s")
                 if "functions" in phases:
+                    t0 = time.perf_counter()
                     phase_functions(D, S, ["f1", "f2"], path, launches,
                                     current)
+                    log(f"[functions] f1, f2 in "
+                        f"{time.perf_counter() - t0:.1f} s")
                 if "etl" in phases:
                     t0 = time.perf_counter()
                     phase_etl(D, S, path, launches, current)
@@ -3538,6 +4200,11 @@ def run_phases(D, phases):
                     # its kernel inputs are main's and sql's when those ran
                     phase_obs(D, S, G, path, launches, current,
                               capture=not {"main", "sql"} & phases)
+                if "stream" in phases:
+                    t0 = time.perf_counter()
+                    phase_stream(D, S, path, tmp, launches, current)
+                    log(f"[stream] phase in "
+                        f"{time.perf_counter() - t0:.1f} s")
         if "elastic" in phases:
             t0 = time.perf_counter()
             phase_elastic(D, S, launches, current, sf10)
@@ -3552,9 +4219,14 @@ def run_phases(D, phases):
                 log(f"[tpcds] SF{TPCDS_SF} generated in "
                     f"{time.perf_counter() - t0:.1f} s")
                 if "tpcds" in phases:
+                    t0 = time.perf_counter()
                     phase_tpcds(D, S, path, launches, current)
+                    log(f"[tpcds] phase in {time.perf_counter() - t0:.1f} s")
                 if "window" in phases:
+                    t0 = time.perf_counter()
                     phase_window(D, S, path)
+                    log(f"[window] phase in "
+                        f"{time.perf_counter() - t0:.1f} s")
                 if "functions" in phases:
                     phase_functions(D, S, ["f3"], path, launches, current)
         if "fuzz" in phases:
@@ -3859,7 +4531,7 @@ def kernel_report(D, launches, captured, phases):
     sql = [(name, label) for label, name in captured
            if label.startswith(("sql ", "tpcds ", "functions ", "etl ",
                                 "ooc ", "udf ", "mesh ", "obs ",
-                                "elastic "))]
+                                "elastic ", "stream "))]
     inputs = [(name, q, x) for name, q in programs + sql
               for x in captured[(q, name)].values()]
     for name, q, (idx, ir, fr, domain, _kept) in inputs:
@@ -3918,13 +4590,18 @@ def main(argv) -> int:
         import torch
         smi_line, name = phase_device()
         D = phase_build()
+        t0 = time.perf_counter()
         if "kernels" in phases:
             shapes = phase_kernels(D, strict=not shapes_only)
         if "variants" in phases:
             phase_variants(D)
+        log(f"[kernels] phases 3-4 in {time.perf_counter() - t0:.1f} s")
         if not shapes_only:
             launches, captured = run_phases(D, phases)
+            t0 = time.perf_counter()
             entries = kernel_report(D, launches, captured, phases)
+            log(f"[report] {len(entries)} inputs in "
+                f"{time.perf_counter() - t0:.1f} s")
         if any(m == "jax" or m.startswith(("jax.", "spark_tpu."))
                or m == "spark_tpu" for m in sys.modules):
             raise AssertionError("the JAX package or JAX was imported")

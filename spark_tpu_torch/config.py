@@ -764,10 +764,123 @@ FLIGHTREC_EVENT_TAIL = register(
     validator=lambda v: v >= 0)
 
 
+# -- structured streaming (streaming.py, slice 11) ----------------------
+
+STREAMING_SNAPSHOT_EVERY = register(
+    "spark_tpu.streaming.stateStore.snapshotEveryDeltas", 10,
+    doc="Incremental streaming state store "
+        "(execution/state_store.py): write a FULL state snapshot "
+        "every N versions; the versions between persist as deltas "
+        "(only the groups whose accumulators changed that batch). "
+        "Restore = newest snapshot <= the committed version + replay "
+        "of at most N-1 deltas. 1 snapshots every version (the "
+        "pre-incremental behavior).",
+    validator=lambda v: v >= 1)
+
+STREAMING_RETAIN = register(
+    "spark_tpu.streaming.retainBatches", 2,
+    doc="Streaming checkpoint retention window (the "
+        "minBatchesToRetain seat): offset/commit log entries and "
+        "state files needed only by versions older than "
+        "committed - retain are compacted away. Recovery reads only "
+        "the last committed version; the window exists so a torn "
+        "newest log entry can fall back one version.",
+    validator=lambda v: v >= 1)
+
+STREAMING_FILE_STRICT = register(
+    "spark_tpu.streaming.source.file.strict", False,
+    doc="File stream source corrupt-file policy: by default a file "
+        "that fails to decode (torn write, wrong schema, not the "
+        "source's format) is QUARANTINED — marked in the source's "
+        "seen-file log, counted in streaming_files_quarantined, "
+        "skipped by the batch and by every replay — so one bad file "
+        "cannot wedge the stream. true fails the batch instead "
+        "(at-least-once delivery of every file byte wins over "
+        "availability).")
+
+STREAMING_NET_MAX_RECONNECTS = register(
+    "spark_tpu.streaming.source.network.maxReconnects", 8,
+    doc="Network stream source (io/network_source.py) reconnect "
+        "ladder: maximum reconnect attempts per poll after the peer "
+        "dies mid-stream (EOF, reset, or a mid-frame stall), under "
+        "exponential backoff + jitter (failures.RetryPolicy over "
+        "source.network.backoffMs). Every successful reconnect "
+        "handshakes the durable frame offset back to the producer, so "
+        "the stream resumes with zero loss and zero duplication. "
+        "Exhausting the ladder fails the poll with a TRANSIENT "
+        "connection error for the trigger supervisor to classify.",
+    validator=lambda v: v >= 0)
+
+STREAMING_NET_CONNECT_TIMEOUT_MS = register(
+    "spark_tpu.streaming.source.network.connectTimeoutMs", 2000,
+    doc="Network stream source: milliseconds each socket connect "
+        "attempt may take before counting as a failed "
+        "reconnect-ladder rung.",
+    validator=lambda v: v >= 1)
+
+STREAMING_NET_IDLE_TIMEOUT_MS = register(
+    "spark_tpu.streaming.source.network.idleTimeoutMs", 50,
+    doc="Network stream source idle/stall discriminator: a read that "
+        "times out while waiting for the FIRST byte of a new frame "
+        "means a quiet producer — the poll returns the offsets drained "
+        "so far and keeps the connection. The same timeout landing "
+        "MID-frame (header or payload partially read) means a dead or "
+        "wedged peer and takes the reconnect ladder instead.",
+    validator=lambda v: v >= 1)
+
+STREAMING_NET_BACKOFF_MS = register(
+    "spark_tpu.streaming.source.network.backoffMs", 50,
+    doc="Network stream source: base backoff milliseconds for the "
+        "reconnect ladder; attempt k sleeps backoffMs * 2^k with "
+        "+/-50% jitter on the interruptible lifecycle wait.",
+    validator=lambda v: v >= 0)
+
+STREAMING_TRIGGER_MAX_RESTARTS = register(
+    "spark_tpu.streaming.trigger.maxRestarts", 3,
+    doc="Supervised trigger loop (StreamingQuery.start): how many "
+        "times a TRANSIENT batch failure may restart within one "
+        "failure streak before the query parks in FAILED status. The "
+        "streak resets after any successful tick; FATAL failures park "
+        "immediately without consuming restarts.",
+    validator=lambda v: v >= 0)
+
+STREAMING_TRIGGER_BACKOFF_MS = register(
+    "spark_tpu.streaming.trigger.backoffMs", 100,
+    doc="Supervised trigger loop: base backoff milliseconds between "
+        "TRANSIENT-failure restarts (exponential + jitter via "
+        "failures.RetryPolicy, slept on the interruptible lifecycle "
+        "wait so stop()/cancel interrupts a parked backoff "
+        "immediately).",
+    validator=lambda v: v >= 0)
+
+STREAMING_STATE_SPILL_BYTES = register(
+    "spark_tpu.streaming.state.spillBytes", 0,
+    doc="Host-spill threshold for event-time streaming-aggregate "
+        "state: when the committed keyed state exceeds this many "
+        "bytes it stops being held resident between triggers and "
+        "reroutes through the external keyed backend "
+        "(execution/external.py SpillableKeyedState) — hash-"
+        "partitioned parquet spill files under the query checkpoint; "
+        "each trigger's MERGE touches only the partitions its batch's "
+        "keys hash to, and only the touched partitions rewrite at "
+        "adoption. Persistence is unchanged (the same delta/snapshot "
+        "store commits the same full frames), so crash recovery is "
+        "identical; spilled bytes count in streaming_spill_bytes. "
+        "0 disables spill (state stays resident).",
+    validator=lambda v: v >= 0)
+
+STREAMING_STATE_SPILL_PARTITIONS = register(
+    "spark_tpu.streaming.state.spillPartitions", 16,
+    doc="Partition count for the host-spill keyed state backend: "
+        "state rows hash-route by key to this many parquet spill "
+        "files; a trigger rewrites only the partitions its batch's "
+        "keys (or evicted windows) touch.",
+    validator=lambda v: v >= 1)
+
+
 # -- keys of slices not yet ported ------------------------------------------
 
 _MULTI_HOST = "the multi-host mesh (init_distributed)"
-_STREAMING = "slice 11 (streaming)"
 _ANALYSIS = "slice 12b (analysis)"
 _SERVING = "slice 12c (serving and the compiled-stage cache)"
 
@@ -812,18 +925,6 @@ UNPORTED_KEYS: Dict[str, tuple] = {
     "spark_tpu.sql.compileCache.dir": (_SERVING, "spark-compile-cache"),
     "spark_tpu.sql.compileCache.maxBytes": (_SERVING, 1 << 30),
     "spark_tpu.sql.compileCache.warmStart": (_SERVING, True),
-    "spark_tpu.streaming.stateStore.snapshotEveryDeltas": (_STREAMING, 10),
-    "spark_tpu.streaming.retainBatches": (_STREAMING, 2),
-    "spark_tpu.streaming.source.file.strict": (_STREAMING, False),
-    "spark_tpu.streaming.source.network.maxReconnects": (_STREAMING, 8),
-    "spark_tpu.streaming.source.network.connectTimeoutMs": (_STREAMING,
-                                                            2000),
-    "spark_tpu.streaming.source.network.idleTimeoutMs": (_STREAMING, 50),
-    "spark_tpu.streaming.source.network.backoffMs": (_STREAMING, 50),
-    "spark_tpu.streaming.trigger.maxRestarts": (_STREAMING, 3),
-    "spark_tpu.streaming.trigger.backoffMs": (_STREAMING, 100),
-    "spark_tpu.streaming.state.spillBytes": (_STREAMING, 0),
-    "spark_tpu.streaming.state.spillPartitions": (_STREAMING, 16),
 }
 
 

@@ -1,8 +1,9 @@
 """DataFrame API: a lazy logical-plan holder (the port of
-`spark_tpu/dataframe.py` but for grouped-map UDFs and streaming;
-reference: `Dataset.scala:191`). Every method builds a new logical plan;
-actions (`collect`, `to_pandas`, `count`, `show`, `write`, `stat`) run
-the QueryExecution pipeline. Window functions in `select`/`with_column`
+`spark_tpu/dataframe.py`; reference: `Dataset.scala:191`). Every method
+builds a new logical plan; actions (`collect`, `to_pandas`, `count`,
+`show`, `write`, `stat`) run the QueryExecution pipeline, and
+`write_stream` starts a micro-batch query over a plan with one streaming
+source (`streaming.py`). Window functions in `select`/`with_column`
 become Window nodes below the projection, and an `explode()` a Generate
 node; INTERSECT and EXCEPT are a tagged union plus a group-by
 (`set_op_plan`). `cache()` marks the plan in the session's data cache,
@@ -67,6 +68,16 @@ class DataFrame:
         return self._with(L.Project(plan, exprs))
 
     withColumn = with_column
+
+    def with_watermark(self, col_name: str, delay: str) -> "DataFrame":
+        """Event-time watermark (reference: Dataset.withWatermark +
+        WatermarkTracker.scala:1): rows older than max(event_time) -
+        delay drop; closed windows evict/emit in append mode."""
+        from .expr_fns import parse_duration_us
+        return self._with(L.Watermark(self.plan, col_name,
+                                      parse_duration_us(delay)))
+
+    withWatermark = with_watermark
 
     def filter(self, condition: Expression) -> "DataFrame":
         return self._with(L.Filter(self.plan, condition))
@@ -258,6 +269,36 @@ class DataFrame:
     def unpersist(self) -> "DataFrame":
         self.session.uncache(self.plan)
         return self
+
+    def write_stream(self, checkpoint_dir: str,
+                     output_mode: str = "complete",
+                     sink_path: str = None):
+        """Start a micro-batch streaming query over this plan (the plan
+        must contain one streaming source; reference:
+        DataStreamWriter.start -> MicroBatchExecution). `sink_path`
+        adds a FileStreamSink: per-batch parquet parts committed by an
+        atomic `_metadata` manifest (read back with
+        spark_tpu_torch.streaming.read_sink), exactly-once under
+        crash-replay."""
+        from .streaming import StreamingQuery, _StreamSource
+        streams = []
+
+        def walk(n):
+            if isinstance(n, _StreamSource):
+                streams.append(n.stream)
+            for c in n.children:
+                walk(c)
+
+        walk(self.plan)
+        if len(streams) != 1:
+            raise AnalysisError(
+                f"write_stream needs exactly one streaming source "
+                f"(found {len(streams)})")
+        return StreamingQuery(self.session, self.plan, streams[0],
+                              checkpoint_dir, output_mode,
+                              sink_path=sink_path)
+
+    writeStream = write_stream
 
     def checkpoint(self) -> "DataFrame":
         """Materialize and truncate lineage (reference: RDD.checkpoint /

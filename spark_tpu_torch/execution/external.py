@@ -18,14 +18,19 @@ device, and the host (RAM, Arrow buffers) plays the spill tier:
 
 It engages only when the scan's estimate exceeds the per-query
 ``spark_tpu.sql.memory.deviceBudget``; a query within budget keeps
-whole-input residency and device sorts. The streaming state that spills
-to disk (`SpillableKeyedState`) comes with streaming queries.
+whole-input residency and device sorts.
+
+`SpillableKeyedState` is the streaming event-time state's spill tier:
+hash-partitioned Parquet files on the host, numpy and pandas as in the
+JAX package.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Tuple
 
+import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
 
@@ -181,3 +186,148 @@ def _stream(conf, device, recovery, chunks, chain, sort, limit
         ci += 1
         b, wait = _next_chunk(chunks)  # ingest is not retried
     return pa.concat_tables(spilled, promote_options="permissive")
+
+
+# ---------------------------------------------------------------------------
+# Host-spillable keyed state (streaming event-time aggregation)
+# ---------------------------------------------------------------------------
+
+class SpillableKeyedState:
+    """Hash-partitioned parquet working set for event-time streaming
+    state that exceeds `spark_tpu.streaming.state.spillBytes`.
+
+    The contract that keeps exactly-once trivial: partitions hold ONLY
+    the COMMITTED state. A trigger's merge is pure — `merge` reads the
+    partitions the batch's keys hash to and returns the merged full
+    frame WITHOUT writing anything; the partitions move only in
+    `adopt`, which the query calls strictly AFTER its commit-log write
+    (the same place the resident path adopts its pending frame). A
+    crash anywhere therefore leaves the partitions at (or rebuildable
+    from) a committed version, and recovery just `reset`s them from
+    the store's last committed frame.
+
+    `state_spill` (testing/faults.py) fires before every partition
+    write; written bytes count in `streaming_spill_bytes`. The state
+    store never sees this class — it keeps diffing full frames, so the
+    persisted deltas/snapshots are identical to a resident run.
+
+    Thread-confined: owned and driven by the query's trigger thread
+    (or the manual process_available caller), never shared."""
+
+    def __init__(self, path: str, key_cols: List[str], nparts: int,
+                 metrics=None):
+        self.path = path
+        self.key_cols = list(key_cols)
+        self.nparts = max(1, int(nparts))
+        self.metrics = metrics
+        os.makedirs(path, exist_ok=True)
+
+    def _part_path(self, pid: int) -> str:
+        return os.path.join(self.path, f"part-{pid:04d}.parquet")
+
+    def _part_ids(self, pdf) -> "np.ndarray":
+        """Stable partition id per row: hash the key columns' string
+        forms (stable across processes, unlike Python's seeded
+        hash())."""
+        import pandas as pd
+        key = pdf[self.key_cols[0]].astype(str)
+        for c in self.key_cols[1:]:
+            key = key + "\x00" + pdf[c].astype(str)
+        return (pd.util.hash_pandas_object(key, index=False).to_numpy()
+                % self.nparts).astype(np.int64)
+
+    def touched_by(self, pdf) -> List[int]:
+        """Partition ids a frame's keys hash to — the eviction path
+        uses this to extend a trigger's touched set with the
+        partitions that LOST rows (emitted-and-dropped groups)."""
+        if pdf is None or not len(pdf):
+            return []
+        return sorted(int(p) for p in np.unique(self._part_ids(pdf)))
+
+    def _read_part(self, pid: int):
+        import pandas as pd
+        p = self._part_path(pid)
+        if not os.path.exists(p):
+            return None
+        pdf = pd.read_parquet(p)
+        return pdf if len(pdf) else None
+
+    def _write_part(self, pid: int, pdf) -> None:
+        """One partition write = one spill unit: seam first (nothing
+        written when an armed rule kills here), then fsync + atomic
+        rename like every other checkpoint artifact."""
+        import pyarrow.parquet as pq
+        from ..testing import faults
+        from .state_store import fsync_replace
+        faults.fire("state_spill")
+        full = self._part_path(pid)
+        tmp = full + ".tmp"
+        pq.write_table(
+            pa.Table.from_pandas(pdf, preserve_index=False), tmp)
+        fsync_replace(tmp, full)
+        if self.metrics is not None:
+            self.metrics.counter("streaming_spill_bytes").inc(
+                os.path.getsize(full))
+
+    def reset(self, full_pdf) -> None:
+        """Rewrite EVERY partition from a committed full frame —
+        engagement and crash recovery (partitions are a working set,
+        the state store stays the durability tier)."""
+        import pandas as pd
+        if full_pdf is None:
+            full_pdf = pd.DataFrame(columns=self.key_cols)
+        pids = self._part_ids(full_pdf) if len(full_pdf) else None
+        for pid in range(self.nparts):
+            part = full_pdf.iloc[0:0] if pids is None \
+                else full_pdf[pids == pid]
+            self._write_part(pid, part.reset_index(drop=True))
+
+    def materialize(self):
+        """The full committed frame, concatenated from the partitions
+        (the transient host materialization the persistence diff needs
+        each trigger — the same O(state) host cost the resident path
+        already pays; residency BETWEEN triggers is what spill buys)."""
+        import pandas as pd
+        frames = [f for f in (self._read_part(p)
+                              for p in range(self.nparts))
+                  if f is not None]
+        if not frames:
+            return None
+        return pd.concat(frames, ignore_index=True)
+
+    def merge(self, partial_pdf, merge_fn):
+        """Pure per-partition merge of one trigger's partial table:
+        returns (merged full frame, touched partition ids) and writes
+        NOTHING — the caller persists the frame through the state
+        store, commits, then calls `adopt` with the touched set."""
+        import pandas as pd
+        pids = self._part_ids(partial_pdf)
+        touched = sorted(int(p) for p in np.unique(pids))
+        frames = []
+        for pid in range(self.nparts):
+            part = self._read_part(pid)
+            if pid in touched:
+                part_partial = partial_pdf[pids == pid] \
+                    .reset_index(drop=True)
+                part = merge_fn(part, part_partial)
+            if part is not None and len(part):
+                frames.append(part)
+        if not frames:
+            return None, touched
+        return pd.concat(frames, ignore_index=True), touched
+
+    def adopt(self, full_pdf, touched=None) -> None:
+        """Move the touched partitions to the adopted (committed)
+        frame; `touched=None` rewrites everything (reset). Called only
+        after the commit-log write."""
+        import pandas as pd
+        if touched is None:
+            self.reset(full_pdf)
+            return
+        if full_pdf is None:
+            full_pdf = pd.DataFrame(columns=self.key_cols)
+        pids = self._part_ids(full_pdf) if len(full_pdf) else None
+        for pid in sorted(set(int(p) for p in touched)):
+            part = full_pdf.iloc[0:0] if pids is None \
+                else full_pdf[pids == pid]
+            self._write_part(pid, part.reset_index(drop=True))

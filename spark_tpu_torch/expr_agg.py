@@ -103,6 +103,17 @@ class AggregateFunction:
         """Accumulator tensors -> (data, validity|None)."""
         raise NotImplementedError
 
+    def finalize(self, accs: List[np.ndarray], schema: T.Schema):
+        """Host finalize: accumulator arrays (one value per group) ->
+        (np data, validity|None), the values `device_finalize` gives on
+        CPU tensors (the event-time streaming path merges partials on
+        the host)."""
+        data, validity = self.device_finalize(
+            [torch.from_numpy(np.array(a)) for a in accs],
+            schema)
+        return (data.numpy(),
+                None if validity is None else validity.numpy())
+
     def references(self) -> set:
         out = set()
         for c in self.children:

@@ -1,6 +1,6 @@
 """Expression-library breadth: math, datetime, string, bitwise and
-conditional functions (the port of `spark_tpu/expr_fns.py` but for
-`TumbleWindow`, which waits for streaming; reference:
+conditional functions and the event-time window (the port of
+`spark_tpu/expr_fns.py`; reference:
 `expressions/mathExpressions.scala`, `datetimeExpressions.scala`,
 `stringExpressions.scala`, `regexpExpressions.scala`,
 `bitwiseExpressions.scala`, `nullExpressions.scala`).
@@ -1110,3 +1110,61 @@ class EndsWith(_DictLookup):
     def _table(self, values):
         return np.array([False if s is None else s.endswith(self.suffix)
                          for s in values], np.bool_)
+
+
+# ---------------------------------------------------------------------------
+# Event-time window bucketing (reference: TimeWindow in
+# datetimeExpressions.scala / the window() function): the group key is
+# the tumbling-window START; streaming reads `duration_us` off the
+# expression for watermark eviction (window end = start + duration).
+# ---------------------------------------------------------------------------
+
+_DUR_UNITS_US = {
+    "microsecond": 1, "microseconds": 1,
+    "millisecond": 1000, "milliseconds": 1000,
+    "second": 1_000_000, "seconds": 1_000_000,
+    "minute": 60_000_000, "minutes": 60_000_000,
+    "hour": 3_600_000_000, "hours": 3_600_000_000,
+    "day": 86_400_000_000, "days": 86_400_000_000,
+}
+
+
+def parse_duration_us(s) -> int:
+    if isinstance(s, (int, float)):
+        return int(s)
+    parts = str(s).strip().split()
+    if len(parts) != 2 or parts[1].lower() not in _DUR_UNITS_US:
+        raise AnalysisError(
+            f"cannot parse duration {s!r} (want e.g. '10 seconds')")
+    return int(float(parts[0]) * _DUR_UNITS_US[parts[1].lower()])
+
+
+class TumbleWindow(Expression):
+    """window(ts, duration): the tumbling-window START timestamp."""
+
+    def __init__(self, child, duration):
+        self.children = (_wrap(child),)
+        self.duration_us = parse_duration_us(duration)
+        if self.duration_us <= 0:
+            raise AnalysisError("window duration must be positive")
+
+    def dtype(self, schema):
+        dt = self.children[0].dtype(schema)
+        if not isinstance(dt, (T.TimestampType, T.LongType,
+                               T.IntegerType)):
+            raise AnalysisError(
+                f"window() needs a timestamp event-time column, "
+                f"got {dt!r}")
+        return dt
+
+    def name(self):
+        return "window"
+
+    def eval(self, batch):
+        v = self.children[0].eval(batch)
+        d = self.duration_us
+        start = torch.div(v.data, d, rounding_mode="floor") * d
+        return Vec(start.to(v.data.dtype), v.dtype, v.validity)
+
+    def __repr__(self):
+        return f"window({self.children[0]!r}, {self.duration_us}us)"

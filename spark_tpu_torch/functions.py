@@ -1,6 +1,5 @@
 """User-facing expression constructors (the reference's `functions.scala`;
-the port of `spark_tpu/functions.py` but for the event-time `window` and
-the Python UDFs, which wait for later slices). The window functions
+the port of `spark_tpu/functions.py`). The window functions
 return `WindowExpr`s to finish with `.over(spec)` (`window.Window`
 builds specs)."""
 
@@ -537,3 +536,10 @@ def collect_list(e):
 
 def collect_set(e):
     return _CollectSet(_expr(e))
+
+
+def window(ts, duration):
+    """Tumbling event-time window start (reference: TimeWindow); used as
+    a streaming group key with with_watermark for event-time
+    aggregation."""
+    return _X.TumbleWindow(_expr(ts), duration)

@@ -14,8 +14,8 @@ capacity, a `DictUnifier` grows one dictionary per string column across
 them, and `PrefetchChunkIterator` decodes chunk N+1 on a worker thread
 while chunk N computes (`spark_tpu.sql.ingest.prefetch`). The worker
 only decodes on the host; the copy to the device stays on the consuming
-thread. The file-stream helpers of the JAX package come with streaming
-queries.
+thread. `list_stream_files` and `decode_stream_file` are the file
+stream source's IO half (streaming.py holds its offsets).
 
 Sources also report statistics without loading rows: a row estimate,
 per-column min/max (`column_stats`, from Parquet footers, which the join
@@ -726,3 +726,57 @@ def maybe_prefetch(chunks, conf, recovery=None):
     metrics = getattr(recovery, "metrics", None)
     return PrefetchChunkIterator(chunks, conf, recovery=recovery,
                                  metrics=metrics)
+
+
+# ---------------------------------------------------------------------------
+# File stream source helpers (the FileStreamSource half that belongs to
+# the IO layer: directory listing + per-file decode; the offset/seen-log
+# machinery lives with the micro-batch loop in streaming.py)
+# ---------------------------------------------------------------------------
+
+
+def list_stream_files(path: str) -> list:
+    """Data files under `path` ordered by (mtime_ns, name) — the
+    FileStreamSource discovery order (the reference sorts its seen-map
+    candidates by modification time too, `FileStreamSource.scala`).
+    Hidden files, `_`-prefixed metadata (the sink's `_metadata/`
+    manifest dir, `_SUCCESS` markers) and `.tmp`/`.crc` in-flight
+    names are not data."""
+    entries = []
+    try:
+        names = os.listdir(path)
+    except OSError:
+        return entries
+    for name in names:
+        if name.startswith((".", "_")) or \
+                name.endswith((".tmp", ".crc")):
+            continue
+        full = os.path.join(path, name)
+        try:
+            st = os.stat(full)
+        except OSError:
+            continue  # vanished between listdir and stat
+        if not os.path.isfile(full):
+            continue
+        entries.append({"name": name, "mtime_ns": int(st.st_mtime_ns),
+                        "size": int(st.st_size)})
+    entries.sort(key=lambda e: (e["mtime_ns"], e["name"]))
+    return entries
+
+
+def decode_stream_file(path: str, fmt: str) -> pa.Table:
+    """One stream file -> Arrow table via the native readers. Raises on
+    any decode failure (torn/partial writes, wrong format) — the
+    caller quarantines or fails per
+    spark_tpu.streaming.source.file.strict."""
+    if fmt == "parquet":
+        import pyarrow.parquet as pq
+        return pq.read_table(path)
+    if fmt == "csv":
+        import pyarrow.csv as pa_csv
+        return pa_csv.read_csv(path)
+    if fmt == "json":
+        import pyarrow.json as pa_json
+        return pa_json.read_json(path)
+    raise ValueError(f"unsupported stream file format {fmt!r} "
+                     f"(parquet, csv, json)")

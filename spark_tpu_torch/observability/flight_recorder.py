@@ -192,7 +192,7 @@ class FlightRecorder(QueryListener):
                      query_id=event.query_id,
                      batch_id=r.get("batch_id"),
                      rows_in=r.get("rows_in"),
-                     rows_out=r.get("rows_out"), kind=r.get("kind"))
+                     rows_out=r.get("rows_out"), shape=r.get("kind"))
 
     def on_streaming_trigger(self, event) -> None:
         r = event.record or {}

@@ -255,10 +255,19 @@ class StatusStore:
     @staticmethod
     def _streaming_lag() -> Dict[str, float]:
         """Live streaming health: trigger-loop count and the worst
-        last-tick wall-clock skew. Streaming is slice 11, not yet ported:
-        nothing is live, so this is {} — as in the JAX package when its
-        streaming module is absent."""
-        return {}
+        last-tick wall-clock skew (the batch-lag signal of the
+        supervised trigger loop)."""
+        try:
+            from ..streaming import live_queries
+            rows = live_queries()
+        except Exception:  # noqa: BLE001 — best-effort observable
+            return {}
+        out = {"streams_live": float(len(rows))}
+        skews = [float(r["last_skew_ms"]) for r in rows
+                 if isinstance(r.get("last_skew_ms"), (int, float))]
+        if skews:
+            out["streams_max_skew_ms"] = round(max(skews), 3)
+        return out
 
     # -- serving ------------------------------------------------------------
 

@@ -459,6 +459,28 @@ class Union(LogicalPlan):
         return T.Schema(fields)
 
 
+class Watermark(LogicalPlan):
+    """Event-time watermark marker (reference: EventTimeWatermark in
+    basicLogicalOperators.scala + WatermarkTracker.scala:1): schema
+    passthrough; the streaming runtime reads (column, delay) to drop
+    late rows and evict closed windows. Batch planning strips it."""
+
+    def __init__(self, child: LogicalPlan, col_name: str, delay_us: int):
+        self.children = (child,)
+        self.col_name = col_name
+        self.delay_us = int(delay_us)
+
+    @property
+    def child(self):
+        return self.children[0]
+
+    def schema(self) -> T.Schema:
+        return self.child.schema()
+
+    def simple_string(self):
+        return f"Watermark({self.col_name}, {self.delay_us}us)"
+
+
 class Generate(LogicalPlan):
     """One output row per array element of `gen_expr` (explode) — the
     reference's logical Generate (`basicLogicalOperators.scala`) over

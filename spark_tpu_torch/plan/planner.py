@@ -191,6 +191,8 @@ def _convert(plan: L.LogicalPlan, conf: Conf, n: int) -> P.PhysicalPlan:
     if isinstance(plan, L.WindowPlan):
         return P.WindowExec(_convert(plan.child, conf, n), plan.wexprs,
                             plan.schema())
+    if isinstance(plan, L.Watermark):
+        return _convert(plan.child, conf, n)  # batch: passthrough
     if isinstance(plan, L.Generate):
         return P.GenerateExec(_convert(plan.child, conf, n), plan.gen_expr,
                               plan.out_name, plan.schema(), outer=plan.outer)

@@ -290,6 +290,30 @@ class SparkTpuSession:
         from .io.sources import JsonSource
         return DataFrame(self, L.Scan(JsonSource(path, name)))
 
+    def file_stream(self, path: str, schema_df=None,
+                    format: str = "parquet"):
+        """Directory-tailing streaming source (the readStream analog):
+        returns a FileStreamSource whose `.to_df()` feeds
+        `DataFrame.write_stream`. Offsets are a persisted seen-file
+        log under the query's checkpoint; corrupt files quarantine
+        instead of wedging the stream (see
+        spark_tpu.streaming.source.file.strict)."""
+        from .streaming import FileStreamSource
+        return FileStreamSource(self, path, schema_df=schema_df,
+                                format=format)
+
+    def network_stream(self, host: str, port: int, schema_df):
+        """Socket streaming source (io/network_source.py): length-
+        framed Arrow-IPC record batches over TCP, each frame persisted
+        under the query's checkpoint BEFORE it becomes a visible
+        offset, with a reconnect/backoff ladder (see the
+        spark_tpu.streaming.source.network.* keys). `schema_df` is a
+        pandas frame or an Arrow schema or table
+        (`streaming.empty_table`). Returns a NetworkStreamSource whose
+        `.to_df()` feeds `DataFrame.write_stream`."""
+        from .io.network_source import NetworkStreamSource
+        return NetworkStreamSource(self, host, port, schema_df)
+
     def long_accumulator(self, name: str = "acc") -> "Accumulator":
         return Accumulator(name, 0)
 

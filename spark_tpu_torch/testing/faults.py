@@ -68,9 +68,23 @@ The seams this package wires:
   the forced checkpoint (execution/streaming_agg.py); a fault there
   takes the mesh failure ladder.
 
+The four `stream_*` micro-batch seams (streaming.py and
+execution/state_store.py) each fire BEFORE their boundary's action, so
+a `fatal` rule models a hard crash at that point with nothing of the
+action persisted: `stream_source_list` before the loop polls the source
+for new offsets, `stream_offset_write` before the planned range lands in
+the offset log, `stream_state_commit` at every state-store commit
+(delta or snapshot, nothing written yet), and `stream_sink_emit` before
+the batch's output reaches the sink. The unattended seams:
+`stream_net_connect` before every connect attempt of the socket source
+and `stream_net_recv` before every frame read (io/network_source.py),
+`trigger_tick` at the top of every tick of the trigger loop
+(streaming.py), and `state_spill` before every partition write of the
+spilled event-time state (execution/external.py).
+
 The JAX package's `stage_compile` seam has no counterpart: eager torch
-has no compile step. Its streaming-query, compile-cache and fleet seams
-come with those slices.
+has no compile step. Its compile-cache and fleet seams come with those
+slices.
 """
 
 from __future__ import annotations
@@ -88,7 +102,11 @@ INJECT_KEY = "spark_tpu.faults.inject"
 KNOWN_SITES = ("scan_load", "stage_run", "join_build", "stream_chunk",
                "ingest_prefetch", "cancel_point", "udf_batch",
                "udf_worker_spawn", "mesh", "shuffle", "mesh_checkpoint",
-               "shard_chunk", "mesh_restart", "decommission")
+               "shard_chunk", "mesh_restart", "decommission",
+               "stream_source_list", "stream_offset_write",
+               "stream_state_commit", "stream_sink_emit",
+               "stream_net_connect", "stream_net_recv", "trigger_tick",
+               "state_spill")
 
 #: test-registered extra seams (register_site)
 _EXTRA_SITES: set = set()

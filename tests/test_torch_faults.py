@@ -72,10 +72,10 @@ def test_spec_parse_and_fire_once():
 @pytest.mark.parametrize("bad", ["scan_load:resource_exhausted",
                                  "scan_load:nope:1", "scan_load:slow:0",
                                  "justasite", "stage_compile:fatal:1",
-                                 "stream_source_list:unavailable:1"])
+                                 "compile_cache_load:unavailable:1"])
 def test_spec_rejects_malformed_and_unwired(bad):
     """Malformed rules fail at arm time, and so do sites the port has not
-    wired (no compile step, no streaming query yet)."""
+    wired (no compile step, no compile cache yet)."""
     with pytest.raises(ValueError):
         FaultPlan(bad)
 

@@ -239,20 +239,19 @@ def test_dataframe_wrappers_match_reference(table):
 
 
 def test_every_reference_wrapper_is_exported():
-    """functions.py exports every wrapper of the JAX package's but the
-    event-time `window`, with the same parameters."""
+    """functions.py exports every wrapper of the JAX package's, the
+    event-time `window` included, with the same parameters."""
     import inspect
 
     from spark_tpu import functions as RF
     from spark_tpu_torch import functions as PF
-    later = {"window"}
     ref_names = {n for n, v in vars(RF).items()
                  if not n.startswith("_") and callable(v)
                  and not inspect.isclass(v)
                  and getattr(v, "__module__", "").startswith("spark_tpu")}
-    missing = sorted(ref_names - later - set(vars(PF)))
+    missing = sorted(ref_names - set(vars(PF)))
     assert missing == []
-    for name in sorted(ref_names - later):
+    for name in sorted(ref_names):
         want = inspect.signature(getattr(RF, name))
         got = inspect.signature(getattr(PF, name))
         assert list(got.parameters) == list(want.parameters), name

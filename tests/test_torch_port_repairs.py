@@ -108,7 +108,7 @@ def test_every_reference_key_is_registered_or_listed():
     ("spark_tpu.sql.analysis.strict", True, "slice 12b"),
     ("spark_tpu.sql.cluster.coordinator", "host0:8476", "multi-host"),
     ("spark_tpu.service.slo.latencyMs", 100, "slice 12c"),
-    ("spark_tpu.streaming.retainBatches", 5, "slice 11"),
+    ("spark_tpu.service.queueDepth", 32, "slice 12c"),
     ("spark_tpu.sql.compileCache.enabled", True, "slice 12c"),
 ])
 def test_unported_key_raises_unless_default(key, value, part):
