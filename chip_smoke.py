@@ -11,12 +11,13 @@
     python3 chip_smoke.py --phases elastic     # phase 16 (and 1-2); on a
         # host with 4 cards its cases run on cuda:0-3
     python3 chip_smoke.py --phases stream      # phase 17 (and 1-2)
+    python3 chip_smoke.py --phases analysis    # phase 18 (and 1-2)
 
 Phases, in order; any failure exits non-zero before the last line.
 Phases 1 and 2 always run; `--phases` names the others, from PHASES:
 kernels (3), variants (4), main (5), sql (6), tpcds (7), window (8),
 fuzz (9), functions (10), etl (11), ooc (12), udf (13), mesh (14),
-obs (15), elastic (16), stream (17).
+obs (15), elastic (16), stream (17), analysis (18).
 Each query of
 phases 5-8, 10, 11's aggregates and 13 runs twice: a
 first run, after the device table cache and the session's kept
@@ -290,6 +291,30 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    the 24 files' tables by a FrameProducer, one `stream_net_recv`
    failure and one killed connection mid-stream: equal to S2's result,
    every frame once, the status store showing the live stream.
+18. analysis, static analysis on the card over phase 5's TPC-H SF1
+   tables (written here when phase 18 runs alone), sessions with the
+   analyzer on, `planChangeValidation=full` and `planChangeLog=true`.
+   (a) The 22 SQL queries: each result equal to phase 6's first run (the
+   golden, when phase 6 did not run), its launches equal to phase 6's,
+   its findings, predictions and rule trace equal to a CPU session's
+   over the same files; per query the `analyze` span, which must leave
+   the launch counts, `memory_allocated` and the device cache's bytes
+   unchanged, and the optimizer's ms under full against off (medians of
+   3 warm plannings). (b) Under `analysis.strict`: the JAX package's
+   strict shape (an int32 sum over 2^33 range rows) and a 64-group sum
+   over a 6,001,215-row decimal(18,0) table near the type's top each
+   raise AnalysisFindingError with no device work (launches, allocated
+   bytes, cache bytes unchanged; no ingest or dispatch span); strict
+   off, the decimal group sum runs through `dense_sums_smem` and equals
+   a CPU session's. (c) The table's global decimal sum runs through
+   `dense_sums_smem`, equals the CPU session and posts exactly one
+   AnalysisEvent. (d) One session with every observability output on
+   and four threads of 8 queries each over SQL Q1/Q5/Q6 and the range,
+   a stateful streaming query triggering beside them, under lockwatch:
+   every result equal to its single-thread result, the stream to
+   pandas, the observed lock order consistent with the registry's ranks,
+   no thread leaked; each lock's acquisitions, contention and longest
+   hold, and what a watched acquire costs over a plain one.
 Then the kernels are timed again on the exact inputs the first run of
 each query of phases 5-7 and 10-13 gave them (a chunk's input, for a
 streamed query), and on S1's and S2's trigger inputs.
@@ -398,10 +423,10 @@ SOURCE = "spark_tpu_torch/csrc/dense_groupby.cu"
 #: always run)
 PHASES = ("kernels", "variants", "main", "sql", "tpcds", "window", "fuzz",
           "functions", "etl", "ooc", "udf", "mesh", "obs", "elastic",
-          "stream")
+          "stream", "analysis")
 #: the phases that drive the package's main path (run_phases)
 MAIN_PHASES = ("main", "sql", "tpcds", "window", "fuzz", "functions", "etl",
-               "ooc", "udf", "mesh", "obs", "elastic", "stream")
+               "ooc", "udf", "mesh", "obs", "elastic", "stream", "analysis")
 #: the hand kernels each function-library program must launch at SF1
 #: (F2's and F3's aggregates and functions run as torch ops: the
 #: positional sort, the sort aggregate, the date and bit arithmetic)
@@ -481,6 +506,29 @@ STREAM_S4_WAVE = 1
 STREAM_SEAMS = ("stream_source_list", "stream_offset_write",
                 "stream_state_commit", "stream_sink_emit")
 STREAM_S5_TRIGGER_MS = 200
+
+#: phase 18: the conf of its sessions (the analyzer on, every rule
+#: application validated, the change log's diffs kept), the validation
+#: key its planning times toggle, the warm planning runs a mode (their
+#: median is printed), the strict key; (b)-(c)'s decimal table: rows
+#: (lineitem's at SF1), group modulus; (d): threads, queries a thread,
+#: the programs they cycle through, the stream's key modulus, its
+#: frames and rows a frame, its trigger interval
+ANALYSIS_CONF = (("spark_tpu.sql.analysis.enabled", True),
+                 ("spark_tpu.sql.planChangeValidation", "full"),
+                 ("spark_tpu.sql.planChangeLog", True))
+VALIDATION_KEY = "spark_tpu.sql.planChangeValidation"
+ANALYSIS_RUNS = 3
+STRICT_KEY = "spark_tpu.sql.analysis.strict"
+DECIMAL_ROWS = 6_001_215
+DECIMAL_GROUPS = 64
+LOCKWATCH_THREADS = 4
+LOCKWATCH_QUERIES = 8
+LOCKWATCH_PROGRAMS = ("q1", "q5", "q6", "range")
+LOCKWATCH_STREAM_MOD = 200
+LOCKWATCH_FRAMES = 12
+LOCKWATCH_FRAME_ROWS = 100_000
+LOCKWATCH_TRIGGER_MS = 50
 
 
 def log(*parts) -> None:
@@ -968,11 +1016,13 @@ def phase_range(D, S, launches, current) -> None:
     log(f"[breakdown] range: {breakdown(make())}")
 
 
-def phase_sql(D, S, G, path, df_results, launches, current) -> None:
+def phase_sql(D, S, G, path, df_results, launches, current,
+              results) -> None:
     """The 22 TPC-H queries as SQL text on the card: each run against the
     golden answer, Q1/Q3/Q5/Q6 against the DataFrame programs' results
     (when phase 5 ran), and each must launch the kernel SQL_KERNELS
-    names. A query's launches are kept under `sql <q>`."""
+    names. A query's launches are kept under `sql <q>`, its first run's
+    result in `results` (phase 18 holds its runs to them)."""
     from spark_tpu_torch.tpch.queries import register_tables
     from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
     session = S.SparkTpuSession.builder().get_or_create()
@@ -995,8 +1045,9 @@ def phase_sql(D, S, G, path, df_results, launches, current) -> None:
                              want)
                 log(f"[sql] {q}: equals the DataFrame program's result")
             return seconds
-        _, warm = run_sql_query(D, session, q, SQL_QUERIES[q], f"sql {q}",
-                                kernel, launches, current, golden)
+        results[q], warm = run_sql_query(D, session, q, SQL_QUERIES[q],
+                                         f"sql {q}", kernel, launches,
+                                         current, golden)
         warm_total += warm
     log(f"[sql] 22 queries in {time.perf_counter() - t_phase:.1f} s; "
         f"warm runs {warm_total:.3f} s in all")
@@ -4118,6 +4169,491 @@ def phase_stream(D, S, path, tmp, launches, current) -> None:
     log(f"[stream] phase cases in {time.perf_counter() - t0:.1f} s")
 
 
+def findings_key(findings):
+    """Findings as comparable tuples: code, severity, op, message,
+    detail."""
+    return [(f.code, f.severity, f.op, f.message, f.detail)
+            for f in findings or []]
+
+
+def trace_key(records):
+    """A rule trace without its timings."""
+    return [(r["batch"], r["rule"], r["invocations"], r["effective"],
+             r.get("diff")) for r in records or []]
+
+
+def same_trace(a, b) -> bool:
+    """Two rule traces alike: the same records, and the same diff text
+    but for numbers within FLOAT_RTOL of each other. A scalar
+    subquery's result enters the plan as a literal before optimization,
+    and the card adds a float sum in another order than the CPU (SQL
+    Q11's HAVING bound)."""
+    import math
+    import re
+    number = re.compile(r"-?\d+\.\d+(?:e[-+]?\d+)?")
+    ka, kb = trace_key(a), trace_key(b)
+    if [k[:4] for k in ka] != [k[:4] for k in kb]:
+        return False
+    for (*_, da), (*_, db) in zip(ka, kb):
+        if da == db:
+            continue
+        if da is None or db is None \
+                or number.split(da) != number.split(db):
+            return False
+        for x, y in zip(number.findall(da), number.findall(db)):
+            if not math.isclose(float(x), float(y), rel_tol=FLOAT_RTOL):
+                return False
+    return True
+
+
+class no_gc:
+    """Keep the cyclic garbage collector off inside: a tensor some earlier
+    object cycle held must not be freed in the middle of a span whose
+    device bytes are being compared. (No collection first: with the
+    heap of the earlier phases a `gc.collect()` takes a large share of
+    a second, and phase 18 compares 134 spans.)"""
+
+    def __enter__(self):
+        import gc
+        gc.disable()
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+        gc.enable()
+        return False
+
+
+def device_state(D):
+    """What device work would change: the kernels' launch counts (by
+    card too), the card's allocated bytes and the device table cache's
+    bytes."""
+    import torch
+    from spark_tpu_torch.io.device_cache import CACHE
+    return (dict(D.LAUNCHES), torch.cuda.memory_allocated(),
+            CACHE.stats()["bytes"], dict(D.DEVICE_LAUNCHES))
+
+
+def analysis_session(S, path, device=None):
+    """A session (the card unless `device`) with ANALYSIS_CONF over the
+    TPC-H tables at `path`."""
+    from spark_tpu_torch.tpch.queries import register_tables
+    builder = S.SparkTpuSession.builder()
+    if device is not None:
+        builder = builder.device(device)
+    session = builder.get_or_create()
+    register_tables(session, path)
+    for key, value in ANALYSIS_CONF:
+        session.conf.set(key, value)
+    return session
+
+
+def analysis_sql(D, S, G, path, sql_results, launches) -> None:
+    """Phase 18(a): the 22 TPC-H SQL queries on the card under the
+    analyzer, full validation and the change log. Each result equals
+    phase 6's first run (its golden's when phase 6 did not run); each
+    query's findings, predictions and rule trace equal those of a CPU
+    session of the port over the same files (planned there, not run: a
+    first run analyzes the plan before anything of the run touches it);
+    each query's launches equal phase 6's first run's. Then, warm,
+    ANALYSIS_RUNS plannings a validation mode: the `analyze` span, which
+    must leave the launch counts, the allocated bytes and the device
+    cache as they were, and the optimizer's time."""
+    import statistics
+    import torch
+    from spark_tpu_torch.analysis import analyze_plan
+    from spark_tpu_torch.analysis.predictions import predict_plan
+    from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
+    cuda = analysis_session(S, path)
+    cpu = analysis_session(S, path, "cpu")
+    t_all = time.perf_counter()
+    totals = {"full": [0.0, 0.0], "off": [0.0, 0.0]}
+    for q, kernel in SQL_KERNELS.items():
+        text = SQL_QUERIES[q]
+        zero_launches(D)
+        t0 = time.perf_counter()
+        qe = cuda.sql(text)._qe()
+        got = qe.collect()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        runs = dict(D.LAUNCHES)
+        held_to = "phase 6's first run" if q in sql_results else "the golden"
+        if q in sql_results:
+            tables_match(f"analysis {q} against phase 6's first run", got,
+                         sql_results[q])
+        else:
+            gold = G.GOLDEN[q](path)
+            G.compare(G.normalize_decimals(got.to_pandas())[
+                gold.columns.tolist()].reset_index(drop=True), gold)
+        require_kernels(f"analysis {q}", kernel, runs)
+        want = launches.get(f"sql {q}")
+        if want is not None and runs != want:
+            raise AssertionError(f"analysis {q}: launches {runs}, phase "
+                                 f"6's first run {want}")
+        t_cpu = time.perf_counter()
+        cqe = cpu.sql(text)._qe()
+        root = cqe.executed_plan
+        if findings_key(qe.analysis_findings) != findings_key(
+                analyze_plan(root, cpu.conf, 1)):
+            raise AssertionError(f"analysis {q}: findings "
+                                 f"{qe.analysis_findings} differ from a "
+                                 f"CPU session's")
+        if qe.plan_predictions != predict_plan(root, cpu.conf, 1):
+            raise AssertionError(f"analysis {q}: predictions differ from "
+                                 f"a CPU session's")
+        if not same_trace(qe.rule_trace, cqe.rule_trace):
+            pairs = [(a, b) for a, b in zip(trace_key(qe.rule_trace),
+                                            trace_key(cqe.rule_trace))
+                     if a != b]
+            raise AssertionError(
+                f"analysis {q}: rule trace differs from a CPU session's "
+                f"({len(qe.rule_trace)} and {len(cqe.rule_trace)} records); "
+                f"first difference: {pairs[:1]}")
+        cpu_s = time.perf_counter() - t_cpu
+        t_warm = time.perf_counter()
+        times = {}
+        for mode in ("full", "off"):
+            cuda.conf.set(VALIDATION_KEY, mode)
+            opt, ana = [], []
+            for _ in range(ANALYSIS_RUNS):
+                pqe = cuda.sql(text)._qe()
+                pqe.executed_plan  # scalar subqueries run in here
+                torch.cuda.synchronize()
+                with no_gc():
+                    before = device_state(D)
+                    pqe._analyze_plan_phase()
+                    torch.cuda.synchronize()
+                    after = device_state(D)
+                if after != before:
+                    raise AssertionError(
+                        f"analysis {q}: the analyze span did device work: "
+                        f"{before} -> {after}")
+                opt.append(pqe.phase_times["optimization"] * 1e3)
+                ana.append([sp.dur_ms for sp in pqe.spans.spans
+                            if sp.name == "analyze"][0])
+            times[mode] = (statistics.median(opt), statistics.median(ana))
+            totals[mode][0] += times[mode][0]
+            totals[mode][1] += times[mode][1]
+        cuda.conf.set(VALIDATION_KEY, "full")
+        warm_s = time.perf_counter() - t_warm
+        log(f"[analysis] {q}: {seconds:.3f} s (CPU planning {cpu_s:.3f} s, "
+            f"warm plannings {warm_s:.3f} s), equals {held_to}; findings "
+            f"{[f.code for f in qe.analysis_findings]}, "
+            f"{len(qe.plan_predictions or [])} predictions and the rule "
+            f"trace equal a CPU session's; launches {runs}; warm, median "
+            f"of {ANALYSIS_RUNS}: analyze {times['full'][1]:.3f} ms; "
+            f"optimize {times['full'][0]:.2f} ms under full against "
+            f"{times['off'][0]:.2f} off")
+    log(f"[analysis] 22 queries in {time.perf_counter() - t_all:.1f} s; "
+        f"analyze {totals['full'][1]:.2f} ms in all; optimize "
+        f"{totals['full'][0]:.1f} ms in all under full against "
+        f"{totals['off'][0]:.1f} off (medians summed)")
+
+
+def decimal_table_file(tmp) -> str:
+    """(b)-(c)'s table as Parquet: DECIMAL_ROWS rows, `k` = i mod
+    DECIMAL_GROUPS (int32) and `d` = 9e17 + (i mod 1000) as
+    decimal(18,0): values near the type's top, so that the footer's
+    min/max bound the value bits at 60 and any sum past 16 rows can
+    wrap the int64 accumulator."""
+    import os
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    i = np.arange(DECIMAL_ROWS, dtype=np.int64)
+    d = pa.array(9 * 10**17 + (i % 1000)).cast(pa.decimal128(19, 0)) \
+        .cast(pa.decimal128(18, 0), safe=False)
+    file = os.path.join(tmp, "analysis_decimal.parquet")
+    pq.write_table(pa.table({"k": (i % DECIMAL_GROUPS).astype(np.int32),
+                             "d": d}), file)
+    return file
+
+
+def analysis_strict(D, S, tmp) -> None:
+    """Phase 18(b) and (c). (b): under `analysis.strict`, the JAX
+    package's shape (an int32 column summed over 2^33 range rows, here by
+    a 64-slot key) and the decimal table's sum by `pmod(k, 64)` each raise
+    AnalysisFindingError before any device work: the launch counts, the
+    allocated bytes and the device cache's bytes as they were, no ingest
+    or dispatch span; strict off, the decimal group sum runs through
+    dense_sums_smem and equals a CPU session's (both wrap the int64
+    accumulator alike). (c): the decimal table's global sum (the JAX
+    package's `test_overflow_finding_decimal_executes` at lineitem's
+    width) runs through dense_sums_smem, equals the CPU session and
+    posts exactly one AnalysisEvent."""
+    import torch
+    from spark_tpu_torch.analysis import AnalysisFindingError
+    from spark_tpu_torch.io.sources import ParquetSource
+    from spark_tpu_torch.observability import QueryListener
+    F, T = S.functions, S.types
+    col = F.col
+    t0 = time.perf_counter()
+    file = decimal_table_file(tmp)
+    log(f"[analysis] decimal table: {DECIMAL_ROWS:,} rows written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cuda = S.SparkTpuSession.builder().get_or_create()
+    cpu = S.SparkTpuSession.builder().device("cpu").get_or_create()
+    for s in (cuda, cpu):
+        s.register_table("ana_dec", ParquetSource(file, "ana_dec"))
+
+    def grouped(s):
+        # a pmod key gives the aggregate its static domain: the dense
+        # path, hence dense_sums_smem (65 slots with the NULL slot)
+        return s.table("ana_dec") \
+            .group_by(F.pmod(col("k"), DECIMAL_GROUPS).alias("g")) \
+            .agg(F.sum(col("d")).alias("s")).sort(col("g"))
+
+    def range_int32(s):
+        return (s.range(1 << 33)
+                .select(F.pmod(col("id"), DECIMAL_GROUPS).alias("k"),
+                        col("id").cast(T.INT).alias("v"))
+                .group_by(col("k")).agg(F.sum(col("v")).alias("s")))
+
+    cuda.conf.set(STRICT_KEY, True)
+    for label, make in (("2^33-row int32 range", range_int32),
+                        ("decimal group sum", grouped)):
+        zero_launches(D)
+        torch.cuda.synchronize()
+        with no_gc():
+            before = device_state(D)
+            qe = make(cuda)._qe()
+            try:
+                qe.collect()
+            except AnalysisFindingError as e:
+                codes = [f.code for f in e.findings]
+            else:
+                raise AssertionError(f"strict {label}: did not raise")
+            torch.cuda.synchronize()
+            after = device_state(D)
+        if after != before or "SUM_I64_OVERFLOW" not in codes:
+            raise AssertionError(f"strict {label}: {codes}, device "
+                                 f"{before} -> {after}")
+        spans = {sp.name for sp in qe.spans.spans}
+        if {"ingest", "dispatch", "streaming"} & spans:
+            raise AssertionError(f"strict {label}: spans {spans}")
+        log(f"[analysis] strict: {label} raised {codes} with launches "
+            f"{before[0]}, allocated {before[1]:,} B and cache "
+            f"{before[2]:,} B unchanged, spans {sorted(spans)}")
+    cuda.conf.set(STRICT_KEY, False)
+    zero_launches(D)
+    qe = grouped(cuda)._qe()
+    got = qe.collect()
+    torch.cuda.synchronize()
+    require_kernels("strict off: decimal group sum", "dense_sums_smem",
+                    D.LAUNCHES)
+    tables_match("strict off: decimal group sum against a CPU session",
+                 got, grouped(cpu).collect())
+    log(f"[analysis] strict off: decimal group sum ran, {got.num_rows} "
+        f"groups equal a CPU session's; findings "
+        f"{[f.code for f in qe.analysis_findings]}; launches "
+        f"{dict(D.LAUNCHES)}")
+
+    class Collect(QueryListener):
+        def __init__(self):
+            self.events = []
+
+        def on_analysis(self, event):
+            self.events.append(event)
+
+    listener = Collect()
+    cuda.add_listener(listener)
+    zero_launches(D)
+    qe = cuda.table("ana_dec").agg(F.sum(col("d")).alias("s"))._qe()
+    got = qe.collect()
+    torch.cuda.synchronize()
+    cuda.remove_listener(listener)
+    require_kernels("decimal global sum", "dense_sums_smem", D.LAUNCHES)
+    tables_match("decimal global sum against a CPU session", got,
+                 cpu.table("ana_dec").agg(F.sum(col("d")).alias("s"))
+                 .collect())
+    if len(listener.events) != 1 or "SUM_I64_OVERFLOW" not in [
+            f["code"] for f in listener.events[0].findings]:
+        raise AssertionError(f"decimal global sum: on_analysis "
+                             f"{[e.findings for e in listener.events]}")
+    codes = [f["code"] for f in listener.events[0].findings]
+    log(f"[analysis] decimal global sum: {got.column(0)[0]} equals a CPU "
+        f"session's; one AnalysisEvent ({codes}); launches "
+        f"{dict(D.LAUNCHES)}")
+
+
+def analysis_stress(D, S, path, tmp) -> None:
+    """Phase 18(d): one session on the card with every observability
+    output on, LOCKWATCH_THREADS threads each running LOCKWATCH_QUERIES
+    queries cycling through Q1/Q5/Q6 (SQL) and the range, while a
+    stateful streaming query (pmod key, 201 slots on dense_sums_smem)
+    triggers on its supervised thread, all under lockwatch: every result
+    equals its single-thread result, the stream equals pandas, the
+    observed acquisition order is consistent with the registry's ranks,
+    no prefetch or trigger thread outlives its query. Prints each lock's
+    acquisitions, contention and longest hold."""
+    import os
+    import threading
+    import numpy as np
+    import pandas as pd
+    import torch
+    from spark_tpu_torch import streaming
+    from spark_tpu_torch.testing import faults
+    from spark_tpu_torch.testing.lockwatch import LockWatch
+    from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
+    F = S.functions
+    col = F.col
+    session = analysis_session(S, path)
+    for key, value in (
+            ("spark_tpu.sql.eventLog.dir", os.path.join(tmp, "ana-events")),
+            ("spark_tpu.sql.trace.dir", os.path.join(tmp, "ana-traces")),
+            ("spark_tpu.sql.metrics.sink", "prometheus,jsonl"),
+            ("spark_tpu.sql.metrics.dir", os.path.join(tmp, "ana-metrics")),
+            ("spark_tpu.sql.observability.xlaCost", "on")):
+        session.conf.set(key, value)
+
+    def program(name):
+        if name == "range":
+            return (session.range(RANGE_ROWS)
+                    .group_by((col("id") % RANGE_MOD).alias("k"))
+                    .agg(F.count().alias("n"), F.sum(col("id")).alias("s"))
+                    .sort(col("k")))
+        return session.sql(SQL_QUERIES[name])
+
+    alone = {n: program(n).collect() for n in LOCKWATCH_PROGRAMS}
+    rng = np.random.default_rng(18)
+    frames = [pd.DataFrame({"k": rng.integers(0, 1 << 30,
+                                              LOCKWATCH_FRAME_ROWS),
+                            "v": rng.integers(0, 1000,
+                                              LOCKWATCH_FRAME_ROWS)})
+              for _ in range(LOCKWATCH_FRAMES)]
+    src = streaming.MemoryStream(session, frames[0].head(0))
+    query = (src.to_df()
+             .group_by(F.pmod(col("k"), LOCKWATCH_STREAM_MOD).alias("g"))
+             .agg(F.sum(col("v")).alias("sv"), F.count().alias("n"))
+             .write_stream(os.path.join(tmp, "ana-stream")))
+    watch = LockWatch()
+    watch.install_session(session)
+    watch.install_query(query)
+    faults.arm(session.conf)
+    watch.install_faults()
+    results, errors = [], []
+    t0 = time.perf_counter()
+    try:
+        query.start(trigger_ms=LOCKWATCH_TRIGGER_MS)
+
+        def run(offset):
+            try:
+                for i in range(LOCKWATCH_QUERIES):
+                    name = LOCKWATCH_PROGRAMS[(offset + i)
+                                              % len(LOCKWATCH_PROGRAMS)]
+                    results.append((name, program(name).collect()))
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(f"{type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=run, args=(i,),
+                                    name=f"analysis-stress-{i}")
+                   for i in range(LOCKWATCH_THREADS)]
+        for t in threads:
+            t.start()
+        for frame in frames:
+            src.add_data(frame)
+            time.sleep(LOCKWATCH_TRIGGER_MS / 1e3)
+        for t in threads:
+            t.join(300)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("lockwatch stress: a query thread wedged")
+        total = LOCKWATCH_FRAMES * LOCKWATCH_FRAME_ROWS
+        deadline = time.monotonic() + 60
+        while query.latest() is None or int(query.latest()["n"].sum()) \
+                < total:
+            if time.monotonic() > deadline or query.exception() is not None:
+                raise AssertionError(f"lockwatch stress: the stream fell "
+                                     f"behind: {query.exception()}")
+            time.sleep(0.05)
+        query.stop()
+        seconds = time.perf_counter() - t0
+        if errors:
+            raise AssertionError(f"lockwatch stress: {errors[:3]}")
+        if len(results) != LOCKWATCH_THREADS * LOCKWATCH_QUERIES:
+            raise AssertionError(f"lockwatch stress: {len(results)} results")
+        for name, table in results:
+            tables_match(f"lockwatch stress {name} against its single-"
+                         f"thread result", table, alone[name])
+        whole = pd.concat(frames)
+        want = whole.groupby(whole["k"] % LOCKWATCH_STREAM_MOD).agg(
+            sv=("v", "sum"), n=("v", "size"))
+        got = query.latest().set_index("g").sort_index()
+        if not (np.array_equal(got["sv"].to_numpy(), want["sv"].to_numpy())
+                and np.array_equal(got["n"].to_numpy(),
+                                   want["n"].to_numpy())):
+            raise AssertionError("lockwatch stress: the stream differs "
+                                 "from pandas")
+        watch.assert_order_consistent()
+        watch.assert_no_thread_leak()
+        watch.assert_no_thread_leak(prefix="spark-tpu-stream-trigger")
+        report = watch.report()
+        acquires = sum(st["acquires"] for st in report["locks"].values())
+        extra_us = watched_acquire_cost_us()
+        log(f"[analysis] lockwatch overhead: {extra_us:.2f} us a watched "
+            f"acquire over a plain one, x {acquires} acquisitions = "
+            f"{extra_us * acquires / 1e3:.1f} ms of the stress's "
+            f"{seconds * 1e3:.0f} ms")
+        log(f"[analysis] lockwatch: {len(results)} queries on "
+            f"{LOCKWATCH_THREADS} threads and {len(query.results())} "
+            f"stream batches in {seconds:.1f} s equal their single-thread "
+            f"results and pandas; edges {report['edges'] or 'none'}; order "
+            f"consistent, no thread leak")
+        for lock_id, st in report["locks"].items():
+            log(f"[analysis] lock {lock_id}: {st['acquires']} acquisitions, "
+                f"{st['contended']} contended, wait "
+                f"{st['wait_s'] * 1e3:.2f} ms, longest hold "
+                f"{st['max_hold_s'] * 1e3:.3f} ms")
+    finally:
+        query.stop()
+        watch.uninstall()
+        faults.reset()
+        torch.cuda.synchronize()
+
+
+def watched_acquire_cost_us(n: int = 100_000) -> float:
+    """What lockwatch adds to one acquire-release pair: the median of 5
+    timings of `n` pairs on a watched lock less a plain lock's, per
+    pair, in microseconds (host clock)."""
+    import statistics
+    import threading
+    from spark_tpu_torch.testing.lockwatch import LockWatch
+
+    class Box:
+        def __init__(self):
+            self.lock = threading.Lock()
+
+    plain, watched = Box(), Box()
+    watch = LockWatch()
+    watch.watch_attr(watched, "lock", "metrics.counter")
+    out = {}
+    try:
+        for name, box in (("plain", plain), ("watched", watched)):
+            samples = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    with box.lock:
+                        pass
+                samples.append(time.perf_counter() - t0)
+            out[name] = statistics.median(samples)
+    finally:
+        watch.uninstall()
+    return (out["watched"] - out["plain"]) / n * 1e6
+
+
+def phase_analysis(D, S, G, path, tmp, sql_results, launches) -> None:
+    """Phase 18: static analysis on the card, (a)-(d)."""
+    t0 = time.perf_counter()
+    analysis_sql(D, S, G, path, sql_results, launches)
+    log(f"[analysis] (a) in {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    analysis_strict(D, S, tmp)
+    log(f"[analysis] (b)-(c) in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    analysis_stress(D, S, path, tmp)
+    log(f"[analysis] (d) in {time.perf_counter() - t1:.1f} s")
+
+
 def run_phases(D, phases):
     """The main-path phases chosen (5-12); returns the per-kernel launch
     counts of each query's first run and the kernel inputs each query's
@@ -4156,13 +4692,15 @@ def run_phases(D, phases):
     sf10 = Sf10(sf10_dir.name)
     try:
         if {"main", "sql", "functions", "etl", "ooc", "udf", "mesh",
-                "obs", "stream"} & phases:
+                "obs", "stream", "analysis"} & phases:
             with tempfile.TemporaryDirectory() as tmp:
                 t0 = time.perf_counter()
                 path = write_parquet(tmp + "/tpch", SF)
                 log(f"[main] TPC-H SF{SF} generated in "
                     f"{time.perf_counter() - t0:.1f} s")
                 df_results = None
+                #: phase 6's first-run result of each SQL query
+                sql_results = {}
                 if "main" in phases:
                     t0 = time.perf_counter()
                     df_results = phase_dataframes(D, S, Q, path, launches,
@@ -4170,7 +4708,8 @@ def run_phases(D, phases):
                     log(f"[main] phase in {time.perf_counter() - t0:.1f} s")
                 if "sql" in phases:
                     t0 = time.perf_counter()
-                    phase_sql(D, S, G, path, df_results, launches, current)
+                    phase_sql(D, S, G, path, df_results, launches, current,
+                              sql_results)
                     log(f"[sql] phase in {time.perf_counter() - t0:.1f} s")
                 if "functions" in phases:
                     t0 = time.perf_counter()
@@ -4204,6 +4743,12 @@ def run_phases(D, phases):
                     t0 = time.perf_counter()
                     phase_stream(D, S, path, tmp, launches, current)
                     log(f"[stream] phase in "
+                        f"{time.perf_counter() - t0:.1f} s")
+                if "analysis" in phases:
+                    t0 = time.perf_counter()
+                    phase_analysis(D, S, G, path, tmp, sql_results,
+                                   launches)
+                    log(f"[analysis] phase in "
                         f"{time.perf_counter() - t0:.1f} s")
         if "elastic" in phases:
             t0 = time.perf_counter()

@@ -1,0 +1,494 @@
+"""THE declarative concurrency registry of the port: locks, guards,
+waivers (the port of `spark_tpu/analysis/concurrency/registry.py`).
+
+One table of record for the port's thread-shared state, mirroring
+`testing.faults.KNOWN_SITES` for chaos seams: the guarded-by and
+lock-order passes check the DECLARATIONS here against the CODE three
+ways (declaration <-> lock object <-> use sites), and the runtime
+lockwatch (`testing/lockwatch.py`) asserts observed acquisition order
+against the same ranks.
+
+Thread roots (what makes state here "shared"):
+
+- user threads running queries on one session (the executor registers
+  cancel tokens, counts launches, posts on the session's bus);
+- the mesh's shard threads (`parallel/mesh.run_on_shards`), one per
+  shard, which launch kernels, copy between cards and post per-shard
+  telemetry;
+- the ingest-prefetch daemon (`io/sources.PrefetchChunkIterator`),
+  which fires fault seams and counts registry metrics;
+- a supervised streaming query's trigger thread (`streaming.py`);
+- the status store's heartbeat thread;
+- the listener bus delivering to the event-log / metrics / straggler /
+  flight-recorder subscribers (synchronously, on whichever thread
+  posts).
+
+RANKS define the canonical acquisition order: a thread holding a lock
+may only acquire locks of STRICTLY HIGHER rank. A lock that is the JAX
+package's keeps that package's id and rank; a lock of the port's own
+takes a new id and a rank of its own (`dense_groupby`'s build and
+launch locks, the mesh's copy counters and shard-error list, the
+session's query-id counter). The SQL service's locks (`service.*`) come
+with slice 12c. To register a new lock: create it, add a LockDecl with
+a rank consistent with every nesting it takes part in, declare the
+attributes it guards (GuardDecl) or waive them with a reason, and -- if
+it can nest with other locks in code the static extractor cannot
+resolve -- add the edge to EXTRA_EDGES with a comment. The guarded-by
+pass fails until all three are done.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class LockDecl:
+    """One registered lock: where it lives, what it is, and its rank
+    in the canonical acquisition order (lower = acquired first)."""
+
+    lock_id: str
+    relpath: str
+    cls: str            # "" = module-level global (or a function local)
+    attr: str
+    kind: str           # "lock" | "rlock" | "condition"
+    rank: int
+    doc: str = ""
+
+
+@dataclass(frozen=True)
+class GuardDecl:
+    """One shared mutable attribute and the lock that guards it (the
+    lock attr must be a LockDecl on the same class/module)."""
+
+    relpath: str
+    cls: str            # "" = module-level global name in `attr`
+    attr: str
+    lock: str           # lock ATTRIBUTE name (e.g. "_lock"), not id
+
+
+@dataclass(frozen=True)
+class Waiver:
+    """An intentionally-unguarded write site, with the reason the race
+    is benign. Printed in the lint's notes."""
+
+    relpath: str
+    cls: str
+    attr: str
+    reason: str
+
+
+@dataclass(frozen=True)
+class ConfinedDecl:
+    """A class in a shared module whose instances never cross threads
+    (ContextVar-installed / single-consumer): write checks skipped."""
+
+    relpath: str
+    cls: str
+    reason: str
+
+
+_PKG = "spark_tpu_torch/"
+_OBS = _PKG + "observability/"
+_EXE = _PKG + "execution/"
+
+#: every threading.Lock/RLock/Condition in spark_tpu_torch/ must appear
+#: here (the guarded-by pass fails both on an unregistered lock object
+#: and on a stale declaration). Ranks: see the module docstring.
+LOCKS: Tuple[LockDecl, ...] = (
+    LockDecl("streaming.live", _PKG + "streaming.py", "", "_LIVE_LOCK",
+             "lock", 25,
+             "live trigger-loop registry (stream-<n> -> query): "
+             "registered in start(), dropped by the loop's finally / "
+             "stop(); dict ops only inside"),
+    LockDecl("execution.lifecycle", _EXE + "lifecycle.py", "",
+             "_TOKENS_LOCK", "lock", 26,
+             "cancel-token registry ((app_id, query_id) -> token): "
+             "registered by the executor, cancelled from any thread; "
+             "dict ops only inside -- token.cancel() (an Event.set) "
+             "runs outside it"),
+    LockDecl("streaming.trigger", _PKG + "streaming.py", "_TriggerStatus",
+             "_lock", "lock", 27,
+             "cross-thread status slice of a supervised streaming query "
+             "(loop thread writes, stop() and the live listing read); "
+             "field ops only inside -- seams, metrics and listener "
+             "posts all fire OUTSIDE it"),
+    LockDecl("io.device_cache", _PKG + "io/device_cache.py",
+             "DeviceTableCache", "_lock", "rlock", 40,
+             "device table cache (rlock: eviction inside a load may "
+             "reenter)"),
+    LockDecl("obs.straggler", _OBS + "straggler.py", "StragglerMonitor",
+             "_lock", "lock", 44, "rolling per-shard wait windows"),
+    LockDecl("obs.status", _OBS + "status_store.py", "StatusStore",
+             "_lock", "lock", 45,
+             "status-store rings + session attribution; providers and "
+             "metrics calls run OUTSIDE it, so only dict/deque ops sit "
+             "inside"),
+    LockDecl("obs.flightrec", _OBS + "flight_recorder.py",
+             "FlightRecorder", "_lock", "lock", 46,
+             "flight-recorder rings + retained plan/span maps; dump "
+             "file I/O and conf/metrics snapshots run OUTSIDE it over "
+             "copies"),
+    LockDecl("obs.bus", _OBS + "listener.py", "ListenerBus", "_lock",
+             "lock", 48,
+             "listener list + drop counter (delivery runs OUTSIDE it)"),
+    LockDecl("obs.event_log", _OBS + "sinks.py", "EventLogListener",
+             "_write_lock", "lock", 52, "event-log roll+append"),
+    LockDecl("faults.plan", _PKG + "testing/faults.py", "FaultPlan",
+             "_lock", "lock", 56,
+             "hit counters (fault effects run OUTSIDE it)"),
+    LockDecl("udf.pool", _PKG + "udf_worker/pool.py", "UdfWorkerPool",
+             "_cv", "condition", 59,
+             "UDF worker checkout/checkin (cv: checkouts beyond "
+             "maxWorkers wait for a checkin); list/counter ops only "
+             "inside -- spawns, kills, chaos seams and lifecycle "
+             "checkpoints all run OUTSIDE it"),
+    LockDecl("metrics.registry", _OBS + "metrics.py", "MetricsRegistry",
+             "_lock", "lock", 60, "metric instrument map"),
+    LockDecl("metrics.flush", _OBS + "metrics.py", "MetricsRegistry",
+             "_flush_lock", "lock", 62, "sink write serialization"),
+    LockDecl("dense_groupby.build", _EXE + "dense_groupby.py", "",
+             "_lib_lock", "lock", 64,
+             "port-only: the one nvcc build and ctypes load of "
+             "csrc/dense_groupby.cu per process; the build's subprocess "
+             "runs inside it and nothing else is taken under it"),
+    LockDecl("dense_groupby.launch", _EXE + "dense_groupby.py", "",
+             "_LAUNCH_LOCK", "lock", 66,
+             "port-only: the launch counters and each launch call (the "
+             "shared-memory attribute dense_sums_smem sets is per "
+             "device, and the mesh's shards launch from their own "
+             "threads); a leaf"),
+    LockDecl("config.registry", _PKG + "config.py", "",
+             "_REGISTRY_LOCK", "lock", 70, "conf-entry registration"),
+    LockDecl("metrics.counter", _OBS + "metrics.py", "Counter", "_lock",
+             "lock", 80, "per-counter read-modify-write (leaf)"),
+    LockDecl("metrics.timer", _OBS + "metrics.py", "Timer", "_lock",
+             "lock", 81, "per-timer observation (leaf)"),
+    LockDecl("metrics.histogram", _OBS + "metrics.py", "Histogram",
+             "_lock", "lock", 82,
+             "per-histogram bucket counters (leaf; bucket index is "
+             "computed before acquiring it)"),
+    LockDecl("session.query_seq", _PKG + "session.py", "SparkTpuSession",
+             "_query_seq_lock", "lock", 83,
+             "port-only: the session's query-id counter (queries start "
+             "on user threads and the trigger thread at once); a leaf"),
+    LockDecl("mesh.copy_stats", _PKG + "parallel/mesh.py", "",
+             "_COPY_LOCK", "lock", 84,
+             "port-only: COPY_STATS, the bytes the collectives copied "
+             "between cards, added to from every shard thread; a leaf"),
+    LockDecl("mesh.shard_errors", _PKG + "parallel/mesh.py", "", "lock",
+             "lock", 85,
+             "port-only: run_on_shards' per-run error list (a function "
+             "local, one per mesh run), appended to by a failing shard "
+             "thread before it aborts the group's barrier; a leaf"),
+    LockDecl("testing.lockwatch", _PKG + "testing/lockwatch.py",
+             "LockWatch", "_mu", "lock", 95,
+             "lockwatch's own recorder lock: acquired inside every "
+             "watched acquire, so it ranks above everything and is "
+             "never itself wrapped"),
+)
+
+#: shared mutable attribute -> its guarding lock. Every write site
+#: outside __init__ must sit inside `with self.<lock>` (guarded-by
+#: pass); every lock-owning class must cover ALL its mutated attrs
+#: here or in WAIVERS.
+GUARDED_BY: Tuple[GuardDecl, ...] = (
+    # metrics
+    GuardDecl(_OBS + "metrics.py", "Counter", "value", "_lock"),
+    GuardDecl(_OBS + "metrics.py", "Timer", "count", "_lock"),
+    GuardDecl(_OBS + "metrics.py", "Timer", "total_s", "_lock"),
+    GuardDecl(_OBS + "metrics.py", "Timer", "min_s", "_lock"),
+    GuardDecl(_OBS + "metrics.py", "Timer", "max_s", "_lock"),
+    GuardDecl(_OBS + "metrics.py", "MetricsRegistry", "_counters",
+              "_lock"),
+    GuardDecl(_OBS + "metrics.py", "MetricsRegistry", "_gauges",
+              "_lock"),
+    GuardDecl(_OBS + "metrics.py", "MetricsRegistry", "_timers",
+              "_lock"),
+    GuardDecl(_OBS + "metrics.py", "MetricsRegistry", "_histograms",
+              "_lock"),
+    GuardDecl(_OBS + "metrics.py", "Histogram", "counts", "_lock"),
+    GuardDecl(_OBS + "metrics.py", "Histogram", "count", "_lock"),
+    GuardDecl(_OBS + "metrics.py", "Histogram", "total", "_lock"),
+    GuardDecl(_OBS + "metrics.py", "Histogram", "min_v", "_lock"),
+    GuardDecl(_OBS + "metrics.py", "Histogram", "max_v", "_lock"),
+    # device cache
+    GuardDecl(_PKG + "io/device_cache.py", "DeviceTableCache",
+              "_entries", "_lock"),
+    GuardDecl(_PKG + "io/device_cache.py", "DeviceTableCache",
+              "_pins", "_lock"),
+    GuardDecl(_PKG + "io/device_cache.py", "DeviceTableCache",
+              "_bytes", "_lock"),
+    GuardDecl(_PKG + "io/device_cache.py", "DeviceTableCache",
+              "hits", "_lock"),
+    GuardDecl(_PKG + "io/device_cache.py", "DeviceTableCache",
+              "misses", "_lock"),
+    GuardDecl(_PKG + "io/device_cache.py", "DeviceTableCache",
+              "evictions", "_lock"),
+    # observability
+    GuardDecl(_OBS + "straggler.py", "StragglerMonitor", "_waits",
+              "_lock"),
+    GuardDecl(_OBS + "straggler.py", "StragglerMonitor", "_hosts",
+              "_lock"),
+    GuardDecl(_OBS + "straggler.py", "StragglerMonitor", "_flagged",
+              "_lock"),
+    GuardDecl(_OBS + "listener.py", "ListenerBus", "_listeners",
+              "_lock"),
+    GuardDecl(_OBS + "listener.py", "ListenerBus", "dropped", "_lock"),
+    # status store
+    GuardDecl(_OBS + "status_store.py", "StatusStore", "_series",
+              "_lock"),
+    GuardDecl(_OBS + "status_store.py", "StatusStore", "_inflight",
+              "_lock"),
+    GuardDecl(_OBS + "status_store.py", "StatusStore", "_sessions",
+              "_lock"),
+    GuardDecl(_OBS + "status_store.py", "StatusStore",
+              "_status_counts", "_lock"),
+    GuardDecl(_OBS + "status_store.py", "StatusStore", "_phase_totals",
+              "_lock"),
+    GuardDecl(_OBS + "status_store.py", "StatusStore", "_queries_total",
+              "_lock"),
+    GuardDecl(_OBS + "status_store.py", "StatusStore", "_heartbeats",
+              "_lock"),
+    GuardDecl(_OBS + "status_store.py", "StatusStore", "_providers",
+              "_lock"),
+    # flight recorder
+    GuardDecl(_OBS + "flight_recorder.py", "FlightRecorder", "_rings",
+              "_lock"),
+    GuardDecl(_OBS + "flight_recorder.py", "FlightRecorder", "_plans",
+              "_lock"),
+    GuardDecl(_OBS + "flight_recorder.py", "FlightRecorder", "_trees",
+              "_lock"),
+    GuardDecl(_OBS + "flight_recorder.py", "FlightRecorder", "_spans",
+              "_lock"),
+    GuardDecl(_OBS + "flight_recorder.py", "FlightRecorder", "_seq",
+              "_lock"),
+    # udf worker pool
+    GuardDecl(_PKG + "udf_worker/pool.py", "UdfWorkerPool", "_idle",
+              "_cv"),
+    GuardDecl(_PKG + "udf_worker/pool.py", "UdfWorkerPool", "_live",
+              "_cv"),
+    GuardDecl(_PKG + "udf_worker/pool.py", "UdfWorkerPool", "_all",
+              "_cv"),
+    # faults
+    GuardDecl(_PKG + "testing/faults.py", "FaultPlan", "hits", "_lock"),
+    GuardDecl(_PKG + "testing/faults.py", "FaultPlan", "fired_log",
+              "_lock"),
+    # lockwatch recorder
+    GuardDecl(_PKG + "testing/lockwatch.py", "LockWatch",
+              "edge_counts", "_mu"),
+    GuardDecl(_PKG + "testing/lockwatch.py", "LockWatch",
+              "lock_stats", "_mu"),
+    # config (module-level global)
+    GuardDecl(_PKG + "config.py", "", "_REGISTRY", "_REGISTRY_LOCK"),
+    # lifecycle token registry (module-level global)
+    GuardDecl(_EXE + "lifecycle.py", "", "_TOKENS", "_TOKENS_LOCK"),
+    # streaming live registry (module-level globals) + trigger status
+    GuardDecl(_PKG + "streaming.py", "", "_LIVE", "_LIVE_LOCK"),
+    GuardDecl(_PKG + "streaming.py", "", "_LIVE_SEQ", "_LIVE_LOCK"),
+    GuardDecl(_PKG + "streaming.py", "_TriggerStatus", "status",
+              "_lock"),
+    GuardDecl(_PKG + "streaming.py", "_TriggerStatus", "error",
+              "_lock"),
+    GuardDecl(_PKG + "streaming.py", "_TriggerStatus", "ticks",
+              "_lock"),
+    GuardDecl(_PKG + "streaming.py", "_TriggerStatus",
+              "skipped_ticks", "_lock"),
+    GuardDecl(_PKG + "streaming.py", "_TriggerStatus", "restarts",
+              "_lock"),
+    GuardDecl(_PKG + "streaming.py", "_TriggerStatus",
+              "last_skew_ms", "_lock"),
+    GuardDecl(_PKG + "streaming.py", "_TriggerStatus", "trigger_ms",
+              "_lock"),
+    # port-only locks
+    GuardDecl(_EXE + "dense_groupby.py", "", "LAUNCHES", "_LAUNCH_LOCK"),
+    GuardDecl(_EXE + "dense_groupby.py", "", "DEVICE_LAUNCHES",
+              "_LAUNCH_LOCK"),
+    GuardDecl(_EXE + "dense_groupby.py", "", "_lib", "_lib_lock"),
+    GuardDecl(_PKG + "session.py", "SparkTpuSession", "_query_seq",
+              "_query_seq_lock"),
+    GuardDecl(_PKG + "parallel/mesh.py", "", "COPY_STATS", "_COPY_LOCK"),
+)
+
+#: intentionally-unguarded state, each with the reason the race is
+#: benign. The lint prints this list verbatim in its notes.
+WAIVERS: Tuple[Waiver, ...] = (
+    Waiver(_OBS + "metrics.py", "Gauge", "value",
+           "single attribute store, atomic under the GIL; readers "
+           "tolerate a stale point-in-time value"),
+    Waiver(_OBS + "status_store.py", "StatusStore", "_thread",
+           "lifecycle attr written by the owning control thread in "
+           "start()/stop(), not on the query path"),
+    Waiver(_OBS + "status_store.py", "StatusStore", "_stop_event",
+           "threading.Event is internally synchronized; clear() runs "
+           "in start() before the heartbeat thread exists, set() in "
+           "stop() is the cross-thread signal it exists for"),
+    # the session's catalog and data-cache maps: one session may run
+    # queries on several threads (the lockwatch stress does), but these
+    # change only on the thread that registers a table or runs a
+    # cache()/WITH statement
+    Waiver(_PKG + "session.py", "SparkTpuSession", "catalog",
+           "table registration and DDL run on the thread that sets the "
+           "session up or runs the statement; concurrent queries only "
+           "read entries, and a dict item store is GIL-atomic, so a "
+           "reader sees the old source or the new one"),
+    Waiver(_PKG + "session.py", "SparkTpuSession", "_cache_requests",
+           "cache marks change on the thread running cache()/WITH/DDL; "
+           "GIL-atomic dict item ops, and a query that misses a mark "
+           "plans the subtree uncached (the same result)"),
+    Waiver(_PKG + "session.py", "SparkTpuSession", "_data_cache",
+           "materialized results: GIL-atomic dict item ops; a query "
+           "whose entry another thread evicted recomputes it from its "
+           "mark (the same result), and eviction iterates a copy"),
+    Waiver(_PKG + "session.py", "SparkTpuSession", "_implicit_cache_fps",
+           "statement-scoped view marks: GIL-atomic set add/discard on "
+           "the statement's thread; _evict_implicit_caches iterates a "
+           "copy, so a concurrent mark cannot break the iteration"),
+    # module-level globals (cls="" and attr=global name)
+    Waiver(_PKG + "testing/faults.py", "", "_PLAN",
+           "atomic reference rebind at execute_batch entry / test "
+           "reset; the armed plan's mutable state is lock-guarded "
+           "(FaultPlan._lock) and per-thread suppression is a "
+           "ContextVar, not a plan swap"),
+    Waiver(_PKG + "testing/faults.py", "", "_EXTRA_SITES",
+           "test-only registration seam: mutated at test setup before "
+           "the seams it names run concurrently"),
+    Waiver(_PKG + "testing/lockwatch.py", "LockWatch", "_installed",
+           "mutated only by the test harness thread during "
+           "install()/uninstall(), before/after the watched "
+           "concurrency runs"),
+    Waiver(_PKG + "testing/lockwatch.py", "", "_CURRENT",
+           "GIL-atomic reference rebind by the test harness thread in "
+           "watch_attr()/uninstall(); the flight recorder's dump only "
+           "reads a point-in-time reference"),
+    Waiver(_PKG + "udf_worker/pool.py", "UdfWorkerPool",
+           "max_workers",
+           "GIL-atomic scalar refresh from conf at each worker-mode "
+           "evaluation entry (python_eval.session_pool); checkout "
+           "reads a point-in-time bound"),
+    Waiver(_PKG + "udf_worker/pool.py", "UdfWorkerPool",
+           "idle_timeout_ms",
+           "GIL-atomic scalar refresh from conf, same discipline as "
+           "max_workers"),
+)
+
+#: classes in shared modules whose instances are thread-confined --
+#: ContextVar-installed per execution or single-consumer by design.
+CONFINED: Tuple[ConfinedDecl, ...] = (
+    ConfinedDecl(_PKG + "io/sources.py", "PrefetchChunkIterator",
+                 "consumer-thread confined: the worker receives plain "
+                 "args; the only cross-thread channels are the size-1 "
+                 "Queue and the stop Event"),
+    ConfinedDecl(_OBS + "spans.py", "SpanRecorder",
+                 "per-execution recorder owned by the thread running "
+                 "its query"),
+    ConfinedDecl(_OBS + "spans.py", "ShardStreamTelemetry",
+                 "ContextVar-installed per execution; buffered and "
+                 "flushed on the thread running the query"),
+    ConfinedDecl(_PKG + "parallel/elastic.py", "RebalanceState",
+                 "ContextVar-installed per stream; on_straggler posts "
+                 "synchronously on the thread running the query"),
+    ConfinedDecl(_PKG + "udf_worker/pool.py", "WorkerHandle",
+                 "checked out to exactly one query thread at a time; "
+                 "the hand-off back into the pool's idle list happens "
+                 "under the pool cv, which orders the threads"),
+)
+
+#: module-level global waivers live in WAIVERS with cls="". This alias
+#: keeps call sites explicit about which kind they consult.
+MODULE_WAIVERS = tuple(w for w in WAIVERS if w.cls == "")
+
+
+# ---------------------------------------------------------------------------
+# Call-resolution tables for the static lock-order extractor
+# ---------------------------------------------------------------------------
+
+#: bare local/module names the extractor may treat as instances of a
+#: known class (kept deliberately tiny: every entry is an idiomatic,
+#: unambiguous name in the scanned modules)
+RECEIVER_NAMES: Dict[str, str] = {
+    "CACHE": "DeviceTableCache",     # io.device_cache module singleton
+}
+
+#: attribute names (the final `.attr` of a receiver chain) resolved to
+#: a known class -- `self.metrics.counter(...)`, `session.listeners...`
+RECEIVER_ATTRS: Dict[str, str] = {
+    "metrics": "MetricsRegistry",
+    "_metrics": "MetricsRegistry",
+    "bus": "ListenerBus",
+    "listeners": "ListenerBus",
+    "status_store": "StatusStore",
+    "_store": "StatusStore",
+}
+
+#: factory methods whose RETURN value is an instance of another known
+#: class (`self.metrics.counter(name).inc(...)` chains)
+FACTORY_RETURNS: Dict[Tuple[str, str], str] = {
+    ("MetricsRegistry", "counter"): "Counter",
+    ("MetricsRegistry", "timer"): "Timer",
+    ("MetricsRegistry", "gauge"): "Gauge",
+    ("MetricsRegistry", "histogram"): "Histogram",
+}
+
+#: `with <recv>.<method>(...):` context managers that hold a
+#: registered lock over their body (none in the port yet: the
+#: service's admission slot comes with slice 12c)
+CONTEXT_MANAGERS: Dict[Tuple[str, str], str] = {}
+
+#: helper methods whose CONTRACT is "called with this lock held" (the
+#: lexical `with` lives in the caller). The guarded-by pass treats the
+#: lock as held throughout; the lock-order pass charges the callee's
+#: acquisitions against it. Keyed (relpath, cls, method) -> lock attr.
+CALLED_WITH_LOCK_HELD: Dict[Tuple[str, str, str], str] = {
+    (_OBS + "straggler.py", "StragglerMonitor", "_evaluate"): "_lock",
+    # checkout's reap step: the lexical `with self._cv` lives in
+    # checkout; _reap_locked only mutates _idle/_live under it
+    (_PKG + "udf_worker/pool.py", "UdfWorkerPool",
+     "_reap_locked"): "_cv",
+}
+
+#: acquisition-order edges the lexical extractor cannot see (locks
+#: held across function boundaries, unresolvable indirect calls).
+#: Each entry asserts "the left lock may be held while the right one
+#: is acquired" and must ascend in rank like any extracted edge.
+EXTRA_EDGES: Tuple[Tuple[str, str, str], ...] = (
+    # registry.snapshot() serializes each histogram under its own leaf
+    # lock while holding the instrument-map lock
+    ("metrics.registry", "metrics.histogram", "MetricsRegistry."
+     "snapshot reads histogram snapshots under the registry lock"),
+)
+
+
+# ---------------------------------------------------------------------------
+# Lookup helpers
+# ---------------------------------------------------------------------------
+
+_BY_ID = {d.lock_id: d for d in LOCKS}
+
+
+def lock_ids() -> Tuple[str, ...]:
+    return tuple(d.lock_id for d in LOCKS)
+
+
+def rank_of(lock_id: str) -> Optional[int]:
+    d = _BY_ID.get(lock_id)
+    return None if d is None else d.rank
+
+
+def kind_of(lock_id: str) -> Optional[str]:
+    d = _BY_ID.get(lock_id)
+    return None if d is None else d.kind
+
+
+def lock_id_for(relpath: str, cls: str, attr: str) -> Optional[str]:
+    for d in LOCKS:
+        if (d.relpath, d.cls, d.attr) == (relpath, cls, attr):
+            return d.lock_id
+    return None
+
+
+def class_locks(relpath: str, cls: str) -> Dict[str, str]:
+    """{lock attr name: lock_id} for one class (or module, cls='')."""
+    return {d.attr: d.lock_id for d in LOCKS
+            if d.relpath == relpath and d.cls == cls}

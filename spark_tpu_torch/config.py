@@ -10,6 +10,7 @@ test means the same thing in both engines.
 
 from __future__ import annotations
 
+import os as _os
 import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
@@ -142,6 +143,51 @@ EXCLUDED_RULES = register(
     "spark_tpu.sql.optimizer.excludedRules", "",
     doc="Comma-separated optimizer rule names to skip (the reference's "
         "spark.sql.optimizer.excludedRules); '*' disables every rule.")
+
+ANALYSIS_ENABLED = register(
+    "spark_tpu.sql.analysis.enabled", True,
+    doc="Run the static plan analyzer (analysis/plan_analyzer.py): "
+        "after planning and before any ingest or launch, walk the "
+        "physical plan for dtype-overflow, host-sync, recompile, "
+        "hash-table, mesh and x64 hazards and emit typed findings "
+        "(listener bus on_analysis -> event log; "
+        "explain(analysis=True)). The walk is a host-side tree "
+        "traversal that touches no tensor; findings never change "
+        "results.")
+
+ANALYSIS_STRICT = register(
+    "spark_tpu.sql.analysis.strict", False,
+    doc="Fail fast on analysis: raise a structured AnalysisFindingError "
+        "BEFORE any ingest or kernel launch when the analyzer produced "
+        "error-severity findings (accumulator overflow, x64 "
+        "truncation) -- the CheckAnalysis seat. Warn/info findings "
+        "never raise.")
+
+PLAN_VALIDATION = register(
+    "spark_tpu.sql.planChangeValidation", _os.environ.get(
+        "SPARK_TPU_PLAN_VALIDATION", "off"),
+    doc="Verify plan integrity after every effective optimizer-rule "
+        "application (analysis/plan_integrity.py; the reference's "
+        "spark.sql.planChangeValidation + LogicalPlanIntegrity): "
+        "column-reference resolution with unique origins, output-schema "
+        "preservation against the Rule.schema_preserving contract, "
+        "duplicate output names, aggregate coherence, join-key dtype "
+        "compatibility, and per-batch determinism (a replay over a "
+        "cloned input must reproduce the plan). 'full' raises a typed "
+        "PlanIntegrityError naming the rule/batch/node; 'lite' surfaces "
+        "PLAN_INTEGRITY findings through the analyzer flow instead; "
+        "'off' skips verification. The default honors the "
+        "SPARK_TPU_PLAN_VALIDATION environment variable (the test "
+        "suite pins it to 'full').",
+    validator=lambda v: v in ("off", "lite", "full"))
+
+PLAN_CHANGE_LOG = register(
+    "spark_tpu.sql.planChangeLog", False,
+    doc="Capture a unified before/after tree diff of each rule's first "
+        "effective application into the rule_trace records "
+        "(analysis/plan_integrity.py PlanChangeTracer; the reference's "
+        "spark.sql.planChangeLog.level). Off keeps rule_trace to "
+        "per-rule counters/timings only.")
 
 JOIN_KERNEL_MODE = register(
     "spark_tpu.sql.join.kernelMode", "auto",
@@ -881,7 +927,10 @@ STREAMING_STATE_SPILL_PARTITIONS = register(
 # -- keys of slices not yet ported ------------------------------------------
 
 _MULTI_HOST = "the multi-host mesh (init_distributed)"
-_ANALYSIS = "slice 12b (analysis)"
+#: slice 12b ported the analyzer but not its jaxpr half (ROADMAP)
+_JAXPR = ("slice 12b, whose jaxpr analyzer the eager port leaves out: no "
+          "stage program exists to walk before dispatch, and the plan "
+          "analyzer finds the hazards it confirms")
 _SERVING = "slice 12c (serving and the compiled-stage cache)"
 
 #: the JAX package's registered keys this port does not register yet:
@@ -889,11 +938,7 @@ _SERVING = "slice 12c (serving and the compiled-stage cache)"
 #: takes its own keys off this list as it registers them.
 UNPORTED_KEYS: Dict[str, tuple] = {
     "spark_tpu.sql.execution.bucketGrowth": (_SERVING, 2.0),
-    "spark_tpu.sql.analysis.enabled": (_ANALYSIS, True),
-    "spark_tpu.sql.analysis.strict": (_ANALYSIS, False),
-    "spark_tpu.sql.analysis.jaxpr": (_ANALYSIS, "auto"),
-    "spark_tpu.sql.planChangeValidation": (_ANALYSIS, "off"),
-    "spark_tpu.sql.planChangeLog": (_ANALYSIS, False),
+    "spark_tpu.sql.analysis.jaxpr": (_JAXPR, "auto"),
     "spark_tpu.sql.cluster.coordinator": (_MULTI_HOST, ""),
     "spark_tpu.sql.cluster.numProcesses": (_MULTI_HOST, 1),
     "spark_tpu.sql.cluster.processId": (_MULTI_HOST, 0),
@@ -929,8 +974,9 @@ UNPORTED_KEYS: Dict[str, tuple] = {
 
 
 class UnportedConfError(ValueError):
-    """A key of a slice this port has not reached was set to a value
-    other than its default: the port would ignore it, so it refuses."""
+    """A key of a slice this port has not reached (or of a part a slice
+    left out) was set to a value other than its default: the port would
+    ignore it, so it refuses."""
 
 
 def check_unported(key: str, value: Any) -> None:
@@ -947,6 +993,6 @@ def check_unported(key: str, value: Any) -> None:
         same = False
     if not same:
         raise UnportedConfError(
-            f"{key}={value!r}: this key belongs to {part}, which "
-            f"spark_tpu_torch has not ported yet; only its default "
+            f"{key}={value!r}: this key belongs to {part}; "
+            f"spark_tpu_torch does not act on it, so only its default "
             f"{default!r} may be set")

@@ -232,8 +232,10 @@ class DataFrame:
                 analysis: bool = False, rules: bool = False) -> None:
         """Print the plan. runtime=True executes first and annotates each
         operator with its output rows (the SQLMetrics analog);
-        rules=True appends the optimizer's per-rule trace. analysis=True
-        (the JAX package's static analyzer) raises: not ported yet."""
+        rules=True appends the optimizer's per-rule trace; analysis=True
+        appends the static analyzer's findings (`analysis/`), those of
+        the run when runtime=True, else of a walk of the plan without
+        executing."""
         qe = self._qe()
         if runtime:
             qe.execute_batch()

@@ -9,8 +9,8 @@ subqueries run and become literals, as in the JAX package. After the
 root of a marked plan runs, its result fills the cache; when the
 outermost execution ends, only the statement-scoped (implicit) entries
 are evicted. `explain()` prints the plans, the cost-based reorder's
-decisions, per-operator output rows after a run (`rows_<op_tag>`) and
-the optimizer's rule trace. There is no jit stage or
+decisions, per-operator output rows after a run (`rows_<op_tag>`), the
+optimizer's rule trace and the static analyzer's findings. There is no jit stage or
 compile cache: torch runs every operator
 eagerly on the session's device, bottom-up over the physical tree. A
 node that several parents share (a runtime filter's creation chain is
@@ -77,12 +77,22 @@ checkpoint. A drain request (`session.decommission_shards`) surfaces at
 a chunk boundary; the executor excludes the drained device ids and runs
 on again over the smaller gang.
 
+Static analysis (`analysis/`, the JAX package's): the optimizer runs
+under the plan-integrity validator and tracer
+(`spark_tpu.sql.planChangeValidation`, `planChangeLog`); after planning,
+before any UDF stage, stream, ingest or launch, the plan analyzer walks
+the physical tree (`_analyze_plan_phase`, the `analyze` span) and
+`predictions.py` writes down its size predictions; the findings post
+once as `on_analysis` before the first launch, and under
+`spark_tpu.sql.analysis.strict` an error-severity finding raises
+`AnalysisFindingError` with no device work done.
+
 Observability (`observability/`, the JAX package's spine): each
 execution records spans (`self.spans`: analysis, optimize, plan,
-streaming, ingest, one dispatch per attempt, egress; marks for
+analyze, streaming, ingest, one dispatch per attempt, egress; marks for
 `aqe_replan`, `aqe_overflow`, `retry:<action>` and `cancelled`) and
 posts its lifecycle on `session.listeners`: `on_query_start`,
-`on_stage_completed` per attempt, `on_fault` per recovery action and
+`on_analysis`, `on_stage_completed` per attempt, `on_fault` per recovery action and
 `on_query_end` with status ok, error, cancelled or deadline_exceeded and
 the event-log record `_build_event` makes. With no observability output
 configured and no user listener, no event is built (`_events_enabled`).
@@ -240,19 +250,6 @@ def host_metrics(metrics: Dict[str, object]) -> Dict[str, object]:
                               for _, t in items]).tolist()
         for (k, _), v in zip(items, values):
             out[k] = float(v) if is_float else int(v)
-    return out
-
-
-def render_trace(records: List[Dict]) -> List[str]:
-    """`explain(rules=True)` lines for a rule-trace record list (the
-    JAX package's `analysis/plan_integrity.render_trace`)."""
-    out = []
-    for r in records:
-        out.append(f"  {r['batch']}.{r['rule']}: "
-                   f"effective {r['effective']}/{r['invocations']}, "
-                   f"{r['ms']}ms")
-        for line in (r.get("diff") or "").splitlines():
-            out.append("    " + line)
     return out
 
 
@@ -441,9 +438,25 @@ class QueryExecution:
         self.last_metrics: Dict[str, object] = {}
         #: runs the last execute_batch took (1 + re-plans)
         self.attempts = 0
-        #: per-(batch, rule) optimizer records (`RuleExecutor.trace`);
-        #: None until the optimizer ran for this execution
+        #: per-(batch, rule) optimizer records from the plan-change
+        #: tracer (`analysis/plan_integrity.py`): the event log's
+        #: `rule_trace` and explain(rules=True); None until the
+        #: optimizer ran for this execution
         self.rule_trace: Optional[List[Dict]] = None
+        #: lite-mode plan-integrity findings, merged into
+        #: analysis_findings by `_analyze_plan_phase` (full mode raises
+        #: PlanIntegrityError from inside the optimizer instead)
+        self._integrity_findings: List = []
+        #: typed findings of the static plan analyzer (`analysis/`);
+        #: None until the analyzer ran for this execution, [] when it
+        #: ran and found nothing
+        self.analysis_findings: Optional[List] = None
+        #: on_analysis posts once per QueryExecution
+        self._analysis_posted = False
+        #: size/capacity predictions off the planned tree
+        #: (`analysis/predictions.py`), graded against the observed
+        #: metrics by `history.prediction_report`
+        self.plan_predictions: Optional[List[Dict]] = None
         #: the cost-based join reorder's decision records, one per
         #: eligible region; None until the optimizer ran
         self.reorder_decisions: Optional[List[Dict]] = None
@@ -598,10 +611,20 @@ class QueryExecution:
             plan = self._resolve_scalar_subqueries(
                 self._apply_cache(self.analyzed))
             log: List[Dict] = []
-            optimizer = default_optimizer(self.session.conf,
-                                          reorder_log=log)
-            self._optimized = optimizer.execute(plan)
-            self.rule_trace = optimizer.trace()
+            from ..analysis.plan_integrity import (PlanChangeTracer,
+                                                   PlanIntegrityValidator)
+            mode = str(self._conf.get(
+                "spark_tpu.sql.planChangeValidation"))
+            validator = PlanIntegrityValidator(mode) \
+                if mode in ("lite", "full") else None
+            tracer = PlanChangeTracer(diffs=bool(self._conf.get(
+                "spark_tpu.sql.planChangeLog")))
+            self._optimized = default_optimizer(
+                self.session.conf, reorder_log=log, validator=validator,
+                tracer=tracer).execute(plan)
+            self.rule_trace = tracer.records
+            if validator is not None:
+                self._integrity_findings = validator.findings
             self.reorder_decisions = log
             t1 = time.perf_counter()
             self.phase_times["optimization"] = t1 - t0
@@ -625,15 +648,11 @@ class QueryExecution:
         """The plan as text: the physical plan (with each operator's
         runtime observables when `runtime` and the query ran), the
         logical and optimized plans when `extended`, the join reorder's
-        decisions, and the optimizer's rule trace when `rules`. The JAX
-        package's `QueryExecution.explain`; in place of its XLA stage
-        costs, the device-memory cost of each stage that ran under
+        decisions, the optimizer's rule trace when `rules` and the
+        static analyzer's findings when `analysis`. The JAX package's
+        `QueryExecution.explain`; in place of its XLA stage costs, the
+        device-memory cost of each stage that ran under
         `observability.xlaCost`."""
-        if analysis:
-            from ..expr import AnalysisError
-            raise AnalysisError(
-                "explain(analysis=True): static analysis is not yet "
-                "ported to spark_tpu_torch")
         out = []
         if extended:
             out += ["== Logical Plan ==", self.logical.tree_string(),
@@ -659,10 +678,27 @@ class QueryExecution:
                     self.executed_plan.tree_string()]
         out += ["== Join Reorder =="] + self._reorder_lines()
         if rules:
+            from ..analysis.plan_integrity import render_trace
             self.optimized_plan  # the optimizer (and its trace) ran
             out.append("== Rule Trace ==")
             out += render_trace(self.rule_trace or []) or \
                 ["  no rules applied"]
+        if analysis:
+            out.append("== Static Analysis ==")
+            findings = self.analysis_findings
+            if findings is None:
+                # not executed yet, or the analyzer was off: run the
+                # plan walk on demand (None means "never analyzed", so a
+                # disabled execution never prints a false clean bill)
+                from ..analysis import analyze_plan
+                mesh_n = max(1, int(self._conf.get(
+                    "spark_tpu.sql.mesh.size")))
+                findings = analyze_plan(self.executed_plan, self._conf,
+                                        mesh_n)
+            if findings:
+                out += ["  " + f.render() for f in findings]
+            else:
+                out.append("  no findings")
         return "\n".join(out)
 
     def _reorder_lines(self) -> List[str]:
@@ -747,6 +783,10 @@ class QueryExecution:
         lc_scope = lifecycle.enter_query_scope(session.app_id,
                                                self.query_id, session.conf)
         self.udf_summary = None
+        # _analysis_posted stays: it is per QueryExecution, so an
+        # external collect that falls through to here (or a re-executed
+        # qe) posts on_analysis once
+        self.analysis_findings = None
         for key in [k for k in self.phase_times if k.startswith("udf_")]:
             del self.phase_times[key]  # python_eval's per-run sums
         self._begin_recovery()
@@ -1356,6 +1396,22 @@ class QueryExecution:
             if aqe_key is not None else None
         if saved_caps:
             apply_saved_caps(root0, saved_caps)
+        # static analysis: after planning (with the kept capacities
+        # applied -- they are part of the key the recompile check
+        # audits), before any UDF stage, stream, ingest or launch.
+        # Strict mode raises here, with no device work done.
+        self._analyze_plan_phase()
+        # size/capacity predictions off the planned tree (a host walk),
+        # graded after the run against the observed metrics
+        try:
+            from ..analysis.predictions import predict_plan
+            self.plan_predictions = predict_plan(
+                root0, conf, mesh.size if mesh is not None else 1)
+        except Exception as e:  # noqa: BLE001 — predictions are advisory
+            import warnings
+            warnings.warn(f"plan prediction walk failed (skipped): "
+                          f"{type(e).__name__}: {e}")
+            self.plan_predictions = None
         # UDF stages first: each UDF node's child runs, goes to the host,
         # and comes back with the UDF columns as an InputExec
         from .python_eval import extract_python_udfs, plan_has_udfs
@@ -1395,6 +1451,11 @@ class QueryExecution:
         self.phase_times["ingest"] = t1 - t0
         self.spans.record("ingest", t0, t1, scans=len(
             plan_nodes(root, P.ScanExec)))
+        # publish the findings on the bus before the first launch (the
+        # seat of the JAX package's jaxpr phase, which the port has not)
+        enabled, strict = self._analysis_conf()
+        if enabled:
+            self._post_analysis(strict)
         t0 = time.perf_counter()
         timeout_ms = int(conf.get("spark_tpu.execution.stageTimeoutMs"))
         observe_cost = self._observe_cost()
@@ -1563,10 +1624,14 @@ class QueryExecution:
         self._activate_conf()
         if plan_has_udfs(self.executed_plan):
             return None  # UDF stages evaluate through execute_batch
-        self._begin_recovery()
         # the chunked egress never reaches execute_batch: its faults and
-        # a cancel still post, as in the JAX package
+        # a cancel still post, as in the JAX package, and the analyzer
+        # (which is where the host-spill findings live) runs and
+        # strict-gates here too
         self._observe_events = self._events_enabled()
+        self._analyze_plan_phase()
+        self._post_analysis(self._analysis_conf()[1])
+        self._begin_recovery()
         t0 = time.perf_counter()
         try:
             while True:
@@ -1587,6 +1652,59 @@ class QueryExecution:
         if out is not None:
             self.phase_times["external"] = time.perf_counter() - t0
         return out
+
+    # -- static analysis (analysis/) ----------------------------------------
+
+    def _analysis_conf(self):
+        conf = self._conf
+        return (bool(conf.get("spark_tpu.sql.analysis.enabled")),
+                bool(conf.get("spark_tpu.sql.analysis.strict")))
+
+    def _post_analysis(self, strict: bool) -> None:
+        """Publish the findings on the bus (once per QueryExecution) and
+        raise under strict when any is error-severity."""
+        from ..analysis import AnalysisFindingError, errors_of
+        from ..observability.listener import AnalysisEvent
+        findings = self.analysis_findings or []
+        if findings and self._observe_events and not self._analysis_posted:
+            self._analysis_posted = True
+            self.session.listeners.post("on_analysis", AnalysisEvent(
+                query_id=self.query_id, ts=time.time(),
+                findings=[f.to_dict() for f in findings]))
+        if strict and errors_of(findings):
+            raise AnalysisFindingError(findings)
+
+    def _analyze_plan_phase(self) -> None:
+        """The plan walk over the planned tree (the `analyze` span),
+        before any UDF stage, stream, ingest or launch, so strict mode
+        rejects a hazardous plan with no device work done. It reads the
+        plan, the Parquet footers and the kept capacities, never a
+        tensor."""
+        enabled, strict = self._analysis_conf()
+        if not enabled:
+            # None ("never analyzed"), not [] ("analyzed clean"):
+            # explain(analysis=True) runs its on-demand walk off the
+            # None sentinel. Lite-mode plan-integrity findings still
+            # surface: validation ran regardless of the analyzer gate.
+            self.executed_plan  # the optimizer (and validator) ran
+            self.analysis_findings = \
+                list(self._integrity_findings) or None
+            if self.analysis_findings:
+                self._post_analysis(strict=False)
+            return
+        from ..analysis import analyze_plan
+        t0 = time.perf_counter()
+        mesh_n = max(1, int(self._conf.get("spark_tpu.sql.mesh.size")))
+        # lite-mode plan-integrity findings (collected while the
+        # optimizer ran, triggered through executed_plan) join the
+        # analyzer's in the same flow
+        self.analysis_findings = analyze_plan(self.executed_plan,
+                                              self._conf, mesh_n) \
+            + list(self._integrity_findings)
+        self.spans.record("analyze", t0, time.perf_counter(),
+                          findings=len(self.analysis_findings))
+        if strict:
+            self._post_analysis(strict)
 
     # -- observability ------------------------------------------------------
 
@@ -1759,6 +1877,11 @@ class QueryExecution:
             event["shards"] = list(self.spans.shard_records)
             if self.spans.shard_dropped:
                 event["shards_dropped"] = self.spans.shard_dropped
+        if self.plan_predictions:
+            # planner/adaptive size predictions, graded after the fact
+            # against the metrics in this same record
+            # (history.prediction_report)
+            event["predictions"] = list(self.plan_predictions)
         if self.reorder_decisions is not None:
             event["reorder"] = {
                 "enabled": bool(self.session.conf.get(
@@ -1776,6 +1899,11 @@ class QueryExecution:
             cap = device_hbm_capacity(self.session.device)
             if cap is not None:
                 event["device_hbm_capacity_bytes"] = cap
+        if self.analysis_findings:
+            # static-analyzer findings (history.read_event_log reads
+            # them back)
+            event["analysis_findings"] = [
+                f.to_dict() for f in self.analysis_findings]
         if self.udf_summary:
             # python-UDF lane record (schema v5)
             event["udf"] = dict(self.udf_summary)

@@ -50,6 +50,11 @@ PROBE_BUILD_RATIO_KEY = "spark_tpu.sql.join.hashProbeBuildRatio"
 #: degrades to long clusters: fall back to the sort kernel instead
 _FALLBACK_LOAD_FACTOR = 0.7
 
+#: device bytes per table slot while a table builds: the slot's int64
+#: run position (`t_pos`) and the int64 scratch word each insert step
+#: reduces into (the JAX package's table also takes 16)
+SLOT_BYTES = 16
+
 
 def _want_slots(build_cap: int, conf) -> int:
     """Unclamped table capacity: smallest power of two holding

@@ -142,6 +142,19 @@ class TableSource:
         return None
 
 
+def _cached_schema(source, data) -> T.Schema:
+    """The engine schema of `data` (an Arrow table or dataset), kept on
+    the source while it holds the same object: planning asks a scan for
+    its schema at every node above it, and the plan-integrity validator
+    asks again after every rule, so converting each time dominated
+    validated planning."""
+    kept = getattr(source, "_engine_schema", None)
+    if kept is None or kept[0] is not data:
+        kept = source._engine_schema = (
+            data, _arrow_schema_to_engine(data.schema))
+    return kept[1]
+
+
 def _arrow_schema_to_engine(schema: pa.Schema) -> T.Schema:
     from ..columnar import _ARROW_TO_DTYPE
     fields = []
@@ -389,7 +402,7 @@ class ArrowTableSource(TableSource):
         return stats
 
     def schema(self) -> T.Schema:
-        return _arrow_schema_to_engine(self.table.schema)
+        return _cached_schema(self, self.table)
 
     def can_push(self, e: Expression) -> bool:
         return expr_to_arrow(e, self.table.schema) is not None
@@ -459,7 +472,7 @@ class ParquetSource(TableSource):
         self._column_stats: Optional[dict] = None
 
     def schema(self) -> T.Schema:
-        return _arrow_schema_to_engine(self._dataset.schema)
+        return _cached_schema(self, self._dataset)
 
     def can_push(self, e: Expression) -> bool:
         return expr_to_arrow(e, self._dataset.schema) is not None

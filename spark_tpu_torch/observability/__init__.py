@@ -14,8 +14,9 @@ two packages' logs are read by the same tools:
   on_query_end); ``ListenerBus`` delivers events so the event log, the
   Chrome-trace writer, the metrics sinks, and tests are all just
   subscribers. Eager torch compiles no stage, so no
-  ``StageCompiledEvent`` is posted; the analyzer's ``on_analysis``
-  waits for slice 12b.
+  ``StageCompiledEvent`` is posted; the static analyzer
+  (``analysis/``) posts ``on_analysis`` once per execution with
+  findings.
 - ``spans``: per-stage spans (analysis -> optimize -> plan -> ingest ->
   dispatch -> egress, marks for AQE re-plans, retries and cancels)
   with a wall-clock anchor, exportable as Chrome trace-event JSON

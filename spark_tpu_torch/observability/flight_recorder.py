@@ -334,9 +334,13 @@ class FlightRecorder(QueryListener):
 
     @staticmethod
     def _lockwatch_report() -> Dict:
-        """The lock watch is slice 12b (`testing/lockwatch.py` in the JAX
-        package), not yet ported: none is ever installed."""
-        return {"installed": False}
+        """The installed lock watch's report (`testing/lockwatch.py`;
+        test-only, so a production bundle says none is installed)."""
+        from ..testing.lockwatch import current_watch
+        w = current_watch()
+        if w is None:
+            return {"installed": False}
+        return dict(w.report(), installed=True)
 
     def _event_log_tail(self) -> Optional[List[str]]:
         """Last N lines of the session's LIVE event-log file (rolled

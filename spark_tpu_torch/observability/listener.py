@@ -5,9 +5,9 @@ loads here).
 
 Eager torch compiles no stage, so the port's executor never posts
 `StageCompiledEvent` (`on_stage_compiled`); the class stays so that
-such listeners load. `on_analysis` waits for the analyzer (slice 12b),
-the service, streaming and mesh-stream events for their slices; the
-bus delivers whatever is posted.
+such listeners load. The static analyzer (`analysis/`) posts
+`on_analysis`; the service's events wait for slice 12c; the bus
+delivers whatever is posted.
 
 The SparkListener analog (`SparkListenerBus` / `LiveListenerBus.scala`):
 the executor posts typed events at query-lifecycle boundaries and every
@@ -66,8 +66,8 @@ class StageCompletedEvent:
 
 @dataclass
 class AnalysisEvent:
-    """Posted once per execution when the static analyzer (`analysis/`
-    in the JAX package; slice 12b) ran and produced findings.
+    """Posted once per execution when the static analyzer (`analysis/`)
+    ran and produced findings.
     `findings` is the event-log-serializable dict form
     (Finding.to_dict)."""
 

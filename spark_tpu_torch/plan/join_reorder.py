@@ -328,7 +328,10 @@ class CostBasedJoinReorder(Rule):
         classes apart: "order" = the relation sequence moved;
         "orientation" = the same sequence with a probe/build side
         flipped."""
-        if self.log is None:
+        from .rules import in_replay
+        if self.log is None or in_replay():
+            # the integrity validator's determinism replay re-applies
+            # this rule; its decisions must not double-append
             return
         labels = [self._rel_label(r) for r in region.rels]
         seq_changed = tuple(order) != tuple(range(len(labels)))
@@ -455,6 +458,10 @@ class CostBasedJoinReorder(Rule):
             else:
                 join = L.Join(acc, rels[i], acc_keys, rel_keys, "inner")
             out = _join_estimate(acc_rows, acc_frac, ri, est[i][1])
+            # the cost model's output estimate rides the join: the
+            # planner copies it onto JoinExec.cbo_est_rows, where
+            # analysis/predictions.py grades it as a join_rows prediction
+            join._cbo_est_rows = int(out)
             acc = join
             acc_rows = out
             acc_frac = min(1.0, acc_frac * est[i][1])

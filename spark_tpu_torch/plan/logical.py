@@ -301,6 +301,18 @@ class Aggregate(LogicalPlan):
 JOIN_TYPES = ("inner", "left", "right", "full", "left_semi", "left_anti")
 
 
+def _name_map(ls: T.Schema, rs: T.Schema) -> dict:
+    taken = {f.name for f in ls.fields}
+    m = {}
+    for f in rs.fields:
+        name = f.name
+        while name in taken:
+            name = name + "_r"
+        m[f.name] = name
+        taken.add(name)
+    return m
+
+
 class Join(LogicalPlan):
     """Equi-join on key expression pairs (reference: logical Join +
     ExtractEquiJoinKeys). `condition` is an optional residual non-equi
@@ -336,22 +348,16 @@ class Join(LogicalPlan):
 
     def right_name_map(self) -> dict:
         """right-field name -> output name (collisions suffixed `_r`)."""
-        taken = {f.name for f in self.left.schema().fields}
-        m = {}
-        for f in self.right.schema().fields:
-            name = f.name
-            while name in taken:
-                name = name + "_r"
-            m[f.name] = name
-            taken.add(name)
-        return m
+        return _name_map(self.left.schema(), self.right.schema())
 
     def schema(self) -> T.Schema:
         ls = self.left.schema()
         if self.how in ("left_semi", "left_anti"):
             return ls
         rs = self.right.schema()
-        name_map = self.right_name_map()
+        # from the two schemas already in hand: asking right_name_map()
+        # would compute both again, three times a join level in all
+        name_map = _name_map(ls, rs)
         left_nullable = self.how in ("right", "full")
         right_nullable = self.how in ("left", "full")
         fields = [T.Field(f.name, f.dtype, f.nullable or left_nullable)

@@ -176,10 +176,8 @@ class PruneColumns(Rule):
                         if step in left_names:
                             ln.add(step)
                         step = step + "_r"
-            return Join(self._prune(node.left, ln),
-                        self._prune(node.right, rn), node.left_keys,
-                        node.right_keys, node.how, node.condition,
-                        node.null_aware)
+            return copy_join(node, self._prune(node.left, ln),
+                             self._prune(node.right, rn))
         if isinstance(node, Sort):
             child_needed = None
             if needed is not None:
@@ -194,6 +192,16 @@ class PruneColumns(Rule):
                          self._prune(node.children[1], None))
         return node.map_children(lambda c: self._prune(c, None))
 
+
+
+def copy_join(j: Join, left, right) -> Join:
+    new = Join(left, right, j.left_keys, j.right_keys, j.how, j.condition,
+               j.null_aware)
+    # carry the reorder cost model's estimate through rebuilds (pruning
+    # runs after the JoinReorder batch and must not strip it)
+    if hasattr(j, "_cbo_est_rows"):
+        new._cbo_est_rows = j._cbo_est_rows
+    return new
 
 class ConstantFolding(Rule):
     name = "ConstantFolding"
@@ -444,11 +452,14 @@ def excluded_rule_names(conf) -> Set[str]:
     return {s.strip() for s in raw.split(",") if s.strip()}
 
 
-def default_optimizer(conf=None, reorder_log=None) -> RuleExecutor:
+def default_optimizer(conf=None, reorder_log=None, validator=None,
+                      tracer=None) -> RuleExecutor:
     """`conf` enables the conf-gated batch (cost-based join reorder) and
     the excludedRules lever; without it the pipeline is the
     conf-independent rule set. `reorder_log` is a list the reorder rule
-    appends its decision records to."""
+    appends its decision records to. `validator`/`tracer` are the
+    plan-integrity hooks (`analysis/plan_integrity.py`) the executor
+    installs from `planChangeValidation` / `planChangeLog`."""
     from .join_reorder import CostBasedJoinReorder
     batches = [
         Batch("Rewrite", [RewriteDistinctAggregates()], strategy="once"),
@@ -476,4 +487,4 @@ def default_optimizer(conf=None, reorder_log=None) -> RuleExecutor:
                 kept.append(Batch(b.name, rules, b.strategy,
                                   b.max_iterations))
         batches = kept
-    return RuleExecutor(batches)
+    return RuleExecutor(batches, validator=validator, tracer=tracer)

@@ -1230,6 +1230,8 @@ class JoinExec(PhysicalPlan):
         self.out_cap: Optional[int] = None
         self.unique_build: Optional[bool] = None
         self.hash_fallback: Optional[bool] = None
+        #: the reorder cost model's output-row estimate (advisory)
+        self.cbo_est_rows: Optional[int] = None
         # True for left_semi joins SYNTHESIZED by the runtime-filter rule
         # to narrow a creation chain (plan/runtime_filter.py): tagged
         # from a separate counter (cj<n>)

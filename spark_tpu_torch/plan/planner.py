@@ -187,6 +187,10 @@ def _convert(plan: L.LogicalPlan, conf: Conf, n: int) -> P.PhysicalPlan:
                            plan.condition, plan.schema(),
                            strategy=_pick_join_strategy(plan, conf, n))
         exec_.null_aware = plan.null_aware
+        # the reorder cost model's estimate (plan/join_reorder.py):
+        # advisory only -- graded as a `join_rows` prediction, shown by
+        # explain(runtime=True); never part of the plan's describe()
+        exec_.cbo_est_rows = getattr(plan, "_cbo_est_rows", None)
         return exec_
     if isinstance(plan, L.WindowPlan):
         return P.WindowExec(_convert(plan.child, conf, n), plan.wexprs,

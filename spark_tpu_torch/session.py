@@ -192,7 +192,9 @@ class SparkTpuSession:
         """Statement-scoped data lifetime: drop the materialized tables
         but keep the marks, so running the same statement again still
         computes a multiply-referenced view once."""
-        for fp in self._implicit_cache_fps:
+        # over a copy: a statement on another thread may mark a view
+        # meanwhile, and a set must not change size while iterated
+        for fp in list(self._implicit_cache_fps):
             self._data_cache.pop(fp, None)
 
     # -- builder ------------------------------------------------------------

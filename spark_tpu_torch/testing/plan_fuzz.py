@@ -10,7 +10,8 @@ for a slice of seeds), then runs it:
 
 - optimizer OFF (`spark_tpu.sql.optimizer.excludedRules=*`), the
   semantics baseline;
-- optimizer ON;
+- optimizer ON under `planChangeValidation=full` (any invariant
+  violation raises `PlanIntegrityError`, naming the rule);
 - per-rule ABLATED: rules that were effective in the ON run are
   excluded one at a time, so a wrong rewrite shows up as a parity break
   attributable to the excluded rule;
@@ -20,8 +21,6 @@ for a slice of seeds), then runs it:
 For one seed the generator makes the same draws from
 `random.Random(seed)` as the JAX package's copy, so both packages build
 the same tables and the same query: a seed replays across packages.
-The JAX package also validates every rule application
-(`planChangeValidation`); the port has no validator yet.
 
 Results compare via a canonical byte serialization: rows sorted by a
 total order built from value BIT PATTERNS (so -0.0 vs 0.0 and value
@@ -48,6 +47,7 @@ import pyarrow.compute as pc
 SEEDS_KEY = "spark_tpu.sql.fuzz.seeds"
 MAX_ROWS_KEY = "spark_tpu.sql.fuzz.maxRows"
 EXCLUDED_KEY = "spark_tpu.sql.optimizer.excludedRules"
+VALIDATION_KEY = "spark_tpu.sql.planChangeValidation"
 
 #: column-name pool shared across generated tables ON PURPOSE: name
 #: collisions exercise the join `_r` rename chains
@@ -466,8 +466,9 @@ def _collect(df) -> Tuple[pa.Table, object, str]:
 def run_seed(session, seed: int, ablate: str = "effective",
              max_rows: Optional[int] = None) -> Dict:
     """Run one seed's differential checks. Returns a summary dict;
-    raises `FuzzMismatch` on a parity or stability break. Session conf
-    is snapshotted and restored."""
+    raises `FuzzMismatch` (parity/stability breaks) or
+    `PlanIntegrityError` (validator violations) on failure. Session
+    conf is snapshotted and restored."""
     if ablate not in ("none", "one", "effective", "all"):
         raise ValueError(f"invalid ablate mode {ablate!r}")
     conf = session.conf
@@ -477,7 +478,9 @@ def run_seed(session, seed: int, ablate: str = "effective",
         _, sql, df = gen_case(rng, session, int(
             max_rows if max_rows is not None else conf.get(MAX_ROWS_KEY)))
 
-        # baseline: optimizer off
+        conf.set(VALIDATION_KEY, "full")
+        # baseline: optimizer off (the validator still watches the --
+        # empty -- rule stream, so parity is against the raw plan)
         conf.set(EXCLUDED_KEY, "*")
         base, _, _ = _collect(df)
 

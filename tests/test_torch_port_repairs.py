@@ -93,10 +93,7 @@ def test_every_reference_key_is_registered_or_listed():
     assert set(port) | set(listed) == set(ref)
     assert not set(port) & set(listed)
     for key, (part, default) in listed.items():
-        if key != "spark_tpu.sql.planChangeValidation":
-            # (tests/conftest.py raises that one's registry default to
-            # "full" through SPARK_TPU_PLAN_VALIDATION; its own is "off")
-            assert default == ref[key].default, key
+        assert default == ref[key].default, key
         assert part.startswith(("slice", "the multi-host")), key
     for key in MESH_KEYS:
         assert key in port and key not in listed
@@ -104,8 +101,10 @@ def test_every_reference_key_is_registered_or_listed():
 
 
 @pytest.mark.parametrize("key,value,part", [
-    ("spark_tpu.sql.planChangeValidation", "full", "slice 12b"),
-    ("spark_tpu.sql.analysis.strict", True, "slice 12b"),
+    # slice 12b registered analysis.strict and planChangeValidation; the
+    # jaxpr key stays listed (the port leaves the jaxpr analyzer out)
+    ("spark_tpu.sql.analysis.jaxpr", "on", "slice 12b"),
+    ("spark_tpu.sql.analysis.jaxpr", "off", "jaxpr analyzer"),
     ("spark_tpu.sql.cluster.coordinator", "host0:8476", "multi-host"),
     ("spark_tpu.service.slo.latencyMs", 100, "slice 12c"),
     ("spark_tpu.service.queueDepth", 32, "slice 12c"),
