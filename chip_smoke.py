@@ -12,12 +12,13 @@
         # host with 4 cards its cases run on cuda:0-3
     python3 chip_smoke.py --phases stream      # phase 17 (and 1-2)
     python3 chip_smoke.py --phases analysis    # phase 18 (and 1-2)
+    python3 chip_smoke.py --phases serve       # phase 19 (and 1-2)
 
 Phases, in order; any failure exits non-zero before the last line.
 Phases 1 and 2 always run; `--phases` names the others, from PHASES:
 kernels (3), variants (4), main (5), sql (6), tpcds (7), window (8),
 fuzz (9), functions (10), etl (11), ooc (12), udf (13), mesh (14),
-obs (15), elastic (16), stream (17), analysis (18).
+obs (15), elastic (16), stream (17), analysis (18), serve (19).
 Each query of
 phases 5-8, 10, 11's aggregates and 13 runs twice: a
 first run, after the device table cache and the session's kept
@@ -315,8 +316,45 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    pandas, the observed lock order consistent with the registry's ranks,
    no thread leaked; each lock's acquisitions, contention and longest
    hold, and what a watched acquire costs over a plain one.
+19. serve, the SQL service (`spark_tpu_torch.service`) on the card over
+   phase 5's TPC-H SF1 tables (written here when phase 19 runs alone)
+   and a range view (RANGE_ROWS ids in one Arrow source) grouped by
+   `pmod(id, 131072)`. Each query of Q1, Q3, Q5, Q6 and the range first
+   runs single-threaded (a first and a warm `collect()`, against phase
+   6's result, the golden or numpy; its kernel inputs kept under `serve
+   <q>`). (a) A SqlService on the card, 2 slots, a queue of 16 and the
+   card's whole memory as hbmBudget, started on 127.0.0.1: four client
+   threads, one pooled session each, send each query three times over
+   `POST /sql` (Q1 and Q6 in Arrow, the rest in JSON); every result must
+   equal its single-thread run and both kernels must launch through the
+   service. Per query: latency p50/p95, admission wait p50/p95 and the
+   warm single-thread time; queries/s, max_memory_allocated, and one
+   more round under torch.profiler for the card's busy share. (e) Phase
+   18(d)'s four query threads through the four pooled sessions under
+   `LockWatch.install_service`: results equal, every observed nesting an
+   edge of the static lock graph, at least one under the session lease,
+   no thread leaked; each lock's acquisitions, contention and longest
+   hold. (f) /metrics, /status, /healthz/ready and /debug/bundle (one
+   bundle per pooled session) answer. (b) With both slots held, an async
+   burst of 24 gets 6 structured 429s (service_rejected rises by as
+   many), the 18 accepted finish; on a one-slot service with a 300 ms
+   queue timeout and one in-flight query a session, a session's second
+   query is a 429 SESSION_QUOTA_EXCEEDED and a queued one a 503
+   ADMISSION_TIMEOUT. (d) A DELETE of a running Q1 streamed in 16,384-row
+   chunks gives QUERY_CANCELLED and memory_allocated as before it; a
+   request-conf queryDeadlineMs gives QUERY_DEADLINE_EXCEEDED; phase 17's
+   S2 (201 slots) over three lineitem files, unattended, shows under
+   `GET /queries`' streams, stops on `DELETE /queries/stream-<n>`, equals
+   pandas and logs one trigger record per committing tick. (c) The
+   arbiter, a service per case and the device cache emptied first, with
+   the card's total_memory printed beside its name and power limit:
+   hbmBudget 4096 denies Q1's lease and Q1 streams to the same result;
+   8 GiB grants it; one and a half Q1 scans' bytes runs two sessions' Q1
+   at once, one resident and one streamed; hbmShare 0.25 streams the
+   second of the greedy session's two scans. No lease or pin outlives a
+   case.
 Then the kernels are timed again on the exact inputs the first run of
-each query of phases 5-7 and 10-13 gave them (a chunk's input, for a
+each query of phases 5-7, 10-13 and 19 gave them (a chunk's input, for a
 streamed query), and on S1's and S2's trigger inputs.
 
 The line before the last is a JSON object with one entry per kernel and
@@ -423,10 +461,11 @@ SOURCE = "spark_tpu_torch/csrc/dense_groupby.cu"
 #: always run)
 PHASES = ("kernels", "variants", "main", "sql", "tpcds", "window", "fuzz",
           "functions", "etl", "ooc", "udf", "mesh", "obs", "elastic",
-          "stream", "analysis")
+          "stream", "analysis", "serve")
 #: the phases that drive the package's main path (run_phases)
 MAIN_PHASES = ("main", "sql", "tpcds", "window", "fuzz", "functions", "etl",
-               "ooc", "udf", "mesh", "obs", "elastic", "stream", "analysis")
+               "ooc", "udf", "mesh", "obs", "elastic", "stream", "analysis",
+               "serve")
 #: the hand kernels each function-library program must launch at SF1
 #: (F2's and F3's aggregates and functions run as torch ops: the
 #: positional sort, the sort aggregate, the date and bit arithmetic)
@@ -529,6 +568,39 @@ LOCKWATCH_STREAM_MOD = 200
 LOCKWATCH_FRAMES = 12
 LOCKWATCH_FRAME_ROWS = 100_000
 LOCKWATCH_TRIGGER_MS = 50
+#: phase 19: the main service's admission bounds, the client sessions
+#: (one thread each), the rounds each client runs, the queries (SQL
+#: text, or "range") and the ones sent in Arrow format; the range view's
+#: name and key modulus (131,072 keys, 131,073 slots with pmod's NULL
+#: slot, on dense_sums_global); the async burst; the streamed cancel's
+#: chunk rows; the stream's files, trigger interval and the lock stress's
+#: queries a thread
+SERVE_MAX_CONCURRENT = 2
+SERVE_QUEUE_DEPTH = 16
+SERVE_SESSIONS = ("alpha", "beta", "gamma", "delta")
+SERVE_ROUNDS = 3
+SERVE_QUERIES = ("q1", "q3", "q5", "q6", "range")
+SERVE_ARROW = ("q1", "q6")
+SERVE_RANGE_TABLE = "range16m"
+SERVE_RANGE_MOD = 131072
+SERVE_RANGE_SQL = (f"SELECT pmod(id, {SERVE_RANGE_MOD}) AS k, count(*) AS n, "
+                   f"sum(id) AS s FROM {SERVE_RANGE_TABLE} "
+                   f"GROUP BY pmod(id, {SERVE_RANGE_MOD})")
+SERVE_BURST = 24
+SERVE_CANCEL_CHUNK_ROWS = 16384
+SERVE_STREAM_FILES = 3
+SERVE_STREAM_TRIGGER_MS = 100
+SERVE_STRESS_QUERIES = 8
+#: phase 19(c): two lineitem scans in one query, each gated by the
+#: arbiter (the greedy session's second scan passes its hbmShare)
+SERVE_TWO_SCANS = (
+    "SELECT l_returnflag AS k, sum(l_quantity) AS s FROM lineitem "
+    "GROUP BY l_returnflag UNION ALL SELECT l_shipmode AS k, "
+    "sum(l_extendedprice) AS s FROM lineitem GROUP BY l_shipmode")
+HBM_KEY = "spark_tpu.service.hbmBudget"
+HBM_SHARE_KEY = "spark_tpu.service.session.hbmShare"
+BUDGET_KEY = "spark_tpu.sql.memory.deviceBudget"
+DEADLINE_KEY = "spark_tpu.execution.queryDeadlineMs"
 
 
 def log(*parts) -> None:
@@ -4654,6 +4726,756 @@ def phase_analysis(D, S, G, path, tmp, sql_results, launches) -> None:
     log(f"[analysis] (d) in {time.perf_counter() - t1:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the SQL service
+# ---------------------------------------------------------------------------
+
+
+def serve_range_source():
+    """The range view: RANGE_ROWS ids in one Arrow source, registered in
+    every pooled session (one source object, so one device cache entry)."""
+    import numpy as np
+    import pyarrow as pa
+    from spark_tpu_torch.io.sources import ArrowTableSource
+    return ArrowTableSource(SERVE_RANGE_TABLE, pa.table(
+        {"id": np.arange(RANGE_ROWS, dtype=np.int64)}))
+
+
+def serve_init(path, range_source):
+    """The pooled sessions' init hook: the TPC-H tables and the range
+    view."""
+    from spark_tpu_torch.tpch.queries import register_tables
+
+    def init(session):
+        register_tables(session, path)
+        session.register_table(SERVE_RANGE_TABLE, range_source)
+    return init
+
+
+def serve_sql(q: str) -> str:
+    from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
+    return SERVE_RANGE_SQL if q == "range" else SQL_QUERIES[q]
+
+
+def check_serve_range(what, table) -> None:
+    """The range view's group-by against numpy's closed form."""
+    import numpy as np
+    ids = np.arange(RANGE_ROWS, dtype=np.int64)
+    keys = ids % SERVE_RANGE_MOD
+    cnt = np.bincount(keys, minlength=SERVE_RANGE_MOD)
+    total = np.zeros(SERVE_RANGE_MOD, dtype=np.int64)
+    np.add.at(total, keys, ids)
+    got = table.to_pandas().sort_values("k")
+    if not (np.array_equal(got["k"].to_numpy(), np.arange(SERVE_RANGE_MOD))
+            and np.array_equal(got["n"].to_numpy(), cnt)
+            and np.array_equal(got["s"].to_numpy(), total)):
+        raise AssertionError(f"{what}: the range group-by disagrees with "
+                             f"numpy")
+
+
+def rows_match(what, got, want) -> None:
+    """JSON rows (lists of dicts) equal: floats within FLOAT_RTOL, the
+    rest exactly."""
+    import math
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} rows, expected "
+                             f"{len(want)}")
+    for g, w in zip(got, want):
+        if list(g) != list(w):
+            raise AssertionError(f"{what}: columns {list(g)}")
+        for k, v in w.items():
+            ok = (math.isclose(g[k], v, rel_tol=FLOAT_RTOL, abs_tol=0.0)
+                  if isinstance(v, float) and isinstance(g[k], float)
+                  else g[k] == v)
+            if not ok:
+                raise AssertionError(f"{what}: {k} = {g[k]!r}, expected "
+                                     f"{v!r}")
+
+
+def http(port, method, path, body=None, timeout=600):
+    """(status, headers, payload) of one request to the service: the
+    JSON body decoded, else the raw bytes (an Arrow stream, metrics)."""
+    import urllib.error
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data, method=method,
+        headers={"Content-Type": "application/json"} if data else {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            raw, status, headers = r.read(), r.status, r.headers
+    except urllib.error.HTTPError as e:
+        raw, status, headers = e.read(), e.code, e.headers
+    if (headers.get("Content-Type") or "").startswith("application/json"):
+        return status, headers, json.loads(raw)
+    return status, headers, raw
+
+
+def serve_service(confs, init, device):
+    """A SqlService (not started) over `confs`, its sessions on
+    `device`."""
+    from spark_tpu_torch.config import Conf
+    from spark_tpu_torch.service.server import SqlService
+    conf = Conf()
+    for key, value in confs:
+        conf.set(key, value)
+    return SqlService(conf, init_session=init, device=device)
+
+
+def counter(svc, name: str) -> int:
+    return int(svc.metrics.snapshot()["counters"].get(name, 0))
+
+
+def pct(values, p: float) -> float:
+    """The p-th percentile (nearest rank) of `values`."""
+    import math
+    s = sorted(values)
+    return s[max(0, math.ceil(p / 100 * len(s)) - 1)]
+
+
+def poll_terminal(svc, qid, timeout_s=120.0) -> dict:
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        rec = svc.query_snapshot(qid)
+        if rec and rec.get("status") not in ("submitted", "running"):
+            return rec
+        time.sleep(0.01)
+    raise AssertionError(f"{qid} never finished: {svc.query_snapshot(qid)}")
+
+
+def require_drained(label, svc) -> None:
+    """After a case: no lease held and no device-cache pin left."""
+    from spark_tpu_torch.io.device_cache import CACHE
+    leased = svc.arbiter.leased_bytes
+    if leased or CACHE._pins:
+        raise AssertionError(f"{label}: {leased} bytes still leased, pins "
+                             f"{CACHE._pins}")
+
+
+def serve_references(D, S, G, path, init, sql_results, launches, current,
+                     device) -> dict:
+    """Phase 19's single-thread baseline: each SERVE_QUERIES query a
+    first and a warm `collect()` on a plain session over the same tables,
+    each against phase 6's first run (the golden when phase 6 did not
+    run; numpy for the range). The first runs' kernel inputs are kept
+    under `serve <q>`. Returns {q: (result, warm seconds)}."""
+    session = S.SparkTpuSession.builder().device(device).get_or_create()
+    init(session)
+    out = {}
+    for q in SERVE_QUERIES:
+        label = f"serve {q}"
+        first, warm = first_and_warm(D, session,
+                                     lambda q=q: session.sql(serve_sql(q)),
+                                     current, label)
+        launches[label] = first[3]
+        kernel = "dense_sums_global" if q == "range" else SQL_KERNELS[q]
+        require_kernels(label, kernel, first[3])
+        require_kernels(f"{label}'s warm run", kernel, warm[3])
+        tables_match(f"{label}'s warm run against its first", warm[0],
+                     first[0])
+        if q == "range":
+            check_serve_range(label, first[0])
+        elif q in sql_results:
+            tables_match(f"{label} against phase 6's result", first[0],
+                         sql_results[q])
+        else:
+            gold = G.GOLDEN[q](path)
+            G.compare(G.normalize_decimals(first[0].to_pandas())[
+                gold.columns.tolist()].reset_index(drop=True), gold)
+        out[q] = (first[0], warm[2])
+        log(f"[serve] {label} single-thread: {first[0].num_rows} rows, "
+            f"{runs_text(first, warm)}; launches {first[3]}")
+    return out
+
+
+def serve_clients(svc, refs, rounds):
+    """SERVE_SESSIONS client threads, one session each, each sending
+    every SERVE_QUERIES query `rounds` times through `POST /sql` (the
+    SERVE_ARROW ones in Arrow format, the rest in JSON); every result
+    must equal its single-thread reference. Returns {q: [(latency s,
+    admission wait s)]} and the wall seconds."""
+    import threading
+    import pyarrow as pa
+    from spark_tpu_torch.service.server import _table_rows
+    want_rows = {q: _table_rows(refs[q][0]) for q in SERVE_QUERIES
+                 if q not in SERVE_ARROW}
+    lat = {q: [] for q in SERVE_QUERIES}
+    errors = []
+
+    def client(name):
+        try:
+            for _ in range(rounds):
+                for q in SERVE_QUERIES:
+                    fmt = "arrow" if q in SERVE_ARROW else "json"
+                    t0 = time.perf_counter()
+                    status, headers, body = http(
+                        svc.port, "POST", "/sql",
+                        {"sql": serve_sql(q), "session": name,
+                         "format": fmt})
+                    wall = time.perf_counter() - t0
+                    if status != 200:
+                        raise AssertionError(f"{q}: HTTP {status} {body}")
+                    if fmt == "arrow":
+                        qid = headers["X-Query-Id"]
+                        tables_match(f"served {q} ({name})",
+                                     pa.ipc.open_stream(body).read_all(),
+                                     refs[q][0])
+                    else:
+                        qid = body["query_id"]
+                        if body["columns"] != refs[q][0].column_names:
+                            raise AssertionError(f"{q}: columns "
+                                                 f"{body['columns']}")
+                        rows_match(f"served {q} ({name})", body["rows"],
+                                   want_rows[q])
+                    rec = svc.query_snapshot(qid)
+                    lat[q].append((wall, rec["started_ts"]
+                                   - rec["submitted_ts"]))
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(f"{name}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(n,),
+                                name=f"serve-client-{n}")
+               for n in SERVE_SESSIONS]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("serve: a client thread wedged")
+    if errors:
+        raise AssertionError(f"serve clients: {errors[:3]}")
+    return lat, wall
+
+
+def serve_parity(D, svc, refs) -> None:
+    """Phase 19(a): the concurrent clients, SERVE_ROUNDS rounds with the
+    launch counters at 0 (both kernels must launch through the service),
+    then one more round under torch.profiler for the card's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    zero_launches(D)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lat, wall = serve_clients(svc, refs, SERVE_ROUNDS)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    served = dict(D.LAUNCHES)
+    require_kernels("the served queries", ("dense_sums_smem",
+                                           "dense_sums_global"), served)
+    n = sum(len(v) for v in lat.values())
+    log(f"[serve] (a) {len(SERVE_SESSIONS)} sessions x {SERVE_ROUNDS} "
+        f"rounds x {len(SERVE_QUERIES)} queries = {n} served in "
+        f"{wall:.3f} s ({n / wall:.2f} queries/s), every result equal to "
+        f"its single-thread run; launches through the service {served}; "
+        f"max_memory_allocated {peak:,} bytes")
+    for q in SERVE_QUERIES:
+        w = [x[0] * 1e3 for x in lat[q]]
+        a = [x[1] * 1e3 for x in lat[q]]
+        log(f"[serve] (a) {q} ({'arrow' if q in SERVE_ARROW else 'json'}): "
+            f"latency p50 {pct(w, 50):.1f} ms p95 {pct(w, 95):.1f} ms; "
+            f"admission wait p50 {pct(a, 50):.1f} ms p95 {pct(a, 95):.1f} "
+            f"ms; warm single-thread collect() {refs[q][1] * 1e3:.1f} ms")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = serve_clients(svc, refs, 1)
+        torch.cuda.synchronize()
+    log(f"[serve] (a) one more round under the profiler, "
+        f"{len(SERVE_SESSIONS)} sessions: "
+        f"{busy_text(*device_busy(prof), wall)}")
+
+
+def serve_stress(svc, refs) -> None:
+    """Phase 19(e): phase 18(d)'s four query threads (Q1/Q5/Q6 and the
+    range, SERVE_STRESS_QUERIES each) through four pooled sessions under
+    lockwatch: every result equal to its single-thread run, every
+    observed nesting an edge of the static lock graph, at least one
+    nesting under the service's session lease, no thread leaked."""
+    import os
+    import threading
+    from spark_tpu_torch.analysis.concurrency import lockorder
+    from spark_tpu_torch.testing.lockwatch import LockWatch
+    programs = ("q1", "q5", "q6", "range")
+    watch = LockWatch()
+    watch.install_service(svc)
+    results, errors = [], []
+
+    def run(i, name):
+        try:
+            for k in range(SERVE_STRESS_QUERIES):
+                q = programs[(i + k) % len(programs)]
+                _, table = svc.submit(serve_sql(q), session=name)
+                results.append((q, table))
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(f"{name}: {type(e).__name__}: {e}")
+
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=run, args=(i, n),
+                                    name=f"serve-stress-{n}")
+                   for i, n in enumerate(SERVE_SESSIONS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        seconds = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("serve stress: a query thread wedged")
+        if errors:
+            raise AssertionError(f"serve stress: {errors[:3]}")
+        for q, table in results:
+            tables_match(f"serve stress {q} against its single-thread run",
+                         table, refs[q][0])
+        edges = watch.edges()
+        static, _ = lockorder.build_graph(
+            os.path.dirname(os.path.abspath(__file__)))
+        unknown = set(edges) - set(static)
+        if unknown:
+            raise AssertionError(f"serve stress: observed nestings outside "
+                                 f"the static graph: {sorted(unknown)}")
+        nested = sorted(e for e in edges if e[0] == "service.session")
+        if not nested:
+            raise AssertionError(f"serve stress: no nesting under "
+                                 f"service.session: {sorted(edges)}")
+        watch.assert_order_consistent()
+        watch.assert_no_thread_leak()
+        report = watch.report()
+        log(f"[serve] (e) lockwatch: {len(results)} queries on "
+            f"{len(SERVE_SESSIONS)} pooled sessions in {seconds:.1f} s "
+            f"equal their single-thread runs; {len(edges)} observed "
+            f"nestings, all in the static graph ({len(static)} edges), "
+            f"{len(nested)} under service.session; order consistent, no "
+            f"thread leak")
+        log(f"[serve] (e) edges: {report['edges']}")
+        for lock_id, st in report["locks"].items():
+            log(f"[serve] (e) lock {lock_id}: {st['acquires']} "
+                f"acquisitions, {st['contended']} contended, wait "
+                f"{st['wait_s'] * 1e3:.2f} ms, longest hold "
+                f"{st['max_hold_s'] * 1e3:.3f} ms")
+    finally:
+        watch.uninstall()
+
+
+def serve_endpoints(svc) -> None:
+    """Phase 19(f): /metrics, /status, /healthz/ready and /debug/bundle
+    answer; the bundle holds one directory per pooled session."""
+    import os
+    from spark_tpu_torch.observability.metrics import parse_prometheus_text
+    status, _, text = http(svc.port, "GET", "/metrics")
+    parsed = parse_prometheus_text(text.decode())
+    if status != 200 or parsed.get(
+            "spark_tpu_service_queries_submitted", 0) < 1:
+        raise AssertionError(f"/metrics: {status}")
+    status, _, st = http(svc.port, "GET", "/status")
+    if status != 200 or not st["enabled"] or "arbiter" not in \
+            st["providers"]:
+        raise AssertionError(f"/status: {status} {st}")
+    status, _, ready = http(svc.port, "GET", "/healthz/ready")
+    if status != 200 or ready != {"ready": True}:
+        raise AssertionError(f"/healthz/ready: {status} {ready}")
+    status, _, db = http(svc.port, "GET", "/debug/bundle")
+    names = sorted(b["session"] for b in db["bundles"])
+    if status != 200 or names != sorted(svc.pool.sessions()) or not all(
+            os.path.isfile(os.path.join(b["path"], "MANIFEST.json"))
+            for b in db["bundles"]):
+        raise AssertionError(f"/debug/bundle: {status} {db}")
+    log(f"[serve] (f) /metrics ({len(parsed)} samples), /status "
+        f"({st['queries_total']} queries, providers "
+        f"{sorted(st['providers'])}), /healthz/ready and /debug/bundle "
+        f"({len(names)} bundles, one per pooled session: {names}) answer")
+
+
+def serve_burst(svc) -> None:
+    """Phase 19(b), first half: with both execution slots held, an async
+    burst of SERVE_BURST Q6 submissions past maxConcurrent + queueDepth
+    gets structured 429s, as many as `service_rejected` rose; released,
+    every accepted one finishes."""
+    before = counter(svc, "service_rejected")
+    svc.admission.acquire("hold-1")
+    svc.admission.acquire("hold-2")
+    accepted, rejected = [], []
+    try:
+        for i in range(SERVE_BURST):
+            status, _, body = http(svc.port, "POST", "/sql", {
+                "sql": serve_sql("q6"), "mode": "async",
+                "session": SERVE_SESSIONS[i % len(SERVE_SESSIONS)]})
+            if status == 202:
+                accepted.append(body["query_id"])
+            elif status == 429 and body["error"] == "ADMISSION_REJECTED":
+                rejected.append(body)
+            else:
+                raise AssertionError(f"burst: HTTP {status} {body}")
+    finally:
+        svc.admission.release()
+        svc.admission.release()
+    bound = SERVE_MAX_CONCURRENT + SERVE_QUEUE_DEPTH
+    rose = counter(svc, "service_rejected") - before
+    if len(accepted) != bound or len(rejected) != SERVE_BURST - bound \
+            or rose != len(rejected):
+        raise AssertionError(f"burst: {len(accepted)} accepted, "
+                             f"{len(rejected)} 429s, service_rejected "
+                             f"rose {rose}")
+    statuses = [poll_terminal(svc, qid)["status"] for qid in accepted]
+    if set(statuses) != {"ok"}:
+        raise AssertionError(f"burst: accepted queries ended {statuses}")
+    log(f"[serve] (b) async burst of {SERVE_BURST}: {len(accepted)} "
+        f"accepted (the bound {bound}) and all ok, {len(rejected)} "
+        f"structured 429 ADMISSION_REJECTED, service_rejected rose "
+        f"{rose}")
+
+
+def serve_timeout_and_quota(init, device) -> None:
+    """Phase 19(b), second half, on a service of one slot, a 300 ms
+    queue timeout and one in-flight query a session: a session's second
+    submission is a 429 SESSION_QUOTA_EXCEEDED, and a query queued past
+    the timeout a 503 ADMISSION_TIMEOUT."""
+    svc = serve_service((("spark_tpu.service.port", 0),
+                         ("spark_tpu.service.maxConcurrent", 1),
+                         ("spark_tpu.service.queueDepth", 4),
+                         ("spark_tpu.service.queueTimeoutMs", 300),
+                         ("spark_tpu.service.session.maxConcurrent", 1)),
+                        init, device).start()
+    try:
+        svc.pool.get_or_create("q")  # its init outside the timed windows
+        svc.pool.get_or_create("t")
+        svc.admission.acquire("hold")
+        try:
+            s1, _, b1 = http(svc.port, "POST", "/sql", {
+                "sql": serve_sql("q6"), "session": "q", "mode": "async"})
+            s2, _, b2 = http(svc.port, "POST", "/sql", {
+                "sql": serve_sql("q6"), "session": "q"})
+        finally:
+            svc.admission.release()
+        if s1 != 202 or s2 != 429 or b2["error"] != "SESSION_QUOTA_EXCEEDED":
+            raise AssertionError(f"quota: {s1} {b1}; {s2} {b2}")
+        if poll_terminal(svc, b1["query_id"])["status"] != "ok":
+            raise AssertionError("quota: the admitted query failed")
+        svc.admission.acquire("hold")
+        try:
+            t0 = time.perf_counter()
+            s3, _, b3 = http(svc.port, "POST", "/sql", {
+                "sql": serve_sql("q6"), "session": "t"})
+            waited = time.perf_counter() - t0
+        finally:
+            svc.admission.release()
+        if s3 != 503 or b3["error"] != "ADMISSION_TIMEOUT":
+            raise AssertionError(f"timeout: {s3} {b3}")
+        log(f"[serve] (b) a session's second in-flight query: 429 "
+            f"SESSION_QUOTA_EXCEEDED; queued past 300 ms: 503 "
+            f"ADMISSION_TIMEOUT after {waited * 1e3:.0f} ms")
+    finally:
+        svc.stop()
+
+
+def serve_cancel_deadline(svc) -> None:
+    """Phase 19(d), first half: a DELETE of a running SF1 Q1 (streamed in
+    SERVE_CANCEL_CHUNK_ROWS-row chunks) ends it QUERY_CANCELLED with the
+    card's allocated bytes back at their value before it; a request-conf
+    queryDeadlineMs gives QUERY_DEADLINE_EXCEEDED."""
+    import gc
+    import torch
+    slow = {BUDGET_KEY: 1, CHUNK_KEY: SERVE_CANCEL_CHUNK_ROWS}
+    svc.pool.get_or_create("cancel")
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    status, _, body = http(svc.port, "POST", "/sql", {
+        "sql": serve_sql("q1"), "session": "cancel", "mode": "async",
+        "conf": slow})
+    qid = body["query_id"]
+    deadline = time.monotonic() + 60
+    while svc.query_snapshot(qid)["status"] == "submitted":
+        if time.monotonic() > deadline:
+            raise AssertionError("cancel: the query never started")
+        time.sleep(0.01)
+    time.sleep(0.5)
+    t0 = time.perf_counter()
+    code, _, resp = http(svc.port, "DELETE", f"/queries/{qid}")
+    rec = poll_terminal(svc, qid, timeout_s=60)
+    stopped = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    if code != 200 or rec["status"] != "cancelled" or \
+            rec["error"]["error"] != "QUERY_CANCELLED":
+        raise AssertionError(f"cancel: {code} {resp}; {rec}")
+    if after != before:
+        raise AssertionError(f"cancel: memory_allocated {after:,} bytes "
+                             f"after, {before:,} before")
+    t0 = time.perf_counter()
+    s2, _, b2 = http(svc.port, "POST", "/sql", {
+        "sql": serve_sql("q1"), "session": "deadline",
+        "conf": dict(slow, **{DEADLINE_KEY: 200})})
+    if s2 != 504 or b2["error"] != "QUERY_DEADLINE_EXCEEDED":
+        raise AssertionError(f"deadline: {s2} {b2}")
+    log(f"[serve] (d) DELETE of a running streamed Q1: QUERY_CANCELLED "
+        f"{stopped * 1e3:.0f} ms after the request, memory_allocated "
+        f"{after:,} bytes as before; queryDeadlineMs 200: 504 "
+        f"QUERY_DEADLINE_EXCEEDED after {(time.perf_counter() - t0) * 1e3:.0f}"
+        f" ms")
+
+
+def serve_stream(S, svc, path, tmp) -> None:
+    """Phase 19(d), second half: phase 17's S2 (201 slots) over
+    SERVE_STREAM_FILES files of lineitem moved into a watched directory
+    one a trigger, unattended; the live loop shows under `GET /queries`'
+    streams, `DELETE /queries/stream-<n>` stops it, and its event log
+    holds one trigger record per committing tick."""
+    import os
+    import numpy as np
+    import pyarrow.parquet as pq
+    from spark_tpu_torch import history as H
+    table = pq.read_table(os.path.join(path, "lineitem.parquet"))
+    root = os.path.join(tmp, "serve-stream")
+    watched = os.path.join(root, "in")
+    os.makedirs(watched)
+    bounds = np.linspace(0, table.num_rows,
+                         SERVE_STREAM_FILES + 1).astype(np.int64)
+    staged = []
+    for i in range(SERVE_STREAM_FILES):
+        name = os.path.join(root, f"part-{i}.parquet")
+        pq.write_table(table.slice(int(bounds[i]),
+                                   int(bounds[i + 1] - bounds[i])), name)
+        staged.append(name)
+    session = stream_session(S)
+    ev_dir = os.path.join(root, "events")
+    session.conf.set("spark_tpu.sql.eventLog.dir", ev_dir)
+    src = session.file_stream(watched, schema_df=table.schema)
+    q = s2_query(S.functions, src, os.path.join(root, "ck"))
+    q.start(trigger_ms=SERVE_STREAM_TRIGGER_MS)
+    try:
+        for i, name in enumerate(staged):
+            os.rename(name, os.path.join(watched, os.path.basename(name)))
+            deadline = time.monotonic() + 120
+            while q._committed_batch < i:
+                if time.monotonic() > deadline or q.exception() is not None:
+                    raise AssertionError(f"stream: batch {i} never "
+                                         f"committed: {q.exception()}")
+                time.sleep(0.01)
+        _, _, listing = http(svc.port, "GET", "/queries")
+        live = [r for r in listing["streams"] if r["id"] == q._live_id]
+        if not live or live[0]["status"] != "RUNNING":
+            raise AssertionError(f"stream: not listed: {listing['streams']}")
+        code, _, body = http(svc.port, "DELETE", f"/queries/{q._live_id}")
+        if code != 200 or body["query_status"] != "STOPPED":
+            raise AssertionError(f"stream: DELETE gave {code} {body}")
+        cols = {"suppkey": table.column("l_suppkey").to_numpy(),
+                "qty": arrow_unscaled(table.column("l_quantity")),
+                "disc": arrow_unscaled(table.column("l_discount"))}
+        check_s2("the served stream", q.latest(), cols)
+    finally:
+        q.stop()
+        session.conf.set("spark_tpu.sql.eventLog.dir", "")
+    ss = H.streaming_summary(H.read_event_log(ev_dir))
+    trig = ss[ss["record"] == "trigger"]
+    batches = ss[ss["record"] == "batch"]
+    if len(batches) != SERVE_STREAM_FILES or \
+            int(trig["batches_run"].sum()) != len(batches):
+        raise AssertionError(f"stream: {len(batches)} batch records, "
+                             f"trigger records {trig.to_dict('records')}")
+    log(f"[serve] (d) stream S2 over {SERVE_STREAM_FILES} files: listed "
+        f"under GET /queries, stopped by DELETE {live[0]['id']}, equal to "
+        f"pandas; {len(trig)} trigger records for {len(batches)} "
+        f"committed batches")
+
+
+def serve_arbiter(S, path, init, refs, device) -> None:
+    """Phase 19(c): the arbiter over the card's memory, each case on a
+    service of its own (its arbiter installed at first use), the device
+    cache emptied first: a 4096-byte pool denies Q1's lease and Q1
+    streams; an 8 GiB pool grants it; a pool of one and a half Q1 scans
+    runs two sessions' Q1 at once (the first parked by a listener at its
+    query's end, lease still held, while the second runs), one resident
+    and one streamed; a session's 0.25 hbmShare streams the second of
+    its query's two scans.
+    Every result equals its single-thread run, and no lease or pin
+    outlives its case."""
+    import threading
+    import torch
+    from spark_tpu_torch.execution.executor import plan_nodes
+    from spark_tpu_torch.io.device_cache import CACHE, estimated_scan_bytes
+    from spark_tpu_torch.plan.physical import ScanExec
+    dev = torch.device(device)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    log(f"[serve] (c) {card_line()}: torch.cuda total_memory "
+        f"{total:,} bytes; service.hbmBudget is a byte count of it that "
+        f"the arbiter leases estimated scan footprints from, and "
+        f"session.hbmShare a fraction of hbmBudget one session may hold")
+    plain = S.SparkTpuSession.builder().device(device).get_or_create()
+    init(plain)
+
+    def scans(text):
+        return [estimated_scan_bytes(leaf) for leaf in plan_nodes(
+            plain.sql(text)._qe().executed_plan, ScanExec)]
+
+    def streamed(svc, rid) -> bool:
+        return "InputExec(" in (svc.history.get(rid) or {}).get(
+            "plan_tree", "")
+
+    def case(label, confs, run):
+        CACHE.clear()
+        svc = serve_service(confs, init, device)
+        try:
+            run(svc)
+            require_drained(label, svc)
+        finally:
+            svc.stop()
+
+    def starved(svc):
+        rec, table = svc.submit(serve_sql("q1"), session="starved")
+        tables_match("Q1 under a 4096-byte pool", table, refs["q1"][0])
+        if counter(svc, "arbiter_lease_denied") < 1 or \
+                not streamed(svc, rec["id"]):
+            raise AssertionError("4096-byte pool: Q1 was not denied "
+                                 "residency")
+        if svc.history.get(rec["id"]).get("fault_summary"):
+            raise AssertionError("4096-byte pool: Q1 recovered from a "
+                                 "fault")
+        log(f"[serve] (c) hbmBudget 4096: Q1 denied "
+            f"({counter(svc, 'arbiter_lease_denied')} denials), streamed, "
+            f"equal to its single-thread run, no out-of-memory; "
+            f"{rec['elapsed_ms']} ms")
+
+    def roomy(svc):
+        rec, table = svc.submit(serve_sql("q1"), session="roomy")
+        tables_match("Q1 under an 8 GiB pool", table, refs["q1"][0])
+        if counter(svc, "arbiter_lease_granted") < 1 or \
+                streamed(svc, rec["id"]):
+            raise AssertionError("8 GiB pool: Q1's lease not granted")
+        log(f"[serve] (c) hbmBudget 8 GiB: "
+            f"{counter(svc, 'arbiter_lease_granted')} leases granted, Q1 "
+            f"resident; {rec['elapsed_ms']} ms")
+
+    est = scans(serve_sql("q1"))[0]
+
+    def pair(svc):
+        from spark_tpu_torch.observability import QueryListener
+        holding, release = threading.Event(), threading.Event()
+
+        class Hold(QueryListener):
+            """Parks session a at its query's end, where its lease is
+            still held, until session b's Q1 has run."""
+
+            def on_query_end(self, event):
+                if not holding.is_set():
+                    holding.set()
+                    release.wait(120)
+
+        svc.pool.get_or_create("a").session.add_listener(Hold())
+        out, errors = {}, []
+
+        def run_a():
+            try:
+                out["a"] = svc.submit(serve_sql("q1"), session="a")
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(f"a: {type(e).__name__}: {e}")
+
+        ta = threading.Thread(target=run_a)
+        ta.start()
+        try:
+            if not holding.wait(120):
+                raise AssertionError(f"pair: a never finished: {errors}")
+            out["b"] = svc.submit(serve_sql("q1"), session="b")
+        finally:
+            release.set()
+            ta.join(120)
+        if errors:
+            raise AssertionError(f"pair: {errors}")
+        kinds = {}
+        for name, (rec, table) in sorted(out.items()):
+            tables_match(f"Q1 of session {name} in the pair", table,
+                         refs["q1"][0])
+            kinds[name] = "streamed" if streamed(svc, rec["id"]) \
+                else "resident"
+        if kinds != {"a": "resident", "b": "streamed"}:
+            raise AssertionError(f"pair: {kinds}")
+        log(f"[serve] (c) hbmBudget {est * 3 // 2:,} (1.5 Q1 scans of "
+            f"{est:,} estimated bytes): two sessions' Q1 at once, session "
+            f"a resident and parked at its query's end with its lease, "
+            f"session b denied and streamed; both equal; granted "
+            f"{counter(svc, 'arbiter_lease_granted')}, denied "
+            f"{counter(svc, 'arbiter_lease_denied')}")
+
+    two = scans(SERVE_TWO_SCANS)
+    share_cap = max(two) + min(two) // 2
+    want_two = plain.sql(SERVE_TWO_SCANS).collect()
+
+    def greedy(svc):
+        rec, table = svc.submit(SERVE_TWO_SCANS, session="greedy")
+        tables_match("the two-scan query under hbmShare", table, want_two)
+        tree = svc.history.get(rec["id"])["plan_tree"]
+        if counter(svc, "session_quota_rejections") != 1 or \
+                tree.count("InputExec(") != 1:
+            raise AssertionError(f"hbmShare: {tree}")
+        log(f"[serve] (c) hbmShare 0.25 of {4 * share_cap:,} bytes: the "
+            f"greedy session's first scan ({two[0]:,} bytes) resident, its "
+            f"second ({two[1]:,}) denied past the share and streamed; "
+            f"equal to its single-thread run")
+
+    no_cache = (CACHE_KEY, 0)
+    case("4096-byte pool", ((HBM_KEY, 4096),), starved)
+    case("8 GiB pool", ((HBM_KEY, 8 << 30),), roomy)
+    case("the pair", ((HBM_KEY, est * 3 // 2), no_cache), pair)
+    case("hbmShare", ((HBM_KEY, 4 * share_cap), (HBM_SHARE_KEY, 0.25),
+                      no_cache), greedy)
+    log("[serve] (c) after every case: 0 bytes leased, no pin left")
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
+        else "nvidia-smi gave nothing"
+
+
+def phase_serve(D, S, G, path, tmp, sql_results, launches, current,
+                device="cuda:0") -> None:
+    """Phase 19: the SQL service on the card, (a)-(f)."""
+    import os
+    import torch
+    t0 = time.perf_counter()
+    init = serve_init(path, serve_range_source())
+    refs = serve_references(D, S, G, path, init, sql_results, launches,
+                            current, device)
+    total = torch.cuda.get_device_properties(torch.device(device)) \
+        .total_memory
+    svc = serve_service((
+        ("spark_tpu.service.host", "127.0.0.1"),
+        ("spark_tpu.service.port", 0),
+        ("spark_tpu.service.maxConcurrent", SERVE_MAX_CONCURRENT),
+        ("spark_tpu.service.queueDepth", SERVE_QUEUE_DEPTH),
+        (HBM_KEY, total),
+        ("spark_tpu.sql.flightRecorder.dir", os.path.join(tmp, "serve-fr"))),
+        init, device).start()
+    log(f"[serve] references in {time.perf_counter() - t0:.1f} s; service "
+        f"on 127.0.0.1:{svc.port}, {SERVE_MAX_CONCURRENT} slots, queue "
+        f"{SERVE_QUEUE_DEPTH}, hbmBudget {total:,} bytes (the whole card)")
+    try:
+        t1 = time.perf_counter()
+        serve_parity(D, svc, refs)
+        log(f"[serve] (a) in {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        serve_stress(svc, refs)
+        log(f"[serve] (e) in {time.perf_counter() - t1:.1f} s")
+        serve_endpoints(svc)
+        t1 = time.perf_counter()
+        serve_burst(svc)
+        serve_timeout_and_quota(init, device)
+        log(f"[serve] (b) in {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        serve_cancel_deadline(svc)
+        serve_stream(S, svc, path, tmp)
+        log(f"[serve] (d) in {time.perf_counter() - t1:.1f} s")
+        require_drained("the main service", svc)
+    finally:
+        svc.stop()
+    t1 = time.perf_counter()
+    serve_arbiter(S, path, init, refs, device)
+    log(f"[serve] (c) in {time.perf_counter() - t1:.1f} s")
+
+
 def run_phases(D, phases):
     """The main-path phases chosen (5-12); returns the per-kernel launch
     counts of each query's first run and the kernel inputs each query's
@@ -4692,7 +5514,7 @@ def run_phases(D, phases):
     sf10 = Sf10(sf10_dir.name)
     try:
         if {"main", "sql", "functions", "etl", "ooc", "udf", "mesh",
-                "obs", "stream", "analysis"} & phases:
+                "obs", "stream", "analysis", "serve"} & phases:
             with tempfile.TemporaryDirectory() as tmp:
                 t0 = time.perf_counter()
                 path = write_parquet(tmp + "/tpch", SF)
@@ -4750,6 +5572,11 @@ def run_phases(D, phases):
                                    launches)
                     log(f"[analysis] phase in "
                         f"{time.perf_counter() - t0:.1f} s")
+                if "serve" in phases:
+                    t0 = time.perf_counter()
+                    phase_serve(D, S, G, path, tmp, sql_results, launches,
+                                current)
+                    log(f"[serve] phase in {time.perf_counter() - t0:.1f} s")
         if "elastic" in phases:
             t0 = time.perf_counter()
             phase_elastic(D, S, launches, current, sf10)
@@ -5076,7 +5903,7 @@ def kernel_report(D, launches, captured, phases):
     sql = [(name, label) for label, name in captured
            if label.startswith(("sql ", "tpcds ", "functions ", "etl ",
                                 "ooc ", "udf ", "mesh ", "obs ",
-                                "elastic ", "stream "))]
+                                "elastic ", "stream ", "serve "))]
     inputs = [(name, q, x) for name, q in programs + sql
               for x in captured[(q, name)].values()]
     for name, q, (idx, ir, fr, domain, _kept) in inputs:

@@ -17,6 +17,9 @@ Thread roots (what makes state here "shared"):
   telemetry;
 - the ingest-prefetch daemon (`io/sources.PrefetchChunkIterator`),
   which fires fault seams and counts registry metrics;
+- the SQL service's request threads (`service/server.py`: one per HTTP
+  connection, one per async submission), each running its query on a
+  pooled session under that session's lease;
 - a supervised streaming query's trigger thread (`streaming.py`);
 - the status store's heartbeat thread;
 - the listener bus delivering to the event-log / metrics / straggler /
@@ -28,8 +31,8 @@ may only acquire locks of STRICTLY HIGHER rank. A lock that is the JAX
 package's keeps that package's id and rank; a lock of the port's own
 takes a new id and a rank of its own (`dense_groupby`'s build and
 launch locks, the mesh's copy counters and shard-error list, the
-session's query-id counter). The SQL service's locks (`service.*`) come
-with slice 12c. To register a new lock: create it, add a LockDecl with
+session's query-id counter). The SQL service's locks (`service.*`) are
+the JAX package's but for its fleet's two. To register a new lock: create it, add a LockDecl with
 a rank consistent with every nesting it takes part in, declare the
 attributes it guards (GuardDecl) or waive them with a reason, and -- if
 it can nest with other locks in code the static extractor cannot
@@ -92,11 +95,37 @@ class ConfinedDecl:
 _PKG = "spark_tpu_torch/"
 _OBS = _PKG + "observability/"
 _EXE = _PKG + "execution/"
+_SVC = _PKG + "service/"
 
 #: every threading.Lock/RLock/Condition in spark_tpu_torch/ must appear
 #: here (the guarded-by pass fails both on an unregistered lock object
 #: and on a stale declaration). Ranks: see the module docstring.
 LOCKS: Tuple[LockDecl, ...] = (
+    LockDecl("service.stop", _SVC + "server.py", "SqlService",
+             "_stop_lock", "lock", 8,
+             "serializes stop() (idempotent, signal-safe) and guards "
+             "the _stopped/_draining flags; ranked below everything "
+             "stop() tears down (it nests service.install inside)"),
+    LockDecl("service.session", _SVC + "pool.py", "_Entry", "lock",
+             "lock", 10,
+             "per-session execution lease; held across the whole query "
+             "(outermost -- everything below may nest inside it)"),
+    LockDecl("service.pool", _SVC + "pool.py", "SessionPool", "_lock",
+             "lock", 14, "session-pool entry map"),
+    LockDecl("service.quota", _SVC + "admission.py", "SessionQuota",
+             "_lock", "lock", 16,
+             "per-session in-flight quota counters; check-and-inc "
+             "only, rejection bookkeeping runs outside it"),
+    LockDecl("service.admission", _SVC + "admission.py",
+             "AdmissionController", "_cv", "condition", 18,
+             "execution-slot gate (cv: queued requests wait here)"),
+    LockDecl("service.records", _SVC + "server.py", "SqlService",
+             "_records_lock", "lock", 22, "service query registry"),
+    LockDecl("service.async", _SVC + "server.py", "SqlService",
+             "_async_lock", "lock", 23, "async in-flight bound"),
+    LockDecl("service.install", _SVC + "server.py", "SqlService",
+             "_install_lock", "lock", 24,
+             "one-shot arbiter installation guard"),
     LockDecl("streaming.live", _PKG + "streaming.py", "", "_LIVE_LOCK",
              "lock", 25,
              "live trigger-loop registry (stream-<n> -> query): "
@@ -114,6 +143,18 @@ LOCKS: Tuple[LockDecl, ...] = (
              "(loop thread writes, stop() and the live listing read); "
              "field ops only inside -- seams, metrics and listener "
              "posts all fire OUTSIDE it"),
+    LockDecl("service.arbiter", _SVC + "arbiter.py",
+             "DeviceResourceArbiter", "_cv", "condition", 30,
+             "device-memory lease pool (cv: denied leases wait for "
+             "releases)"),
+    LockDecl("service.result_cache", _PKG + "result_cache.py",
+             "ResultCache", "_lock", "lock", 34,
+             "plan-fingerprint result LRU (a standalone session's, or "
+             "the one the service's pooled sessions share); counters "
+             "inc outside it"),
+    LockDecl("service.history", _SVC + "query_history.py",
+             "QueryHistoryStore", "_lock", "lock", 36,
+             "per-query detail store"),
     LockDecl("io.device_cache", _PKG + "io/device_cache.py",
              "DeviceTableCache", "_lock", "rlock", 40,
              "device table cache (rlock: eviction inside a load may "
@@ -226,6 +267,44 @@ GUARDED_BY: Tuple[GuardDecl, ...] = (
               "misses", "_lock"),
     GuardDecl(_PKG + "io/device_cache.py", "DeviceTableCache",
               "evictions", "_lock"),
+    # arbiter + result cache
+    GuardDecl(_SVC + "arbiter.py", "DeviceResourceArbiter", "_leases",
+              "_cv"),
+    GuardDecl(_SVC + "arbiter.py", "DeviceResourceArbiter", "_denied",
+              "_cv"),
+    GuardDecl(_SVC + "arbiter.py", "DeviceResourceArbiter", "_pins",
+              "_cv"),
+    GuardDecl(_PKG + "result_cache.py", "ResultCache", "_entries",
+              "_lock"),
+    GuardDecl(_PKG + "result_cache.py", "ResultCache", "_bytes", "_lock"),
+    GuardDecl(_PKG + "result_cache.py", "ResultCache", "evictions",
+              "_lock"),
+    GuardDecl(_PKG + "result_cache.py", "ResultCache", "rejected",
+              "_lock"),
+    # admission
+    GuardDecl(_SVC + "admission.py", "AdmissionController", "running",
+              "_cv"),
+    GuardDecl(_SVC + "admission.py", "AdmissionController", "queued",
+              "_cv"),
+    GuardDecl(_SVC + "admission.py", "SessionQuota", "_inflight",
+              "_lock"),
+    # pool / server / history
+    GuardDecl(_SVC + "pool.py", "SessionPool", "_entries", "_lock"),
+    GuardDecl(_SVC + "server.py", "SqlService", "_records",
+              "_records_lock"),
+    GuardDecl(_SVC + "server.py", "SqlService", "_seq", "_records_lock"),
+    GuardDecl(_SVC + "server.py", "SqlService", "_tokens",
+              "_records_lock"),
+    GuardDecl(_SVC + "server.py", "SqlService", "_async_inflight",
+              "_async_lock"),
+    GuardDecl(_SVC + "server.py", "SqlService", "_installed_arbiter",
+              "_install_lock"),
+    GuardDecl(_SVC + "server.py", "SqlService", "_stopped",
+              "_stop_lock"),
+    GuardDecl(_SVC + "server.py", "SqlService", "_draining",
+              "_stop_lock"),
+    GuardDecl(_SVC + "query_history.py", "QueryHistoryStore",
+              "_entries", "_lock"),
     # observability
     GuardDecl(_OBS + "straggler.py", "StragglerMonitor", "_waits",
               "_lock"),
@@ -317,6 +396,22 @@ WAIVERS: Tuple[Waiver, ...] = (
     Waiver(_OBS + "metrics.py", "Gauge", "value",
            "single attribute store, atomic under the GIL; readers "
            "tolerate a stale point-in-time value"),
+    Waiver(_SVC + "pool.py", "_Entry", "current_record",
+           "written by the server only while holding this entry's "
+           "session lease (service.session): single writer per leased "
+           "session; the status listener reads on the same thread"),
+    Waiver(_SVC + "pool.py", "_Entry", "init_error",
+           "happens-before via the ready Event: written before "
+           "ready.set(), read only after ready.wait()"),
+    Waiver(_SVC + "server.py", "SqlService", "_httpd",
+           "lifecycle attr written by the owning control thread in "
+           "start()/stop(), not on the request path"),
+    Waiver(_SVC + "server.py", "SqlService", "_serve_thread",
+           "lifecycle attr written by the owning control thread in "
+           "start()/stop(), not on the request path"),
+    Waiver(_SVC + "arbiter.py", "", "_ARBITER",
+           "atomic reference rebind at service start/stop, before "
+           "worker threads exist / after they drained"),
     Waiver(_OBS + "status_store.py", "StatusStore", "_thread",
            "lifecycle attr written by the owning control thread in "
            "start()/stop(), not on the query path"),
@@ -338,9 +433,11 @@ WAIVERS: Tuple[Waiver, ...] = (
            "GIL-atomic dict item ops, and a query that misses a mark "
            "plans the subtree uncached (the same result)"),
     Waiver(_PKG + "session.py", "SparkTpuSession", "_data_cache",
-           "materialized results: GIL-atomic dict item ops; a query "
-           "whose entry another thread evicted recomputes it from its "
-           "mark (the same result), and eviction iterates a copy"),
+           "the reference is rebound once, by the SQL service's pool "
+           "right after construction (to the arbiter's shared cache), "
+           "before the session runs a query; the cache's own state is "
+           "guarded by service.result_cache, and a query whose entry "
+           "another thread evicted recomputes it from its mark"),
     Waiver(_PKG + "session.py", "SparkTpuSession", "_implicit_cache_fps",
            "statement-scoped view marks: GIL-atomic set add/discard on "
            "the statement's thread; _evict_implicit_caches iterates a "
@@ -409,6 +506,7 @@ MODULE_WAIVERS = tuple(w for w in WAIVERS if w.cls == "")
 #: unambiguous name in the scanned modules)
 RECEIVER_NAMES: Dict[str, str] = {
     "CACHE": "DeviceTableCache",     # io.device_cache module singleton
+    "entry": "_Entry",               # pool/server session-entry idiom
 }
 
 #: attribute names (the final `.attr` of a receiver chain) resolved to
@@ -416,6 +514,14 @@ RECEIVER_NAMES: Dict[str, str] = {
 RECEIVER_ATTRS: Dict[str, str] = {
     "metrics": "MetricsRegistry",
     "_metrics": "MetricsRegistry",
+    "admission": "AdmissionController",
+    "_ctl": "AdmissionController",
+    "session_quota": "SessionQuota",
+    "arbiter": "DeviceResourceArbiter",
+    "result_cache": "ResultCache",
+    "history": "QueryHistoryStore",
+    "_history": "QueryHistoryStore",
+    "pool": "SessionPool",
     "bus": "ListenerBus",
     "listeners": "ListenerBus",
     "status_store": "StatusStore",
@@ -432,9 +538,10 @@ FACTORY_RETURNS: Dict[Tuple[str, str], str] = {
 }
 
 #: `with <recv>.<method>(...):` context managers that hold a
-#: registered lock over their body (none in the port yet: the
-#: service's admission slot comes with slice 12c)
-CONTEXT_MANAGERS: Dict[Tuple[str, str], str] = {}
+#: registered lock over their body
+CONTEXT_MANAGERS: Dict[Tuple[str, str], str] = {
+    ("AdmissionController", "slot"): "service.admission",
+}
 
 #: helper methods whose CONTRACT is "called with this lock held" (the
 #: lexical `with` lives in the caller). The guarded-by pass treats the
@@ -453,6 +560,89 @@ CALLED_WITH_LOCK_HELD: Dict[Tuple[str, str, str], str] = {
 #: Each entry asserts "the left lock may be held while the right one
 #: is acquired" and must ascend in rank like any extracted edge.
 EXTRA_EDGES: Tuple[Tuple[str, str, str], ...] = (
+    # the session lease is held across the entire submit body
+    # (acquired in SqlService._lock_session, released in the caller's
+    # finally) -- everything the engine takes nests inside it
+    ("service.session", "service.admission", "submit holds the lease "
+     "while entering the admission slot"),
+    ("service.session", "service.records", "admission on_event -> "
+     "SqlService._post -> get_query, under the lease"),
+    ("service.session", "service.arbiter", "engine execution leases "
+     "device memory under the session lease"),
+    ("service.session", "service.result_cache", "result-cache "
+     "fill/probe during execution"),
+    ("service.session", "service.history", "status listener stores "
+     "detail at query end"),
+    ("service.session", "io.device_cache", "scan loads fill the "
+     "device cache during execution"),
+    ("service.session", "obs.straggler", "mesh telemetry posts "
+     "on_shard_records during execution"),
+    ("service.session", "obs.bus", "lifecycle events post on the "
+     "session bus during execution"),
+    ("service.session", "obs.event_log", "event-log append at query "
+     "end"),
+    ("service.session", "faults.plan", "chaos seams fire during "
+     "execution"),
+    ("service.session", "metrics.registry", "metric lookups during "
+     "execution"),
+    ("service.session", "metrics.flush", "sink flush at query end"),
+    ("service.session", "metrics.counter", "counter incs during "
+     "execution"),
+    ("service.session", "metrics.timer", "timer observations at query "
+     "end"),
+    ("service.session", "config.registry", "late conf registration "
+     "on first import of an engine module"),
+    # the port's own leaves, taken while a pooled session's query runs
+    ("service.session", "session.query_seq", "each execution takes "
+     "its query id under the lease"),
+    ("service.session", "dense_groupby.build", "the first launch "
+     "builds and loads the kernel library under the lease"),
+    ("service.session", "dense_groupby.launch", "kernel launches "
+     "count under the lease"),
+    ("service.session", "mesh.copy_stats", "a mesh query's "
+     "collectives count copied bytes under the lease"),
+    ("service.session", "mesh.shard_errors", "a mesh query's failing "
+     "shard records its error under the lease"),
+    ("service.session", "streaming.live", "the stream listing reads "
+     "the live registry"),
+    # admission's on_event callback is an opaque callable statically;
+    # at runtime it is SqlService._post (registry + bus)
+    ("service.admission", "service.records", "on_event -> "
+     "SqlService._post -> get_query while holding the slot cv"),
+    ("service.admission", "obs.bus", "on_event -> bus.post snapshot "
+     "while holding the slot cv"),
+    # pool._create constructs a session, whose default listeners
+    # register on its (new) bus
+    ("service.pool", "obs.bus", "SessionPool._create -> "
+     "session.add_listener under the pool lock"),
+    # the executor registers its cancel token while the session lease
+    # is held (lifecycle.enter_query_scope from execute_batch)
+    ("service.session", "execution.lifecycle", "executor registers "
+     "the query's cancel token under the lease"),
+    # admission/arbiter cv waits run lifecycle.checkpoint each wakeup,
+    # which fires the cancel_point chaos seam (faults.plan counting)
+    ("service.admission", "faults.plan", "queue-wait wakeups fire the "
+     "cancel_point seam while holding the slot cv"),
+    ("service.arbiter", "faults.plan", "lease-wait wakeups fire the "
+     "cancel_point seam while holding the lease cv"),
+    # the out-of-process UDF lane checks workers out while the query
+    # runs under its session lease (execution/python_eval.py)
+    ("service.session", "udf.pool", "worker checkout/checkin during "
+     "UDF evaluation under the lease"),
+    # status-store per-session feed: the bus delivers query start/end
+    # synchronously on the worker thread holding the session lease
+    ("service.session", "obs.status", "status-store feed folds "
+     "query start/end attribution under the lease"),
+    # flight recorder: same synchronous delivery, plus the executor's
+    # crash-dump trigger runs inside the lease
+    ("service.session", "obs.flightrec", "flight-recorder ring "
+     "appends and crash dumps under the lease"),
+    ("service.session", "metrics.histogram", "latency histogram "
+     "observations at query end under the lease"),
+    # pool._create wires the status-store feed while holding the pool
+    # lock (SqlService._make_listener -> status_store.bind)
+    ("service.pool", "obs.status", "session creation binds the "
+     "status-store feed under the pool lock"),
     # registry.snapshot() serializes each histogram under its own leaf
     # lock while holding the instrument-map lock
     ("metrics.registry", "metrics.histogram", "MetricsRegistry."

@@ -84,13 +84,7 @@ _CONF_METHODS = ("get", "set", "contains", "unset", "is_explicitly_set")
 #: purpose, key -> the reason. Such a key can only hold its default in
 #: the port (setting anything else raises `UnportedConfError`), so the
 #: read gives the default; the lint lists these in its notes.
-CONF_KEY_WAIVERS: Dict[str, str] = {
-    "spark_tpu.service.slo.latencyMs":
-        "slice 12c's latency SLO target: the metrics sink and the status "
-        "store read it so that the slo_ counters and the status view "
-        "follow the target once serving registers it; until then only "
-        "its default 0 can be set, which turns the SLO off",
-}
+CONF_KEY_WAIVERS: Dict[str, str] = {}
 
 
 @register_lint

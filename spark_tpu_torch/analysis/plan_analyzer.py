@@ -430,9 +430,9 @@ def _check_hash_join(root: P.PhysicalPlan, conf,
     mode = str(conf.get(HJ.KERNEL_MODE_KEY))
     if mode == "sort":
         return
-    # the JAX package falls back to the service's HBM pool
-    # (service.hbmBudget) here; that key is serving's, slice 12c
-    budget = int(conf.get("spark_tpu.sql.memory.deviceBudget"))
+    # a per-query budget, else the service's device-memory pool
+    budget = int(conf.get("spark_tpu.sql.memory.deviceBudget")) \
+        or int(conf.get("spark_tpu.service.hbmBudget"))
     seen = set()
 
     def walk(node):

@@ -347,8 +347,10 @@ RESULT_CACHE_BYTES = register(
     "spark_tpu.service.resultCacheBytes", 256 << 20,
     doc="Byte bound for the plan-fingerprint result cache (the "
         "CacheManager/InMemoryRelation seat): materialized Arrow tables "
-        "for cache()-marked plans, LRU-evicted past the bound. A session "
-        "keeps an unbounded cache unless this key is set explicitly.")
+        "for cache()-marked plans, LRU-evicted past the bound. The SQL "
+        "service's arbiter keeps one such cache that every pooled "
+        "session shares; a standalone session keeps an unbounded cache "
+        "unless this key is set explicitly. 0 disables bounding.")
 
 # -- out-of-core execution and recovery --------------------------------------
 
@@ -924,6 +926,120 @@ STREAMING_STATE_SPILL_PARTITIONS = register(
     validator=lambda v: v >= 1)
 
 
+# -- the SQL service (service/) ---------------------------------------------
+
+SERVICE_MAX_CONCURRENT = register(
+    "spark_tpu.service.maxConcurrent", 2,
+    doc="Admission control: maximum queries executing simultaneously in "
+        "the SQL service (spark_tpu_torch/service/). Further submissions "
+        "queue up to service.queueDepth, then reject with a structured "
+        "ADMISSION_REJECTED error. The hive-thriftserver async-pool-size "
+        "seat.",
+    validator=lambda v: v >= 1)
+
+SERVICE_QUEUE_DEPTH = register(
+    "spark_tpu.service.queueDepth", 16,
+    doc="Admission control: maximum queries waiting for an execution "
+        "slot. A submission arriving with the queue full is rejected "
+        "immediately (HTTP 429 / AdmissionRejected) instead of growing "
+        "an unbounded backlog.",
+    validator=lambda v: v >= 0)
+
+SERVICE_QUEUE_TIMEOUT_MS = register(
+    "spark_tpu.service.queueTimeoutMs", 30000,
+    doc="Admission control: maximum milliseconds a queued query waits "
+        "for an execution slot (or for its busy session) before failing "
+        "with a structured ADMISSION_TIMEOUT error. 0 waits forever.",
+    validator=lambda v: v >= 0)
+
+SERVICE_HOST = register(
+    "spark_tpu.service.host", "127.0.0.1",
+    doc="Bind address for the SQL service HTTP endpoint "
+        "(spark_tpu_torch/service/server.py).")
+
+SERVICE_PORT = register(
+    "spark_tpu.service.port", 0,
+    doc="Bind port for the SQL service HTTP endpoint. 0 picks an "
+        "ephemeral port (exposed as SqlService.port after start).")
+
+SERVICE_HBM_BUDGET = register(
+    "spark_tpu.service.hbmBudget", 0,
+    doc="Shared device-memory byte budget the cross-query arbiter "
+        "(service/arbiter.py) hands out as per-scan residency leases "
+        "across all concurrent queries of the service, in bytes of the "
+        "device memory torch.cuda reports for the card (total_memory), "
+        "replacing the per-query spark_tpu.sql.memory.deviceBudget read. "
+        "A scan that cannot lease its estimated footprint takes the "
+        "out-of-core spill/streaming paths instead of running out of "
+        "memory; lease pressure first evicts the device table cache. 0 "
+        "disables the arbiter. An explicitly set per-query deviceBudget "
+        "(the OOM ladder's second-rung overlay) still takes precedence.")
+
+SERVICE_MAX_SESSIONS = register(
+    "spark_tpu.service.maxSessions", 16,
+    doc="Maximum pooled sessions the SQL service keeps (one per "
+        "distinct `session` name in POST /sql). A request naming a new "
+        "session past the bound is rejected with a structured error.",
+    validator=lambda v: v >= 1)
+
+SERVICE_SESSION_MAX_CONCURRENT = register(
+    "spark_tpu.service.session.maxConcurrent", 0,
+    doc="Per-session admission quota: maximum in-flight submissions "
+        "(running + waiting, sync and async) one session name may hold "
+        "at once. Exceeding it rejects with a structured "
+        "SESSION_QUOTA_EXCEEDED error (HTTP 429) and counts "
+        "session_quota_rejections. 0 disables (service-wide "
+        "maxConcurrent/queueDepth still bound totals).",
+    validator=lambda v: v >= 0)
+
+SERVICE_SESSION_HBM_SHARE = register(
+    "spark_tpu.service.session.hbmShare", 0.0,
+    doc="Per-session share of the service.hbmBudget arbiter pool "
+        "(fraction, 0 < share <= 1): one session's residency leases may "
+        "not exceed share * hbmBudget bytes in total. A scan whose lease "
+        "would push its session past the share is denied at once "
+        "(counted in session_quota_rejections) and streams or spills; "
+        "the rest of the pool stays available to other sessions. 0 "
+        "disables the share cap.",
+    validator=lambda v: 0 <= v <= 1)
+
+SERVICE_ID_PREFIX = register(
+    "spark_tpu.service.idPrefix", "",
+    doc="Namespace prefix for service query ids (q-<prefix><seq>). "
+        "Empty for a standalone service.")
+
+FLEET_DRAIN_TIMEOUT_MS = register(
+    "spark_tpu.service.fleet.drainTimeoutMs", 10000,
+    doc="Bounded drain budget (milliseconds): the default budget of "
+        "SqlService.drain(), which stops admitting (SERVICE_DRAINING "
+        "503) and waits this long for in-flight queries, on top of "
+        "their own queryDeadlineMs budgets.",
+    validator=lambda v: v >= 0)
+
+SERVICE_QUERY_LOG_SIZE = register(
+    "spark_tpu.service.queryLogSize", 512,
+    doc="Bound on the service's in-memory query status registry "
+        "(GET /queries/<id> and the GET /queries listing): oldest "
+        "finished records are dropped past it.",
+    validator=lambda v: v >= 1)
+
+SERVICE_SLO_LATENCY_MS = register(
+    "spark_tpu.service.slo.latencyMs", 0,
+    doc="End-to-end query latency SLO target in ms. When > 0, every "
+        "query end counts slo_queries_total and a query slower than the "
+        "target burns slo_burned_total / slo_burn_ms_total. 0 disables "
+        "burn counting (the latency histograms record regardless).",
+    validator=lambda v: v >= 0)
+
+SERVICE_HISTORY_SIZE = register(
+    "spark_tpu.service.historySize", 128,
+    doc="Bound on the service's in-memory per-query detail store "
+        "(QueryHistoryStore, fed by the listener bus at query end): "
+        "spans, stage device costs and the runtime plan tree behind GET "
+        "/queries/<id>/{timeline,plan}; oldest entries drop past it.",
+    validator=lambda v: v >= 1)
+
+
 # -- keys of slices not yet ported ------------------------------------------
 
 _MULTI_HOST = "the multi-host mesh (init_distributed)"
@@ -931,7 +1047,7 @@ _MULTI_HOST = "the multi-host mesh (init_distributed)"
 _JAXPR = ("slice 12b, whose jaxpr analyzer the eager port leaves out: no "
           "stage program exists to walk before dispatch, and the plan "
           "analyzer finds the hazards it confirms")
-_SERVING = "slice 12c (serving and the compiled-stage cache)"
+_SERVING = "slice 12c part 2 (the serving fleet and the compiled-stage cache)"
 
 #: the JAX package's registered keys this port does not register yet:
 #: key -> (the slice that brings it, its default there). Each slice
@@ -942,30 +1058,16 @@ UNPORTED_KEYS: Dict[str, tuple] = {
     "spark_tpu.sql.cluster.coordinator": (_MULTI_HOST, ""),
     "spark_tpu.sql.cluster.numProcesses": (_MULTI_HOST, 1),
     "spark_tpu.sql.cluster.processId": (_MULTI_HOST, 0),
-    "spark_tpu.service.maxConcurrent": (_SERVING, 2),
-    "spark_tpu.service.queueDepth": (_SERVING, 16),
-    "spark_tpu.service.queueTimeoutMs": (_SERVING, 30000),
-    "spark_tpu.service.host": (_SERVING, "127.0.0.1"),
-    "spark_tpu.service.port": (_SERVING, 0),
-    "spark_tpu.service.hbmBudget": (_SERVING, 0),
-    "spark_tpu.service.maxSessions": (_SERVING, 16),
-    "spark_tpu.service.session.maxConcurrent": (_SERVING, 0),
-    "spark_tpu.service.session.hbmShare": (_SERVING, 0.0),
-    "spark_tpu.service.idPrefix": (_SERVING, ""),
     "spark_tpu.service.fleet.workers": (_SERVING, 2),
     "spark_tpu.service.fleet.restartMaxPerWindow": (_SERVING, 3),
     "spark_tpu.service.fleet.restartWindowMs": (_SERVING, 60000),
     "spark_tpu.service.fleet.restartBackoffMs": (_SERVING, 200),
-    "spark_tpu.service.fleet.drainTimeoutMs": (_SERVING, 10000),
     "spark_tpu.service.fleet.failoverReads": (_SERVING, True),
     "spark_tpu.service.fleet.healthIntervalMs": (_SERVING, 250),
     "spark_tpu.service.fleet.spawnTimeoutMs": (_SERVING, 90000),
     "spark_tpu.service.fleet.proxyTimeoutMs": (_SERVING, 600000),
     "spark_tpu.service.fleet.dir": (_SERVING, ""),
     "spark_tpu.service.fleet.init": (_SERVING, ""),
-    "spark_tpu.service.queryLogSize": (_SERVING, 512),
-    "spark_tpu.service.slo.latencyMs": (_SERVING, 0),
-    "spark_tpu.service.historySize": (_SERVING, 128),
     "spark_tpu.sql.compileCache.enabled": (_SERVING, False),
     "spark_tpu.sql.compileCache.dir": (_SERVING, "spark-compile-cache"),
     "spark_tpu.sql.compileCache.maxBytes": (_SERVING, 1 << 30),

@@ -771,6 +771,7 @@ class QueryExecution:
     def execute_batch(self) -> Batch:
         """Run the query under the failure ladder; returns its device
         Batch."""
+        from ..service import arbiter as res_arbiter
         from . import lifecycle
         session = self.session
         self._activate_conf()
@@ -782,6 +783,12 @@ class QueryExecution:
         self._mesh_fallback = False
         lc_scope = lifecycle.enter_query_scope(session.app_id,
                                                self.query_id, session.conf)
+        # the service arbiter's lease scope (service/arbiter.py): scans
+        # this execution keeps resident lease from the shared pool, and
+        # all of it is released when the execution ends; None when no
+        # arbiter is installed
+        arb_token = res_arbiter.enter_query(
+            f"{session.app_id}:q{self.query_id}", session.device)
         self.udf_summary = None
         # _analysis_posted stays: it is per QueryExecution, so an
         # external collect that falls through to here (or a re-executed
@@ -824,6 +831,7 @@ class QueryExecution:
             self._flightrec_dump(e)
             raise
         finally:
+            res_arbiter.exit_query(arb_token)
             lifecycle.exit_query_scope(lc_scope)
             session._exec_depth -= 1
             self.stream_stats = self._recovery.chunk_stats
@@ -1059,6 +1067,12 @@ class QueryExecution:
         if cls is FailureClass.OOM:
             self._oom_rung += 1
             conf = self._conf
+            # release this query's arbiter leases before any degraded
+            # retry: the estimates behind them were wrong, and the
+            # retry's verdicts start from a clean slate (the shared pool
+            # must not stay held by a query that just ran out)
+            from ..service.arbiter import release_current
+            release_current()
             if self._oom_rung == 1:
                 # rung 1: evict the device table cache (the storage
                 # pool) and the memo's device batches, then retry
@@ -1447,6 +1461,11 @@ class QueryExecution:
         else:
             loaded = load_shards(root, conf, mesh)
         session.result_cache_hits += self._cache_hits
+        if self._cache_hits:
+            # the JAX package's counter: a pooled session's hits land in
+            # the service's shared registry
+            session.metrics.counter("result_cache_hits").inc(
+                self._cache_hits)
         t1 = time.perf_counter()
         self.phase_times["ingest"] = t1 - t0
         self.spans.record("ingest", t0, t1, scans=len(
@@ -1572,8 +1591,14 @@ class QueryExecution:
         """The query's Arrow result: through the chunked host-egress path
         when the plan and the device budget call for it, else through
         execute_batch. One lifecycle scope spans both, so a cancel lands
-        between chunks of either."""
+        between chunks of either. One arbiter lease scope spans both
+        too: residency granted at the external-collect gate stays leased
+        while the resident execution uses it (execute_batch's scope
+        nests onto this one)."""
+        from ..service import arbiter as res_arbiter
         from . import lifecycle
+        arb_token = res_arbiter.enter_query(
+            f"{self.session.app_id}:q{self.query_id}", self.session.device)
         lc_scope = lifecycle.enter_query_scope(
             self.session.app_id, self.query_id, self.session.conf)
         try:
@@ -1608,11 +1633,13 @@ class QueryExecution:
             return table
         finally:
             lifecycle.exit_query_scope(lc_scope)
+            res_arbiter.exit_query(arb_token)
 
     def _try_external_collect(self) -> Optional[pa.Table]:
         """Out-of-core host egress (`external.py`): ORDER BY / LIMIT /
-        plain chains over a scan past the per-query deviceBudget stream
-        chunk by chunk and spill to host Arrow. A transient fault that
+        plain chains over a scan past the per-query deviceBudget, or
+        denied a lease by the service's arbiter, stream chunk by chunk
+        and spill to host Arrow. A transient fault that
         spends a chunk's retry budget restarts the whole stream through
         the ladder's transient rung (`_retry_transient`)."""
         from ..io.device_cache import out_of_core_active

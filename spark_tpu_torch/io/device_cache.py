@@ -28,8 +28,9 @@ rung frees the storage pool before a retry). `admit_scan_resident` is the
 one residency verdict the out-of-core gates read
 (`execution/streaming_agg.py`, `execution/external.py`): under a
 per-query `spark_tpu.sql.memory.deviceBudget`, a scan stays resident only
-when its estimate fits it. The JAX package's cross-query arbiter pool
-comes with the service.
+when its estimate fits it; with the SQL service's cross-query arbiter
+installed (`service/arbiter.py`), only when the shared pool leases it,
+evicting unpinned entries here first. Without either, it stays resident.
 """
 
 from __future__ import annotations
@@ -215,20 +216,51 @@ def estimated_scan_bytes(scan) -> Optional[int]:
 
 def out_of_core_active(conf) -> bool:
     """Whether an out-of-core budget is in force (a per-query
-    deviceBudget): the cheap early gate of the spill and external-collect
-    paths."""
-    return int(conf.get(DEVICE_BUDGET_KEY)) > 0
+    deviceBudget, or the SQL service's installed arbiter): the cheap
+    early gate of the spill and external-collect paths."""
+    from ..service import arbiter
+    return int(conf.get(DEVICE_BUDGET_KEY)) > 0 \
+        or arbiter.get_arbiter() is not None
 
 
 def admit_scan_resident(conf, scan) -> bool:
-    """May this scan's working set stay on the device? Under a deviceBudget
-    only when its estimate fits (an unknown estimate streams); without
-    one, always."""
+    """May this scan's working set stay on the device? The one residency
+    verdict every out-of-core gate reads (external collect, the streaming
+    partial spill, the resident preference):
+
+    - an explicit per-query deviceBudget (a test's conf or the OOM
+      ladder's 1-byte overlay) wins: the estimate must fit it, and an
+      unknown estimate streams;
+    - otherwise the SQL service's installed arbiter pins a cached scan,
+      or leases the estimated footprint from the shared pool (False =
+      denied = stream or spill);
+    - otherwise the scan stays resident.
+    """
+    from ..service import arbiter
     budget = int(conf.get(DEVICE_BUDGET_KEY))
     if budget > 0:
         est = estimated_scan_bytes(scan)
         return est is not None and est <= budget
-    return True
+    arb = arbiter.get_arbiter()
+    if arb is None:
+        return True
+    owner = arbiter._OWNER.get()
+    device = None if owner is None else owner.device
+    key = None if device is None else scan_cache_key(scan, device)
+    if key is not None and CACHE.contains(key):
+        # already on the device: its bytes count as storage (the pool's
+        # headroom subtracts CACHE.nbytes), so a lease would count them
+        # twice and evict the very table the query is about to reuse
+        arb.pin_storage(owner, key)
+        return True
+    est = estimated_scan_bytes(scan)
+    if est is None:
+        return False  # an unsizeable lease streams
+    # per-session share: one session's leases are capped at
+    # hbmShare * pool, and an over-share scan streams instead
+    share = float(conf.get(arbiter.SESSION_HBM_SHARE_KEY))
+    return arb.try_acquire(owner, key or ("scan", id(scan)), est,
+                           share=share)
 
 
 def is_cached(scan, device) -> bool:
@@ -247,6 +279,10 @@ def load_scan(scan, conf, device) -> object:
     batch = scan.load(device)
     if key is not None:
         CACHE.put(key, batch, budget)
+        # a residency lease the running query took for this scan becomes
+        # a pin on the cached entry (service/arbiter.py)
+        from ..service.arbiter import note_scan_cached
+        note_scan_cached(key)
     return batch
 
 

@@ -16,8 +16,8 @@ Dump triggers:
 - the executor's surfaced-failure path (execute_batch): OOM-ladder
   exhaustion (`StageOOMError`), non-convergent recovery, and any other
   FATAL — reasons "oom" / "recovery_nonconvergent" / "fatal";
-- on demand: `FlightRecorder.of(session).dump("reason")` (the JAX
-  package's SQL service also serves `GET /debug/bundle`; slice 12c).
+- on demand: `FlightRecorder.of(session).dump("reason")`, which the
+  SQL service's `GET /debug/bundle` runs for each pooled session.
 
 Bundle layout (`bundle-<app_id>-<seq>-<reason>/`, versioned by
 MANIFEST.json `bundle_version`):

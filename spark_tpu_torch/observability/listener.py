@@ -6,8 +6,9 @@ loads here).
 Eager torch compiles no stage, so the port's executor never posts
 `StageCompiledEvent` (`on_stage_compiled`); the class stays so that
 such listeners load. The static analyzer (`analysis/`) posts
-`on_analysis`; the service's events wait for slice 12c; the bus
-delivers whatever is posted.
+`on_analysis`, and the SQL service (`service/server.py`) posts its
+`ServiceEvent`s (`on_service`) on its own bus; the bus delivers
+whatever is posted.
 
 The SparkListener analog (`SparkListenerBus` / `LiveListenerBus.scala`):
 the executor posts typed events at query-lifecycle boundaries and every

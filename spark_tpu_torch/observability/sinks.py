@@ -282,8 +282,7 @@ class MetricsSinkListener(QueryListener):
         cls = _query_class(event.event.get("plan"))
         if cls:
             m.histogram(f"status_class_ms_{cls}").observe(e2e_ms)
-        # the SLO key is the service's (slice 12c): unregistered in the
-        # port until then, so it reads None and burn counting stays off
+        # the service's SLO target (0: burn counting off)
         target_ms = int(self._session.conf.get(self.SLO_KEY) or 0)
         if target_ms > 0:
             m.counter("slo_queries_total").inc()

@@ -1,6 +1,6 @@
 """Engine status store: live health behind `GET /status` (the port of
-`spark_tpu/observability/status_store.py`; the SQL service that serves
-it is slice 12c, and the store runs standalone until then).
+`spark_tpu/observability/status_store.py`; the SQL service serves it,
+`service/server.py`, and a session can run one standalone).
 
 The `AppStatusStore` seat (reference: `AppStatusListener` folding the
 event stream into a kvstore served by `status/api/v1`, sampled by the
@@ -13,7 +13,7 @@ driver's `Heartbeater`), sized to this engine: one process-level
   per-session attribution (the AppStatusListener half);
 - **a heartbeat thread** (`start()`/`stop()`, the `Heartbeater`
   analog): every `spark_tpu.sql.status.heartbeatMs` it samples the
-  wired providers (admission queue depth, arbiter HBM lease occupancy,
+  wired providers (admission queue depth, arbiter device-memory lease occupancy,
   session-pool size, UDF pool size), derives cache hit rates from the
   shared metrics registry, reads streaming trigger lag, and appends
   each value into a fixed-capacity ring time-series

@@ -38,6 +38,15 @@ and the straggler monitor — act on them when the conf asks
 `flightRecorder.*`); `add_listener` subscribes a user's
 `QueryListener`.
 
+A session built with `register_active=True` (the default) becomes the
+active session of the context that built it (`SparkTpuSession._active`);
+`with session.as_active():` pins one for a block, and only a pinned
+session is what `builder().get_or_create()` returns. Outside
+`as_active()` the builder builds a new session, where the JAX package's
+returns its active one. The SQL service builds its pooled sessions with
+`register_active=False` and runs each query under `as_active()`, so no
+pooled session becomes, or replaces, another thread's active session.
+
 `session.udf.register(name, fn, returnType)` makes a Python function
 callable from SQL (`udf.py`); `session._udf_pool` is the session's pool
 of UDF worker subprocesses (`udf_worker/`), used under
@@ -46,7 +55,9 @@ of UDF worker subprocesses (`udf_worker/`), used under
 
 from __future__ import annotations
 
+import contextlib
 import threading
+from contextvars import ContextVar
 from typing import Dict, Optional, Set
 
 import pandas as pd
@@ -63,9 +74,34 @@ from .observability.sinks import install_default_listeners, make_app_id
 from .plan import logical as L
 from .result_cache import ResultCache
 
+#: the context-local active session: (session, pinned). A session built
+#: with register_active=True becomes its context's active session
+#: (unpinned); `as_active()` pins one for a block, and only a pinned
+#: session is what `builder().get_or_create()` returns. Each thread
+#: starts with an empty context, so no thread sees another's session.
+_ACTIVE: ContextVar[Optional[tuple]] = ContextVar(
+    "spark_tpu_torch_active_session", default=None)
 
-class SparkTpuSession:
-    def __init__(self, conf: Optional[Conf] = None, device=None):
+
+class _ActiveSessionMeta(type):
+    """`SparkTpuSession._active` reads and writes the context-local
+    active session, as the JAX package's class attribute does. The port
+    keeps no process-global fallback: a session one thread built is
+    never another thread's active session."""
+
+    @property
+    def _active(cls) -> Optional["SparkTpuSession"]:
+        cur = _ACTIVE.get()
+        return None if cur is None else cur[0]
+
+    @_active.setter
+    def _active(cls, value: Optional["SparkTpuSession"]) -> None:
+        _ACTIVE.set(None if value is None else (value, False))
+
+
+class SparkTpuSession(metaclass=_ActiveSessionMeta):
+    def __init__(self, conf: Optional[Conf] = None, device=None,
+                 register_active: bool = True):
         self.conf = conf or Conf()
         self.device = resolve_device(device)
         #: built with an explicit device: a mesh then places every shard
@@ -77,14 +113,8 @@ class SparkTpuSession:
         self.mesh_pool = 0
         self.catalog: Catalog = Catalog(self)
         # plan-fingerprint data cache (reference: CacheManager.scala):
-        # the marked plans, and the tables materialized for them; a
-        # standalone session's cache is unbounded unless the bound is
-        # set explicitly
+        # the marked plans, and (below) the tables materialized for them
         self._cache_requests: Dict[str, L.LogicalPlan] = {}
-        key = RESULT_CACHE_BYTES.key
-        self._data_cache = ResultCache(
-            int(self.conf.get(key)) if self.conf.is_explicitly_set(key)
-            else 0)
         # marks whose data lives for one statement (WITH-clause views)
         self._implicit_cache_fps: Set[str] = set()
         #: subtrees replaced by a cached table (`_apply_cache`)
@@ -107,6 +137,13 @@ class SparkTpuSession:
         # the session's metrics registry
         self.listeners = ListenerBus()
         self.metrics = MetricsRegistry()
+        # a standalone session's data cache is unbounded unless the
+        # bound is set explicitly; a pooled session's is replaced by
+        # the service arbiter's shared, conf-bounded one
+        key = RESULT_CACHE_BYTES.key
+        self._data_cache = ResultCache(
+            int(self.conf.get(key)) if self.conf.is_explicitly_set(key)
+            else 0, metrics=self.metrics)
         install_default_listeners(self)
         # the UDF counters (execution/python_eval.py) exist from the start,
         # so a reader sees 0 before the first UDF runs
@@ -125,6 +162,20 @@ class SparkTpuSession:
             int(self.conf.get("spark_tpu.sql.udf.pool.maxWorkers")),
             float(self.conf.get("spark_tpu.sql.udf.pool.idleTimeoutMs")),
             metrics=self.metrics)
+        if register_active:
+            SparkTpuSession._active = self
+
+    @contextlib.contextmanager
+    def as_active(self):
+        """Pin this session as the context-local active session (what
+        `builder().get_or_create()` returns) for the enclosed block: the
+        SQL service wraps each query in it, so a pooled session never
+        becomes, or replaces, another thread's active session."""
+        token = _ACTIVE.set((self, True))
+        try:
+            yield self
+        finally:
+            _ACTIVE.reset(token)
 
     def _next_query_id(self) -> int:
         with self._query_seq_lock:
@@ -215,6 +266,14 @@ class SparkTpuSession:
             return self
 
         def get_or_create(self) -> "SparkTpuSession":
+            """The session `as_active()` pinned in this context, else a
+            new session. The JAX package's builder returns its active
+            session, which any session built before becomes; the port's
+            builds a new one outside `as_active()`, since its tests and
+            entry points build CPU and CUDA sessions side by side."""
+            cur = _ACTIVE.get()
+            if cur is not None and cur[1]:
+                return cur[0]
             return SparkTpuSession(self._conf, self._device)
 
         getOrCreate = get_or_create

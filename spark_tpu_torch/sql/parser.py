@@ -11,11 +11,10 @@ out of the WHERE conjunction), GROUP BY (names, aliases, positions),
 HAVING, ORDER BY (names, positions, expressions), LIMIT, subqueries in
 FROM, WITH clauses, scalar, IN and EXISTS subqueries in WHERE, window
 functions (OVER with ROWS/RANGE frames), set operations (UNION ALL,
-INTERSECT, EXCEPT) and grouping sets (ROLLUP, CUBE, GROUPING SETS).
-
-Parsed but not ported yet, each raising AnalysisError that names it:
-explode, the aggregates other than count/sum/avg/min/max, and DDL/DML
-commands.
+INTERSECT, EXCEPT) and grouping sets (ROLLUP, CUBE, GROUPING SETS),
+every aggregate and scalar function of the function library, `explode`
+in the select list, and the DDL/DML commands (CREATE/DROP/INSERT/SHOW/
+DESCRIBE), which run at parse time against the catalog (`parse_sql`).
 
 The reference parses with a generated ANTLR grammar + AstBuilder
 (`sql/catalyst/.../parser/SqlBase.g4`, `AstBuilder.scala`); here a Pratt

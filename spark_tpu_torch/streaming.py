@@ -1404,6 +1404,17 @@ class StreamingQuery:
                         self.process_available()
                     except (lifecycle.QueryCancelledError,
                             lifecycle.QueryDeadlineError):
+                        # a stop() landing after this tick committed a
+                        # batch (process_available's next trigger
+                        # checkpoint raises) still posts the tick's
+                        # record: one trigger record per committing tick
+                        batches = int(self._committed_batch - before)
+                        if batches > 0:
+                            self._record_trigger(
+                                self._trigger.tick(skew_ms), skew_ms,
+                                batches,
+                                int(self.session.metrics.counter(
+                                    "streaming_reconnects").value - rc0))
                         raise  # the outer handlers own these
                     except Exception as e:  # noqa: BLE001 — supervised
                         kind = failures.classify(e)

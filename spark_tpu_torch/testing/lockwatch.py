@@ -18,10 +18,10 @@ Opt-in and test-only: `LockWatch().install_session(s)` swaps the
 session's lock attributes and the process-wide ones its queries take
 (the device cache, the cancel-token registry, the kernel build and
 launch locks, the mesh's copy counters, the live-stream registry) for
-recording proxies; `uninstall()` restores them. Per-instance leaf locks
-(each metrics Counter/Timer) are not wrapped -- they rank above
-everything and acquire nothing. `install_service` waits for the SQL
-service (slice 12c).
+recording proxies; `install_service(svc)` does the same for a SQL
+service, its locks and each of its pooled sessions; `uninstall()`
+restores them. Per-instance leaf locks (each metrics Counter/Timer) are
+not wrapped -- they rank above everything and acquire nothing.
 
     watch = LockWatch()
     watch.install_session(s)         # + watch.install_faults()
@@ -206,12 +206,35 @@ class LockWatch:
         _CURRENT = self
 
     def install_service(self, svc) -> None:
-        """The JAX package wraps a SqlService's locks here; the port's
-        service is slice 12c's, so this raises until it lands."""
-        raise NotImplementedError(
-            "LockWatch.install_service belongs to slice 12c (serving and "
-            "the compiled-stage cache), which spark_tpu_torch has not "
-            "ported yet; use install_session")
+        """Wrap a SqlService's locks (admission, quota, arbiter, the
+        shared result cache, pool, registry, async bound, install and
+        stop guards, history, the shared metrics registry, the service
+        bus and status store), the process device cache and cancel-token
+        registry, and every pooled session present at call time: its
+        lease and `install_session`'s locks. Warm the pool first, or call
+        again after new sessions appear."""
+        from ..execution import lifecycle
+        from ..io.device_cache import CACHE
+        self.watch_attr(svc, "_stop_lock", "service.stop")
+        self.watch_attr(svc.admission, "_cv", "service.admission")
+        self.watch_attr(svc.session_quota, "_lock", "service.quota")
+        self.watch_attr(lifecycle, "_TOKENS_LOCK", "execution.lifecycle")
+        self.watch_attr(svc.arbiter, "_cv", "service.arbiter")
+        self.watch_attr(svc.arbiter.result_cache, "_lock",
+                        "service.result_cache")
+        self.watch_attr(svc.pool, "_lock", "service.pool")
+        self.watch_attr(svc, "_records_lock", "service.records")
+        self.watch_attr(svc, "_async_lock", "service.async")
+        self.watch_attr(svc, "_install_lock", "service.install")
+        self.watch_attr(svc.history, "_lock", "service.history")
+        self.watch_attr(svc.metrics, "_lock", "metrics.registry")
+        self.watch_attr(svc.metrics, "_flush_lock", "metrics.flush")
+        self.watch_attr(svc.bus, "_lock", "obs.bus")
+        self.watch_attr(svc.status_store, "_lock", "obs.status")
+        self.watch_attr(CACHE, "_lock", "io.device_cache")
+        for entry in list(svc.pool._entries.values()):
+            self.watch_attr(entry, "lock", "service.session")
+            self.install_session(entry.session)
 
     def install_session(self, session) -> None:
         """Wrap one session's locks (its bus, metrics registry, UDF

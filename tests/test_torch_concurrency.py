@@ -4,7 +4,9 @@ package's, on the CPU.
 
 - The port's registry: ids, ranks and sites unique, every guard naming a
   registered lock, every waiver and confined class with a reason, the
-  22 lock sites of the package all declared.
+  33 lock sites of the package all declared; the SQL service's locks
+  with the JAX package's ids and ranks, and `install_service` wrapping
+  each of them.
 - Every guarded-by and lock-order synthetic case of
   `tests/test_concurrency.py`, the same source through both packages'
   analyses with the same synthetic declarations: the same violations
@@ -83,9 +85,9 @@ def test_registry_waivers_and_confined_carry_reasons():
 
 def test_registry_declares_every_lock_of_the_package():
     """Every threading.Lock/RLock/Condition construction in
-    spark_tpu_torch/ (the package's 22 and lockwatch's own recorder
-    lock) is declared, each under the JAX package's id and rank where it
-    is the same lock."""
+    spark_tpu_torch/ (the package's 33, the SQL service's eleven among
+    them, and lockwatch's own recorder lock) is declared, each under the
+    JAX package's id and rank where it is the same lock."""
     calls = 0
     for dirpath, _, files in os.walk(os.path.join(REPO, "spark_tpu_torch")):
         for name in files:
@@ -100,10 +102,10 @@ def test_registry_declares_every_lock_of_the_package():
                 and isinstance(n.func.value, ast.Name)
                 and n.func.value.id == "threading"
                 and n.func.attr in ("Lock", "RLock", "Condition"))
-    assert calls == len(LOCKS) == 23
+    assert calls == len(LOCKS) == 34
     ref = {d.lock_id: d.rank for d in ref_registry.LOCKS}
     shared = [d for d in LOCKS if d.lock_id in ref]
-    assert len(shared) == 18
+    assert len(shared) == 29
     for d in shared:
         assert d.rank == ref[d.lock_id], d.lock_id
     assert {d.lock_id for d in LOCKS} - set(ref) == {
@@ -523,9 +525,81 @@ def test_lockwatch_thread_leak_assertion(pkg):
 
 
 def test_lockwatch_install_service_waits_for_serving():
+    """`install_service` no longer raises: it wraps a service's locks
+    and each pooled session's lease (the full check of every declared
+    service lock is in `test_install_service_wraps_every_service_lock`)."""
+    from spark_tpu_torch.service.server import SqlService
+    svc = SqlService(device="cpu")
+    svc.pool.get_or_create("a")
     watch = port_lockwatch.LockWatch()
-    with pytest.raises(NotImplementedError, match="slice 12c"):
-        watch.install_service(object())
+    try:
+        watch.install_service(svc)
+        assert type(svc.pool._entries["a"].lock).__name__ == "_WatchedLock"
+        assert type(svc.admission._cv).__name__ == "_WatchedCondition"
+    finally:
+        watch.uninstall()
+        svc.stop()
+    assert type(svc.admission._cv).__name__ == "Condition"
+
+
+def test_service_locks_match_the_reference():
+    """The SQL service's locks keep the JAX package's ids, kinds and
+    ranks; only the fleet's two are left out (slice 12c part 2). The
+    admission slot is a registered context manager in both, and every
+    edge the JAX package declares out of the session lease is declared
+    here but the compile cache's."""
+    port = {d.lock_id: d for d in LOCKS if d.lock_id.startswith("service.")}
+    ref = {d.lock_id: d for d in ref_registry.LOCKS
+           if d.lock_id.startswith("service.")}
+    assert set(ref) - set(port) == {"service.fleet_inflight",
+                                    "service.fleet_worker"}
+    assert set(port) <= set(ref) and len(port) == 11
+    for lock_id, d in port.items():
+        assert (d.rank, d.kind, d.attr, d.cls) == \
+            (ref[lock_id].rank, ref[lock_id].kind, ref[lock_id].attr,
+             ref[lock_id].cls), lock_id
+    assert port_registry.CONTEXT_MANAGERS == ref_registry.CONTEXT_MANAGERS
+    ref_edges = {(a, b) for a, b, _ in ref_registry.EXTRA_EDGES
+                 if a.startswith("service.") and "fleet" not in a}
+    port_edges = {(a, b) for a, b, _ in port_registry.EXTRA_EDGES}
+    assert ref_edges - port_edges == {
+        ("service.session", "execution.compile_cache")}
+    for a, b in port_edges:
+        assert port_registry.rank_of(a) < port_registry.rank_of(b), (a, b)
+
+
+def test_install_service_wraps_every_service_lock():
+    """`install_service` wraps every lock the registry declares for the
+    service (each pooled session's lease included) and `uninstall`
+    restores them."""
+    from spark_tpu_torch.service.server import SqlService
+    svc = SqlService(device="cpu")
+    entries = [svc.pool.get_or_create(n) for n in ("a", "b")]
+    owners = {"SqlService": [svc], "_Entry": entries,
+              "SessionPool": [svc.pool], "SessionQuota": [svc.session_quota],
+              "AdmissionController": [svc.admission],
+              "DeviceResourceArbiter": [svc.arbiter],
+              "ResultCache": [svc.arbiter.result_cache],
+              "QueryHistoryStore": [svc.history]}
+    decls = [d for d in LOCKS if d.lock_id.startswith("service.")]
+    watch = port_lockwatch.LockWatch()
+    try:
+        watch.install_service(svc)
+        for d in decls:
+            for obj in owners[d.cls]:
+                assert type(getattr(obj, d.attr)).__name__ in (
+                    "_WatchedLock", "_WatchedCondition"), d.lock_id
+                assert getattr(obj, d.attr)._lock_id == d.lock_id
+        # and every pooled session's own locks, as install_session does
+        assert type(entries[0].session._query_seq_lock).__name__ == \
+            "_WatchedLock"
+    finally:
+        watch.uninstall()
+        svc.stop()
+    for d in decls:
+        for obj in owners[d.cls]:
+            assert not type(getattr(obj, d.attr)).__name__.startswith(
+                "_Watched"), d.lock_id
 
 
 def test_flight_recorder_bundle_carries_the_lock_report(tmp_path):
@@ -650,8 +724,8 @@ def test_session_stress_under_lockwatch(tpch_path, tmp_path):
         assert len(results) == 16
         for n, table in results:
             assert table.equals(alone[n]), n
-        # the port's locks are leaves (no service lease above them yet):
-        # every nesting observed must be one the static graph predicts
+        # one session and no service lease above its locks: every
+        # nesting observed must be one the static graph predicts
         static, _ = port_lockorder.build_graph(REPO)
         assert set(watch.edges()) <= set(static), watch.edges()
         watch.assert_order_consistent()

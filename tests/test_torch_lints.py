@@ -95,13 +95,14 @@ def test_conf_key_pass_synthetic(tmp_path):
 
 def test_conf_key_port_tests_may_name_jax_only_keys(tmp_path):
     """A port test sets the JAX package's keys on JAX sessions; the
-    package itself may not read such a key but under a waiver."""
+    package itself may not read such a key (the waiver list is empty
+    since the SLO key was registered)."""
     out = _run("port", tmp_path, ["conf-key"], {
         "tests/{test}.py":
-            "ref.conf.set('spark_tpu.service.queueDepth', 4)\n"
-            "ref.conf.set('spark_tpu.service.queueDeptth', 4)\n",
+            "ref.conf.set('spark_tpu.service.fleet.workers', 4)\n"
+            "ref.conf.set('spark_tpu.service.fleet.workerz', 4)\n",
         "{pkg}/bad.py":
-            "x = conf.get('spark_tpu.service.queueDepth')\n"
+            "x = conf.get('spark_tpu.service.fleet.workers')\n"
             "y = conf.get('spark_tpu.service.slo.latencyMs')\n"})
     assert [(v.path, v.line) for v in out] == [
         ("spark_tpu_torch/bad.py", 1), ("tests/test_torch_x.py", 2)]
@@ -254,6 +255,42 @@ def test_lint_all_clean_on_real_tree():
     assert any(n.startswith("tracer-leak waiver:") for n in notes)
     with pytest.raises(ValueError, match="unknown lint pass"):
         port_lints.run_passes(["not-a-pass"])
+
+
+def test_lints_clean_over_the_service_package(tmp_path):
+    """The lints read `spark_tpu_torch/service/` like the rest of the
+    package: no finding there on the real tree, the service's waivers
+    (each with its reason) in the notes, no conf-key waiver left, and
+    an unguarded write seeded into a copy of the service is found."""
+    import shutil
+    notes = []
+    out = port_lints.run_passes(collect_notes=notes)
+    assert [v.render() for v in out
+            if v.path.startswith("spark_tpu_torch/service/")] == []
+    service_notes = [n for n in notes if "spark_tpu_torch/service/" in n]
+    assert any("_Entry.current_record" in n for n in service_notes), notes
+    assert not any(n.startswith("conf-key waiver:") for n in notes)
+    assert port_passes.CONF_KEY_WAIVERS == {}
+    repo = tmp_path / "repo"
+    shutil.copytree(os.path.join(REPO, "spark_tpu_torch"),
+                    repo / "spark_tpu_torch")
+    adm = repo / "spark_tpu_torch" / "service" / "admission.py"
+    src = adm.read_text()
+    seeded = src.replace(
+        "    def release(self, session: str) -> None:\n"
+        "        if self.max_per_session <= 0:\n"
+        "            return\n",
+        "    def release(self, session: str) -> None:\n"
+        "        if self.max_per_session <= 0:\n"
+        "            return\n"
+        "        self._inflight = {}\n", 1)
+    assert seeded != src
+    adm.write_text(seeded)
+    found = port_lints.run_passes(["guarded-by", "lock-order"],
+                                  repo=str(repo))
+    assert [(v.path, v.pass_name) for v in found] == [
+        ("spark_tpu_torch/service/admission.py", "guarded-by")]
+    assert "SessionQuota._inflight" in found[0].message
 
 
 def test_lint_json_output_shape(capsys):

@@ -106,8 +106,10 @@ def test_every_reference_key_is_registered_or_listed():
     ("spark_tpu.sql.analysis.jaxpr", "on", "slice 12b"),
     ("spark_tpu.sql.analysis.jaxpr", "off", "jaxpr analyzer"),
     ("spark_tpu.sql.cluster.coordinator", "host0:8476", "multi-host"),
-    ("spark_tpu.service.slo.latencyMs", 100, "slice 12c"),
-    ("spark_tpu.service.queueDepth", 32, "slice 12c"),
+    # slice 12c part 1 registered the service's keys; the fleet's and
+    # the compile cache's stay listed
+    ("spark_tpu.service.fleet.workers", 4, "slice 12c part 2"),
+    ("spark_tpu.sql.execution.bucketGrowth", 1.5, "slice 12c part 2"),
     ("spark_tpu.sql.compileCache.enabled", True, "slice 12c"),
 ])
 def test_unported_key_raises_unless_default(key, value, part):
@@ -211,3 +213,72 @@ def test_describe_matches_reference(tpch_path, n):
         assert pd_ == rd, q
         assert pd_.startswith("(") and pd_.endswith(")")
         assert ("ExchangeExec(" in pd_) == (n > 1), q
+
+
+# -- slice 12c, part 1: the service's keys and device ---------------------------
+
+#: the fourteen keys the SQL service reads, each with a value other than
+#: its default
+SERVICE_KEYS = {
+    "spark_tpu.service.maxConcurrent": 3,
+    "spark_tpu.service.queueDepth": 4,
+    "spark_tpu.service.queueTimeoutMs": 500,
+    "spark_tpu.service.host": "0.0.0.0",
+    "spark_tpu.service.port": 8470,
+    "spark_tpu.service.hbmBudget": 1 << 30,
+    "spark_tpu.service.maxSessions": 4,
+    "spark_tpu.service.session.maxConcurrent": 2,
+    "spark_tpu.service.session.hbmShare": 0.25,
+    "spark_tpu.service.idPrefix": "w0-",
+    "spark_tpu.service.fleet.drainTimeoutMs": 2500,
+    "spark_tpu.service.queryLogSize": 64,
+    "spark_tpu.service.slo.latencyMs": 250,
+    "spark_tpu.service.historySize": 32,
+}
+
+
+def test_unported_list_after_slice_12c_part_1():
+    """Nineteen keys stay listed: the fleet's ten, the compile cache's
+    four and bucketGrowth (part 2), the multi-host mesh's three and the
+    jaxpr analyzer's one."""
+    listed = port_config.UNPORTED_KEYS
+    assert len(listed) == 19
+    assert not set(SERVICE_KEYS) & set(listed)
+    part2 = [k for k, (part, _) in listed.items()
+             if part.startswith("slice 12c part 2")]
+    assert len(part2) == 15
+    assert all(k.startswith(("spark_tpu.service.fleet.",
+                             "spark_tpu.sql.compileCache.",
+                             "spark_tpu.sql.execution.bucketGrowth"))
+               for k in part2)
+
+
+@pytest.mark.parametrize("key", sorted(SERVICE_KEYS))
+def test_service_key_is_ported(key):
+    """Each key the service reads is registered with the JAX package's
+    default, and a value other than the default is taken (no
+    UnportedConfError) and reads back as the JAX package's does."""
+    assert key in port_config.registry()
+    assert port_config.registry()[key].default == \
+        ref_config.registry()[key].default
+    pc, rc = port_config.Conf(), ref_config.Conf()
+    pc.set(key, SERVICE_KEYS[key])
+    rc.set(key, SERVICE_KEYS[key])
+    assert pc.get(key) == rc.get(key) and pc.is_explicitly_set(key)
+
+
+def test_sql_service_without_device_raises_when_cuda_is_absent(
+        monkeypatch):
+    """The service raises where a session does: with no device given and
+    no CUDA, constructing it fails before any pooled session exists."""
+    import torch
+
+    from spark_tpu_torch.service.server import SqlService
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SqlService()
+    svc = SqlService(device="cpu")
+    try:
+        assert str(svc.device) == "cpu"
+    finally:
+        svc.stop()

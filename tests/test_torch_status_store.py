@@ -11,7 +11,8 @@ per-shard telemetry on synthetic chunks (the mesh stream feeds them in
 `tests/test_torch_elastic.py` and `test_torch_mesh_stream.py`).
 
 The SLO target (`spark_tpu.service.slo.latencyMs`) is the service's
-key, slice 12c: the port reads it as 0, so burn counting stays off.
+key: its burn counting and the status store under a live service are
+held in `tests/test_torch_service_concurrency.py`.
 """
 
 import glob

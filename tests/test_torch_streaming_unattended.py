@@ -612,6 +612,45 @@ def test_trigger_event_log_v6_summary_and_validator(tmp_path):
     check(_trigger_records, tmp_path)
 
 
+def test_cancel_right_after_a_commit_keeps_the_tick_record(tmp_path):
+    """A cancel that lands right after a tick committed its batch (a
+    listener on `on_streaming_batch` cancels the loop's token, so the
+    next trigger checkpoint raises inside that tick) still posts the
+    tick's `trigger` record: the records' batches_run add up to the
+    batch records, one record per committing tick. The JAX package
+    loses that record (its `_trigger_loop` re-raises first)."""
+    from spark_tpu_torch.observability import QueryListener
+    s = PORT.session()
+    ev_dir = str(tmp_path / "events")
+    s.conf.set("spark_tpu.sql.eventLog.dir", ev_dir)
+    src = PORT.MemoryStream(s, _schema_df("stateful"))
+    q = _pmod5(PORT, src, str(tmp_path / "ck"))
+
+    class CancelAfterCommit(QueryListener):
+        def on_streaming_batch(self, event):
+            if event.record["batch_id"] == 1:
+                q._token.cancel()
+
+    s.add_listener(CancelAfterCommit())
+    src.add_data(_round_df("stateful", 0))
+    q.start(trigger_ms=10)
+    deadline = time.monotonic() + 15
+    _wait_committed(q, 0, deadline)
+    src.add_data(_round_df("stateful", 1))
+    _wait_committed(q, 1, deadline)
+    q._loop_thread.join(15)
+    assert not q._loop_thread.is_alive()
+    q.stop()
+    s.conf.set("spark_tpu.sql.eventLog.dir", "")
+    ss = PORT.history.streaming_summary(PORT.history.read_event_log(ev_dir))
+    trig = ss[ss["record"] == "trigger"]
+    batches = ss[ss["record"] == "batch"]
+    assert len(batches) == 2
+    assert int(trig["batches_run"].sum()) == len(batches)
+    assert (trig["batches_run"] >= 1).all()
+    assert trig["tick"].is_monotonic_increasing
+
+
 # -- the port's own behaviour -----------------------------------------------
 
 
