@@ -13,12 +13,15 @@
     python3 chip_smoke.py --phases stream      # phase 17 (and 1-2)
     python3 chip_smoke.py --phases analysis    # phase 18 (and 1-2)
     python3 chip_smoke.py --phases serve       # phase 19 (and 1-2)
+    python3 chip_smoke.py --phases fleet       # phase 20 (and 1-2)
+    python3 chip_smoke.py --phases libs        # phase 21 (and 1-2)
 
 Phases, in order; any failure exits non-zero before the last line.
 Phases 1 and 2 always run; `--phases` names the others, from PHASES:
 kernels (3), variants (4), main (5), sql (6), tpcds (7), window (8),
 fuzz (9), functions (10), etl (11), ooc (12), udf (13), mesh (14),
-obs (15), elastic (16), stream (17), analysis (18), serve (19).
+obs (15), elastic (16), stream (17), analysis (18), serve (19),
+fleet (20), libs (21).
 Each query of
 phases 5-8, 10, 11's aggregates and 13 runs twice: a
 first run, after the device table cache and the session's kept
@@ -353,9 +356,63 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    at once, one resident and one streamed; hbmShare 0.25 streams the
    second of the greedy session's two scans. No lease or pin outlives a
    case.
+20. fleet, the crash-only serving fleet (`spark_tpu_torch.service.fleet`)
+   on the card over phase 5's TPC-H SF1 tables and phase 19's range view,
+   held to phase 19's single-thread references (computed here when phase
+   19 does not run). The parent's device cache is emptied first and the
+   card's free memory read. (a) A FleetSupervisor with 2 workers (`python
+   -m spark_tpu_torch.service.fleet --worker`, fresh interpreters, each
+   its own CUDA context on cuda:0 with service.hbmBudget at half the free
+   memory, PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True): four
+   sessions send Q1, Q3, Q5, Q6 and the range through the
+   router in two rounds; every result equals its reference and lands on
+   its session's ring home, as its `q-w<i>g<gen>-` id says; /metrics
+   merges both workers' series under `worker` labels. Each worker's
+   spawn-to-ready seconds, per query the p50/p95 latency through the
+   router beside phase 19's served p50 and the warm single-thread time,
+   and queries/s. (b) While alpha's Q1 (sync, Arrow) and gamma's (async)
+   run on their home worker, slowed by a `stage_run:slow` rule, that
+   worker is SIGKILLed: alpha's read fails over once and returns 200
+   byte-equal to (a)'s, gamma's id answers 503 WORKER_LOST, the pid is
+   reaped, the worker respawns at generation 2 and reaches ready, Q1 on
+   it is byte-equal again, and the card's free memory rises once the
+   pid is reaped and, after the respawned worker serves its sessions'
+   traffic, is within 5% of its value at the fleet's start, before the
+   kill (both read with every worker idle, its device table cache
+   dropped and its cached blocks returned, through a watcher the
+   workers' init module starts, and printed with what each worker still
+   held; the same reading after (a) too; the failover target's Q1 scans
+   are cached again before the kill). The failover latency
+   and the respawn time. (c) A fleet whose init spec raises is
+   quarantined after restartMaxPerWindow crashes, sheds POST /sql with
+   503 FLEET_UNAVAILABLE and leaves one flight bundle per death. (d)
+   shutdown() with a query in flight: new work gets 503 FLEET_DRAINING,
+   the in-flight query equals its reference, the workers exit 0, no pid
+   or `fleet*` thread is left. Each worker's init module reports at its
+   exit (after its drain) its launches, device, max_memory_allocated and
+   any JAX module loaded: none may be, and both kernels must have
+   launched inside the workers.
+21. libs, the ML and graph libraries on a session on the card over phase
+   5's TPC-H SF1 tables (written here when phase 21 runs alone). ML on
+   l_quantity, l_discount and l_tax as doubles, assembled by
+   `VectorAssembler` through the engine over all 6,001,215 lineitem
+   rows: `LinearRegression` of l_extendedprice against numpy's lstsq on
+   the same matrix (rtol 1e-8); `LogisticRegression` of l_returnflag =
+   'R' (50 steps of 0.005) and `KMeans` (k = 8, 20 iterations) each
+   against a float64 numpy run of the same algorithm from the same start
+   (rtol 1e-9; k-means assignments equal wherever the two nearest
+   centres differ by more than 1e-9). The graph: customers and suppliers
+   (160,000 vertices), one edge per lineitem row from its order's
+   customer to its supplier (6,001,215 edges): `page_rank` (20
+   iterations) against numpy (rtol 1e-10, summing to n) and
+   `connected_components` against scipy exactly. Each prints its wall
+   time, its device part (CUDA events), the collect, the supersteps and
+   their host reads, and max_memory_allocated.
 Then the kernels are timed again on the exact inputs the first run of
 each query of phases 5-7, 10-13 and 19 gave them (a chunk's input, for a
-streamed query), and on S1's and S2's trigger inputs.
+streamed query), on S1's and S2's trigger inputs, and for phase 20 on
+phase 19's Q1 and range inputs (the workers run the same plans on the
+same data) under the launches the workers reported.
 
 The line before the last is a JSON object with one entry per kernel and
 main-path input; the last line is `{"ok": true, "device": {...}}`, and
@@ -461,11 +518,11 @@ SOURCE = "spark_tpu_torch/csrc/dense_groupby.cu"
 #: always run)
 PHASES = ("kernels", "variants", "main", "sql", "tpcds", "window", "fuzz",
           "functions", "etl", "ooc", "udf", "mesh", "obs", "elastic",
-          "stream", "analysis", "serve")
+          "stream", "analysis", "serve", "fleet", "libs")
 #: the phases that drive the package's main path (run_phases)
 MAIN_PHASES = ("main", "sql", "tpcds", "window", "fuzz", "functions", "etl",
                "ooc", "udf", "mesh", "obs", "elastic", "stream", "analysis",
-               "serve")
+               "serve", "fleet", "libs")
 #: the hand kernels each function-library program must launch at SF1
 #: (F2's and F3's aggregates and functions run as torch ops: the
 #: positional sort, the sort aggregate, the date and bit arithmetic)
@@ -4949,10 +5006,11 @@ def serve_clients(svc, refs, rounds):
     return lat, wall
 
 
-def serve_parity(D, svc, refs) -> None:
+def serve_parity(D, svc, refs) -> dict:
     """Phase 19(a): the concurrent clients, SERVE_ROUNDS rounds with the
     launch counters at 0 (both kernels must launch through the service),
-    then one more round under torch.profiler for the card's busy share."""
+    then one more round under torch.profiler for the card's busy share.
+    Returns each query's served p50 latency, ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     zero_launches(D)
@@ -4983,6 +5041,7 @@ def serve_parity(D, svc, refs) -> None:
     log(f"[serve] (a) one more round under the profiler, "
         f"{len(SERVE_SESSIONS)} sessions: "
         f"{busy_text(*device_busy(prof), wall)}")
+    return {q: pct([x[0] * 1e3 for x in lat[q]], 50) for q in SERVE_QUERIES}
 
 
 def serve_stress(svc, refs) -> None:
@@ -5431,8 +5490,9 @@ def card_line() -> str:
 
 
 def phase_serve(D, S, G, path, tmp, sql_results, launches, current,
-                device="cuda:0") -> None:
-    """Phase 19: the SQL service on the card, (a)-(f)."""
+                device="cuda:0"):
+    """Phase 19: the SQL service on the card, (a)-(f). Returns the
+    single-thread references and (a)'s served p50 ms by query."""
     import os
     import torch
     t0 = time.perf_counter()
@@ -5454,7 +5514,7 @@ def phase_serve(D, S, G, path, tmp, sql_results, launches, current,
         f"{SERVE_QUEUE_DEPTH}, hbmBudget {total:,} bytes (the whole card)")
     try:
         t1 = time.perf_counter()
-        serve_parity(D, svc, refs)
+        served_p50 = serve_parity(D, svc, refs)
         log(f"[serve] (a) in {time.perf_counter() - t1:.1f} s")
         t1 = time.perf_counter()
         serve_stress(svc, refs)
@@ -5474,6 +5534,873 @@ def phase_serve(D, S, G, path, tmp, sql_results, launches, current,
     t1 = time.perf_counter()
     serve_arbiter(S, path, init, refs, device)
     log(f"[serve] (c) in {time.perf_counter() - t1:.1f} s")
+    return refs, served_p50
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the serving fleet
+# ---------------------------------------------------------------------------
+
+#: the workers' init module: the TPC-H tables and the range view in every
+#: pooled session; at the worker's exit (after its drain) a report of its
+#: launches, device, peak memory and any JAX module it loaded; and a
+#: watcher that, when asked (`fleet_trim`), drops the worker's device
+#: table cache and returns its cached, unused device blocks, so that the
+#: card's free memory then counts the workers themselves
+FLEET_INIT_SRC = '''\
+import atexit
+import json
+import os
+import sys
+import threading
+import time
+
+import numpy as np
+import pyarrow as pa
+
+PATH = {path!r}
+REPORT = {report!r}
+RANGE_TABLE = {table!r}
+RANGE_ROWS = {rows!r}
+_STATE = {{}}
+
+
+def _report():
+    import torch
+    from spark_tpu_torch.execution import dense_groupby as D
+    device = _STATE["device"]
+    bad = sorted(m for m in sys.modules if m in ("jax", "spark_tpu")
+                 or m.startswith(("jax.", "spark_tpu.")))
+    out = {{"pid": os.getpid(),
+           "worker": int(os.environ.get("SPARK_TPU_FLEET_IDX", "-1")),
+           "conf": json.loads(os.environ.get("SPARK_TPU_FLEET_CONF", "{{}}")),
+           "device": str(device), "launches": dict(D.LAUNCHES),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(device)
+           if device.type == "cuda" else 0,
+           "bad_modules": bad}}
+    with open(os.path.join(REPORT, f"hook-{{os.getpid()}}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _trim_watch():
+    import torch
+    request, done = os.path.join(REPORT, "trim-request"), 0
+    while True:
+        time.sleep(0.05)
+        try:
+            with open(request) as f:
+                n = int(f.read())
+        except (OSError, ValueError):
+            continue
+        if n > done:
+            import gc
+            from spark_tpu_torch.io.device_cache import CACHE
+            CACHE.clear()
+            gc.collect()  # batches held in reference cycles
+            held = [0, 0]
+            if _STATE["device"].type == "cuda":
+                torch.cuda.synchronize(_STATE["device"])
+                torch.cuda.empty_cache()
+                held = [torch.cuda.memory_allocated(_STATE["device"]),
+                        torch.cuda.memory_reserved(_STATE["device"])]
+            done = n
+            ack = os.path.join(REPORT, f"trim-{{os.getpid()}}-{{n}}")
+            with open(ack + ".tmp", "w") as f:
+                json.dump(held, f)
+            os.replace(ack + ".tmp", ack)
+
+
+def init(session):
+    from spark_tpu_torch.io.sources import ArrowTableSource
+    from spark_tpu_torch.tpch.queries import register_tables
+    register_tables(session, PATH)
+    if "source" not in _STATE:
+        _STATE["source"] = ArrowTableSource(RANGE_TABLE, pa.table(
+            {{"id": np.arange(RANGE_ROWS, dtype=np.int64)}}))
+        _STATE["device"] = session.device
+        atexit.register(_report)
+        threading.Thread(target=_trim_watch, daemon=True,
+                         name="chip-fleet-trim").start()
+    session.register_table(RANGE_TABLE, _STATE["source"])
+'''
+#: an init spec whose import raises: every spawn of its worker dies at boot
+FLEET_BAD_INIT_SRC = 'raise RuntimeError("chip fleet: this init never loads")\n'
+FLEET_WORKERS = 2
+FLEET_ROUNDS = 2
+#: the slow rules' milliseconds: a worker arms one fault plan for the
+#: whole process and keeps its hit counts while the spec is unchanged, so
+#: each slowed query gets a spec of its own
+FLEET_SLOW_MS = (5000, 5001, 5002)
+FLEET_ALLOC_KEY = "PYTORCH_CUDA_ALLOC_CONF"
+FLEET_ALLOC = "expandable_segments:True"
+FLEET_KEYS = (("spark_tpu.service.fleet.healthIntervalMs", 100),
+              ("spark_tpu.service.fleet.restartBackoffMs", 100))
+
+
+def fleet_trim(sup, report_dir, n) -> dict:
+    """Ask every ready worker to drop its device table cache and return
+    its cached, unused device blocks (the init module's watcher: CACHE
+    .clear(), torch.cuda.empty_cache()) and wait until each has: the
+    card's free memory then counts the workers themselves, not which
+    tables their caches' LRU order kept nor how their caching allocators
+    happened to grow."""
+    import os
+    pids = [st["pid"] for st in (w.snapshot() for w in sup._workers)
+            if st["state"] == "ready"]
+    tmp = os.path.join(report_dir, "trim-request.tmp")
+    with open(tmp, "w") as f:
+        f.write(str(n))
+    os.replace(tmp, os.path.join(report_dir, "trim-request"))
+    fleet_wait(lambda: all(os.path.exists(os.path.join(
+        report_dir, f"trim-{pid}-{n}")) for pid in pids), 60,
+        f"workers {pids} returning their cached blocks")
+    held = {}
+    for pid in pids:
+        with open(os.path.join(report_dir, f"trim-{pid}-{n}")) as f:
+            held[pid] = json.load(f)
+    return held
+
+
+def fleet_free_bytes(device="cuda:0") -> int:
+    import torch
+    return int(torch.cuda.mem_get_info(torch.device(device))[0])
+
+
+def fleet_supervisor(dirs, init_spec, workers, extra=(),
+                     device="cuda:0"):
+    """A FleetSupervisor (not started) on `device`, its conf leaving
+    service.hbmBudget unset (each worker then gets the card's free
+    memory over the worker count)."""
+    from spark_tpu_torch.config import Conf
+    from spark_tpu_torch.service.fleet import FleetSupervisor
+    conf = Conf()
+    for key, value in (("spark_tpu.service.port", 0),
+                       ("spark_tpu.service.fleet.workers", workers),
+                       ("spark_tpu.service.fleet.init", init_spec),
+                       ("spark_tpu.service.fleet.dir", dirs["fleet"]),
+                       *FLEET_KEYS, *extra):
+        conf.set(key, value)
+    return FleetSupervisor(conf, device=device)
+
+
+def fleet_wait(cond, timeout_s, what):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if cond():
+            return
+        time.sleep(0.02)
+    raise AssertionError(f"fleet: timed out waiting for {what}")
+
+
+def pid_gone(pid) -> bool:
+    import os
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return True
+    return False
+
+
+def fleet_check(what, q, status, headers, body, refs):
+    """One routed result against its single-thread reference; returns
+    the worker index, the query id and the raw Arrow bytes (or None)."""
+    import pyarrow as pa
+    from spark_tpu_torch.service.server import _table_rows
+    if status != 200:
+        raise AssertionError(f"{what}: HTTP {status} {body}")
+    if q in SERVE_ARROW:
+        tables_match(what, pa.ipc.open_stream(body).read_all(), refs[q][0])
+        return int(headers["X-Fleet-Worker"]), headers["X-Query-Id"], body
+    if body["columns"] != refs[q][0].column_names:
+        raise AssertionError(f"{what}: columns {body['columns']}")
+    rows_match(what, body["rows"], _table_rows(refs[q][0]))
+    return int(headers["X-Fleet-Worker"]), body["query_id"], None
+
+
+def fleet_clients(sup, refs, sessions, rounds):
+    """One client thread per session, each sending every SERVE_QUERIES
+    query `rounds` times through the router (SERVE_ARROW in Arrow, the
+    rest in JSON); every result must equal its single-thread run and
+    land on the session's ring home, as its `q-w<i>g<gen>-` id says.
+    Returns {q: [(round, latency s)]}, the wall seconds and {(session,
+    q): Arrow bytes of its last run}."""
+    import re
+    import threading
+    lat = {q: [] for q in SERVE_QUERIES}
+    raw, errors = {}, []
+
+    def client(name):
+        try:
+            home = sup._route(name)[0]
+            gen = sup._workers[home].snapshot()["generation"]
+            for rnd in range(rounds):
+                for q in SERVE_QUERIES:
+                    fmt = "arrow" if q in SERVE_ARROW else "json"
+                    t0 = time.perf_counter()
+                    status, headers, body = http(
+                        sup.port, "POST", "/sql",
+                        {"sql": serve_sql(q), "session": name,
+                         "format": fmt})
+                    lat[q].append((rnd, time.perf_counter() - t0))
+                    widx, qid, data = fleet_check(
+                        f"fleet {q} ({name})", q, status, headers, body,
+                        refs)
+                    m = re.match(r"^q-w(\d+)g(\d+)-", qid)
+                    if widx != home or not m or \
+                            (int(m.group(1)), int(m.group(2))) != (home, gen):
+                        raise AssertionError(
+                            f"{name} {q}: served by worker {widx} as "
+                            f"{qid}, its ring home is w{home}g{gen}")
+                    if data is not None:
+                        raw[(name, q)] = data
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(f"{name}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(n,),
+                                name=f"fleet-client-{n}") for n in sessions]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("fleet: a client thread wedged")
+    if errors:
+        raise AssertionError(f"fleet clients: {errors[:3]}")
+    return lat, wall, raw
+
+
+def fleet_start(sup):
+    """Start the fleet; returns each worker's spawn-to-ready seconds."""
+    t0 = time.perf_counter()
+    sup.start()
+    ready = {}
+
+    def all_ready():
+        for w in sup._workers:
+            if w.idx not in ready and w.snapshot()["state"] == "ready":
+                ready[w.idx] = time.perf_counter() - t0
+        return len(ready) == len(sup._workers)
+
+    fleet_wait(all_ready, 300, f"{len(sup._workers)} workers ready")
+    for w in sup._workers:
+        args = w.snapshot()["proc"].args
+        if args[1:] != ["-m", "spark_tpu_torch.service.fleet", "--worker"]:
+            raise AssertionError(f"fleet: worker started as {args}")
+    return ready
+
+
+def fleet_routing(sup, refs, served_p50):
+    """Phase 20(a): four sessions, FLEET_ROUNDS rounds, through the
+    router; /metrics merges both workers' series."""
+    from spark_tpu_torch.observability.metrics import parse_prometheus_text
+    lat, wall, raw = fleet_clients(sup, refs, SERVE_SESSIONS, FLEET_ROUNDS)
+    n = sum(len(v) for v in lat.values())
+    homes = {s: sup._route(s)[0] for s in SERVE_SESSIONS}
+    log(f"[fleet] (a) {len(SERVE_SESSIONS)} sessions x {FLEET_ROUNDS} "
+        f"rounds x {len(SERVE_QUERIES)} queries = {n} routed in {wall:.3f} s "
+        f"({n / wall:.2f} queries/s); ring homes {homes}; every result "
+        f"equal to its single-thread run, every id its home's")
+    for q in SERVE_QUERIES:
+        w = [x * 1e3 for _, x in lat[q]]
+        last = [x * 1e3 for r, x in lat[q] if r == FLEET_ROUNDS - 1]
+        log(f"[fleet] (a) {q} ({'arrow' if q in SERVE_ARROW else 'json'}): "
+            f"latency p50 {pct(w, 50):.1f} ms p95 {pct(w, 95):.1f} ms "
+            f"(round {FLEET_ROUNDS}, every scan cached in the workers: p50 "
+            f"{pct(last, 50):.1f} ms p95 {pct(last, 95):.1f} ms); "
+            f"phase 19 served p50 "
+            + (f"{served_p50[q]:.1f} ms" if q in served_p50 else "not run")
+            + f"; warm single-thread collect() {refs[q][1] * 1e3:.1f} ms")
+    status, _, text = http(sup.port, "GET", "/metrics")
+    parsed = parse_prometheus_text(text.decode())
+    per_worker = {i: parsed.get(
+        f'spark_tpu_service_admitted{{worker="{i}"}}', 0)
+        for i in range(len(sup._workers))}
+    if status != 200 or min(per_worker.values()) < 1 or \
+            parsed.get("spark_tpu_fleet_requests_proxied", 0) < n:
+        raise AssertionError(f"fleet /metrics: {status} {per_worker}")
+    log(f"[fleet] (a) /metrics merges both workers: service_admitted by "
+        f"worker {per_worker}, fleet_requests_proxied "
+        f"{parsed['spark_tpu_fleet_requests_proxied']:.0f}")
+    return raw
+
+
+def fleet_idle(sup, report_dir, n, device):
+    """The card's free memory with every worker idle, its table cache
+    dropped and its cached blocks returned (`fleet_trim` number n), and
+    what each worker still held then. A worker's watcher starts with its
+    first pooled session: a session homed on each worker is opened
+    first (SHOW TABLES, no device work)."""
+    import torch
+    for w in sup._workers:
+        name = next(f"idle-{i}" for i in range(1000)
+                    if sup._route(f"idle-{i}")[0] == w.idx)
+        status, _, body = http(sup.port, "POST", "/sql",
+                               {"sql": "SHOW TABLES", "session": name})
+        if status != 200:
+            raise AssertionError(f"fleet: SHOW TABLES {status} {body}")
+    held = fleet_trim(sup, report_dir, n)
+    torch.cuda.synchronize()
+    return fleet_free_bytes(device), held
+
+
+def fleet_kill(sup, refs, raw, device, report_dir, idle_start):
+    """Phase 20(b): SIGKILL alpha's home worker while a slowed Q1 of
+    alpha's (sync) and of gamma's (async) run on it."""
+    import os
+    import signal
+    import threading
+    import torch
+    home = sup._route("alpha")[0]
+    if sup._route("gamma")[0] != home:
+        raise AssertionError("fleet: gamma is not homed with alpha")
+    pid = sup._workers[home].snapshot()["pid"]
+    free_start, held_start = idle_start
+    free_before, held_before = fleet_idle(sup, report_dir, 2, device)
+    # warm the failover target again: its scans back in its cache
+    over = sup._route("alpha")[1]
+    warm = next(s for s in SERVE_SESSIONS if sup._route(s)[0] == over)
+    status, headers, body = http(sup.port, "POST", "/sql", {
+        "sql": serve_sql("q1"), "session": warm, "format": "arrow"})
+    fleet_check(f"fleet (b) {warm}'s Q1", "q1", status, headers, body, refs)
+    torch.cuda.synchronize()
+    raw_prekill = fleet_free_bytes(device)
+    out = []
+    status, _, sub = http(sup.port, "POST", "/sql", {
+        "sql": serve_sql("q1"), "session": "gamma", "mode": "async",
+        "conf": {"spark_tpu.faults.inject":
+                 f"stage_run:slow:1:{FLEET_SLOW_MS[0]}"}})
+    if status != 202:
+        raise AssertionError(f"fleet async submit: {status} {sub}")
+
+    def running(session, qid=None):
+        _, _, listing = http(sup.port, "GET", "/queries")
+        return any(q.get("status") == "running"
+                   and q.get("session") == session
+                   and qid in (None, q.get("id"))
+                   for q in listing.get("queries", []))
+
+    fleet_wait(lambda: running("gamma", sub["query_id"]), 120,
+               "gamma's Q1 running")
+    time.sleep(0.5)  # gamma's rule has fired: alpha may arm its own
+    t = threading.Thread(target=lambda: out.append(http(
+        sup.port, "POST", "/sql", {
+            "sql": serve_sql("q1"), "session": "alpha", "format": "arrow",
+            "conf": {"spark_tpu.faults.inject":
+                     f"stage_run:slow:1:{FLEET_SLOW_MS[1]}"}})),
+        daemon=True)
+    t.start()
+    fleet_wait(lambda: running("alpha") and running(
+        "gamma", sub["query_id"]), 120, "alpha's and gamma's Q1 running")
+    t_kill = time.perf_counter()
+    os.kill(pid, signal.SIGKILL)
+    t.join(600)
+    failover_s = time.perf_counter() - t_kill
+    if t.is_alive() or not out:
+        raise AssertionError("fleet: the failed-over query wedged")
+    status, headers, body = out[0]
+    over, _, data = fleet_check("fleet (b) failed-over Q1", "q1", status,
+                                headers, body, refs)
+    if headers.get("X-Fleet-Failover") != "1" or over == home:
+        raise AssertionError(f"fleet (b): no failover: {dict(headers)}")
+    if data != raw[("alpha", "q1")]:
+        raise AssertionError("fleet (b): failed-over Q1 is not byte-equal "
+                             "to (a)'s")
+    status, _, err = http(sup.port, "GET", f"/queries/{sub['query_id']}")
+    if status != 503 or err.get("error") != "WORKER_LOST" or \
+            err.get("worker") != home:
+        raise AssertionError(f"fleet (b) async: {status} {err}")
+    fleet_wait(lambda: pid_gone(pid), 60, f"killed pid {pid} reaped")
+    torch.cuda.synchronize()
+    free_reaped = fleet_free_bytes(device)
+    fleet_wait(lambda: sup._workers[home].snapshot()["state"] == "ready"
+               and sup._workers[home].snapshot()["generation"] == 2, 300,
+               "the respawned worker ready")
+    respawn_s = time.perf_counter() - t_kill
+    status, headers, body = http(sup.port, "POST", "/sql", {
+        "sql": serve_sql("q1"), "session": "alpha", "format": "arrow"})
+    widx, qid, data = fleet_check("fleet (b) Q1 on the respawned worker",
+                                  "q1", status, headers, body, refs)
+    if widx != home or not qid.startswith(f"q-w{home}g2-") or \
+            data != raw[("alpha", "q1")]:
+        raise AssertionError(f"fleet (b): respawned Q1 {widx} {qid}")
+    # the respawned worker serves its sessions' traffic of (a) again
+    homed = tuple(s for s in SERVE_SESSIONS if sup._route(s)[0] == home)
+    fleet_clients(sup, refs, homed, FLEET_ROUNDS)
+    free_after, held_after = fleet_idle(sup, report_dir, 3, device)
+    log(f"[fleet] (b) SIGKILL of worker {home} (pid {pid}) mid-Q1: alpha's "
+        f"read failed over to worker {over} and returned 200 byte-equal "
+        f"to (a) {failover_s:.3f} s after the kill (the retry runs the "
+        f"request again, its {FLEET_SLOW_MS[1]} ms slow rule included); "
+        f"gamma's async Q1 answers 503 WORKER_LOST; respawned at "
+        f"generation 2 and ready {respawn_s:.3f} s after the kill, Q1 on "
+        f"it byte-equal again; card free memory {raw_prekill:,} bytes just "
+        f"before the kill, {free_reaped:,} once the pid was reaped; with "
+        f"the workers idle, their table caches dropped and cached blocks "
+        f"returned: {free_start:,} at the fleet's start, {free_before:,} "
+        f"after (a), {free_after:,} after the respawned worker served "
+        f"{homed} ({(free_after - free_start) / free_start:+.4f} against "
+        f"the start); the workers' allocated and reserved bytes then, by "
+        f"pid: {held_start}, {held_before}, {held_after}")
+    if free_reaped <= raw_prekill:
+        raise AssertionError("fleet (b): the killed worker's memory was "
+                             "not returned to the card")
+    if abs(free_after - free_start) > 0.05 * free_start:
+        raise AssertionError("fleet (b): free memory after the respawn is "
+                             "not within 5% of its value before the kill")
+
+
+def fleet_flap_start(dirs, device):
+    """Phase 20(c), started beside (b) (its crashing spawns overlap the
+    kill): a fleet whose init spec's import raises. Returns it and its
+    start time."""
+    sup = fleet_supervisor(dirs, "chip_fleet_bad:init", 1, extra=(
+        ("spark_tpu.service.fleet.restartMaxPerWindow", 2),
+        ("spark_tpu.service.fleet.restartBackoffMs", 50)), device=device)
+    return sup.start(), time.perf_counter()
+
+
+def fleet_flap(dirs, sup, t0):
+    """Phase 20(c): the fleet of `fleet_flap_start` is quarantined after
+    restartMaxPerWindow crashes; its traffic sheds with a structured 503
+    and every death left a flight bundle."""
+    import os
+    from spark_tpu_torch.observability.metrics import parse_prometheus_text
+    try:
+        fleet_wait(lambda: sup._workers[0].snapshot()["state"]
+                   == "quarantined", 300, "the flap breaker's quarantine")
+        status, _, err = http(sup.port, "POST", "/sql",
+                              {"sql": serve_sql("q6"), "session": "alpha"})
+        if status != 503 or err.get("error") != "FLEET_UNAVAILABLE":
+            raise AssertionError(f"fleet (c): {status} {err}")
+        _, _, text = http(sup.port, "GET", "/metrics")
+        prom = parse_prometheus_text(text.decode())
+        lost = int(prom.get("spark_tpu_fleet_worker_lost", 0))
+        bundles = sorted(os.listdir(os.path.join(dirs["fleet"], "bundles")))
+        told = []
+        for b in bundles:
+            with open(os.path.join(dirs["fleet"], "bundles", b,
+                                   "stderr.txt")) as f:
+                told.append(f.read())
+        if lost < 2 or len(bundles) != lost or not all(
+                "this init never loads" in s for s in told) or \
+                prom.get("spark_tpu_fleet_quarantined", 0) < 1:
+            raise AssertionError(f"fleet (c): {lost} deaths, bundles "
+                                 f"{bundles}")
+        log(f"[fleet] (c) a worker whose init raises: {lost} crashes, "
+            f"quarantined {time.perf_counter() - t0:.1f} s after the start, "
+            f"POST /sql 503 FLEET_UNAVAILABLE, one flight bundle per "
+            f"death ({len(bundles)}), each with the traceback")
+    finally:
+        sup.stop()
+
+
+def fleet_drain(sup, refs, report_dir):
+    """Phase 20(d): shutdown() with a query in flight; returns the
+    workers' hook reports."""
+    import json
+    import os
+    import threading
+    procs = [w.snapshot()["proc"] for w in sup._workers]
+    pids = [p.pid for p in procs]
+    out, shut = [], []
+    t = threading.Thread(target=lambda: out.append(http(
+        sup.port, "POST", "/sql", {
+            "sql": serve_sql("q1"), "session": "delta",
+            "format": "arrow", "conf": {"spark_tpu.faults.inject":
+                                        f"stage_run:slow:1:{FLEET_SLOW_MS[2]}"}})),
+        daemon=True)
+    t.start()
+    fleet_wait(lambda: any(
+        q.get("status") == "running" and q.get("session") == "delta"
+        for q in http(sup.port, "GET", "/queries")[2].get("queries", [])),
+        120, "delta's Q1 running")
+    t0 = time.perf_counter()
+    ts = threading.Thread(target=lambda: shut.append(sup.shutdown()),
+                          daemon=True)
+    ts.start()
+    fleet_wait(lambda: http(sup.port, "POST", "/sql", {
+        "sql": serve_sql("q6"), "session": "beta"}, timeout=30)[2].get(
+        "error") == "FLEET_DRAINING", 30, "the drain's 503 FLEET_DRAINING")
+    t.join(600)
+    ts.join(600)
+    if ts.is_alive() or shut != [True] or not out:
+        raise AssertionError(f"fleet (d): shutdown {shut}")
+    status, headers, body = out[0]
+    fleet_check("fleet (d) the in-flight Q1", "q1", status, headers, body,
+                refs)
+    codes = [p.returncode for p in procs]
+    if codes != [0] * len(procs) or not all(pid_gone(p) for p in pids):
+        raise AssertionError(f"fleet (d): worker exits {codes}")
+    leaked = [th.name for th in threading.enumerate()
+              if th.name.startswith(sup.thread_prefix)]
+    if leaked:
+        raise AssertionError(f"fleet (d): threads left {leaked}")
+    reports = []
+    for f in sorted(os.listdir(report_dir)):
+        if f.startswith("hook-"):
+            with open(os.path.join(report_dir, f)) as fh:
+                reports.append(json.load(fh))
+    log(f"[fleet] (d) shutdown() with Q1 in flight: new work 503 "
+        f"FLEET_DRAINING, the in-flight Q1 equal to its single-thread run, "
+        f"the workers exit {codes}, drained in "
+        f"{time.perf_counter() - t0:.1f} s; no orphan pid, no "
+        f"{sup.thread_prefix}* thread left")
+    return reports
+
+
+def phase_fleet(D, S, G, path, tmp, sql_results, launches, current,
+                captured, served, device="cuda:0"):
+    """Phase 20: the crash-only serving fleet on the card, (a)-(d).
+    `served` is phase 19's (refs, served p50 ms by query), or None."""
+    import os
+    import sys as _sys
+    import torch
+    from spark_tpu_torch.io.device_cache import CACHE
+    t0 = time.perf_counter()
+    if served is None:
+        refs = serve_references(D, S, G, path, serve_init(
+            path, serve_range_source()), sql_results, launches, current,
+            device)
+        served_p50 = {}
+    else:
+        refs, served_p50 = served
+    CACHE.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    free0, total = torch.cuda.mem_get_info(torch.device(device))
+    dirs = {"init": os.path.join(tmp, "fleet-init"),
+            "report": os.path.join(tmp, "fleet-report"),
+            "fleet": os.path.join(tmp, "fleet")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    with open(os.path.join(dirs["init"], "chip_fleet_init.py"), "w") as f:
+        f.write(FLEET_INIT_SRC.format(path=path, report=dirs["report"],
+                                      table=SERVE_RANGE_TABLE,
+                                      rows=RANGE_ROWS))
+    with open(os.path.join(dirs["init"], "chip_fleet_bad.py"), "w") as f:
+        f.write(FLEET_BAD_INIT_SRC)
+    prev = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = dirs["init"] + (
+        os.pathsep + prev if prev else "")
+    # the workers' caching allocators map device memory page by page, so
+    # that returning cached blocks is not held up by fragmentation and
+    # (b)'s readings count what the workers use
+    prev_alloc = os.environ.get(FLEET_ALLOC_KEY)
+    os.environ[FLEET_ALLOC_KEY] = ",".join(
+        x for x in (prev_alloc, FLEET_ALLOC) if x)
+    sup = fleet_supervisor(dirs, "chip_fleet_init:init", FLEET_WORKERS,
+                           device=device)
+    try:
+        ready = fleet_start(sup)
+        idle_start = fleet_idle(sup, dirs["report"], 1, device)
+        log(f"[fleet] references in {time.perf_counter() - t0:.1f} s; card "
+            f"free {free0:,} of {total:,} bytes at start; {FLEET_WORKERS} "
+            f"workers on {device}, hbmBudget {sup._hbm_share} bytes each; "
+            f"spawn to ready (s) "
+            + ", ".join(f"worker {i} {s:.3f}" for i, s in sorted(
+                ready.items())) + f"; router on 127.0.0.1:{sup.port}")
+        t1 = time.perf_counter()
+        raw = fleet_routing(sup, refs, served_p50)
+        log(f"[fleet] (a) in {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        flap_dirs = dict(dirs, fleet=os.path.join(tmp, "fleet-flap"))
+        flap = fleet_flap_start(flap_dirs, device)
+        try:
+            fleet_kill(sup, refs, raw, device, dirs["report"], idle_start)
+            log(f"[fleet] (b) in {time.perf_counter() - t1:.1f} s (the "
+                f"fleet of (c) crashing beside it)")
+            t1 = time.perf_counter()
+            fleet_flap(flap_dirs, *flap)
+        finally:
+            flap[0].stop()
+        log(f"[fleet] (c) in {time.perf_counter() - t1:.1f} s after (b)")
+        reports = fleet_drain(sup, refs, dirs["report"])
+    finally:
+        sup.stop()
+        for key, value in (("PYTHONPATH", prev),
+                           (FLEET_ALLOC_KEY, prev_alloc)):
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    total_launches = {}
+    for r in reports:
+        if r["bad_modules"] or r["device"] != device:
+            raise AssertionError(f"fleet worker report {r}")
+        for k, v in r["launches"].items():
+            total_launches[k] = total_launches.get(k, 0) + v
+        log(f"[fleet] worker {r['worker']} ({r['conf']['spark_tpu.service.'
+            'idPrefix']}, pid {r['pid']}) on {r['device']}: launches "
+            f"{r['launches']}, max_memory_allocated "
+            f"{r['max_memory_allocated']:,} bytes, no JAX module")
+    require_kernels("the fleet's workers", ("dense_sums_smem",
+                                            "dense_sums_global"),
+                    total_launches)
+    if len(reports) != FLEET_WORKERS:
+        raise AssertionError(f"fleet: {len(reports)} worker reports")
+    if any(m == "jax" or m.startswith(("jax.", "spark_tpu."))
+           or m == "spark_tpu" for m in _sys.modules):
+        raise AssertionError("fleet: the parent imported JAX or the JAX "
+                             "package")
+    # the workers' kernel inputs are the single-thread runs' (same data,
+    # same plans): the report times them under the workers' launches
+    launches["fleet"] = total_launches
+    captured[("fleet", "dense_sums_smem")] = captured[
+        ("serve q1", "dense_sums_smem")]
+    captured[("fleet", "dense_sums_global")] = captured[
+        ("serve range", "dense_sums_global")]
+    log(f"[fleet] the surviving workers launched {total_launches} "
+        f"(the killed worker's launches died with it)")
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: the ML and graph libraries
+# ---------------------------------------------------------------------------
+
+LIBS_FEATURES = ("l_quantity", "l_discount", "l_tax")
+LIBS_KMEANS_K = 8
+LIBS_KMEANS_ITERS = 20
+LIBS_KMEANS_SEED = 42
+LIBS_LOGREG_ITERS = 50
+LIBS_LOGREG_STEP = 0.005
+LIBS_PAGERANK_ITERS = 20
+LIBS_SUPPLIER_BASE = 1_000_000
+
+
+class CudaTimer:
+    """CUDA events around a block: `ms` once the block has ended."""
+
+    def __enter__(self):
+        import torch
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.end = torch.cuda.Event(enable_timing=True)
+        self.start.record()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        self.end.record()
+        torch.cuda.synchronize()
+        self.ms = self.start.elapsed_time(self.end)
+
+
+def libs_line(name, wall, collect, device_ms, extra=""):
+    import torch
+    log(f"[libs] {name}: wall {wall:.3f} s, collect {collect:.3f} s, "
+        f"device {device_ms:.2f} ms (CUDA events){extra}; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated():,} bytes")
+
+
+def libs_close(what, got, want, rtol):
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.max(np.abs(got - want) / np.abs(want)))
+    if not np.allclose(got, want, rtol=rtol, atol=0.0):
+        raise AssertionError(f"{what}: {got} against {want} "
+                             f"(max relative error {err:.3g})")
+    return err
+
+
+def libs_ml(session, n_rows):
+    """Phase 21, ML: LinearRegression, LogisticRegression and KMeans over
+    all of lineitem, each against a float64 numpy run."""
+    import numpy as np
+    import torch
+    from spark_tpu_torch import functions as F
+    from spark_tpu_torch import types as T
+    from spark_tpu_torch.functions import col
+    from spark_tpu_torch.ml import (KMeans, LinearRegression,
+                                    LogisticRegression, VectorAssembler)
+    from spark_tpu_torch.ml import classification as MC
+    from spark_tpu_torch.ml import clustering as MK
+    from spark_tpu_torch.ml import regression as MR
+    from spark_tpu_torch.ml.util import collect_xy, to_device
+    li = session.table("lineitem").select(
+        *[col(c).cast(T.DOUBLE).alias(c) for c in LIBS_FEATURES],
+        col("l_extendedprice").cast(T.DOUBLE).alias("price"),
+        F.when(col("l_returnflag") == "R", 1.0).otherwise(0.0)
+        .alias("returned"))
+    df = VectorAssembler(list(LIBS_FEATURES), "features").transform(li)
+    t0 = time.perf_counter()
+    table, X, y = collect_xy(df, "features", "price")
+    collect_s = time.perf_counter() - t0
+    ret = np.asarray(table.column("returned").to_numpy(), np.float64)
+    if X.shape != (n_rows, 3):
+        raise AssertionError(f"libs: feature matrix {X.shape}")
+    Xt, yt, rt = to_device(df, X), to_device(df, y), to_device(df, ret)
+    # linear regression: the normal equations against lstsq
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lr = LinearRegression(labelCol="price").fit(df)
+    wall = time.perf_counter() - t0
+    with CudaTimer() as ct:
+        MR._gram_moments(Xt, yt, 0.0)
+    A = np.column_stack([X, np.ones(len(X))])
+    want, *_ = np.linalg.lstsq(A, y, rcond=None)
+    err = libs_close("LinearRegression against lstsq",
+                     np.append(lr.coefficients, lr.intercept), want, 1e-8)
+    libs_line("LinearRegression (price ~ quantity, discount, tax; "
+              f"{len(X):,} rows)", wall, collect_s, ct.ms,
+              f"; coefficients {np.append(lr.coefficients, lr.intercept)} "
+              f"within {err:.3g} of lstsq")
+    # logistic regression: the same gradient steps in numpy
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logit = LogisticRegression(labelCol="returned",
+                               maxIter=LIBS_LOGREG_ITERS,
+                               stepSize=LIBS_LOGREG_STEP).fit(df)
+    wall = time.perf_counter() - t0
+    with CudaTimer() as ct:
+        MC._logreg_fit(Xt, rt, LIBS_LOGREG_ITERS, LIBS_LOGREG_STEP, 0.0)
+    n = len(X)
+    w = np.zeros(4)
+    for _ in range(LIBS_LOGREG_ITERS):
+        p = 1.0 / (1.0 + np.exp(-(A @ w)))
+        w = w - LIBS_LOGREG_STEP * (A.T @ (p - ret) / n)
+    err = libs_close("LogisticRegression against numpy",
+                     np.append(logit.coefficients, logit.intercept), w, 1e-9)
+    libs_line(f"LogisticRegression (l_returnflag = 'R', "
+              f"{int(ret.sum()):,} of {n:,}; {LIBS_LOGREG_ITERS} steps of "
+              f"{LIBS_LOGREG_STEP})", wall, collect_s, ct.ms,
+              f"; weights within {err:.3g} of numpy")
+    # k-means: Lloyd from the same farthest-point start
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    km = KMeans(k=LIBS_KMEANS_K, maxIter=LIBS_KMEANS_ITERS,
+                seed=LIBS_KMEANS_SEED).fit(df)
+    wall = time.perf_counter() - t0
+    # the estimator's farthest-point start, each point's distance to the
+    # nearest chosen centre kept as centres are added (the same floats
+    # as its min over all chosen centres, in k passes instead of k^2/2)
+    rs = np.random.RandomState(LIBS_KMEANS_SEED)
+    centers = [X[rs.randint(len(X))]]
+    d = np.sum((X - centers[0]) ** 2, axis=1)
+    for _ in range(1, LIBS_KMEANS_K):
+        centers.append(X[int(np.argmax(d))])
+        d = np.minimum(d, np.sum((X - centers[-1]) ** 2, axis=1))
+    init = np.stack(centers)
+    with CudaTimer() as ct:
+        _, assign = MK._lloyd(Xt, to_device(df, init), LIBS_KMEANS_K,
+                              LIBS_KMEANS_ITERS)
+    x2 = np.sum(X * X, axis=1, keepdims=True)
+
+    def dist(C):
+        return x2 - 2.0 * (X @ C.T) + np.sum(C * C, axis=1)[None, :]
+
+    C = init
+    for _ in range(LIBS_KMEANS_ITERS):
+        a = np.argmin(dist(C), axis=1)
+        cnt = np.bincount(a, minlength=LIBS_KMEANS_K).astype(np.float64)
+        tot = np.stack([np.bincount(a, weights=X[:, j],
+                                    minlength=LIBS_KMEANS_K)
+                        for j in range(X.shape[1])], axis=1)
+        C = np.where((cnt > 0)[:, None], tot / np.maximum(cnt, 1.0)[:, None],
+                     C)
+    err = libs_close("KMeans centres against numpy", km.cluster_centers, C,
+                     1e-9)
+    dd = np.sort(dist(C), axis=1)
+    clear = (dd[:, 1] - dd[:, 0]) > 1e-9
+    got_a = assign.cpu().numpy()
+    want_a = np.argmin(dist(C), axis=1)
+    if not np.array_equal(got_a[clear], want_a[clear]):
+        raise AssertionError("KMeans assignments differ from numpy")
+    libs_line(f"KMeans (k={LIBS_KMEANS_K}, {LIBS_KMEANS_ITERS} iterations)",
+              wall, collect_s, ct.ms,
+              f"; centres within {err:.3g} of numpy; assignments equal on "
+              f"{int(clear.sum()):,} rows ({int((~clear).sum()):,} within "
+              f"1e-9 of a tie); cluster sizes "
+              f"{np.bincount(got_a, minlength=LIBS_KMEANS_K).tolist()}")
+
+
+def libs_graph(session, n_rows, n_vertices):
+    """Phase 21, graph: customers and suppliers, one edge per lineitem row
+    from its order's customer to its supplier; PageRank against numpy,
+    connected components against scipy."""
+    import numpy as np
+    import torch
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components as sp_cc
+    from spark_tpu_torch.graph import Graph, connected_components, page_rank
+    t0 = time.perf_counter()
+    edges = session.sql(
+        f"SELECT o_custkey AS src, l_suppkey + {LIBS_SUPPLIER_BASE} AS dst "
+        f"FROM lineitem JOIN orders ON l_orderkey = o_orderkey").to_pandas()
+    verts = session.sql(
+        f"SELECT c_custkey AS id FROM customer UNION ALL "
+        f"SELECT s_suppkey + {LIBS_SUPPLIER_BASE} AS id FROM supplier"
+    ).to_pandas()
+    collect_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g = Graph(verts, edges, device=session.device)
+    build_s = time.perf_counter() - t0
+    n, m = g.num_vertices, g.num_edges
+    if (n, m) != (n_vertices, n_rows):
+        raise AssertionError(f"libs graph: {n} vertices, {m} edges")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with CudaTimer() as ct:
+        pr = page_rank(g, num_iter=LIBS_PAGERANK_ITERS)
+    wall = time.perf_counter() - t0
+    src, dst = g.src.cpu().numpy(), g.dst.cpu().numpy()
+    deg = np.bincount(src, minlength=n).astype(np.float64)
+    safe = np.where(deg == 0, 1.0, deg)
+    r = np.full(n, 1.0 / n)
+    for _ in range(LIBS_PAGERANK_ITERS):
+        inflow = np.bincount(dst, weights=(r / safe)[src], minlength=n)
+        r = 0.15 / n + 0.85 * (inflow + r[deg == 0].sum() / n)
+    err = libs_close("PageRank against numpy", pr["pagerank"].to_numpy(),
+                     r * n, 1e-10)
+    total = float(pr["pagerank"].sum())
+    if not np.isclose(total, n, rtol=1e-10):
+        raise AssertionError(f"PageRank sums to {total}, not {n}")
+    libs_line(f"page_rank ({n:,} vertices, {m:,} edges, "
+              f"{LIBS_PAGERANK_ITERS} iterations)", wall, collect_s, ct.ms,
+              f"; graph built in {build_s:.3f} s; ranks within {err:.3g} of "
+              f"numpy, sum {total:.6f}; no host read in the loop")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with CudaTimer() as ct:
+        cc = connected_components(g)
+    wall = time.perf_counter() - t0
+    ncomp, lab = sp_cc(coo_matrix((np.ones(m), (src, dst)), shape=(n, n)),
+                       directed=False)
+    first = {}
+    for i, c in enumerate(lab):
+        first.setdefault(c, g.vertex_ids[i])
+    want = np.array([first[c] for c in lab])
+    if not np.array_equal(cc["component"].to_numpy(), want) or \
+            cc["component"].nunique() != ncomp:
+        raise AssertionError("connected_components differ from scipy")
+    stats = g.pregel_stats
+    libs_line(f"connected_components ({ncomp:,} components)", wall,
+              collect_s, ct.ms,
+              f"; labels equal scipy's; {stats['supersteps']} supersteps, "
+              f"{stats['host_reads']} host reads")
+
+
+def phase_libs(S, path, device="cuda:0") -> None:
+    """Phase 21: the ML and graph libraries on a CUDA session over the
+    TPC-H SF1 tables (6,001,215 lineitem rows, 150,000 customers and
+    10,000 suppliers, read from the Parquet metadata)."""
+    import pyarrow.parquet as pq
+    from spark_tpu_torch.tpch.queries import register_tables
+    session = S.SparkTpuSession.builder().device(device).get_or_create()
+    register_tables(session, path)
+
+    def rows(table):
+        import os
+        return pq.ParquetFile(os.path.join(path, f"{table}.parquet")) \
+            .metadata.num_rows
+
+    n_rows = rows("lineitem")
+    t0 = time.perf_counter()
+    libs_ml(session, n_rows)
+    log(f"[libs] ml in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    libs_graph(session, n_rows, rows("customer") + rows("supplier"))
+    log(f"[libs] graph in {time.perf_counter() - t0:.1f} s")
 
 
 def run_phases(D, phases):
@@ -5514,7 +6441,8 @@ def run_phases(D, phases):
     sf10 = Sf10(sf10_dir.name)
     try:
         if {"main", "sql", "functions", "etl", "ooc", "udf", "mesh",
-                "obs", "stream", "analysis", "serve"} & phases:
+                "obs", "stream", "analysis", "serve", "fleet",
+                "libs"} & phases:
             with tempfile.TemporaryDirectory() as tmp:
                 t0 = time.perf_counter()
                 path = write_parquet(tmp + "/tpch", SF)
@@ -5572,11 +6500,22 @@ def run_phases(D, phases):
                                    launches)
                     log(f"[analysis] phase in "
                         f"{time.perf_counter() - t0:.1f} s")
+                #: phase 19's references and served p50s, for phase 20
+                served = None
                 if "serve" in phases:
                     t0 = time.perf_counter()
-                    phase_serve(D, S, G, path, tmp, sql_results, launches,
-                                current)
+                    served = phase_serve(D, S, G, path, tmp, sql_results,
+                                         launches, current)
                     log(f"[serve] phase in {time.perf_counter() - t0:.1f} s")
+                if "fleet" in phases:
+                    t0 = time.perf_counter()
+                    phase_fleet(D, S, G, path, tmp, sql_results, launches,
+                                current, captured, served)
+                    log(f"[fleet] phase in {time.perf_counter() - t0:.1f} s")
+                if "libs" in phases:
+                    t0 = time.perf_counter()
+                    phase_libs(S, path)
+                    log(f"[libs] phase in {time.perf_counter() - t0:.1f} s")
         if "elastic" in phases:
             t0 = time.perf_counter()
             phase_elastic(D, S, launches, current, sf10)
@@ -5903,7 +6842,7 @@ def kernel_report(D, launches, captured, phases):
     sql = [(name, label) for label, name in captured
            if label.startswith(("sql ", "tpcds ", "functions ", "etl ",
                                 "ooc ", "udf ", "mesh ", "obs ",
-                                "elastic ", "stream ", "serve "))]
+                                "elastic ", "stream ", "serve ", "fleet"))]
     inputs = [(name, q, x) for name, q in programs + sql
               for x in captured[(q, name)].values()]
     for name, q, (idx, ir, fr, domain, _kept) in inputs:

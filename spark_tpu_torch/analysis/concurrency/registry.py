@@ -31,9 +31,9 @@ may only acquire locks of STRICTLY HIGHER rank. A lock that is the JAX
 package's keeps that package's id and rank; a lock of the port's own
 takes a new id and a rank of its own (`dense_groupby`'s build and
 launch locks, the mesh's copy counters and shard-error list, the
-session's query-id counter). The SQL service's locks (`service.*`) are
-the JAX package's but for its fleet's two. To register a new lock: create it, add a LockDecl with
-a rank consistent with every nesting it takes part in, declare the
+session's query-id counter). The SQL service's and the fleet's locks
+(`service.*`) are the JAX package's. To register a new lock: create it,
+add a LockDecl with a rank consistent with every nesting it takes part in, declare the
 attributes it guards (GuardDecl) or waive them with a reason, and -- if
 it can nest with other locks in code the static extractor cannot
 resolve -- add the edge to EXTRA_EDGES with a comment. The guarded-by
@@ -103,13 +103,26 @@ _SVC = _PKG + "service/"
 LOCKS: Tuple[LockDecl, ...] = (
     LockDecl("service.stop", _SVC + "server.py", "SqlService",
              "_stop_lock", "lock", 8,
-             "serializes stop() (idempotent, signal-safe) and guards "
-             "the _stopped/_draining flags; ranked below everything "
-             "stop() tears down (it nests service.install inside)"),
+             "serializes start() and stop() (idempotent, signal-safe) "
+             "and guards the _stopped/_draining flags; ranked below "
+             "everything they set up and tear down (both nest "
+             "service.install inside)"),
     LockDecl("service.session", _SVC + "pool.py", "_Entry", "lock",
              "lock", 10,
              "per-session execution lease; held across the whole query "
              "(outermost -- everything below may nest inside it)"),
+    LockDecl("service.fleet_inflight", _SVC + "fleet.py",
+             "FleetSupervisor", "_cv", "condition", 12,
+             "router in-flight proxied-request count + drain flag "
+             "(cv: drain waits here for in-flight to reach zero); "
+             "counter/flag ops only inside -- proxy I/O, routing and "
+             "metrics run OUTSIDE it"),
+    LockDecl("service.fleet_worker", _SVC + "fleet.py", "_Worker",
+             "_lock", "lock", 13,
+             "per-worker lifecycle slice (state/port/proc/generation/"
+             "restart bookkeeping), the streaming _TriggerStatus "
+             "pattern: field ops only inside -- spawn I/O, health "
+             "probes, bundle dumps and metrics all run OUTSIDE it"),
     LockDecl("service.pool", _SVC + "pool.py", "SessionPool", "_lock",
              "lock", 14, "session-pool entry map"),
     LockDecl("service.quota", _SVC + "admission.py", "SessionQuota",
@@ -303,6 +316,22 @@ GUARDED_BY: Tuple[GuardDecl, ...] = (
               "_stop_lock"),
     GuardDecl(_SVC + "server.py", "SqlService", "_draining",
               "_stop_lock"),
+    # fleet supervisor + per-worker slices
+    GuardDecl(_SVC + "fleet.py", "FleetSupervisor", "_inflight", "_cv"),
+    GuardDecl(_SVC + "fleet.py", "FleetSupervisor", "_draining", "_cv"),
+    GuardDecl(_SVC + "fleet.py", "FleetSupervisor", "_stopped", "_cv"),
+    GuardDecl(_SVC + "fleet.py", "FleetSupervisor", "_seq", "_cv"),
+    GuardDecl(_SVC + "fleet.py", "_Worker", "state", "_lock"),
+    GuardDecl(_SVC + "fleet.py", "_Worker", "port", "_lock"),
+    GuardDecl(_SVC + "fleet.py", "_Worker", "pid", "_lock"),
+    GuardDecl(_SVC + "fleet.py", "_Worker", "proc", "_lock"),
+    GuardDecl(_SVC + "fleet.py", "_Worker", "generation", "_lock"),
+    GuardDecl(_SVC + "fleet.py", "_Worker", "policy", "_lock"),
+    GuardDecl(_SVC + "fleet.py", "_Worker", "next_spawn_ts", "_lock"),
+    GuardDecl(_SVC + "fleet.py", "_Worker", "spawn_deadline_ts",
+              "_lock"),
+    GuardDecl(_SVC + "fleet.py", "_Worker", "ping_failures", "_lock"),
+    GuardDecl(_SVC + "fleet.py", "_Worker", "crash_times", "_lock"),
     GuardDecl(_SVC + "query_history.py", "QueryHistoryStore",
               "_entries", "_lock"),
     # observability
@@ -409,6 +438,20 @@ WAIVERS: Tuple[Waiver, ...] = (
     Waiver(_SVC + "server.py", "SqlService", "_serve_thread",
            "lifecycle attr written by the owning control thread in "
            "start()/stop(), not on the request path"),
+    Waiver(_SVC + "fleet.py", "FleetSupervisor", "_httpd",
+           "lifecycle attr written by the owning control thread in "
+           "start()/stop(), not on the request path (the "
+           "SqlService._httpd precedent)"),
+    Waiver(_SVC + "fleet.py", "FleetSupervisor", "_serve_thread",
+           "lifecycle attr written by the owning control thread in "
+           "start()/stop(), not on the request path"),
+    Waiver(_SVC + "fleet.py", "FleetSupervisor", "_health_thread",
+           "lifecycle attr written by the owning control thread in "
+           "start()/stop(), not on the request path"),
+    Waiver(_SVC + "fleet.py", "FleetSupervisor", "_hbm_share",
+           "written once by the owning control thread in start(), "
+           "before the first spawn and before the health thread (which "
+           "respawns) is started; read-only afterwards"),
     Waiver(_SVC + "arbiter.py", "", "_ARBITER",
            "atomic reference rebind at service start/stop, before "
            "worker threads exist / after they drained"),

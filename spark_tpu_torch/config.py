@@ -1006,15 +1006,101 @@ SERVICE_SESSION_HBM_SHARE = register(
 SERVICE_ID_PREFIX = register(
     "spark_tpu.service.idPrefix", "",
     doc="Namespace prefix for service query ids (q-<prefix><seq>). "
-        "Empty for a standalone service.")
+        "Empty for a standalone service; the fleet supervisor "
+        "(service/fleet.py) sets 'w<idx>g<gen>-' per worker so the "
+        "router can map an id back to the worker (and generation) "
+        "that owns its record.")
+
+FLEET_WORKERS = register(
+    "spark_tpu.service.fleet.workers", 2,
+    doc="Number of SqlService worker subprocesses the fleet "
+        "supervisor (service/fleet.py) runs. Each worker binds an "
+        "ephemeral loopback port and holds its own CUDA context on the "
+        "fleet's device; a respawned worker is ready as soon as its "
+        "service starts (the port has no compile cache to replay).",
+    validator=lambda v: v >= 1)
+
+FLEET_RESTART_MAX_PER_WINDOW = register(
+    "spark_tpu.service.fleet.restartMaxPerWindow", 3,
+    doc="Flap breaker: a worker crashing this many times within "
+        "fleet.restartWindowMs is QUARANTINED -- no further restarts, "
+        "its ring share re-homes to the surviving workers and excess "
+        "load sheds through their admission 429/503 bounds (graceful "
+        "degradation, never a hang).",
+    validator=lambda v: v >= 1)
+
+FLEET_RESTART_WINDOW_MS = register(
+    "spark_tpu.service.fleet.restartWindowMs", 60000,
+    doc="Flap-breaker crash-counting window (milliseconds) for "
+        "fleet.restartMaxPerWindow.",
+    validator=lambda v: v >= 1)
+
+FLEET_RESTART_BACKOFF_MS = register(
+    "spark_tpu.service.fleet.restartBackoffMs", 200,
+    doc="Base delay of the worker-restart exponential-backoff ladder "
+        "(the execution RetryPolicy reused supervisor-side): crash n "
+        "within a window waits ~backoff * 2^n (jittered) before the "
+        "respawn.",
+    validator=lambda v: v >= 0)
 
 FLEET_DRAIN_TIMEOUT_MS = register(
     "spark_tpu.service.fleet.drainTimeoutMs", 10000,
-    doc="Bounded drain budget (milliseconds): the default budget of "
-        "SqlService.drain(), which stops admitting (SERVICE_DRAINING "
-        "503) and waits this long for in-flight queries, on top of "
-        "their own queryDeadlineMs budgets.",
+    doc="Bounded drain budget (milliseconds): on SIGTERM the fleet "
+        "supervisor stops admitting (structured FLEET_DRAINING 503), "
+        "waits this long for in-flight proxied requests, SIGTERMs the "
+        "workers (each drains its own in-flight queries under the "
+        "same bound, on top of their queryDeadlineMs budgets), then "
+        "SIGKILLs stragglers. Also the default budget of "
+        "SqlService.drain(), which sheds with SERVICE_DRAINING 503.",
     validator=lambda v: v >= 0)
+
+FLEET_FAILOVER_READS = register(
+    "spark_tpu.service.fleet.failoverReads", True,
+    doc="Transparently retry an idempotent read query (SELECT / WITH "
+        "/ VALUES / EXPLAIN / SHOW / DESCRIBE) exactly once on the "
+        "re-homed worker when its worker dies mid-request -- byte "
+        "parity holds because the engine is deterministic and every "
+        "worker reads the same sources. Off (and for every non-read), "
+        "the client gets a structured 503 WORKER_LOST instead.")
+
+FLEET_HEALTH_INTERVAL_MS = register(
+    "spark_tpu.service.fleet.healthIntervalMs", 250,
+    doc="Supervisor health-check cadence (milliseconds): each tick "
+        "polls worker liveness (subprocess exit + HTTP ping) and "
+        "readiness (GET /healthz/ready), re-homes traffic off "
+        "non-ready workers, and runs the restart ladder for due "
+        "respawns.",
+    validator=lambda v: v >= 10)
+
+FLEET_SPAWN_TIMEOUT_MS = register(
+    "spark_tpu.service.fleet.spawnTimeoutMs", 90000,
+    doc="Budget (milliseconds) for a spawned worker to hand its port "
+        "back and report ready (a CUDA context's start included); a "
+        "worker exceeding it is killed and counts as a crash in the "
+        "flap-breaker window.",
+    validator=lambda v: v >= 1)
+
+FLEET_PROXY_TIMEOUT_MS = register(
+    "spark_tpu.service.fleet.proxyTimeoutMs", 600000,
+    doc="Socket timeout (milliseconds) on one proxied worker request; "
+        "queries bound their own wall-clock via queryDeadlineMs, so "
+        "this is the backstop against a wedged worker socket.",
+    validator=lambda v: v >= 1)
+
+FLEET_DIR = register(
+    "spark_tpu.service.fleet.dir", "",
+    doc="Directory for fleet runtime artifacts: worker-death "
+        "diagnostic bundles (MANIFEST.json + stderr tail per "
+        "bundles/w<idx>-g<gen>-<seq>-<reason>/). Empty uses "
+        "<tmpdir>/spark-tpu-fleet-<pid>.")
+
+FLEET_INIT = register(
+    "spark_tpu.service.fleet.init", "",
+    doc="Worker session-init hook as an import spec "
+        "('module:function'); each worker resolves it and passes the "
+        "callable to SqlService(init_session=...) -- table "
+        "registration must survive respawn, so it ships as a spec, "
+        "not a closure. Empty for no init hook.")
 
 SERVICE_QUERY_LOG_SIZE = register(
     "spark_tpu.service.queryLogSize", 512,
@@ -1047,31 +1133,29 @@ _MULTI_HOST = "the multi-host mesh (init_distributed)"
 _JAXPR = ("slice 12b, whose jaxpr analyzer the eager port leaves out: no "
           "stage program exists to walk before dispatch, and the plan "
           "analyzer finds the hazards it confirms")
-_SERVING = "slice 12c part 2 (the serving fleet and the compiled-stage cache)"
+#: slice 12c part 2 ported the fleet and decided the compiled-stage cache
+#: (`execution/compile_cache.py`): left out, as service/fleet.py says
+_COMPILE_CACHE = (
+    "slice 12c part 2, which leaves the compiled-stage cache out by choice: "
+    "the port runs eagerly and compiles no stages; its one compiled "
+    "artifact, the kernel library, is kept on disk by mtime and replaced "
+    "atomically")
 
 #: the JAX package's registered keys this port does not register yet:
 #: key -> (the slice that brings it, its default there). Each slice
 #: takes its own keys off this list as it registers them.
 UNPORTED_KEYS: Dict[str, tuple] = {
-    "spark_tpu.sql.execution.bucketGrowth": (_SERVING, 2.0),
+    # only the compiled-stage cache's keys read bucketGrowth
+    # (spark_tpu/execution/streaming_agg.py:45)
+    "spark_tpu.sql.execution.bucketGrowth": (_COMPILE_CACHE, 2.0),
     "spark_tpu.sql.analysis.jaxpr": (_JAXPR, "auto"),
     "spark_tpu.sql.cluster.coordinator": (_MULTI_HOST, ""),
     "spark_tpu.sql.cluster.numProcesses": (_MULTI_HOST, 1),
     "spark_tpu.sql.cluster.processId": (_MULTI_HOST, 0),
-    "spark_tpu.service.fleet.workers": (_SERVING, 2),
-    "spark_tpu.service.fleet.restartMaxPerWindow": (_SERVING, 3),
-    "spark_tpu.service.fleet.restartWindowMs": (_SERVING, 60000),
-    "spark_tpu.service.fleet.restartBackoffMs": (_SERVING, 200),
-    "spark_tpu.service.fleet.failoverReads": (_SERVING, True),
-    "spark_tpu.service.fleet.healthIntervalMs": (_SERVING, 250),
-    "spark_tpu.service.fleet.spawnTimeoutMs": (_SERVING, 90000),
-    "spark_tpu.service.fleet.proxyTimeoutMs": (_SERVING, 600000),
-    "spark_tpu.service.fleet.dir": (_SERVING, ""),
-    "spark_tpu.service.fleet.init": (_SERVING, ""),
-    "spark_tpu.sql.compileCache.enabled": (_SERVING, False),
-    "spark_tpu.sql.compileCache.dir": (_SERVING, "spark-compile-cache"),
-    "spark_tpu.sql.compileCache.maxBytes": (_SERVING, 1 << 30),
-    "spark_tpu.sql.compileCache.warmStart": (_SERVING, True),
+    "spark_tpu.sql.compileCache.enabled": (_COMPILE_CACHE, False),
+    "spark_tpu.sql.compileCache.dir": (_COMPILE_CACHE, "spark-compile-cache"),
+    "spark_tpu.sql.compileCache.maxBytes": (_COMPILE_CACHE, 1 << 30),
+    "spark_tpu.sql.compileCache.warmStart": (_COMPILE_CACHE, True),
 }
 
 

@@ -21,9 +21,10 @@ that turns it into a long-lived multi-session server on one device
   timeline and plan endpoints;
 - ``server``: the HTTP JSON endpoint (stdlib http.server):
   `POST /sql`, `GET /queries/<id>`, `GET /metrics` (Prometheus text),
-  `GET /healthz`, `/status`, `/debug/bundle`.
-
-The JAX package's fleet supervisor (`service/fleet.py`) is not ported.
+  `GET /healthz`, `/status`, `/debug/bundle`;
+- ``fleet``: the crash-only serving fleet -- a supervisor and router
+  over N `SqlService` worker processes sharing one card (`python -m
+  spark_tpu_torch.service.fleet`).
 
 `arbiter` is imported eagerly (the executor's lease scopes and the
 device cache's gates use it); the HTTP machinery loads lazily.
@@ -32,13 +33,16 @@ device cache's gates use it); the HTTP machinery loads lazily.
 from . import arbiter  # noqa: F401
 
 __all__ = ["arbiter", "SqlService", "SessionPool", "AdmissionController",
-           "AdmissionRejected", "AdmissionTimeout"]
+           "AdmissionRejected", "AdmissionTimeout", "FleetSupervisor"]
 
 
 def __getattr__(name):
     if name == "SqlService":
         from .server import SqlService
         return SqlService
+    if name == "FleetSupervisor":
+        from .fleet import FleetSupervisor
+        return FleetSupervisor
     if name == "SessionPool":
         from .pool import SessionPool
         return SessionPool

@@ -843,19 +843,29 @@ class SqlService:
         """Install the arbiter (when hbmBudget > 0), start the status
         store's heartbeat and serve HTTP on service.{host,port} from a
         daemon thread. Ready at once: the JAX package's compile-cache
-        warm start has no counterpart in the eager port."""
-        self._ensure_arbiter()
-        self.status_store.start()
-        handler = _make_handler(self)
-        self._httpd = ThreadingHTTPServer(
-            (str(self.conf.get(HOST_KEY)), int(self.conf.get(PORT_KEY))),
-            handler)
-        self._httpd.daemon_threads = True
-        self._serve_thread = threading.Thread(
-            target=self._httpd.serve_forever, daemon=True,
-            name="sql-service-http")
-        self._serve_thread.start()
-        self._ready.set()
+        warm start has no counterpart in the eager port.
+
+        Runs under _stop_lock, so a stop() racing it waits for a whole
+        start and then tears all of it down; a start() after stop() is
+        a no-op (a stopped service stays stopped). The JAX package's
+        start does not take the lock: there a stop() landing mid-start
+        can join a heartbeat thread not yet started (RuntimeError) and
+        return while start() goes on to serve."""
+        with self._stop_lock:
+            if self._stopped:
+                return self
+            self._ensure_arbiter()
+            self.status_store.start()
+            handler = _make_handler(self)
+            self._httpd = ThreadingHTTPServer(
+                (str(self.conf.get(HOST_KEY)),
+                 int(self.conf.get(PORT_KEY))), handler)
+            self._httpd.daemon_threads = True
+            self._serve_thread = threading.Thread(
+                target=self._httpd.serve_forever, daemon=True,
+                name="sql-service-http")
+            self._serve_thread.start()
+            self._ready.set()
         return self
 
     @property

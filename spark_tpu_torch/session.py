@@ -193,6 +193,19 @@ class SparkTpuSession(metaclass=_ActiveSessionMeta):
     addListener = add_listener
     removeListener = remove_listener
 
+    def warmup(self) -> int:
+        """The JAX package's warm start replays its compile cache's
+        manifest into the stage cache and returns the entries installed.
+        The port compiles no stages (the compiled-stage cache is left
+        out by choice, service/fleet.py), so this returns 0; on a CUDA
+        session it first loads the kernel library (building it when the
+        one on disk is stale), so a caller may pay that before the first
+        query."""
+        if self.device.type == "cuda":
+            from .execution import dense_groupby
+            dense_groupby._load()
+        return 0
+
     def cancel(self, query_id: int) -> bool:
         """Request cooperative cancellation of a query executing on this
         session (the SparkContext.cancelJobGroup seat): the execution

@@ -82,9 +82,16 @@ and `stream_net_recv` before every frame read (io/network_source.py),
 (streaming.py), and `state_spill` before every partition write of the
 spilled event-time state (execution/external.py).
 
-The JAX package's `stage_compile` seam has no counterpart: eager torch
-has no compile step. Its compile-cache and fleet seams come with those
-slices.
+`fleet_worker` fires before each worker-subprocess spawn attempt in
+the fleet supervisor (service/fleet.py -- the `udf_worker_spawn`
+pattern one tier up): a raising rule models a worker that dies at
+boot, which rides the supervisor's RetryPolicy restart ladder and, at
+`restartMaxPerWindow` crashes within the window, trips the flap
+breaker into quarantine.
+
+The JAX package's `stage_compile` and `compile_cache_load` seams have
+no counterpart: eager torch has no compile step, and the port leaves
+the compiled-stage cache out by choice (service/fleet.py says why).
 """
 
 from __future__ import annotations
@@ -106,7 +113,7 @@ KNOWN_SITES = ("scan_load", "stage_run", "join_build", "stream_chunk",
                "stream_source_list", "stream_offset_write",
                "stream_state_commit", "stream_sink_emit",
                "stream_net_connect", "stream_net_recv", "trigger_tick",
-               "state_spill")
+               "state_spill", "fleet_worker")
 
 #: test-registered extra seams (register_site)
 _EXTRA_SITES: set = set()

@@ -67,6 +67,28 @@ def test_registry_ids_and_ranks_unique():
     assert len(sites) == len(set(sites)), "duplicate lock sites"
 
 
+def test_fleet_locks_are_the_reference_ones():
+    """The fleet's two locks keep the JAX package's ids, kinds, ranks,
+    classes and attributes, and guard the same fields; with them every
+    `service.*` lock of the JAX package is the port's too."""
+    ref = {d.lock_id: d for d in ref_registry.LOCKS}
+    port = {d.lock_id: d for d in LOCKS}
+    for lid, rank in (("service.fleet_inflight", 12),
+                      ("service.fleet_worker", 13)):
+        p, r = port[lid], ref[lid]
+        assert (p.rank, p.kind, p.cls, p.attr) == \
+            (r.rank, r.kind, r.cls, r.attr)
+        assert p.rank == rank
+        assert p.relpath == "spark_tpu_torch/service/fleet.py"
+    assert {i for i in ref if i.startswith("service.")} <= set(port)
+
+    def guards(reg):
+        return sorted((g.cls, g.attr, g.lock) for g in reg.GUARDED_BY
+                      if g.relpath.endswith("service/fleet.py"))
+    assert guards(port_registry) == guards(ref_registry)
+    assert len(guards(port_registry)) == 14
+
+
 def test_registry_guards_reference_real_locks():
     lock_attrs = {}
     for d in LOCKS:
@@ -85,9 +107,10 @@ def test_registry_waivers_and_confined_carry_reasons():
 
 def test_registry_declares_every_lock_of_the_package():
     """Every threading.Lock/RLock/Condition construction in
-    spark_tpu_torch/ (the package's 33, the SQL service's eleven among
-    them, and lockwatch's own recorder lock) is declared, each under the
-    JAX package's id and rank where it is the same lock."""
+    spark_tpu_torch/ (the package's 35, the SQL service's eleven and the
+    fleet's two among them, and lockwatch's own recorder lock) is
+    declared, each under the JAX package's id and rank where it is the
+    same lock."""
     calls = 0
     for dirpath, _, files in os.walk(os.path.join(REPO, "spark_tpu_torch")):
         for name in files:
@@ -102,10 +125,10 @@ def test_registry_declares_every_lock_of_the_package():
                 and isinstance(n.func.value, ast.Name)
                 and n.func.value.id == "threading"
                 and n.func.attr in ("Lock", "RLock", "Condition"))
-    assert calls == len(LOCKS) == 34
+    assert calls == len(LOCKS) == 36
     ref = {d.lock_id: d.rank for d in ref_registry.LOCKS}
     shared = [d for d in LOCKS if d.lock_id in ref]
-    assert len(shared) == 29
+    assert len(shared) == 31
     for d in shared:
         assert d.rank == ref[d.lock_id], d.lock_id
     assert {d.lock_id for d in LOCKS} - set(ref) == {
@@ -544,16 +567,14 @@ def test_lockwatch_install_service_waits_for_serving():
 
 def test_service_locks_match_the_reference():
     """The SQL service's locks keep the JAX package's ids, kinds and
-    ranks; only the fleet's two are left out (slice 12c part 2). The
+    ranks; since slice 12c part 2 the fleet's two are there too. The
     admission slot is a registered context manager in both, and every
     edge the JAX package declares out of the session lease is declared
     here but the compile cache's."""
     port = {d.lock_id: d for d in LOCKS if d.lock_id.startswith("service.")}
     ref = {d.lock_id: d for d in ref_registry.LOCKS
            if d.lock_id.startswith("service.")}
-    assert set(ref) - set(port) == {"service.fleet_inflight",
-                                    "service.fleet_worker"}
-    assert set(port) <= set(ref) and len(port) == 11
+    assert set(ref) == set(port) and len(port) == 13
     for lock_id, d in port.items():
         assert (d.rank, d.kind, d.attr, d.cls) == \
             (ref[lock_id].rank, ref[lock_id].kind, ref[lock_id].attr,
@@ -571,7 +592,8 @@ def test_service_locks_match_the_reference():
 def test_install_service_wraps_every_service_lock():
     """`install_service` wraps every lock the registry declares for the
     service (each pooled session's lease included) and `uninstall`
-    restores them."""
+    restores them. The fleet's two `service.fleet_*` locks are the
+    supervisor's, not a service's: no SqlService owns them."""
     from spark_tpu_torch.service.server import SqlService
     svc = SqlService(device="cpu")
     entries = [svc.pool.get_or_create(n) for n in ("a", "b")]
@@ -581,7 +603,8 @@ def test_install_service_wraps_every_service_lock():
               "DeviceResourceArbiter": [svc.arbiter],
               "ResultCache": [svc.arbiter.result_cache],
               "QueryHistoryStore": [svc.history]}
-    decls = [d for d in LOCKS if d.lock_id.startswith("service.")]
+    decls = [d for d in LOCKS if d.lock_id.startswith("service.")
+             and d.relpath != "spark_tpu_torch/service/fleet.py"]
     watch = port_lockwatch.LockWatch()
     try:
         watch.install_service(svc)

@@ -96,14 +96,16 @@ def test_conf_key_pass_synthetic(tmp_path):
 def test_conf_key_port_tests_may_name_jax_only_keys(tmp_path):
     """A port test sets the JAX package's keys on JAX sessions; the
     package itself may not read such a key (the waiver list is empty
-    since the SLO key was registered)."""
+    since the SLO key was registered). Since the fleet's keys were
+    registered, the compile cache's keys are the JAX-only ones the port
+    leaves out."""
     out = _run("port", tmp_path, ["conf-key"], {
         "tests/{test}.py":
-            "ref.conf.set('spark_tpu.service.fleet.workers', 4)\n"
-            "ref.conf.set('spark_tpu.service.fleet.workerz', 4)\n",
+            "ref.conf.set('spark_tpu.sql.compileCache.dir', 'd')\n"
+            "ref.conf.set('spark_tpu.sql.compileCache.dirr', 'd')\n",
         "{pkg}/bad.py":
-            "x = conf.get('spark_tpu.service.fleet.workers')\n"
-            "y = conf.get('spark_tpu.service.slo.latencyMs')\n"})
+            "x = conf.get('spark_tpu.sql.compileCache.dir')\n"
+            "y = conf.get('spark_tpu.service.fleet.workers')\n"})
     assert [(v.path, v.line) for v in out] == [
         ("spark_tpu_torch/bad.py", 1), ("tests/test_torch_x.py", 2)]
 
@@ -291,6 +293,52 @@ def test_lints_clean_over_the_service_package(tmp_path):
     assert [(v.path, v.pass_name) for v in found] == [
         ("spark_tpu_torch/service/admission.py", "guarded-by")]
     assert "SessionQuota._inflight" in found[0].message
+
+
+def test_lints_clean_over_the_fleet_and_the_libraries(tmp_path):
+    """No lint finds anything in `service/fleet.py`, `ml/` or `graph/`
+    on the real tree; the fleet's guarded-by waivers carry the JAX
+    package's reasons (`_hbm_share`, the port's own, a reason of its
+    own); and an unguarded write seeded into a copy of the fleet is
+    found."""
+    import shutil
+    from spark_tpu.analysis.concurrency import registry as ref_registry
+    from spark_tpu_torch.analysis.concurrency import \
+        registry as port_registry
+    notes = []
+    out = port_lints.run_passes(collect_notes=notes)
+    scoped = ("spark_tpu_torch/service/fleet.py", "spark_tpu_torch/ml/",
+              "spark_tpu_torch/graph/")
+    assert [v.render() for v in out if v.path.startswith(scoped)] == []
+    for d in ("ml", "graph"):
+        assert os.path.isdir(os.path.join(REPO, "spark_tpu_torch", d))
+    ref_reasons = {(w.cls, w.attr): w.reason for w in ref_registry.WAIVERS
+                   if w.relpath.endswith("service/fleet.py")}
+    port_reasons = {(w.cls, w.attr): w.reason
+                    for w in port_registry.WAIVERS
+                    if w.relpath.endswith("service/fleet.py")}
+    assert set(port_reasons) == set(ref_reasons) | {
+        ("FleetSupervisor", "_hbm_share")}
+    for k, reason in ref_reasons.items():
+        assert port_reasons[k] == reason, k
+    assert all(any(f"FleetSupervisor.{a}" in n for n in notes)
+               for _, a in port_reasons)
+    repo = tmp_path / "repo"
+    shutil.copytree(os.path.join(REPO, "spark_tpu_torch"),
+                    repo / "spark_tpu_torch")
+    fleet = repo / "spark_tpu_torch" / "service" / "fleet.py"
+    src = fleet.read_text()
+    seeded = src.replace(
+        "    def end_request(self) -> None:\n",
+        "    def end_request(self) -> None:\n"
+        "        self._inflight = 0\n", 1)
+    assert seeded != src
+    fleet.write_text(seeded)
+    found = port_lints.run_passes(["guarded-by", "lock-order"],
+                                  repo=str(repo))
+    assert [(v.path, v.pass_name) for v in found] == [
+        ("spark_tpu_torch/service/fleet.py", "guarded-by")]
+    assert "FleetSupervisor._inflight" in found[0].message
 
 
 def test_lint_json_output_shape(capsys):

@@ -106,9 +106,9 @@ def test_every_reference_key_is_registered_or_listed():
     ("spark_tpu.sql.analysis.jaxpr", "on", "slice 12b"),
     ("spark_tpu.sql.analysis.jaxpr", "off", "jaxpr analyzer"),
     ("spark_tpu.sql.cluster.coordinator", "host0:8476", "multi-host"),
-    # slice 12c part 1 registered the service's keys; the fleet's and
-    # the compile cache's stay listed
-    ("spark_tpu.service.fleet.workers", 4, "slice 12c part 2"),
+    # slice 12c part 2 registered the fleet's keys; the compile cache's
+    # and bucketGrowth stay listed, left out by choice
+    ("spark_tpu.sql.compileCache.dir", "/var/cc", "out by choice"),
     ("spark_tpu.sql.execution.bucketGrowth", 1.5, "slice 12c part 2"),
     ("spark_tpu.sql.compileCache.enabled", True, "slice 12c"),
 ])
@@ -238,17 +238,17 @@ SERVICE_KEYS = {
 
 
 def test_unported_list_after_slice_12c_part_1():
-    """Nineteen keys stay listed: the fleet's ten, the compile cache's
-    four and bucketGrowth (part 2), the multi-host mesh's three and the
-    jaxpr analyzer's one."""
+    """Nine keys stay listed: the compile cache's four and bucketGrowth
+    (left out by choice in part 2), the multi-host mesh's three and the
+    jaxpr analyzer's one. The fleet's ten left the list in part 2."""
     listed = port_config.UNPORTED_KEYS
-    assert len(listed) == 19
+    assert len(listed) == 9
     assert not set(SERVICE_KEYS) & set(listed)
+    assert not set(FLEET_KEYS) & set(listed)
     part2 = [k for k, (part, _) in listed.items()
              if part.startswith("slice 12c part 2")]
-    assert len(part2) == 15
-    assert all(k.startswith(("spark_tpu.service.fleet.",
-                             "spark_tpu.sql.compileCache.",
+    assert len(part2) == 5
+    assert all(k.startswith(("spark_tpu.sql.compileCache.",
                              "spark_tpu.sql.execution.bucketGrowth"))
                for k in part2)
 
@@ -282,3 +282,84 @@ def test_sql_service_without_device_raises_when_cuda_is_absent(
         assert str(svc.device) == "cpu"
     finally:
         svc.stop()
+
+
+# -- slice 12c, part 2: the fleet's keys, the compile-cache decision ----------
+
+#: the ten keys the fleet supervisor reads (beside drainTimeoutMs, which
+#: the service registered), each with a value other than its default
+FLEET_KEYS = {
+    "spark_tpu.service.fleet.workers": 4,
+    "spark_tpu.service.fleet.restartMaxPerWindow": 5,
+    "spark_tpu.service.fleet.restartWindowMs": 30000,
+    "spark_tpu.service.fleet.restartBackoffMs": 50,
+    "spark_tpu.service.fleet.failoverReads": False,
+    "spark_tpu.service.fleet.healthIntervalMs": 100,
+    "spark_tpu.service.fleet.spawnTimeoutMs": 60000,
+    "spark_tpu.service.fleet.proxyTimeoutMs": 120000,
+    "spark_tpu.service.fleet.dir": "/tmp/fleet",
+    "spark_tpu.service.fleet.init": "myapp.serving:init_session",
+}
+
+#: the compile-cache decision, in the words `config.py`,
+#: `service/fleet.py` and ROADMAP.md share
+LEFT_OUT = ("out by choice: the port runs eagerly and compiles no stages; "
+            "its one compiled artifact, the kernel library, is kept on "
+            "disk by mtime and replaced atomically")
+
+
+@pytest.mark.parametrize("key", sorted(FLEET_KEYS))
+def test_fleet_key_is_ported(key):
+    """Each fleet key is registered with the JAX package's default, and
+    a value other than the default is taken (no UnportedConfError) and
+    reads back as the JAX package's does."""
+    assert key in port_config.registry()
+    assert key not in port_config.UNPORTED_KEYS
+    assert port_config.registry()[key].default == \
+        ref_config.registry()[key].default
+    pc, rc = port_config.Conf(), ref_config.Conf()
+    pc.set(key, FLEET_KEYS[key])
+    rc.set(key, FLEET_KEYS[key])
+    assert pc.get(key) == rc.get(key) and pc.is_explicitly_set(key)
+
+
+@pytest.mark.parametrize("key,value", [
+    ("spark_tpu.sql.compileCache.enabled", True),
+    ("spark_tpu.sql.compileCache.dir", "/var/cc"),
+    ("spark_tpu.sql.compileCache.maxBytes", 1 << 20),
+    ("spark_tpu.sql.compileCache.warmStart", False),
+    ("spark_tpu.sql.execution.bucketGrowth", 1.5),
+])
+def test_compile_cache_keys_are_left_out_by_choice(key, value):
+    """The compile cache's four keys and bucketGrowth still raise, with
+    the decision's reason, which `config.py`, `service/fleet.py` and
+    ROADMAP.md state in the same words."""
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    with pytest.raises(port_config.UnportedConfError) as exc:
+        port_config.Conf().set(key, value)
+    assert LEFT_OUT in str(exc.value)
+    for rel in ("spark_tpu_torch/config.py",
+                "spark_tpu_torch/service/fleet.py", "ROADMAP.md"):
+        text = (root / rel).read_text()
+        words = " ".join(text.replace('"', " ").replace("#", " ").split())
+        assert LEFT_OUT in words, rel
+
+
+def test_warmup_returns_zero_stages(monkeypatch):
+    """`session.warmup()`: the JAX package's replays its compile cache
+    (0 entries with the cache off); the port's has no stages to replay
+    and returns 0, loading the kernel library first on a CUDA session
+    only (a CPU session never touches it)."""
+    from spark_tpu.session import SparkTpuSession as RefSession
+
+    import spark_tpu_torch.execution.dense_groupby as D
+    from spark_tpu_torch import SparkTpuSession
+    loads = []
+    monkeypatch.setattr(D, "_load", lambda: loads.append(1))
+    assert RefSession(register_active=False).warmup() == 0
+    assert SparkTpuSession(device="cpu", register_active=False) \
+        .warmup() == 0
+    assert loads == []
+    cuda = SparkTpuSession(device="cuda", register_active=False)
+    assert cuda.warmup() == 0 and loads == [1]
