@@ -15,13 +15,15 @@
     python3 chip_smoke.py --phases serve       # phase 19 (and 1-2)
     python3 chip_smoke.py --phases fleet       # phase 20 (and 1-2)
     python3 chip_smoke.py --phases libs        # phase 21 (and 1-2)
+    python3 chip_smoke.py --phases cluster     # phase 22 (and 1-2); on a
+        # host with 4 cards its two-cards-a-process cases run too
 
 Phases, in order; any failure exits non-zero before the last line.
 Phases 1 and 2 always run; `--phases` names the others, from PHASES:
 kernels (3), variants (4), main (5), sql (6), tpcds (7), window (8),
 fuzz (9), functions (10), etl (11), ooc (12), udf (13), mesh (14),
 obs (15), elastic (16), stream (17), analysis (18), serve (19),
-fleet (20), libs (21).
+fleet (20), libs (21), cluster (22).
 Each query of
 phases 5-8, 10, 11's aggregates and 13 runs twice: a
 first run, after the device table cache and the session's kept
@@ -73,8 +75,9 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    programs' results of phase 5 (columns in the DataFrame's order, Q5's
    rows by `n_name`). Each run starts with the launch counters at 0 and
    must launch the kernel `SQL_KERNELS` names; a query prints its runs'
-   wall times, re-plan attempts, launches and joins, and Q1, Q5, Q8, Q18
-   and Q21 (`BREAKDOWN_QUERIES`) their breakdown, as phase 5 does;
+   wall times, re-plan attempts, launches and joins, and Q1, Q5 and Q21
+   (`BREAKDOWN_QUERIES`; Q8 and Q18 cut to fit the full run in
+   its time limit) their breakdown, as phase 5 does;
 7. main path, TPC-DS: SF1 generated with the port's datagen (seed 42,
    2,878,376 store_sales rows), the 21 queries of `tpcds/sql_queries.py`
    through `session.sql`, each compared with the port's pandas golden
@@ -90,9 +93,11 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    partitioned by customer, by store and not at all, must repeat bit
    for bit;
 9. fuzz: the differential plan fuzzer (`testing/plan_fuzz.py`), seeds
-   0-199 at maxRows 40, then seeds 0-49 at maxRows 4096, both under
-   `aggregate.kernelMode=auto`, then seeds 0-999 at maxRows 40 under
-   `=matmul` (FUZZ_RUNS): each seed's query through a CUDA session and a
+   0-199 at maxRows 40, then seeds 0-24 at maxRows 4096, both under
+   `aggregate.kernelMode=auto`, then seeds 0-199 at maxRows 40 under
+   `=matmul` (FUZZ_RUNS; cut from 50 and 1,000 seeds to fit the
+   full run in its time limit; seeds 78 and 104 launch dense_sums_smem
+   there): each seed's query through a CUDA session and a
    CPU session over the same source objects (so their cache keys differ
    by device alone), whose plans must print the same and whose results
    must agree bit for bit but for float sums within rtol 1e-12 plus atol
@@ -200,8 +205,10 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    golden (the range numpy's) and, when phase 5 ran, its one-card
    result, take no recovery action, and launch its kernel
    (`MESH_KERNELS`; `dense_sums_global` for the range) once per shard at
-   least. Each prints its wall times, attempts, launches by card, and a
-   timed run's per-operator times (the slowest shard's), the bytes the
+   least. Each prints its wall times, attempts, launches by card, and
+   the SQL cases and the range (the DataFrame cases' cut to fit
+   the full run in its time limit) a timed run's per-operator times (the
+   slowest shard's), the bytes the
    collectives copied between cards with their rate against the NVLink
    bound, and each card's busy share under torch.profiler. Then
    `mesh:fatal:1` must gang-restart Q1 on the mesh (`mesh_restart` 1)
@@ -377,7 +384,7 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    reaped, the worker respawns at generation 2 and reaches ready, Q1 on
    it is byte-equal again, and the card's free memory rises once the
    pid is reaped and, after the respawned worker serves its sessions'
-   traffic, is within 5% of its value at the fleet's start, before the
+   traffic (one round, cut from two to fit the time limit), is within 5% of its value at the fleet's start, before the
    kill (both read with every worker idle, its device table cache
    dropped and its cached blocks returned, through a watcher the
    workers' init module starts, and printed with what each worker still
@@ -398,7 +405,8 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    `VectorAssembler` through the engine over all 6,001,215 lineitem
    rows: `LinearRegression` of l_extendedprice against numpy's lstsq on
    the same matrix (rtol 1e-8); `LogisticRegression` of l_returnflag =
-   'R' (50 steps of 0.005) and `KMeans` (k = 8, 20 iterations) each
+   'R' (25 steps of 0.005) and `KMeans` (k = 8, 10 iterations; both
+   halved to fit the full run in its time limit) each
    against a float64 numpy run of the same algorithm from the same start
    (rtol 1e-9; k-means assignments equal wherever the two nearest
    centres differ by more than 1e-9). The graph: customers and suppliers
@@ -408,11 +416,31 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    `connected_components` against scipy exactly. Each prints its wall
    time, its device part (CUDA events), the collect, the supersteps and
    their host reads, and max_memory_allocated.
+22. cluster, the mesh across engine processes
+   (`spark_tpu_torch/parallel/cluster.py`), over phase 5's TPC-H SF1
+   tables: two engine processes started by
+   `spark_tpu_torch.parallel.launch.run_cluster`, each pinned to cuda:0
+   with two shards (mesh.size 4, tensors over gloo), run SQL Q1, Q3, Q5,
+   Q6 and the range group-by, each a first and a warm run, against the
+   goldens and, in bytes, against phase 14's one-process pinned mesh-4
+   run (this phase's own when phase 14 does not run); each process must launch both kernels (counted in the
+   process, reported at its exit). Then `mesh:fatal:1` in rank 1 alone:
+   both ranks gang-restart to the golden, and with both rungs off both
+   raise it within 30 s; and rank 1 killed with SIGKILL mid-query: rank
+   0 raises ClusterPeerLostError within 30 s. Each rank prints its
+   backend, its init_process_group and spawn-to-ready seconds, each
+   query's walls, the bytes its warm runs received from the peer (and
+   their rate) and its launches. On a host with 4 cards, two processes
+   with two cards each (over NCCL) run the 22 SQL queries and SF10
+   Q1/Q6 resident against the goldens, then the same fault and kill
+   (a peer lost on NCCL is found by its stopped heartbeat).
 Then the kernels are timed again on the exact inputs the first run of
 each query of phases 5-7, 10-13 and 19 gave them (a chunk's input, for a
-streamed query), on S1's and S2's trigger inputs, and for phase 20 on
+streamed query), on S1's and S2's trigger inputs, for phase 20 on
 phase 19's Q1 and range inputs (the workers run the same plans on the
-same data) under the launches the workers reported.
+same data) under the launches the workers reported, and for phase 22 on
+the one-process pinned mesh's Q1 and range inputs (phase 14's) under the
+launches the engine processes reported.
 
 The line before the last is a JSON object with one entry per kernel and
 main-path input; the last line is `{"ok": true, "device": {...}}`, and
@@ -481,7 +509,7 @@ SQL_KERNELS["q21"] = "dense_sums_global"
 #: each: converge, cold pass, cached pass, profiled run), the ones
 #: PERF.md's tables name; cut from every query to fit the full run in
 #: its time limit. Phase 10's programs all get one.
-BREAKDOWN_QUERIES = {"sql": ("q1", "q5", "q8", "q18", "q21"),
+BREAKDOWN_QUERIES = {"sql": ("q1", "q5", "q21"),
                      "tpcds": ("q27", "q61")}
 #: the queries whose SQL result must equal the DataFrame program's
 SQL_EQUALS_DATAFRAME = ("q1", "q3", "q5", "q6")
@@ -518,19 +546,19 @@ SOURCE = "spark_tpu_torch/csrc/dense_groupby.cu"
 #: always run)
 PHASES = ("kernels", "variants", "main", "sql", "tpcds", "window", "fuzz",
           "functions", "etl", "ooc", "udf", "mesh", "obs", "elastic",
-          "stream", "analysis", "serve", "fleet", "libs")
+          "stream", "analysis", "serve", "fleet", "libs", "cluster")
 #: the phases that drive the package's main path (run_phases)
 MAIN_PHASES = ("main", "sql", "tpcds", "window", "fuzz", "functions", "etl",
                "ooc", "udf", "mesh", "obs", "elastic", "stream", "analysis",
-               "serve", "fleet", "libs")
+               "serve", "fleet", "libs", "cluster")
 #: the hand kernels each function-library program must launch at SF1
 #: (F2's and F3's aggregates and functions run as torch ops: the
 #: positional sort, the sort aggregate, the date and bit arithmetic)
 FUNCTION_KERNELS = {"f1": ("dense_sums_smem",), "f2": (), "f3": ()}
 #: phase 9's fuzz campaigns: (seeds, the generator's maxRows,
 #: spark_tpu.sql.aggregate.kernelMode on both sessions)
-FUZZ_RUNS = ((range(0, 200), 40, "auto"), (range(0, 50), 4096, "auto"),
-             (range(0, 1000), 40, "matmul"))
+FUZZ_RUNS = ((range(0, 200), 40, "auto"), (range(0, 25), 4096, "auto"),
+             (range(0, 200), 40, "matmul"))
 AGG_MODE = "spark_tpu.sql.aggregate.kernelMode"
 #: phase 13: the UDF lane's key, and the worker lane's pool bound and rows
 #: per Arrow batch
@@ -2981,11 +3009,14 @@ def mesh_range_check(got) -> None:
         raise AssertionError("mesh range group-by disagrees with numpy")
 
 
-def mesh_cases(D, S, G, Q, path, df_results, launches, current, pinned):
+def mesh_cases(D, S, G, Q, path, df_results, launches, current, pinned,
+               refs=None):
     """The mesh cases on one session: DataFrame and SQL Q1/Q3/Q5/Q6 and
     the range group-by, each a first and a warm run against the golden
     (and phase 5's one-card results when it ran), each launching its
-    kernel once per shard (on every card of a mesh of cards)."""
+    kernel once per shard (on every card of a mesh of cards). `refs`
+    receives the SQL queries' and the range's first-run results, by
+    query, with the label their kernel inputs are kept under."""
     import torch
     from spark_tpu_torch import functions as F
     from spark_tpu_torch.functions import col
@@ -3011,6 +3042,8 @@ def mesh_cases(D, S, G, Q, path, df_results, launches, current, pinned):
                 mesh_range_check(run[0])
             else:
                 mesh_golden(G, path, q, run[0])
+        if refs is not None and not name.startswith("df "):
+            refs[q] = (first[0], label)
         if df_results is not None and q in df_results:
             mine, want = first[0], df_results[q]
             if name.startswith("sql "):
@@ -3022,8 +3055,11 @@ def mesh_cases(D, S, G, Q, path, df_results, launches, current, pinned):
             f"match; {first[0].num_rows} rows; {runs_text(first, warm)}; "
             f"launches {first[4]}; peak allocated on cuda:0 "
             f"{torch.cuda.max_memory_allocated():,} bytes")
-        log(f"[mesh] {label} breakdown: "
-            f"{mesh_breakdown(session, make, cards)}")
+        if not name.startswith("df "):
+            # the SQL forms' breakdowns stand for the DataFrame forms'
+            # (cut to fit the full run in its time limit)
+            log(f"[mesh] {label} breakdown: "
+                f"{mesh_breakdown(session, make, cards)}")
     return session
 
 
@@ -3153,7 +3189,8 @@ def mesh_sf10(D, S, launches, current, sf10) -> None:
     CACHE.clear()
 
 
-def phase_mesh(D, S, G, path, df_results, launches, current, sf10) -> None:
+def phase_mesh(D, S, G, path, df_results, launches, current, sf10,
+               refs=None) -> None:
     """Phase 14: the mesh. On every run, a session pinned to cuda:0 at
     mesh.size 4 (every shard on one card), its faults and the short-pool
     diagnostic; with 4 cards, the same cases on cuda:0-3, the 22 SQL
@@ -3162,7 +3199,7 @@ def phase_mesh(D, S, G, path, df_results, launches, current, sf10) -> None:
     from spark_tpu_torch.tpch import queries as Q
     t0 = time.perf_counter()
     session = mesh_cases(D, S, G, Q, path, df_results, launches, current,
-                         pinned=True)
+                         pinned=True, refs=refs)
     mesh_faults(G, session, path, Q)
     mesh_short_pool(S)
     log(f"[mesh] one card: {time.perf_counter() - t0:.1f} s")
@@ -5927,7 +5964,7 @@ def fleet_kill(sup, refs, raw, device, report_dir, idle_start):
         raise AssertionError(f"fleet (b): respawned Q1 {widx} {qid}")
     # the respawned worker serves its sessions' traffic of (a) again
     homed = tuple(s for s in SERVE_SESSIONS if sup._route(s)[0] == home)
-    fleet_clients(sup, refs, homed, FLEET_ROUNDS)
+    fleet_clients(sup, refs, homed, 1)
     free_after, held_after = fleet_idle(sup, report_dir, 3, device)
     log(f"[fleet] (b) SIGKILL of worker {home} (pid {pid}) mid-Q1: alpha's "
         f"read failed over to worker {over} and returned 200 byte-equal "
@@ -6161,9 +6198,9 @@ def phase_fleet(D, S, G, path, tmp, sql_results, launches, current,
 
 LIBS_FEATURES = ("l_quantity", "l_discount", "l_tax")
 LIBS_KMEANS_K = 8
-LIBS_KMEANS_ITERS = 20
+LIBS_KMEANS_ITERS = 10
 LIBS_KMEANS_SEED = 42
-LIBS_LOGREG_ITERS = 50
+LIBS_LOGREG_ITERS = 25
 LIBS_LOGREG_STEP = 0.005
 LIBS_PAGERANK_ITERS = 20
 LIBS_SUPPLIER_BASE = 1_000_000
@@ -6403,6 +6440,385 @@ def phase_libs(S, path, device="cuda:0") -> None:
     log(f"[libs] graph in {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the mesh across engine processes
+# ---------------------------------------------------------------------------
+
+#: phase 22: the engine processes (each drives MESH_SHARDS / 2 shards),
+#: the one-card run's SQL queries (the range group-by besides), the bound
+#: within which every process must leave a failed run, the delay of the
+#: kill after rank 1's mark, and the four-card run's cards a process
+CLUSTER_PROCESSES = 2
+CLUSTER_QUERIES = ("q1", "q3", "q5", "q6")
+CLUSTER_BOUND_S = 30.0
+CLUSTER_KILL_DELAY_S = 2.0
+CLUSTER_CARDS = ("0,1", "2,3")
+RESTART_KEY = "spark_tpu.execution.meshRestart.enabled"
+FALLBACK_KEY = "spark_tpu.execution.meshFallback.enabled"
+
+
+def cluster_stats_snapshot() -> dict:
+    from spark_tpu_torch.parallel.cluster import CLUSTER_STATS
+    return {k: list(v) for k, v in CLUSTER_STATS.items()}
+
+
+def cluster_crossed(before, after) -> dict:
+    """Per collective tag, the bytes this process received from its peer
+    and the seconds its process-group calls took, between two
+    snapshots."""
+    out = {}
+    for k, v in after.items():
+        b = before.get(k, [0, 0, 0, 0.0, 0])
+        if v[1] - b[1] > 0:
+            out[k] = [v[1] - b[1], v[3] - b[3]]
+    return out
+
+
+def cluster_cases(session, queries, with_range, sf10_session=None):
+    """(name, make) of each case phase 22 runs on `session`."""
+    from spark_tpu_torch import functions as F
+    from spark_tpu_torch.functions import col
+    from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
+    cases = [(q, lambda q=q: session.sql(SQL_QUERIES[q])) for q in queries]
+    if with_range:
+        cases.append(("range", lambda: session.range(RANGE_ROWS).group_by(
+            col("id") % RANGE_MOD).agg(F.count(), F.sum(col("id")),
+                                       F.avg(col("id")))))
+    if sf10_session is not None:
+        cases += [(f"sf{OOC_SF} {q}",
+                   lambda q=q: sf10_session.sql(SQL_QUERIES[q]))
+                  for q in ("q1", "q6")]
+    return cases
+
+
+def cluster_child(session, proc):
+    """Phase 22's program in each engine process (started by
+    `spark_tpu_torch.parallel.launch.run_cluster`): args["queries"] (SQL)
+    over the TPC-H tables at args["path"], the range group-by with
+    args["range"], and SF10 Q1/Q6 resident with args["sf10"], each at
+    mesh.size MESH_SHARDS a first run (device cache and kept capacities
+    emptied) and a warm run, which must give the first run's bytes and
+    take no recovery action. With args["faults"], then `mesh:fatal:1` in
+    rank 1 alone on Q1: with the gang restart on, and with both rungs
+    off. Returns each first run's result; the report holds each run's
+    wall, the bytes that crossed processes, the launches. With
+    args["kill"], last, rank 1 saves its report and sleeps at the `mesh`
+    seam of SQL Q6, where the parent kills it; rank 0 waits at the
+    query's first collective and must raise the named mesh failure."""
+    import gc
+    import torch
+    from spark_tpu_torch.execution import dense_groupby as D
+    from spark_tpu_torch.io.device_cache import CACHE
+    from spark_tpu_torch.tpch.queries import register_tables
+    args = proc.args
+    register_tables(session, args["path"])
+    sf10_session = None
+    if args.get("sf10"):
+        from spark_tpu_torch.io.sources import ParquetSource
+        builder = type(session).builder()
+        if session.device_pinned:
+            builder = builder.device(session.device)
+        for key in ("coordinator", "numProcesses", "processId"):
+            key = f"spark_tpu.sql.cluster.{key}"
+            builder = builder.config(key, session.conf.get(key))
+        sf10_session = builder.get_or_create()
+        sf10_session.register_table("lineitem",
+                                    ParquetSource(args["sf10"], "lineitem"))
+    for s in (session, sf10_session):
+        if s is not None:
+            s.conf.set(MESH_KEY, MESH_SHARDS)
+            if args.get("cache_bytes"):
+                s.conf.set(CACHE_KEY, args["cache_bytes"])
+    results, runs = {}, {}
+    for name, make in cluster_cases(session, args["queries"],
+                                    args.get("range"), sf10_session):
+        for s in (session, sf10_session):
+            if s is not None:
+                reset_state(s)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec = {}
+        for run in ("first", "warm"):
+            before, l0 = cluster_stats_snapshot(), dict(D.LAUNCHES)
+            t0 = time.perf_counter()
+            qe = make()._qe()
+            got = qe.collect()
+            torch.cuda.synchronize()
+            rec[run] = time.perf_counter() - t0
+            if qe.fault_summary:
+                raise AssertionError(f"{name} {run}: {qe.fault_summary}")
+            if run == "first":
+                results[name] = got
+                rec["launches"] = {k: v - l0.get(k, 0)
+                                   for k, v in D.LAUNCHES.items()}
+                rec["attempts"] = qe.attempts
+            else:
+                rec["crossed"] = cluster_crossed(before,
+                                                 cluster_stats_snapshot())
+                if not got.equals(results[name]):
+                    raise AssertionError(f"{name}: the warm run's bytes "
+                                         f"differ from the first run's")
+        runs[name] = rec
+    CACHE.clear()
+    if args.get("faults"):
+        from spark_tpu_torch.testing import faults
+        from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
+        spec = "mesh:fatal:1" if proc.rank == 1 else ""
+        for label, confs in (("restart", ((RESTART_KEY, True),)),
+                             ("raise", ((RESTART_KEY, False),
+                                        (FALLBACK_KEY, False)))):
+            for k, v in confs:
+                session.conf.set(k, v)
+            rec = {}
+            t0 = time.perf_counter()
+            with faults.inject(session.conf, spec):
+                qe = session.sql(SQL_QUERIES["q1"])._qe()
+                try:
+                    results[f"fault {label}"] = qe.collect()
+                    rec["faults"] = qe.fault_summary
+                except Exception as e:  # noqa: BLE001 — the parent checks
+                    rec["error"] = f"{type(e).__name__}: {str(e)[:200]}"
+            rec["wall_s"] = time.perf_counter() - t0
+            runs[f"fault {label}"] = rec
+            for k, _v in confs:
+                session.conf.unset(k)
+    proc.report["runs"] = runs
+    proc.report["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    if args.get("kill"):
+        from spark_tpu_torch.testing import faults
+        from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
+        if proc.rank == 1:
+            proc.save(results)
+        spec = "mesh:slow:1:120000" if proc.rank == 1 else ""
+        kill = {}
+        with faults.inject(session.conf, spec):
+            proc.mark("kill")
+            try:
+                session.sql(SQL_QUERIES["q6"]).collect()
+                kill["outcome"] = "finished"
+            except Exception as e:  # noqa: BLE001 — the parent checks
+                kill["outcome"] = type(e).__name__
+                kill["message"] = str(e)[:200]
+        kill["raised_at"] = time.time()
+        proc.report["kill"] = kill
+    return results
+
+
+def cluster_launch(program, out, args, timeout_s, **kw):
+    from spark_tpu_torch.parallel.launch import run_cluster
+    t0 = time.perf_counter()
+    res = run_cluster(f"chip_smoke:{program}", CLUSTER_PROCESSES, out,
+                      args=args, timeout_s=timeout_s, **kw)
+    return res, time.perf_counter() - t0
+
+
+def cluster_require(res, backend, killed=None) -> None:
+    """Every rank exited 0 (the `killed` rank by SIGKILL) with no error,
+    no JAX module, and its tensors over `backend`."""
+    for r in res:
+        err = r.report.get("error")
+        if r.returncode != (-9 if r.rank == killed else 0) or err:
+            raise AssertionError(
+                f"cluster rank {r.rank} exited {r.returncode}: "
+                f"{(err or {}).get('traceback', '')}\n{r.log[-4000:]}")
+        if r.report["bad_modules"]:
+            raise AssertionError(f"rank {r.rank} loaded "
+                                 f"{r.report['bad_modules']}")
+        if r.report["backends"] != [backend]:
+            raise AssertionError(f"rank {r.rank} moved tensors over "
+                                 f"{r.report['backends']}, not {backend}")
+
+
+def cluster_lines(tag, res, kernels) -> dict:
+    """Print each rank's start, walls, crossed bytes and launches; check
+    each case's kernel launched once per local shard at least in every
+    rank. Returns the launches summed over the ranks."""
+    total = {}
+    for r in res:
+        rep = r.report
+        log(f"[cluster] {tag} rank {r.rank} (pid {rep['pid']}, "
+            f"{rep['device']}): backend {rep['backends'][0]}, "
+            f"init_process_group {rep['init_s']:.3f} s, spawn to ready "
+            f"{rep['ready_s']:.3f} s, ended after {r.wall_s:.1f} s; "
+            f"max_memory_allocated {rep['max_memory_allocated']:,} bytes; "
+            f"launches {rep['launches']}; peer-copy bytes in the process "
+            f"{ {k: v[0] for k, v in rep['copy_stats'].items()} }; no JAX "
+            f"module")
+        for k, v in rep["launches"].items():
+            total[k] = total.get(k, 0) + v
+        for name, rec in rep["runs"].items():
+            if name.startswith("fault "):
+                continue
+            crossed = sum(b for b, _s in rec["crossed"].values())
+            rates = "; ".join(
+                f"{k} {b:,} B at {b / s / 1e9:.2f} GB/s" if s > 0
+                else f"{k} {b:,} B" for k, (b, s) in sorted(
+                    rec["crossed"].items(), key=lambda kv: -kv[1][0])[:4])
+            log(f"[cluster] {tag} rank {r.rank} {name}: first run "
+                f"{rec['first']:.3f} s (attempts {rec['attempts']}), warm "
+                f"run {rec['warm']:.3f} s; warm run received {crossed:,} "
+                f"bytes from the peer process ({rates}); launches "
+                f"{rec['launches']}")
+            for kernel in kernels.get(name) or ():
+                if rec["launches"].get(kernel, 0) < MESH_SHARDS // \
+                        CLUSTER_PROCESSES:
+                    raise AssertionError(
+                        f"{tag} rank {r.rank} {name}: {kernel} launched "
+                        f"{rec['launches']}, fewer than its shards")
+    return total
+
+
+def cluster_check_results(tag, res, G, path, refs, sf10_ans=None) -> None:
+    """Every rank's result of every case against its golden, and equal in
+    bytes to the one-process result `refs` holds, where it holds one."""
+    for r in res:
+        for name, got in r.results.items():
+            if name.startswith("fault "):
+                mesh_golden(G, path, "q1", got)
+            elif name == "range":
+                mesh_range_check(got)
+            elif name.startswith("sf"):
+                check_q1_q6(name.split()[-1], got, sf10_ans)
+            else:
+                mesh_golden(G, path, name, got)
+            if name in refs and not got.equals(refs[name]):
+                raise AssertionError(f"{tag} rank {r.rank} {name}: not the "
+                                     f"one-process mesh's bytes")
+
+
+def cluster_faults(res) -> None:
+    """The same outcome in both ranks: a gang restart to the golden, then
+    the fault raised in both within CLUSTER_BOUND_S."""
+    runs = [r.report["runs"] for r in res]
+    for rr in runs:
+        if rr["fault restart"].get("faults") != {"mesh_restart": 1}:
+            raise AssertionError(f"mesh:fatal:1 in rank 1 with the restart "
+                                 f"on: {[x['fault restart'] for x in runs]}")
+        if not rr["fault raise"].get("error", "").startswith(
+                "FaultInjected") or \
+                rr["fault raise"]["wall_s"] > CLUSTER_BOUND_S:
+            raise AssertionError(f"mesh:fatal:1 in rank 1 with both rungs "
+                                 f"off: {[x['fault raise'] for x in runs]}")
+    if runs[0]["fault raise"]["error"] != runs[1]["fault raise"]["error"]:
+        raise AssertionError("the ranks raised different errors")
+    log(f"[cluster] mesh:fatal:1 in rank 1 alone on q1: both ranks "
+        f"gang-restarted (fault_summary {runs[0]['fault restart']['faults']}"
+        f", {runs[0]['fault restart']['wall_s']:.3f} and "
+        f"{runs[1]['fault restart']['wall_s']:.3f} s) to the golden; with "
+        f"both rungs off both raised {runs[0]['fault raise']['error'][:60]}"
+        f" after {runs[0]['fault raise']['wall_s']:.3f} and "
+        f"{runs[1]['fault raise']['wall_s']:.3f} s (bound "
+        f"{CLUSTER_BOUND_S:.0f} s)")
+
+
+def cluster_kill(res) -> None:
+    """Rank 1 killed with SIGKILL mid-query: rank 0 raised the named mesh
+    failure within CLUSTER_BOUND_S."""
+    survivor, killed = res
+    rep = survivor.report["kill"]
+    after = rep["raised_at"] - killed.report["killed_at"]
+    if rep["outcome"] != "ClusterPeerLostError" or \
+            not 0 <= after < CLUSTER_BOUND_S:
+        raise AssertionError(f"kill -9 of rank 1: rank 0 {rep}, "
+                             f"{after:.3f} s after the kill")
+    log(f"[cluster] kill -9 of rank 1 mid-query ({CLUSTER_KILL_DELAY_S} s "
+        f"after its mark, asleep at q6's mesh seam): rank 0 raised "
+        f"ClusterPeerLostError {after:.3f} s after the kill (bound "
+        f"{CLUSTER_BOUND_S:.0f} s): {rep['message'][:120]}")
+
+
+def phase_cluster(D, S, G, path, launches, current, captured, sf10,
+                  mesh_refs) -> None:
+    """Phase 22: the mesh across engine processes. On every run, two
+    processes each pinned to cuda:0 with two shards (mesh.size 4, over
+    gloo): SQL Q1, Q3, Q5, Q6 and the range group-by at SF1 against the
+    goldens and the one-process pinned mesh-4 run's bytes (phase 14's
+    first runs, `mesh_refs`, or this phase's own when phase 14 did not
+    run), a fault in one process and a killed process. With 4 cards, two
+    processes with two cards each (over NCCL): the 22 SQL queries and
+    SF10 Q1/Q6 resident, then the same fault and kill over NCCL."""
+    import gc
+    import os
+    import torch
+    from spark_tpu_torch.io.device_cache import CACHE
+    t0 = time.perf_counter()
+    if not mesh_refs:
+        session = mesh_session(S, path, pinned=True)
+        for name, make in cluster_cases(session, CLUSTER_QUERIES, True):
+            label = f"phase22 {name}"
+            reset_state(session)
+            current[0] = label
+            zero_launches(D)
+            mesh_refs[name] = (make().collect(), label)
+            torch.cuda.synchronize()
+            current[0] = None
+            launches[label] = dict(D.LAUNCHES)
+        del session
+        log(f"[cluster] the one-process pinned mesh-{MESH_SHARDS} "
+            f"references in {time.perf_counter() - t0:.1f} s")
+    refs = {name: table for name, (table, _label) in mesh_refs.items()}
+    CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels = {q: (MESH_KERNELS[q],) if MESH_KERNELS[q] else ()
+               for q in CLUSTER_QUERIES}
+    kernels["range"] = ("dense_sums_global",)
+    with tempfile.TemporaryDirectory() as tmp:
+        res, wall = cluster_launch(
+            "cluster_child", os.path.join(tmp, "one"),
+            {"path": path, "queries": list(CLUSTER_QUERIES), "range": True,
+             "faults": True, "kill": True}, 600, device="cuda:0",
+            kill_at=(1, "kill", CLUSTER_KILL_DELAY_S))
+        cluster_require(res, "gloo", killed=1)
+        total = cluster_lines("one card", res, kernels)
+        cluster_check_results("one card", res, G, path, refs)
+        cluster_faults(res)
+        cluster_kill(res)
+        log(f"[cluster] one card: {CLUSTER_PROCESSES} processes x "
+            f"{MESH_SHARDS // CLUSTER_PROCESSES} shards on cuda:0 match the "
+            f"goldens and the one-process mesh's bytes; {wall:.1f} s with "
+            f"the starts")
+        require_kernels("phase 22's processes", ("dense_sums_smem",
+                                                  "dense_sums_global"),
+                        total)
+        for r in res:
+            require_kernels(f"phase 22 rank {r.rank}", (
+                "dense_sums_smem", "dense_sums_global"), r.report["launches"])
+        launches["cluster"] = total
+        captured[("cluster", "dense_sums_smem")] = captured[
+            (mesh_refs["q1"][1], "dense_sums_smem")]
+        captured[("cluster", "dense_sums_global")] = captured[
+            (mesh_refs["range"][1], "dense_sums_global")]
+        log(f"[cluster] one card: {time.perf_counter() - t0:.1f} s")
+        if torch.cuda.device_count() < 2 * CLUSTER_PROCESSES:
+            log(f"[cluster] {torch.cuda.device_count()} card(s): the "
+                f"two-cards-a-process cases run on a host with "
+                f"{2 * CLUSTER_PROCESSES} cards (--phases cluster)")
+            return
+        t1 = time.perf_counter()
+        sf10_path, ans = sf10.get("cluster")
+        res, wall = cluster_launch(
+            "cluster_child", os.path.join(tmp, "cards"),
+            {"path": path, "queries": list(SQL_KERNELS), "range": False,
+             "sf10": sf10_path, "cache_bytes": MESH_CACHE_BYTES,
+             "faults": True, "kill": True}, 1500,
+            visible_devices=CLUSTER_CARDS,
+            kill_at=(1, "kill", CLUSTER_KILL_DELAY_S))
+        cluster_require(res, "nccl", killed=1)
+        kernels = {q: (k,) if k else () for q, k in SQL_KERNELS.items()}
+        kernels.update({f"sf{OOC_SF} q1": ("dense_sums_smem",),
+                        f"sf{OOC_SF} q6": ("dense_sums_smem",)})
+        cluster_lines("4 cards", res, kernels)
+        cluster_check_results("4 cards", res, G, path, {}, ans)
+        cluster_faults(res)
+        cluster_kill(res)
+        log(f"[cluster] 4 cards: {CLUSTER_PROCESSES} processes x 2 cards "
+            f"(CUDA_VISIBLE_DEVICES {', '.join(CLUSTER_CARDS)}) over NCCL: "
+            f"the 22 SQL queries and SF{OOC_SF} Q1/Q6 resident match the "
+            f"goldens, the fault and the kill end both alike; {wall:.1f} s "
+            f"with the starts; {time.perf_counter() - t1:.1f} s in all")
+
+
 def run_phases(D, phases):
     """The main-path phases chosen (5-12); returns the per-kernel launch
     counts of each query's first run and the kernel inputs each query's
@@ -6442,7 +6858,7 @@ def run_phases(D, phases):
     try:
         if {"main", "sql", "functions", "etl", "ooc", "udf", "mesh",
                 "obs", "stream", "analysis", "serve", "fleet",
-                "libs"} & phases:
+                "libs", "cluster"} & phases:
             with tempfile.TemporaryDirectory() as tmp:
                 t0 = time.perf_counter()
                 path = write_parquet(tmp + "/tpch", SF)
@@ -6480,10 +6896,12 @@ def run_phases(D, phases):
                     t0 = time.perf_counter()
                     phase_udf(D, S, path, launches, current, captured)
                     log(f"[udf] phase in {time.perf_counter() - t0:.1f} s")
+                #: phase 14's pinned first runs, phase 22's references
+                mesh_refs = {}
                 if "mesh" in phases:
                     t0 = time.perf_counter()
                     phase_mesh(D, S, G, path, df_results, launches, current,
-                               sf10)
+                               sf10, mesh_refs)
                     log(f"[mesh] phase in {time.perf_counter() - t0:.1f} s")
                 if "obs" in phases:
                     # its kernel inputs are main's and sql's when those ran
@@ -6516,6 +6934,12 @@ def run_phases(D, phases):
                     t0 = time.perf_counter()
                     phase_libs(S, path)
                     log(f"[libs] phase in {time.perf_counter() - t0:.1f} s")
+                if "cluster" in phases:
+                    t0 = time.perf_counter()
+                    phase_cluster(D, S, G, path, launches, current,
+                                  captured, sf10, mesh_refs)
+                    log(f"[cluster] phase in "
+                        f"{time.perf_counter() - t0:.1f} s")
         if "elastic" in phases:
             t0 = time.perf_counter()
             phase_elastic(D, S, launches, current, sf10)
@@ -6842,7 +7266,8 @@ def kernel_report(D, launches, captured, phases):
     sql = [(name, label) for label, name in captured
            if label.startswith(("sql ", "tpcds ", "functions ", "etl ",
                                 "ooc ", "udf ", "mesh ", "obs ",
-                                "elastic ", "stream ", "serve ", "fleet"))]
+                                "elastic ", "stream ", "serve ", "fleet",
+                                "cluster"))]
     inputs = [(name, q, x) for name, q in programs + sql
               for x in captured[(q, name)].values()]
     for name, q, (idx, ir, fr, domain, _kept) in inputs:

@@ -14,7 +14,11 @@ Thread roots (what makes state here "shared"):
   cancel tokens, counts launches, posts on the session's bus);
 - the mesh's shard threads (`parallel/mesh.run_on_shards`), one per
   shard, which launch kernels, copy between cards and post per-shard
-  telemetry;
+  telemetry; on a mesh that spans processes the shard thread that
+  completes a local rendezvous makes the cross-process call
+  (`parallel/cluster.py`) for all of them;
+- a cluster process's heartbeat thread (`parallel/cluster.py`), which
+  writes only to its own store client;
 - the ingest-prefetch daemon (`io/sources.PrefetchChunkIterator`),
   which fires fault seams and counts registry metrics;
 - the SQL service's request threads (`service/server.py`: one per HTTP
@@ -236,6 +240,24 @@ LOCKS: Tuple[LockDecl, ...] = (
              "port-only: run_on_shards' per-run error list (a function "
              "local, one per mesh run), appended to by a failing shard "
              "thread before it aborts the group's barrier; a leaf"),
+    LockDecl("cluster.run", _PKG + "parallel/cluster.py", "Cluster",
+             "run_lock", "rlock", 28,
+             "port-only: one execution at a time of this process uses "
+             "the cluster's process groups (Executor._execute_batch, "
+             "from get_mesh to the last agreement), so its collectives "
+             "keep the order every peer process keeps; held by the "
+             "query's thread across the execution (re-entered by a "
+             "scalar subquery or cached subtree run inside it), while "
+             "the shard threads take their own locks"),
+    LockDecl("cluster.init", _PKG + "parallel/cluster.py", "",
+             "_INIT_LOCK", "lock", 86,
+             "port-only: the process's one init_process_group call and "
+             "_CLUSTER; a leaf"),
+    LockDecl("cluster.stats", _PKG + "parallel/cluster.py", "",
+             "_STATS_LOCK", "lock", 87,
+             "port-only: CLUSTER_STATS, the bytes that crossed processes, "
+             "added to by the shard thread that makes a collective; a "
+             "leaf"),
     LockDecl("testing.lockwatch", _PKG + "testing/lockwatch.py",
              "LockWatch", "_mu", "lock", 95,
              "lockwatch's own recorder lock: acquired inside every "
@@ -417,11 +439,25 @@ GUARDED_BY: Tuple[GuardDecl, ...] = (
     GuardDecl(_PKG + "session.py", "SparkTpuSession", "_query_seq",
               "_query_seq_lock"),
     GuardDecl(_PKG + "parallel/mesh.py", "", "COPY_STATS", "_COPY_LOCK"),
+    GuardDecl(_PKG + "parallel/cluster.py", "", "_CLUSTER", "_INIT_LOCK"),
+    GuardDecl(_PKG + "parallel/cluster.py", "", "CLUSTER_STATS",
+              "_STATS_LOCK"),
 )
 
 #: intentionally-unguarded state, each with the reason the race is
 #: benign. The lint prints this list verbatim in its notes.
 WAIVERS: Tuple[Waiver, ...] = (
+    *(Waiver(_PKG + "parallel/cluster.py", "Cluster", attr,
+             "written only by the thread that makes this process's "
+             "cluster collective: one execution at a time holds "
+             "run_lock, and within it the local rendezvous hands each "
+             "collective to one shard thread, its barrier ordering "
+             "one leader after the next")
+      for attr in ("gen", "_groups", "_abandoned", "_doomed", "_beats",
+                   "_aborted", "_lost", "backends_used")),
+    Waiver(_PKG + "parallel/cluster.py", "Cluster", "_peer_store",
+           "assigned once, by cluster.init under _INIT_LOCK, before the "
+           "cluster is published to any other thread"),
     Waiver(_OBS + "metrics.py", "Gauge", "value",
            "single attribute store, atomic under the GIL; readers "
            "tolerate a stale point-in-time value"),
@@ -646,6 +682,20 @@ EXTRA_EDGES: Tuple[Tuple[str, str, str], ...] = (
      "collectives count copied bytes under the lease"),
     ("service.session", "mesh.shard_errors", "a mesh query's failing "
      "shard records its error under the lease"),
+    ("service.session", "cluster.run", "a cluster mesh attempt runs "
+     "under the lease"),
+    ("cluster.run", "service.arbiter", "the scans of a cluster "
+     "execution lease device memory inside it"),
+    ("cluster.run", "io.device_cache", "load_shards reads the device "
+     "cache inside the cluster execution"),
+    ("cluster.run", "faults.plan", "the stage_run and mesh seams fire "
+     "inside the cluster execution"),
+    ("cluster.run", "mesh.copy_stats", "the result gather counts its "
+     "copies inside the cluster execution"),
+    ("cluster.run", "mesh.shard_errors", "run_on_shards inside the "
+     "cluster execution"),
+    ("cluster.run", "cluster.stats", "the agreement and the result "
+     "gather count crossed bytes inside the cluster execution"),
     ("service.session", "streaming.live", "the stream listing reads "
      "the live registry"),
     # admission's on_event callback is an opaque callable statically;

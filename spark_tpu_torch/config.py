@@ -581,6 +581,23 @@ MESH_EXCLUDE_DEVICES = register(
         "surviving pool, shrinking below mesh.size instead of failing; "
         "a pool of <= 1 survivors runs on the session's device.")
 
+CLUSTER_COORDINATOR = register(
+    "spark_tpu.sql.cluster.coordinator", "",
+    doc="host:port of the coordinator of a mesh that spans engine "
+        "processes (empty = one process). Every process runs the same "
+        "engine program; parallel.mesh.init_distributed dials in "
+        "(torch.distributed over tcp://host:port, parallel/cluster.py) "
+        "and mesh.size then counts every process's devices, ordered by "
+        "process, then by local device.")
+
+CLUSTER_NUM_PROCESSES = register(
+    "spark_tpu.sql.cluster.numProcesses", 1,
+    doc="Number of engine processes (hosts) in the cluster.")
+
+CLUSTER_PROCESS_ID = register(
+    "spark_tpu.sql.cluster.processId", 0,
+    doc="This process's rank within the cluster.")
+
 MESH_FALLBACK_ENABLED = register(
     "spark_tpu.execution.meshFallback.enabled", True,
     doc="When a distributed run fails inside the mesh/collective path "
@@ -1128,7 +1145,6 @@ SERVICE_HISTORY_SIZE = register(
 
 # -- keys of slices not yet ported ------------------------------------------
 
-_MULTI_HOST = "the multi-host mesh (init_distributed)"
 #: slice 12b ported the analyzer but not its jaxpr half (ROADMAP)
 _JAXPR = ("slice 12b, whose jaxpr analyzer the eager port leaves out: no "
           "stage program exists to walk before dispatch, and the plan "
@@ -1149,9 +1165,6 @@ UNPORTED_KEYS: Dict[str, tuple] = {
     # (spark_tpu/execution/streaming_agg.py:45)
     "spark_tpu.sql.execution.bucketGrowth": (_COMPILE_CACHE, 2.0),
     "spark_tpu.sql.analysis.jaxpr": (_JAXPR, "auto"),
-    "spark_tpu.sql.cluster.coordinator": (_MULTI_HOST, ""),
-    "spark_tpu.sql.cluster.numProcesses": (_MULTI_HOST, 1),
-    "spark_tpu.sql.cluster.processId": (_MULTI_HOST, 0),
     "spark_tpu.sql.compileCache.enabled": (_COMPILE_CACHE, False),
     "spark_tpu.sql.compileCache.dir": (_COMPILE_CACHE, "spark-compile-cache"),
     "spark_tpu.sql.compileCache.maxBytes": (_COMPILE_CACHE, 1 << 30),

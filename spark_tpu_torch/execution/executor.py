@@ -283,19 +283,23 @@ def load_shards(root: P.PhysicalPlan, conf, mesh) -> List[Dict[int, Batch]]:
     """Per shard, the stripe of every loaded leaf by node id: scans
     through the device table cache (one entry per shard and card), the
     spliced InputExec batches padded and striped, each stripe on its
-    shard's device; a mesh stream's per-shard partials as they are."""
+    shard's device; a mesh stream's per-shard partials as they are. On a
+    mesh that spans processes, this process's positions only (the
+    others' maps stay empty)."""
     from ..io.device_cache import load_scan_shards
     from ..parallel.shuffle import move_batch, shard_stripes
     n = mesh.size
+    local = mesh.local_positions
     out: List[Dict[int, Batch]] = [{} for _ in range(n)]
     for s in plan_nodes(root, P.ScanExec):
-        for i, b in enumerate(load_scan_shards(s, conf, mesh)):
-            out[i][id(s)] = b
+        parts = load_scan_shards(s, conf, mesh)
+        for i in local:
+            out[i][id(s)] = parts[i]
     for s in plan_nodes(root, P.InputExec):
         parts = s.shards if s.shards is not None and len(s.shards) == n \
             else shard_stripes(s.load(), n)
-        for i, b in enumerate(parts):
-            out[i][id(s)] = move_batch(b, mesh.devices[i])
+        for i in local:
+            out[i][id(s)] = move_batch(parts[i], mesh.devices[i])
     return out
 
 
@@ -999,10 +1003,13 @@ class QueryExecution:
         from ..config import Conf
         from ..parallel import elastic as EL
         from .failures import is_mesh_failure
+        from ..parallel.cluster import ClusterPeerLostError
         cls = classify(e)
         msg = f"{type(e).__name__}: {e}"
         if cls is FailureClass.CANCELLED:
             raise e  # lifecycle control outranks every rung
+        if isinstance(e, ClusterPeerLostError):
+            raise e  # a cluster that lost a process cannot re-form
         conf = self._conf
         mesh_on = int(conf.get("spark_tpu.sql.mesh.size")) > 1
         if mesh_on and isinstance(e, EL.MeshDecommissionRequest):
@@ -1301,13 +1308,23 @@ class QueryExecution:
                 + f"#mesh{n}#src{tokens!r}")
 
     def _run_mesh(self, root: P.PhysicalPlan, conf, mesh,
-                  loaded: List[Dict[int, Batch]]):
+                  loaded: List[Dict[int, Batch]], t_att: float,
+                  timeout_ms: int):
         """One attempt on the mesh: `run_plan` on every shard's thread
         (the JAX package's `run_shard`). Returns the output concatenated
         in shard order on the session's device, the flags reduced by sum
-        and the metrics by `reduce_shard_metrics`, both on the host."""
+        and the metrics by `reduce_shard_metrics`, both on the host.
+
+        On a mesh that spans processes this process runs its own shards;
+        then every process agrees on every shard's flags and metrics (so
+        the re-plan loop, the skew re-plan and the kept capacities decide
+        alike everywhere) and on the stage-timeout verdict (an attempt
+        over `timeout_ms` since `t_att` in any process fails it in
+        every process), and gathers every shard's output, so that
+        `collect()` in every process returns the whole result."""
         from ..parallel import AXIS, concat_batches, run_on_shards
-        from ..parallel.shuffle import stripe_batch
+        from ..parallel.shuffle import (batch_from_tree, batch_to_tree,
+                                        stripe_batch)
         n = mesh.size
         # sorted/limited/global-aggregate results are replicated on every
         # shard; each shard emits its contiguous stripe so the shards'
@@ -1325,13 +1342,35 @@ class QueryExecution:
             return out, host_metrics(ctx.flags), host_metrics(ctx.metrics)
 
         results = run_on_shards(mesh, shard)
-        self._shard_metrics = [r[2] for r in results]
-        out = concat_batches([r[0] for r in results], self.session.device)
+        local = mesh.local_positions
+        if mesh.cluster is not None:
+            cl = mesh.cluster
+            att_ms = (time.perf_counter() - t_att) * 1e3
+            late = att_ms if 0 < timeout_ms < att_ms else None
+            per_rank = cl.all_gather_object(
+                (late, timeout_ms,
+                 [(results[i][1], results[i][2]) for i in local]), "agree")
+            for rank, (ms, limit, _fm) in enumerate(per_rank):
+                if ms is not None:
+                    raise StageTimeoutError(
+                        f"stage attempt took {ms:.0f}ms > "
+                        f"stageTimeoutMs={limit} in process {rank}: "
+                        f"{root.simple_string()}")
+            host = [fm for _ms, _limit, per in per_rank for fm in per]
+            trees = cl.merge("gather", "gather", [
+                batch_to_tree(results[i][0]) for i in local],
+                mesh.rank_positions, mesh.backend, mesh.local_devices[0])
+            outs = [batch_from_tree(t) for t in trees]
+        else:
+            host = [(r[1], r[2]) for r in results]
+            outs = [r[0] for r in results]
+        self._shard_metrics = [m for _f, m in host]
+        out = concat_batches(outs, self.session.device)
         flags: Dict[str, object] = {}
-        for _, f, _m in results:
+        for f, _m in host:
             for k, v in f.items():
                 flags[k] = bool(flags.get(k, False)) or bool(v)
-        return out, flags, reduce_shard_metrics([r[2] for r in results])
+        return out, flags, reduce_shard_metrics([m for _f, m in host])
 
     def _maybe_skew_replan(self, root: P.PhysicalPlan, exch_tag: str,
                            metrics: Dict, mesh) -> bool:
@@ -1386,7 +1425,34 @@ class QueryExecution:
         return True
 
     def _execute_batch(self) -> Batch:
-        from ..parallel.mesh import get_mesh, mesh_size
+        """One execution of the plan. On a mesh that spans processes
+        the whole of it, from `get_mesh` to the last agreement, holds the
+        cluster's run lock (one execution at a time of this process makes
+        collectives, so they keep the order every peer keeps), and an
+        error raised anywhere in it is broken to every process
+        (`Cluster.abort`), which all raise the first error written and
+        so take the same rung of the failure ladder."""
+        from ..parallel.cluster import cluster_spec, init
+        from ..parallel.mesh import RENDEZVOUS_TIMEOUT_S, mesh_size
+        cl = None
+        if mesh_size(self._conf) > 1 and cluster_spec(self._conf):
+            cl = init(self._conf, RENDEZVOUS_TIMEOUT_S)
+        if cl is None:
+            return self._execute_once(None)
+        with cl.run_lock:
+            cl.begin_attempt()
+            try:
+                return self._execute_once(cl)
+            except _ReplanRequest:
+                raise  # decided alike everywhere from agreed metrics
+            except BaseException as e:
+                agreed = cl.abort(e)
+                if agreed is e:
+                    raise
+                raise agreed from e
+
+    def _execute_once(self, cl) -> Batch:
+        from ..parallel.mesh import get_mesh, pinned_pool_size
         from ..testing import faults
         from . import lifecycle
         conf = self._conf
@@ -1394,7 +1460,8 @@ class QueryExecution:
         # a session built with a device places every shard on it, over a
         # pool of virtual ids as large as the largest mesh it ran
         if session.device_pinned:
-            session.mesh_pool = max(session.mesh_pool, mesh_size(conf))
+            session.mesh_pool = max(session.mesh_pool,
+                                    pinned_pool_size(conf))
         mesh = get_mesh(conf, *self._mesh_pool())
         if mesh is not None:
             # a drain request no gang of this size can apply must not
@@ -1487,7 +1554,7 @@ class QueryExecution:
                 faults.fire("stage_run")  # fault seam: before each run
                 # the peak statistics are the card's: reset them before
                 # any shard thread starts
-                cost = AttemptCost(mesh.devices if mesh is not None
+                cost = AttemptCost(mesh.local_devices if mesh is not None
                                    else (session.device,)) \
                     if observe_cost else None
                 if mesh is None:
@@ -1500,8 +1567,8 @@ class QueryExecution:
                     metrics = ctx.metrics
                 else:
                     faults.fire("mesh")  # fault seam: each mesh run
-                    out, flags, metrics = self._run_mesh(root, conf, mesh,
-                                                         loaded)
+                    out, flags, metrics = self._run_mesh(
+                        root, conf, mesh, loaded, t_att, timeout_ms)
                 self.spans.record("dispatch", t_att, time.perf_counter(),
                                   attempt=attempt)
                 key = self._stage_key(root, mesh) \
@@ -1512,7 +1579,8 @@ class QueryExecution:
                 # the deadline before the stage timeout: an attempt past
                 # the end-to-end budget stops the ladder, never retries
                 lifecycle.checkpoint("post_dispatch")
-                if timeout_ms > 0:
+                # (a cluster agreed its verdict inside _run_mesh)
+                if timeout_ms > 0 and (mesh is None or mesh.cluster is None):
                     att_ms = (time.perf_counter() - t_att) * 1e3
                     if att_ms > timeout_ms:
                         raise StageTimeoutError(
@@ -1551,6 +1619,29 @@ class QueryExecution:
             self._export_profile(prof, profile_dir)
         self.attempts = attempt + 1
         self.last_metrics = host_metrics(metrics)
+        self.phase_times["execution"] = time.perf_counter() - t0
+        if mesh is not None and self._shard_obs_on():
+            # each exchange's per-shard rows and bytes become
+            # transfer-phase records; they never enter last_metrics
+            self._record_exchange_shards(self._shard_metrics or [], mesh)
+        if self._mesh_fallback:
+            # the degraded one-device result of a mesh-planned query
+            self.last_metrics["mesh_fallback"] = 1
+        # fill the data cache on the first action over a marked plan
+        self._filled = None
+        fp = session._plan_fingerprint(self.logical) \
+            if session._cache_requests else None
+        if fp in session._cache_requests and fp not in session._data_cache:
+            t0 = time.perf_counter()
+            self._filled = out.to_arrow()
+            t1 = time.perf_counter()
+            self.phase_times["egress"] = t1 - t0
+            self.spans.record("egress", t0, t1)
+        if cl is not None:
+            # the last agreement: every process got past every point
+            # where it could fail, so none keeps state below that a peer
+            # that failed (and will retry) did not keep
+            cl.all_gather_object(None, "done")
         if adaptive:
             shrink_caps_from_rtf(root, self.last_metrics,
                                  mesh.size if mesh is not None else 1)
@@ -1565,24 +1656,7 @@ class QueryExecution:
                 store.setdefault(aqe_key, {}).update(converged)
                 while len(store) > MAX_SAVED_PLANS:
                     store.pop(next(iter(store)))
-        self.phase_times["execution"] = time.perf_counter() - t0
-        if mesh is not None and self._shard_obs_on():
-            # each exchange's per-shard rows and bytes become
-            # transfer-phase records; they never enter last_metrics
-            self._record_exchange_shards(self._shard_metrics or [])
-        if self._mesh_fallback:
-            # the degraded one-device result of a mesh-planned query
-            self.last_metrics["mesh_fallback"] = 1
-        # fill the data cache on the first action over a marked plan
-        self._filled = None
-        fp = session._plan_fingerprint(self.logical) \
-            if session._cache_requests else None
-        if fp in session._cache_requests and fp not in session._data_cache:
-            t0 = time.perf_counter()
-            self._filled = out.to_arrow()
-            t1 = time.perf_counter()
-            self.phase_times["egress"] = t1 - t0
-            self.spans.record("egress", t0, t1)
+        if self._filled is not None:
             session._data_cache[fp] = self._filled
         self._end_root = root
         return out
@@ -1814,7 +1888,8 @@ class QueryExecution:
         if not profile_dir:
             return contextlib.nullcontext()
         from torch.profiler import ProfilerActivity, profile
-        devices = mesh.devices if mesh is not None else (self.session.device,)
+        devices = mesh.local_devices if mesh is not None \
+            else (self.session.device,)
         activities = [ProfilerActivity.CPU]
         if any(torch.device(d).type == "cuda" for d in devices):
             activities.append(ProfilerActivity.CUDA)
@@ -1834,22 +1909,26 @@ class QueryExecution:
             import warnings
             warnings.warn(f"profile trace write failed: {e}")
 
-    def _record_exchange_shards(self, per_shard: List[Dict[str, object]]
-                                ) -> None:
+    def _record_exchange_shards(self, per_shard: List[Dict[str, object]],
+                                mesh=None) -> None:
         """Each exchange's per-shard routed rows and bytes
         (`exch_rows_<tag>`/`exch_bytes_<tag>`, which `parallel/
         shuffle.py` counts on every shard) as transfer-phase records on
         the span recorder — the records the JAX package unpacks from its
-        one-hot `shard_rows_`/`shard_bytes_` vectors. One process drives
-        the port's mesh, so every shard's host is 0."""
+        one-hot `shard_rows_`/`shard_bytes_` vectors. A shard's host is
+        the rank of the process that drove it (`mesh.shard_hosts`)."""
         if not per_shard:
             return
+        from ..parallel.mesh import shard_hosts
+        hosts = shard_hosts(mesh) if mesh is not None \
+            else [0] * len(per_shard)
         for k in per_shard[0]:
             if not k.startswith("exch_rows_"):
                 continue
             tag = k[len("exch_rows_"):]
             self.spans.add_shard_records([{
-                "shard": i, "host": 0, "chunk": None, "phase": "transfer",
+                "shard": i, "host": hosts[i], "chunk": None,
+                "phase": "transfer",
                 "rows": int(m.get(k, 0)),
                 "bytes": (int(m[f"exch_bytes_{tag}"])
                           if f"exch_bytes_{tag}" in m else None),

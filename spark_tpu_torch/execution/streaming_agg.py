@@ -674,6 +674,9 @@ def stream_scan_aggregate_mesh(agg: "P.HashAggregateExec", mesh, conf,
         return None
     if _prefer_resident(leaf, conf, device):
         return None
+    from ..parallel.elastic import refuse_on_cluster
+    refuse_on_cluster(conf, "the mesh stream (a chunked scan past "
+                            "streamingChunkRows on a mesh)")
 
     from ..observability.spans import current_shard_telemetry
     needs_base = any(a.func.uses_row_base for a in agg.agg_exprs)

@@ -24,10 +24,12 @@ import pandas as pd
 _LOG_NAME = re.compile(r"^app-(?P<stem>.+?)(?:\.(?P<n>\d+))?\.jsonl$")
 
 
-def _log_paths(log_dir: str, app: Optional[str]) -> List[str]:
+def _log_paths(log_dir: str, app: Optional[str],
+               rank: Optional[int] = None) -> List[str]:
     """Event-log files in replay order: per app stem, rolled files in
     roll-index order, the live (unsuffixed) file last — so a rotated
-    log replays its lines in write order."""
+    log replays its lines in write order. `rank` keeps the files one
+    engine process of a cluster wrote (stems ending `-r<rank>`)."""
     entries: List[Tuple[str, int, str]] = []
     for path in glob.glob(os.path.join(log_dir, "app-*.jsonl")):
         m = _LOG_NAME.match(os.path.basename(path))
@@ -35,6 +37,8 @@ def _log_paths(log_dir: str, app: Optional[str]) -> List[str]:
             continue
         stem, n = m.group("stem"), m.group("n")
         if app is not None and stem != app:
+            continue
+        if rank is not None and not stem.endswith(f"-r{rank}"):
             continue
         # live file sorts after every rolled index
         entries.append((stem, int(n) if n is not None else 1 << 62, path))
@@ -47,12 +51,14 @@ _NESTED = ("spans", "stages", "shards", "predictions",
            "udf", "trigger", "rule_trace")
 
 
-def read_event_log(log_dir: str, app: Optional[str] = None) -> pd.DataFrame:
+def read_event_log(log_dir: str, app: Optional[str] = None,
+                   rank: Optional[int] = None) -> pd.DataFrame:
     """All logged query executions as a flat DataFrame (one row per
     execution: ts, plan, status, per-phase seconds, metric columns,
-    plus nested `spans`/`stages` object columns when logged)."""
+    plus nested `spans`/`stages` object columns when logged). `rank`
+    reads one cluster process's files."""
     rows: List[dict] = []
-    for path in _log_paths(log_dir, app):
+    for path in _log_paths(log_dir, app, rank):
         with open(path) as f:
             for line in f:
                 line = line.strip()

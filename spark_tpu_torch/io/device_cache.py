@@ -290,24 +290,33 @@ def load_scan_shards(scan, conf, mesh) -> list:
     """The n stripes of a ScanExec's batch, stripe i on the mesh's device
     i, each cached under its shard's key. On a miss the scan loads once
     onto the host, pads to a multiple of n and copies each stripe to its
-    device (the JAX package hands the padded batch to `shard_map`)."""
+    device (the JAX package hands the padded batch to `shard_map`).
+
+    On a mesh that spans processes each process reads the whole scan (as
+    every JAX process hands the same array to `device_put`) and copies
+    only its own positions' stripes; the others' entries are None, and
+    the cache keys name the process's rank."""
     from ..parallel.shuffle import move_batch, shard_stripes
     n = mesh.size
+    local = mesh.local_positions
     budget = int(conf.get(CACHE_BYTES_KEY))
     keys = [None] * n
     if budget > 0:
-        base = [scan_cache_key(scan, d) for d in mesh.devices]
-        if base[0] is not None:
-            keys = [k + (f"shard{i}/{n}",) for i, k in enumerate(base)]
-    if keys[0] is not None:
-        hits = [CACHE.get(k) for k in keys]
-        if all(h is not None for h in hits):
+        rank = f"/r{mesh.ranks[local[0]]}" if mesh.cluster is not None \
+            else ""
+        for i in local:
+            k = scan_cache_key(scan, mesh.devices[i])
+            keys[i] = None if k is None else k + (f"shard{i}/{n}{rank}",)
+    if all(keys[i] is not None for i in local):
+        hits = [CACHE.get(k) if k is not None else None for k in keys]
+        if all(hits[i] is not None for i in local):
             return hits
     import torch
     host = scan.load(torch.device("cpu"))
-    out = [move_batch(b, d)
-           for b, d in zip(shard_stripes(host, n), mesh.devices)]
-    if keys[0] is not None:
-        for k, b in zip(keys, out):
-            CACHE.put(k, b, budget)
+    stripes = shard_stripes(host, n)
+    out = [move_batch(stripes[i], mesh.devices[i])
+           if mesh.devices[i] is not None else None for i in range(n)]
+    for i in local:
+        if keys[i] is not None:
+            CACHE.put(keys[i], out[i], budget)
     return out

@@ -353,17 +353,28 @@ class MetricsRegistry:
         try:
             with self._flush_lock:
                 os.makedirs(out_dir, exist_ok=True)
+                rank = rank_suffix(conf)
                 if "jsonl" in sinks:
                     line = json.dumps(dict(snap, ts=time.time()))
-                    with open(os.path.join(out_dir,
-                                           "metrics.jsonl"), "a") as f:
+                    with open(os.path.join(out_dir, f"metrics{rank}.jsonl"),
+                              "a") as f:
                         f.write(line + "\n")
                 if "prometheus" in sinks:
-                    write_prometheus(os.path.join(out_dir, "metrics.prom"),
-                                     snap)
+                    write_prometheus(os.path.join(
+                        out_dir, f"metrics{rank}.prom"), snap)
         except OSError as e:
             import warnings
             warnings.warn(f"metrics sink write failed: {e}")
+
+
+def rank_suffix(conf) -> str:
+    """"-r<rank>" in the name of every file an engine process of a
+    cluster writes to a directory its peers share (the event log, the
+    traces, the metrics sinks), so that no process's file is another's;
+    "" outside a cluster."""
+    if not str(conf.get("spark_tpu.sql.cluster.coordinator") or ""):
+        return ""
+    return f"-r{int(conf.get('spark_tpu.sql.cluster.processId'))}"
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ import torch
 
 from .listener import (QueryEndEvent, QueryListener,
                        StreamingBatchEvent, StreamingTriggerEvent)
+from .metrics import rank_suffix
 from .spans import to_chrome_trace
 
 # v3: per-shard telemetry (`shards` records + `shards_dropped`), the
@@ -71,7 +72,10 @@ class EventLogListener(QueryListener):
     """Appends one JSON line per query execution to
     `<eventLog.dir>/app-<app_id>.jsonl` (the EventLoggingListener.scala
     seat). `app_id` is session-unique (pid + random token): a bare pid
-    collides across reruns on the same machine.
+    collides across reruns on the same machine. An engine process of a
+    cluster adds its rank (`app-<app_id>-r<rank>.jsonl`,
+    `metrics.rank_suffix`), so processes that share the directory never
+    write one file.
 
     Rotation: when `spark_tpu.sql.eventLog.maxBytes` > 0 and the live
     file has reached it, the live file rolls to `app-<app_id>.N.jsonl`
@@ -101,15 +105,17 @@ class EventLogListener(QueryListener):
             return
         if size < max_bytes:
             return
-        rx = re.compile(
-            re.escape(f"app-{self._session.app_id}.") + r"(\d+)\.jsonl$")
+        stem = self._stem()
+        rx = re.compile(re.escape(f"app-{stem}.") + r"(\d+)\.jsonl$")
         n = 0
         for name in os.listdir(log_dir):
             m = rx.match(name)
             if m:
                 n = max(n, int(m.group(1)))
-        os.replace(base, os.path.join(
-            log_dir, f"app-{self._session.app_id}.{n + 1}.jsonl"))
+        os.replace(base, os.path.join(log_dir, f"app-{stem}.{n + 1}.jsonl"))
+
+    def _stem(self) -> str:
+        return self._session.app_id + rank_suffix(self._session.conf)
 
     def on_query_end(self, event: QueryEndEvent) -> None:
         log_dir = str(self._session.conf.get(self.DIR_KEY))
@@ -118,8 +124,7 @@ class EventLogListener(QueryListener):
         try:
             with self._write_lock:
                 os.makedirs(log_dir, exist_ok=True)
-                base = os.path.join(log_dir,
-                                    f"app-{self._session.app_id}.jsonl")
+                base = os.path.join(log_dir, f"app-{self._stem()}.jsonl")
                 max_bytes = int(self._session.conf.get(self.MAX_BYTES_KEY))
                 if max_bytes > 0 and os.path.exists(base):
                     self._roll(log_dir, base, max_bytes)
@@ -193,6 +198,7 @@ class ChromeTraceListener(QueryListener):
             path = os.path.join(
                 trace_dir,
                 f"query-{self._session.app_id}"
+                f"{rank_suffix(self._session.conf)}"
                 f"-{event.query_id:05d}.trace.json")
             tmp = path + ".tmp"
             with open(tmp, "w") as f:

@@ -179,7 +179,8 @@ class ShardStreamTelemetry:
     The `shard_chunk` fault seam fires once per (chunk, shard) inside
     the timed wait window, so an injected `slow` fault models exactly
     one straggling shard (hit ordinal = chunk * n_shards + shard + 1).
-    The port's mesh has one process, so every shard's host is 0. Shards
+    A shard's host is the rank of the engine process that drives it (0
+    on a one-process mesh; `mesh.shard_hosts`). Shards
     pinned to one card share its stream: the first shard's wait holds
     every shard's work and the others read back at once, so there a
     straggler is only what an injected `slow` fault makes.
@@ -193,7 +194,8 @@ class ShardStreamTelemetry:
         self.source = source
         self.devices = list(mesh.devices)
         self.n = len(self.devices)
-        self.hosts = [0] * self.n
+        from ..parallel.mesh import shard_hosts
+        self.hosts = shard_hosts(mesh)
         #: (chunk, per-shard row counts, row_width, t_dispatch0)
         self._pending: Optional[tuple] = None
 
@@ -203,8 +205,9 @@ class ShardStreamTelemetry:
                        t0: float, t1: float) -> None:
         """Host-side decode of one chunk (the ingest phase): recorded
         directly — it is already host wall-clock, nothing to flush."""
+        from ..parallel.cluster import process_rank
         self.recorder.add_shard_records([{
-            "shard": None, "host": 0,
+            "shard": None, "host": process_rank(),
             "chunk": int(chunk), "phase": "ingest", "rows": int(rows),
             "bytes": int(nbytes), "t0_ms": self.recorder.rel_ms(t0),
             "dur_ms": round((t1 - t0) * 1e3, 3), "source": self.source}])

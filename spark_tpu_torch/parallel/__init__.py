@@ -15,7 +15,9 @@ rendezvous for every collective (`mesh.ShardGroup`); rows move between
 cards by peer copies (`shuffle.py`). See `mesh.py` for where shards
 live, what a position's device id is and how a peer copy is ordered;
 `elastic.py` for the gang restart, graceful decommission and straggler
-rebalancing.
+rebalancing; `cluster.py` for a mesh that spans engine processes (the
+`spark_tpu.sql.cluster.*` keys) and `launch.py` for starting such
+processes on one host.
 """
 
 from .mesh import AXIS, Mesh, get_mesh, mesh_size, run_on_shards

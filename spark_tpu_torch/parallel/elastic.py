@@ -131,13 +131,33 @@ def healthy_device_count(conf, device=None, pinned_pool: int = 0
     re-mesh over: the visible cards, or a pinned session's virtual
     devices (`mesh.device_pool`). None when the pool cannot be read (the
     restart then keeps the configured size)."""
+    from .cluster import cluster_spec
     from .mesh import device_pool, excluded_device_ids, mesh_size
     try:
+        if cluster_spec(conf) is not None:
+            return None  # the pool is every process's: the size stays
         excl = excluded_device_ids(conf)
         pool = device_pool(device, max(pinned_pool, mesh_size(conf)))
         return len([i for i in pool if i not in excl])
     except Exception:  # noqa: BLE001 — probing must never raise
         return None
+
+
+def refuse_on_cluster(conf, what: str) -> None:
+    """Raise AnalysisError when `conf` names a cluster: slice 14 runs a
+    mesh across engine processes as the gang it was formed, so the
+    drain, the straggler rebalancing and the mesh stream (which change
+    the gang or feed its shards chunk by chunk) wait for a later
+    slice."""
+    from ..expr import AnalysisError
+    from .cluster import COORDINATOR_KEY, cluster_spec
+    if cluster_spec(conf) is not None:
+        raise AnalysisError(
+            f"{what} is not ported to a mesh that spans engine processes "
+            f"({COORDINATOR_KEY} is set): slice 14, the multi-host mesh, "
+            f"keeps a cluster's gang as it was formed; decommission, "
+            f"straggler rebalancing and the mesh stream across processes "
+            f"are a later slice's")
 
 
 # ---------------------------------------------------------------------------
@@ -206,6 +226,7 @@ def apply_decommission(session_conf, device_ids: Sequence[int],
     surviving pool so planning (exchange sizes divide by n) agrees with
     the gang that runs, for this query's re-execution and every later
     one. `device` and `pinned_pool` name the pool as get_mesh does."""
+    refuse_on_cluster(session_conf, "a decommission")
     merged = _parse_int_set(session_conf.get(EXCLUDE_KEY)) \
         | set(int(i) for i in device_ids)
     session_conf.set(EXCLUDE_KEY, ",".join(str(i) for i in sorted(merged)))
@@ -223,6 +244,7 @@ def decommission_shards(session, shards: Sequence[int]) -> None:
     A running mesh stream drains at its next chunk boundary; otherwise
     the next mesh query applies it at its first. Merges with a request
     still pending, so back-to-back drains keep the earlier one."""
+    refuse_on_cluster(session.conf, "decommission_shards")
     pending = _parse_int_set(session.conf.get(DECOMMISSION_KEY))
     merged = pending | {int(s) for s in shards}
     session.conf.set(DECOMMISSION_KEY,

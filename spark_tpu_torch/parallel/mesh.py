@@ -45,9 +45,14 @@ the host: a shard deposits its tensors only after queueing the work
 that writes them. So each copy is ordered behind the source's work by
 two CUDA events, with no host synchronise.
 
-Multi-host meshes (`init_distributed`, the `spark_tpu.sql.cluster.*`
-keys) are not ported: they would need a process-group transport under
-the shard group.
+A mesh may span engine processes (`init_distributed`, the
+`spark_tpu.sql.cluster.*` keys, `parallel/cluster.py`): every process
+runs the same program, the global device list is every process's
+devices ordered by process, then by local device, and the mesh takes its
+first mesh.size positions. A position another process owns carries no
+local device (`Mesh.devices[i]` is None); `run_on_shards` starts threads
+for this process's positions only, and the group's collectives cross
+processes through the cluster's process group.
 """
 
 from __future__ import annotations
@@ -80,17 +85,45 @@ class MeshCollectiveError(RuntimeError):
 class Mesh:
     """The devices of the data axis, in shard order, with each position's
     device id (a card's ordinal, or a pinned mesh's virtual id; the
-    position when not given)."""
+    position when not given). On a cluster each position also names the
+    rank of the process that owns it (`ranks`), and a position another
+    process owns has no local device (None)."""
 
-    def __init__(self, devices: Sequence[torch.device],
-                 ids: Optional[Sequence[int]] = None):
-        self.devices = tuple(torch.device(d) for d in devices)
+    def __init__(self, devices: Sequence[Optional[torch.device]],
+                 ids: Optional[Sequence[int]] = None,
+                 ranks: Optional[Sequence[int]] = None, cluster=None,
+                 backend: str = "local"):
+        self.devices = tuple(None if d is None else torch.device(d)
+                             for d in devices)
         self.ids = tuple(int(i) for i in ids) if ids is not None \
             else tuple(range(len(self.devices)))
+        self.ranks = tuple(int(r) for r in ranks) if ranks is not None \
+            else (0,) * len(self.devices)
+        #: this process's `parallel.cluster.Cluster` (None: one process)
+        self.cluster = cluster
+        #: how tensors cross processes: "local" (one process), "gloo" or
+        #: "nccl"
+        self.backend = backend
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def local_positions(self) -> List[int]:
+        """The positions this process drives, in order."""
+        return [i for i, d in enumerate(self.devices) if d is not None]
+
+    @property
+    def local_devices(self) -> List[torch.device]:
+        return [d for d in self.devices if d is not None]
+
+    @property
+    def rank_positions(self) -> List[List[int]]:
+        """Per rank, the positions it owns (contiguous, in order)."""
+        world = max(self.ranks) + 1 if self.ranks else 1
+        return [[i for i, r in enumerate(self.ranks) if r == k]
+                for k in range(world)]
 
     def __repr__(self) -> str:
         return f"Mesh({[str(d) for d in self.devices]}, axis={AXIS!r})"
@@ -127,6 +160,88 @@ def device_pool(device=None, pinned_pool: int = 0) -> List[int]:
                       if torch.cuda.is_available() else 0))
 
 
+def pinned_pool_size(conf) -> int:
+    """The virtual devices a pinned session's process holds for a mesh
+    of mesh.size: all of them in one process, its share
+    (ceil(mesh.size / processes)) on a cluster."""
+    from .cluster import cluster_spec
+    n = mesh_size(conf)
+    spec = cluster_spec(conf)
+    return n if spec is None else -(-n // spec[1])
+
+
+def init_distributed(conf, device=None, pinned_pool: int = 0) -> int:
+    """Join the cluster the `spark_tpu.sql.cluster.*` keys name, so the
+    mesh spans every process's devices (the JAX package's
+    `init_distributed`, over `torch.distributed`).
+
+    Every process runs the SAME engine program, pointed at one
+    coordinator:
+
+        spark_tpu.sql.cluster.coordinator = host0:8476
+        spark_tpu.sql.cluster.numProcesses = <processes>
+        spark_tpu.sql.cluster.processId   = <this process's rank>
+
+    Then set spark_tpu.sql.mesh.size to the GLOBAL device count. Returns
+    the global device count (this process's local count without a
+    coordinator); idempotent per process (`cluster.init`). A collective:
+    every process calls it at the same point. `device` and `pinned_pool`
+    name this process's pool as get_mesh takes them."""
+    from . import cluster
+    local = len(_local_pool(conf, device, pinned_pool))
+    cl = cluster.init(conf, RENDEZVOUS_TIMEOUT_S)
+    if cl is None:
+        return local
+    return sum(cl.all_gather_object(local, "init_distributed"))
+
+
+def _local_pool(conf, device, pinned_pool: int) -> List[torch.device]:
+    """This process's devices for a mesh: a pinned session's virtual
+    devices (its pool, at least its share of mesh.size), else the
+    visible cards."""
+    if device is not None:
+        return [torch.device(device)] * max(pinned_pool,
+                                            pinned_pool_size(conf))
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return [torch.device("cuda", i) for i in range(visible)]
+
+
+def _cluster_mesh(conf, cl, device, pinned_pool: int) -> Optional[Mesh]:
+    """get_mesh on a cluster: the global list is every process's pool,
+    ordered by rank (a position's id is its index there), and the mesh
+    its first mesh.size positions that are not excluded. Every process
+    reaches the same mesh, or the same error."""
+    from .cluster import choose_backend, device_identity
+    n = mesh_size(conf)
+    local = _local_pool(conf, device, pinned_pool)
+    pools = cl.all_gather_object([device_identity(d) for d in local],
+                                 "mesh")
+    total = sum(len(p) for p in pools)
+    if total < n:
+        raise RuntimeError(
+            f"mesh.size={n} but only {total} devices visible across the "
+            f"cluster's {cl.world} processes ({[len(p) for p in pools]} "
+            f"each); lower {MESH_KEY} or give the processes more cards")
+    owner = [(r, k) for r, p in enumerate(pools) for k in range(len(p))]
+    excluded = excluded_device_ids(conf)
+    pool = [g for g in range(total) if g not in excluded]
+    n = min(n, len(pool))
+    if n <= 1:
+        return None
+    chosen = pool[:n]
+    ranks = [owner[g][0] for g in chosen]
+    missing = sorted(set(range(cl.world)) - set(ranks))
+    if missing:
+        raise RuntimeError(
+            f"mesh.size={n} leaves cluster process(es) {missing} without "
+            f"a mesh position: every process must drive a shard")
+    devices = [local[owner[g][1]] if owner[g][0] == cl.rank else None
+               for g in chosen]
+    backend = choose_backend(pools)
+    cl.note_backend(backend)
+    return Mesh(devices, chosen, ranks, cluster=cl, backend=backend)
+
+
 def get_mesh(conf, device=None, pinned_pool: int = 0) -> Optional[Mesh]:
     """The 1-D data mesh from conf, or None at mesh.size <= 1.
 
@@ -135,10 +250,15 @@ def get_mesh(conf, device=None, pinned_pool: int = 0) -> Optional[Mesh]:
     `pinned_pool` devices (at least mesh.size). Without one the mesh
     takes distinct cards; a pool short before exclusions is a setup
     error. Either way exclusions shrink the mesh to the surviving pool
-    (<= 1 survivor: None)."""
+    (<= 1 survivor: None). With a cluster coordinator set, the mesh
+    spans the cluster's processes (`init_distributed`)."""
     n = mesh_size(conf)
     if n <= 1:
         return None
+    from . import cluster
+    cl = cluster.init(conf, RENDEZVOUS_TIMEOUT_S)
+    if cl is not None:
+        return _cluster_mesh(conf, cl, device, pinned_pool)
     if device is not None:
         ids = [i for i in device_pool(device, max(pinned_pool, n))
                if i not in excluded_device_ids(conf)]
@@ -165,9 +285,10 @@ def get_mesh(conf, device=None, pinned_pool: int = 0) -> Optional[Mesh]:
 
 
 def shard_hosts(mesh: Mesh) -> List[int]:
-    """Per-shard host identity for telemetry records: 0 for every shard
-    of a one-process mesh."""
-    return [0] * mesh.size
+    """Per-shard host identity for telemetry records: the rank of the
+    process that owns each position (0 for every shard of a one-process
+    mesh), as the JAX package reads each device's `process_index`."""
+    return list(mesh.ranks)
 
 
 def device_scope(device: torch.device):
@@ -221,30 +342,82 @@ class ShardGroup:
     shard's value in shard order once all shards have deposited theirs
     (the host half of every collective). Two barriers per exchange: the
     second keeps a fast shard's next deposit from overwriting a slot a
-    slow shard has not read yet."""
+    slow shard has not read yet.
 
-    def __init__(self, n: int, timeout_s: float = RENDEZVOUS_TIMEOUT_S):
+    On a cluster the group holds this process's positions only; the
+    thread that completes the deposit barrier makes the cross-process
+    call for all of them (`Cluster.merge`) before any is released.
+    `exchange` carries host objects, `gather_tensors` tensor trees every
+    shard receives whole, and `all_to_all` trees of `[n, ...]` send
+    buffers (row j for position j). In one process the three are the
+    same rendezvous."""
+
+    def __init__(self, n: int, timeout_s: float = RENDEZVOUS_TIMEOUT_S,
+                 mesh: Optional[Mesh] = None):
         self.n = n
-        self._barrier = threading.Barrier(n, timeout=timeout_s)
-        self._slots: List[object] = [None] * n
+        self.positions = mesh.local_positions if mesh is not None \
+            else list(range(n))
+        self._local = {p: k for k, p in enumerate(self.positions)}
+        self._mesh = mesh if mesh is not None and mesh.cluster is not None \
+            else None
+        k = len(self.positions)
+        self._barrier = threading.Barrier(
+            k, timeout=timeout_s,
+            action=self._merge if self._mesh is not None else None)
+        self._read = threading.Barrier(k, timeout=timeout_s) \
+            if self._mesh is not None else self._barrier
+        self._slots: List[object] = [None] * k
+        self._op = ("objects", "exchange")
+        self._merged: List[object] = []
+        self._error: Optional[BaseException] = None
 
-    def _wait(self, what: str) -> None:
+    @property
+    def cluster(self):
+        """The process's cluster when the group spans processes."""
+        return None if self._mesh is None else self._mesh.cluster
+
+    def _merge(self) -> None:
+        m = self._mesh
+        op, what = self._op
         try:
-            self._barrier.wait()
+            self._merged = m.cluster.merge(
+                op, what, list(self._slots), m.rank_positions, m.backend,
+                m.local_devices[0])
+        except BaseException as e:  # noqa: BLE001 — every waiter raises it
+            self._error = e
+            raise
+
+    def _wait(self, barrier, what: str) -> None:
+        try:
+            barrier.wait()
         except threading.BrokenBarrierError:
+            if self._error is not None:
+                raise self._error from None
             raise MeshCollectiveError(
                 f"collective rendezvous broken at {what}: a peer shard "
                 f"failed or the wait timed out") from None
 
-    def exchange(self, i: int, value) -> list:
-        self._slots[i] = value
-        self._wait("deposit")
-        out = list(self._slots)
-        self._wait("read")
+    def _collect(self, i: int, value, op: str, what: str) -> list:
+        self._slots[self._local[i]] = value
+        self._op = (op, what)
+        self._wait(self._barrier, "deposit")
+        out = list(self._merged) if self._mesh is not None \
+            else list(self._slots)
+        self._wait(self._read, "read")
         return out
+
+    def exchange(self, i: int, value) -> list:
+        return self._collect(i, value, "objects", "exchange")
+
+    def gather_tensors(self, i: int, value, what: str) -> list:
+        return self._collect(i, value, "gather", what)
+
+    def all_to_all(self, i: int, value, what: str) -> list:
+        return self._collect(i, value, "all_to_all", what)
 
     def abort(self) -> None:
         self._barrier.abort()
+        self._read.abort()
 
 
 def run_on_shards(mesh: Mesh, fn: Callable[[int, ShardGroup], object],
@@ -252,10 +425,12 @@ def run_on_shards(mesh: Mesh, fn: Callable[[int, ShardGroup], object],
     """Run `fn(shard_index, group)` on one thread per shard, each under
     its device and a copy of the caller's context (cancel token, case
     sensitivity); return the results in shard order (the counterpart of
-    `shard_map`). The first shard error aborts the group; every thread
+    `shard_map`). On a cluster only this process's positions run; the
+    others' results stay None. The first shard error aborts the group;
+    every thread
     is joined before the first original error is raised."""
     n = mesh.size
-    group = ShardGroup(n, timeout_s)
+    group = ShardGroup(n, timeout_s, mesh)
     results: List[object] = [None] * n
     errors: List[BaseException] = []
     lock = threading.Lock()
@@ -270,7 +445,7 @@ def run_on_shards(mesh: Mesh, fn: Callable[[int, ShardGroup], object],
             group.abort()
 
     threads = []
-    for i in range(n):
+    for i in group.positions:
         ctx = contextvars.copy_context()
         t = threading.Thread(target=ctx.run, args=(body, i),
                              name=f"mesh-shard-{i}", daemon=True)

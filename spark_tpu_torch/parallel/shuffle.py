@@ -24,6 +24,13 @@ column's dictionary (`agree_dictionaries`), so codes mean the same on
 every shard. Overflow is never silent: the largest bucket is the
 `exch_max_<tag>` metric and `exch_overflow_<tag>` flags a bucket past
 `block`, which the executor's re-plan loop grows.
+
+On a mesh that spans engine processes (`parallel/cluster.py`) the same
+functions run unchanged on each process's shards: the send buffers go
+through `ctx.all_to_all`, which moves to each process only the blocks
+its shards receive; samples and gathered batches through
+`ctx.gather_tensors`; and dictionaries are first agreed by digest, so
+that equal dictionaries (every process read the same scan) never cross.
 """
 
 from __future__ import annotations
@@ -72,6 +79,31 @@ def _dict_value_hashes(dictionary) -> torch.Tensor:
     if len(_DICT_HASH_CACHE) >= _DICT_HASH_CACHE_MAX:
         _DICT_HASH_CACHE.pop(next(iter(_DICT_HASH_CACHE)), None)
     _DICT_HASH_CACHE[key] = (dictionary, out)
+    return out
+
+
+# id(dict) -> (dictionary, content digest), as _DICT_HASH_CACHE
+_DIGESTS: Dict[int, Tuple[object, str]] = {}
+
+
+def digest(dictionary) -> str:
+    """A content digest of a pyarrow dictionary (its type, length,
+    offset and buffers), cached by object: equal digests mean equal
+    dictionaries, so processes agree on one without sending it."""
+    key = id(dictionary)
+    hit = _DIGESTS.get(key)
+    if hit is not None and hit[0] is dictionary:
+        return hit[1]
+    arr = dictionary.combine_chunks() \
+        if isinstance(dictionary, pa.ChunkedArray) else dictionary
+    h = hashlib.blake2b(digest_size=16)
+    h.update(f"{arr.type}|{len(arr)}|{arr.offset}|{arr.null_count}".encode())
+    for b in arr.buffers():
+        h.update(b"|" if b is None else memoryview(b))
+    out = h.hexdigest()
+    if len(_DIGESTS) >= _DICT_HASH_CACHE_MAX:
+        _DIGESTS.pop(next(iter(_DIGESTS)), None)
+    _DIGESTS[key] = (dictionary, out)
     return out
 
 
@@ -148,6 +180,19 @@ def agree_dictionaries(batch: Batch, ctx) -> Batch:
     from one loaded table share their dictionary objects, so this is
     usually one host rendezvous and no device work."""
     names = [n for n, c in batch.columns.items() if c.dictionary is not None]
+    if ctx.on_cluster:
+        # across processes the shards first agree on digests: equal
+        # dictionaries (each process read the same scan) never cross
+        digests = ctx.exchange({n: digest(batch.columns[n].dictionary)
+                                for n in names})
+        for n in names:
+            if any(d.get(n) is None for d in digests):
+                raise AnalysisError(f"column {n!r} carries a dictionary on "
+                                    f"some shards only")
+        names = [n for n in names
+                 if len({d[n] for d in digests}) > 1]
+        if not names:
+            return batch
     seen = ctx.exchange({n: batch.columns[n].dictionary for n in names})
     cols = dict(batch.columns)
     for n in names:
@@ -260,7 +305,7 @@ def _exchange_by_target(batch: Batch, tgt, ctx, block: int,
         mine[name] = send(col.data)
         if col.validity is not None:
             mine["__valid__" + name] = send(col.validity, False)
-    everyone = ctx.exchange(mine)
+    everyone = ctx.all_to_all(mine, f"all_to_all {tag}")
     me = ctx.axis_index()
     dev = ctx.device
 
@@ -341,7 +386,8 @@ def exchange_range(batch: Batch, orders, ctx,
                          live.to(torch.float32) / s)
 
     from .mesh import gather_to
-    gathered = ctx.exchange((samp_invalid, samp_ops, samp_w))
+    gathered = ctx.gather_tensors((samp_invalid, samp_ops, samp_w),
+                                  f"samples {tag}")
 
     def cat(pick):
         return torch.cat(gather_to([pick(g) for g in gathered], dev,
@@ -390,7 +436,7 @@ def all_gather_batch(batch: Batch, ctx, tag: str = "e0") -> Batch:
         mine[name] = col.data
         if col.validity is not None:
             mine["__valid__" + name] = col.validity
-    everyone = ctx.exchange(mine)
+    everyone = ctx.gather_tensors(mine, f"all_gather {tag}")
 
     def cat(key, fill):
         parts = []
@@ -493,6 +539,24 @@ def pad_batch_to_multiple(batch: Batch, n: int) -> Batch:
     sel = torch.cat([batch.selection_mask(),
                      torch.zeros((pad,), dtype=torch.bool, device=dev)])
     return Batch(cols, sel, dev)
+
+
+def batch_to_tree(batch: Batch) -> dict:
+    """A batch as a tree of tensors and host values, the form a batch
+    crosses processes in (`Cluster.merge`); `batch_from_tree` inverts
+    it."""
+    return {"sel": batch.selection_mask(), "cols": [
+        (name, c.data, c.validity, c.offsets, c.elem_validity, c.dtype,
+         c.dictionary, c.bits) for name, c in batch.columns.items()]}
+
+
+def batch_from_tree(tree: dict) -> Batch:
+    sel = tree["sel"]
+    cols = {name: Column(data, dtype, validity, dictionary, bits=bits,
+                         offsets=offsets, elem_validity=ev)
+            for name, data, validity, offsets, ev, dtype, dictionary, bits
+            in tree["cols"]}
+    return Batch(cols, sel, sel.device)
 
 
 def concat_batches(batches: Sequence[Batch], device) -> Batch:

@@ -173,6 +173,11 @@ class ExecContext:
     def on_mesh(self) -> bool:
         return self.axis_name is not None and self.n_shards > 1
 
+    @property
+    def on_cluster(self) -> bool:
+        """The mesh spans engine processes (`parallel/cluster.py`)."""
+        return getattr(self.group, "cluster", None) is not None
+
     def axis_index(self) -> int:
         return self.shard_index
 
@@ -180,18 +185,31 @@ class ExecContext:
         """Every shard's `value`, in shard order (host objects)."""
         return self.group.exchange(self.shard_index, value)
 
+    def gather_tensors(self, value, what: str) -> list:
+        """Every shard's `value` (tensors, in dicts, lists and tuples),
+        in shard order: this process's shards' as deposited, another
+        process's on this process's device (`ShardGroup`)."""
+        return self.group.gather_tensors(self.shard_index, value, what)
+
+    def all_to_all(self, value, what: str) -> list:
+        """Every shard's `value` of `[n, ...]` send buffers, in shard
+        order; read row `axis_index()` of each (a shard of another
+        process sends only the rows this process's shards receive)."""
+        return self.group.all_to_all(self.shard_index, value, what)
+
     def all_gather(self, t):
         """Every shard's tensor on this shard's device, concatenated in
         shard order along dim 0 (0-d tensors are stacked)."""
         from ..parallel.mesh import gather_to
-        parts = gather_to(self.exchange(t), self.device, "all_gather")
+        parts = gather_to(self.gather_tensors(t, "all_gather"), self.device,
+                          "all_gather")
         if t.dim() == 0:
             return torch.stack(parts)
         return torch.cat(parts)
 
     def _reduce(self, t, op: str):
         from ..parallel.mesh import gather_to
-        parts = gather_to(self.exchange(t), self.device, op)
+        parts = gather_to(self.gather_tensors(t, op), self.device, op)
         out = parts[0]
         for p in parts[1:]:  # shard order: float sums repeat bit for bit
             out = out + p if op == "psum" else (

@@ -7,7 +7,11 @@ device and without CUDA, building a session raises. At
 `spark_tpu.sql.mesh.size` N > 1 a query runs on a mesh of N shards: on
 cards cuda:0 to cuda:N-1 when the session was built without a device
 (fewer cards raise "devices visible"), or all on the device it was built
-with — the counterpart of the JAX package's virtual CPU devices.
+with — the counterpart of the JAX package's virtual CPU devices. With
+the `spark_tpu.sql.cluster.*` keys set, N counts every engine process's
+devices (`parallel/mesh.init_distributed`): a session built without a
+device brings this process's visible cards, one built with a device its
+share of N virtual devices on it.
 
 `sql(text)` parses and lowers one statement (`sql/parser.py`) to the
 same logical plans the DataFrame API builds; a DDL/DML command runs at

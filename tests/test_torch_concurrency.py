@@ -107,10 +107,10 @@ def test_registry_waivers_and_confined_carry_reasons():
 
 def test_registry_declares_every_lock_of_the_package():
     """Every threading.Lock/RLock/Condition construction in
-    spark_tpu_torch/ (the package's 35, the SQL service's eleven and the
-    fleet's two among them, and lockwatch's own recorder lock) is
-    declared, each under the JAX package's id and rank where it is the
-    same lock."""
+    spark_tpu_torch/ (the package's 38, the SQL service's eleven, the
+    fleet's two and the cluster transport's three among them, and
+    lockwatch's own recorder lock) is declared, each under the JAX
+    package's id and rank where it is the same lock."""
     calls = 0
     for dirpath, _, files in os.walk(os.path.join(REPO, "spark_tpu_torch")):
         for name in files:
@@ -125,7 +125,7 @@ def test_registry_declares_every_lock_of_the_package():
                 and isinstance(n.func.value, ast.Name)
                 and n.func.value.id == "threading"
                 and n.func.attr in ("Lock", "RLock", "Condition"))
-    assert calls == len(LOCKS) == 36
+    assert calls == len(LOCKS) == 39
     ref = {d.lock_id: d.rank for d in ref_registry.LOCKS}
     shared = [d for d in LOCKS if d.lock_id in ref]
     assert len(shared) == 31
@@ -133,7 +133,8 @@ def test_registry_declares_every_lock_of_the_package():
         assert d.rank == ref[d.lock_id], d.lock_id
     assert {d.lock_id for d in LOCKS} - set(ref) == {
         "dense_groupby.build", "dense_groupby.launch", "session.query_seq",
-        "mesh.copy_stats", "mesh.shard_errors"}
+        "mesh.copy_stats", "mesh.shard_errors", "cluster.run",
+        "cluster.init", "cluster.stats"}
 
 
 # ---------------------------------------------------------------------------

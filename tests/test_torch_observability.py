@@ -506,8 +506,9 @@ def test_unported_list_after_slice_12a():
     # 55 after slice 12a; slice 10b took its seven keys off, slice 11
     # its eleven, slice 12b four (analysis.jaxpr stays: the port leaves
     # the jaxpr analyzer out), slice 12c's first part fourteen, its
-    # second part the fleet's ten (the compile cache's stay, left out)
-    assert len(port_config.UNPORTED_KEYS) == 9
+    # second part the fleet's ten (the compile cache's stay, left out),
+    # slice 14 the cluster's three
+    assert len(port_config.UNPORTED_KEYS) == 6
     assert not any("12a" in part
                    for part, _ in port_config.UNPORTED_KEYS.values())
     for key, bad in ((SINK_KEY, "statsd"), (COST_KEY, "sometimes"),

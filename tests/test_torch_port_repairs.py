@@ -94,7 +94,7 @@ def test_every_reference_key_is_registered_or_listed():
     assert not set(port) & set(listed)
     for key, (part, default) in listed.items():
         assert default == ref[key].default, key
-        assert part.startswith(("slice", "the multi-host")), key
+        assert part.startswith("slice"), key
     for key in MESH_KEYS:
         assert key in port and key not in listed
         assert port[key].default == ref[key].default
@@ -105,7 +105,9 @@ def test_every_reference_key_is_registered_or_listed():
     # jaxpr key stays listed (the port leaves the jaxpr analyzer out)
     ("spark_tpu.sql.analysis.jaxpr", "on", "slice 12b"),
     ("spark_tpu.sql.analysis.jaxpr", "off", "jaxpr analyzer"),
-    ("spark_tpu.sql.cluster.coordinator", "host0:8476", "multi-host"),
+    # slice 14 registered the cluster keys; the compile cache's maxBytes
+    # stays listed in their place
+    ("spark_tpu.sql.compileCache.maxBytes", 1 << 20, "slice 12c part 2"),
     # slice 12c part 2 registered the fleet's keys; the compile cache's
     # and bucketGrowth stay listed, left out by choice
     ("spark_tpu.sql.compileCache.dir", "/var/cc", "out by choice"),
@@ -238,11 +240,13 @@ SERVICE_KEYS = {
 
 
 def test_unported_list_after_slice_12c_part_1():
-    """Nine keys stay listed: the compile cache's four and bucketGrowth
-    (left out by choice in part 2), the multi-host mesh's three and the
-    jaxpr analyzer's one. The fleet's ten left the list in part 2."""
+    """Six keys stay listed: the compile cache's four and bucketGrowth
+    (left out by choice in part 2) and the jaxpr analyzer's one. The
+    fleet's ten left the list in part 2, the multi-host mesh's three in
+    slice 14."""
     listed = port_config.UNPORTED_KEYS
-    assert len(listed) == 9
+    assert len(listed) == 6
+    assert not any(k.startswith("spark_tpu.sql.cluster.") for k in listed)
     assert not set(SERVICE_KEYS) & set(listed)
     assert not set(FLEET_KEYS) & set(listed)
     part2 = [k for k, (part, _) in listed.items()
@@ -251,6 +255,27 @@ def test_unported_list_after_slice_12c_part_1():
     assert all(k.startswith(("spark_tpu.sql.compileCache.",
                              "spark_tpu.sql.execution.bucketGrowth"))
                for k in part2)
+
+
+CLUSTER_KEYS = {"spark_tpu.sql.cluster.coordinator": "host0:8476",
+                "spark_tpu.sql.cluster.numProcesses": 2,
+                "spark_tpu.sql.cluster.processId": 1}
+
+
+@pytest.mark.parametrize("key", sorted(CLUSTER_KEYS))
+def test_cluster_key_is_ported_with_the_reference_default(key):
+    """Slice 14 registered the three cluster keys with the JAX package's
+    defaults ("", 1, 0); a value other than the default is taken and
+    reads back as the JAX package's does."""
+    assert key in port_config.registry() and \
+        key not in port_config.UNPORTED_KEYS
+    assert port_config.registry()[key].default == \
+        ref_config.registry()[key].default
+    pc, rc = port_config.Conf(), ref_config.Conf()
+    assert pc.get(key) == rc.get(key)
+    pc.set(key, CLUSTER_KEYS[key])
+    rc.set(key, CLUSTER_KEYS[key])
+    assert pc.get(key) == rc.get(key) and pc.is_explicitly_set(key)
 
 
 @pytest.mark.parametrize("key", sorted(SERVICE_KEYS))

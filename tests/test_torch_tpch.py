@@ -142,6 +142,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "from spark_tpu_torch.execution import dense_groupby\n"
         "import spark_tpu_torch.service.fleet, spark_tpu_torch.ml\n"
         "import spark_tpu_torch.graph\n"
+        "import spark_tpu_torch.parallel.cluster\n"
+        "import spark_tpu_torch.parallel.launch\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'spark_tpu' or "
         "m.startswith('spark_tpu.'))\n"
@@ -173,7 +175,9 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
     assert len(files) > 20 and bad == []
     names = {p.relative_to(root).as_posix() for p in files}
     assert {"spark_tpu_torch/service/fleet.py", "spark_tpu_torch/ml/util.py",
-            "spark_tpu_torch/graph/graph.py", "chip_smoke.py"} <= names
+            "spark_tpu_torch/graph/graph.py", "chip_smoke.py",
+            "spark_tpu_torch/parallel/cluster.py",
+            "spark_tpu_torch/parallel/launch.py"} <= names
 
 
 def test_session_without_device_raises_when_cuda_is_absent(monkeypatch):
