@@ -149,9 +149,12 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    `explain(extended=True, runtime=True)` of SQL Q5 with every section,
    rows out on every operator and `[joins]` agreeing with `reorder:`.
 12. ooc, out-of-core execution and recovery: lineitem at SF10 (about
-   60M rows, written in ten pieces by `write_lineitem_pieces`, its
-   seconds printed), SQL Q1 and Q6 a first and a warm run each under the
-   default conf: each must stream (`InputExec(streamed_agg,...)`, one
+   60M rows, written in ten pieces by `write_lineitem_pieces` in a child
+   process started with the run, so the writing overlaps phases 5-11;
+   its seconds and this phase's wait for it printed), SQL Q1 and Q6 once
+   each under the default conf (a warm run would ingest again, as the
+   stream rides no device cache: cut to fit the full run in its time
+   limit): each must stream (`InputExec(streamed_agg,...)`, one
    chunk of 2^24 rows per 2^24 rows the pushed filter passes: Q1 4, Q6
    1), launch `dense_sums_smem` exactly the chunks times the launches
    `plan_launches` plans for one chunk's input, and no other kernel, and
@@ -167,8 +170,10 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    SF1 data under `memory.deviceBudget` 65,536 and 2^20-row chunks
    gives each whole-input result's bytes (Q1, Q5 streamed, Q3 spilled,
    a top-10 and a plain chain through external collect). Faults:
-   `stream_chunk:unavailable:2` and `ingest_prefetch:unavailable:1` on
-   SF10 Q1 replay one chunk, two injected out-of-memory errors at an
+   `stream_chunk:unavailable:2` and `ingest_prefetch:unavailable:1`,
+   armed together on one SF10 Q1 run (one run, not two, to fit the full
+   run in its time limit), replay one chunk each, two injected
+   out-of-memory errors at an
    SF1 whole-table load climb the ladder to the 1-byte-budget re-plan,
    and SF10 Q1 forced to load whole under a memory fraction (printed)
    runs out of memory for real and lands on the stream, each with the
@@ -177,8 +182,9 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    stop it within dispatchPollMs plus one chunk (printed), leave no
    prefetch thread, and a rerun gives the clean bytes.
 13. udf, Python UDFs on phase 5's TPC-H SF1 tables, each program a first
-   and a warm run in the in-process lane and then in the worker lane
-   (`udf.mode=worker`, 2 workers, 10,000 rows per Arrow batch), whose
+   and a warm run in the in-process lane and then a first run in the
+   worker lane (its warm runs cut to fit the full run in its time
+   limit; `udf.mode=worker`, 2 workers, 10,000 rows per Arrow batch), whose
    bytes must equal the in-process lane's, and every run against pandas:
    U1, a pandas UDF `net(price, discount)` registered for SQL inside a
    Q1-shaped aggregate (sum and avg of it by l_returnflag, l_linestatus
@@ -427,20 +433,41 @@ attempts, and the cache's hits, misses, bytes and evictions after it.
    process, reported at its exit). Then `mesh:fatal:1` in rank 1 alone:
    both ranks gang-restart to the golden, and with both rungs off both
    raise it within 30 s; and rank 1 killed with SIGKILL mid-query: rank
-   0 raises ClusterPeerLostError within 30 s. Each rank prints its
+   0 raises ClusterPeerLostError within 30 s. Before the kill, the
+   elastic mesh across the processes, SQL Q1 over SF10 lineitem (phase
+   12's data, written here when no earlier phase wrote it) mesh-streamed
+   per shard, each case on a fresh session with the per-shard telemetry
+   on: the stream; then in phase 16's straggler chunks of 2^22 rows, a
+   drain of position 3 requested from a listener in rank 1 alone after
+   chunk 1 (both drain at the same chunk, mesh.size 3 after); position
+   3 slowed 100 ms a chunk at the `shard_chunk` seam in rank 1 alone
+   (both flag it at the same chunk and move the same rows);
+   `mesh_checkpoint:fatal:2` in rank 1 alone with a checkpoint every
+   chunk (both gang-restart from the same cursor, replaying at most one
+   chunk). Each is held to the exact
+   golden and the same outcome in both ranks, `dense_sums_smem` must
+   launch in both, and the stream's bytes must equal phase 16's first
+   one-process pinned Q1 stream (checked in phase 16, which runs later;
+   without phase 16 this phase runs that stream itself and keeps its
+   kernel inputs for the `cluster stream` row). Each rank prints its
    backend, its init_process_group and spawn-to-ready seconds, each
    query's walls, the bytes its warm runs received from the peer (and
-   their rate) and its launches. On a host with 4 cards, two processes
-   with two cards each (over NCCL) run the 22 SQL queries and SF10
-   Q1/Q6 resident against the goldens, then the same fault and kill
-   (a peer lost on NCCL is found by its stopped heartbeat).
+   their rate), its launches, and per chunk of the stream its decode,
+   stripe copy, update and agreement ms. On a host with 4 cards, two
+   processes with two cards each (over NCCL) run the 22 SQL queries and
+   SF10 Q1/Q6 resident against the goldens, then the same fault, the
+   stream cases and the kill (a peer lost on NCCL is found by its
+   stopped heartbeat).
 Then the kernels are timed again on the exact inputs the first run of
 each query of phases 5-7, 10-13 and 19 gave them (a chunk's input, for a
 streamed query), on S1's and S2's trigger inputs, for phase 20 on
 phase 19's Q1 and range inputs (the workers run the same plans on the
 same data) under the launches the workers reported, and for phase 22 on
 the one-process pinned mesh's Q1 and range inputs (phase 14's) under the
-launches the engine processes reported.
+launches the engine processes reported, and on the one-process pinned
+SF10 Q1 stream's shard chunk (phase 16's, or phase 22's own without
+phase 16: the same chunks striped alike) under the launches of the two
+processes' stream (the `cluster stream` row).
 
 The line before the last is a JSON object with one entry per kernel and
 main-path input; the last line is `{"ok": true, "device": {...}}`, and
@@ -1049,16 +1076,17 @@ def zero_launches(D) -> None:
     D.DEVICE_LAUNCHES.clear()
 
 
-def first_and_warm(D, session, make_df, current=None, label=None):
+def first_and_warm(D, session, make_df, current=None, label=None,
+                   runs: int = 2):
     """A first run of `make_df()` after `reset_state`, then a warm run
     (cached scans, kept capacities). Returns (first result, its
-    QueryExecution, seconds, launches), then the same for the warm run.
-    The first run's kernel inputs are kept under `label` (run_phases'
-    `current`); the warm run's are not."""
+    QueryExecution, seconds, launches), then the same for the warm run
+    (None with `runs` 1). The first run's kernel inputs are kept under
+    `label` (run_phases' `current`); the warm run's are not."""
     import torch
     out = []
     reset_state(session)
-    for run in range(2):
+    for run in range(runs):
         if current is not None:
             current[0] = label if run == 0 else None
         zero_launches(D)
@@ -1067,13 +1095,16 @@ def first_and_warm(D, session, make_df, current=None, label=None):
         got = qe.collect()
         torch.cuda.synchronize()
         out.append((got, qe, time.perf_counter() - t0, dict(D.LAUNCHES)))
-    return out
+    if current is not None:
+        current[0] = None
+    return out + [None] * (2 - runs)
 
 
 def runs_text(first, warm) -> str:
-    return (f"first run {first[2]:.3f} s (attempts {first[1].attempts}), "
-            f"warm run {warm[2]:.3f} s (attempts {warm[1].attempts}); "
-            f"{cache_stats()}")
+    return (f"first run {first[2]:.3f} s (attempts {first[1].attempts})"
+            + ("" if warm is None else
+               f", warm run {warm[2]:.3f} s (attempts {warm[1].attempts})")
+            + f"; {cache_stats()}")
 
 
 def require_kernels(label, kernels, launches) -> None:
@@ -1917,26 +1948,63 @@ def etl_explain(session) -> None:
 # Phase 12: out-of-core execution and recovery
 # ---------------------------------------------------------------------------
 
-class Sf10:
-    """SF10 lineitem (`write_lineitem_pieces`) and its exact Q1/Q6 golden
-    (`q1_q6_golden`), written under `tmp` at the first `get` and shared
-    by phases 12, 14 and 16."""
+WRITE_LINEITEM_FLAG = "--write-lineitem"
 
-    def __init__(self, tmp: str):
+
+def write_lineitem(tmp: str, sf: float) -> None:
+    """`tmp`/lineitem.parquet at scale `sf` (`write_lineitem_pieces`) and
+    its exact Q1/Q6 golden (`q1_q6_golden`) as `tmp`/golden.json, with
+    the seconds the writing took. The body of the child process that
+    `Sf10.start` runs."""
+    from spark_tpu_torch.tpch.datagen import write_lineitem_pieces
+    on_piece, ans = q1_q6_golden()
+    t0 = time.perf_counter()
+    write_lineitem_pieces(tmp + "/lineitem.parquet", sf, on_piece=on_piece)
+    ans["seconds"] = time.perf_counter() - t0
+    with open(tmp + "/golden.json", "w") as f:
+        json.dump(ans, f)
+
+
+class Sf10:
+    """SF10 lineitem and its exact Q1/Q6 golden (`write_lineitem`),
+    written under `tmp` by a child process that `start` begins, so the
+    writing overlaps the phases before the first that reads it; shared
+    by phases 12, 14, 16 and 22."""
+
+    def __init__(self, tmp: str, sf: float = OOC_SF):
         self.tmp = tmp
+        self.sf = sf
+        self._proc = None
         self._data = None
+
+    def start(self) -> None:
+        import os
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        self._proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), WRITE_LINEITEM_FLAG,
+             self.tmp, str(self.sf)], env=env)
+
+    def stop(self) -> None:
+        if self._proc is not None and self._proc.poll() is None:
+            self._proc.kill()
+            self._proc.wait()
 
     def get(self, tag: str):
         """(the Parquet path, the golden's dict)."""
         if self._data is None:
-            from spark_tpu_torch.tpch.datagen import write_lineitem_pieces
-            on_piece, ans = q1_q6_golden()
+            if self._proc is None:
+                self.start()
             t0 = time.perf_counter()
-            path = write_lineitem_pieces(self.tmp + "/lineitem.parquet",
-                                         OOC_SF, on_piece=on_piece)
-            log(f"[{tag}] SF{OOC_SF} lineitem: {ans['rows']} rows generated "
-                f"in {time.perf_counter() - t0:.1f} s")
-            self._data = (path, ans)
+            if self._proc.wait() != 0:
+                raise RuntimeError(f"writing SF{self.sf} lineitem failed: "
+                                   f"exit code {self._proc.returncode}")
+            with open(self.tmp + "/golden.json") as f:
+                ans = json.load(f)
+            ans["q1"] = {int(g): acc for g, acc in ans["q1"].items()}
+            log(f"[{tag}] SF{self.sf} lineitem: {ans['rows']} rows generated "
+                f"in {ans['seconds']:.1f} s in a child process started with "
+                f"the run; waited {time.perf_counter() - t0:.1f} s for it")
+            self._data = (self.tmp + "/lineitem.parquet", ans)
         return self._data
 
 
@@ -2126,38 +2194,36 @@ def phase_ooc(D, S, sf1_path, launches, current, captured, sf10) -> None:
         reset_state(session)
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        first, warm = first_and_warm(
+        # one run: a warm run would ingest again, as the stream rides no
+        # device cache
+        first, _ = first_and_warm(
             D, session, lambda: session.sql(SQL_QUERIES[q]), current,
-            f"ooc {q}")
+            f"ooc {q}", runs=1)
         launches[f"ooc {q}"] = first[3]
         chunks = expected_chunks(q, ans)
         # one wrapper call per chunk: its launch plan, once a chunk
         per_chunk = plan_size(D, captured, f"ooc {q}", "dense_sums_smem")
-        for run, (got, qe, seconds, counts) in (("first", first),
-                                                ("warm", warm)):
-            label = f"SF{OOC_SF} {q} {run} run"
-            require_stream(label, qe, "streamed_agg", chunks)
-            require_launches(label, counts, "dense_sums_smem",
-                             chunks * per_chunk)
-            if qe.fault_summary:
-                raise AssertionError(f"{label}: {qe.fault_summary}")
-            check_q1_q6(q, got, ans)
-        tables_match(f"SF{OOC_SF} {q} warm run", warm[0], first[0])
-        results[q], warm_s[q] = first[0], warm[2]
-        leaf = [n for n in plan_leaves(first[1].executed_plan)][0]
-        stall = sum(stall_s(r) for st in warm[1].stream_stats
+        got, qe, seconds, counts = first
+        label = f"SF{OOC_SF} {q}"
+        require_stream(label, qe, "streamed_agg", chunks)
+        require_launches(label, counts, "dense_sums_smem",
+                         chunks * per_chunk)
+        if qe.fault_summary:
+            raise AssertionError(f"{label}: {qe.fault_summary}")
+        check_q1_q6(q, got, ans)
+        results[q], warm_s[q] = got, seconds
+        leaf = [n for n in plan_leaves(qe.executed_plan)][0]
+        stall = sum(stall_s(r) for st in qe.stream_stats
                     for r in st["chunks"])
         log(f"[ooc] {q} SF{OOC_SF}: equals the golden; first run "
-            f"{first[2]:.3f} s, warm run {warm[2]:.3f} s (the stream "
-            f"rides no device cache, so the warm run ingests again; "
-            f"{ans['rows'] / warm[2] / 1e6:.2f} M rows/s); "
-            f"{n_chunks(warm[1])} chunks, {per_chunk} launches a "
-            f"chunk, launches {first[3]}; peak allocated "
+            f"{seconds:.3f} s ({ans['rows'] / seconds / 1e6:.2f} M "
+            f"rows/s); {n_chunks(qe)} chunks, {per_chunk} launches a "
+            f"chunk, launches {counts}; peak allocated "
             f"{torch.cuda.max_memory_allocated() - base:,} bytes over "
             f"{base:,} held, whole-input estimate "
             f"{estimated_scan_bytes(leaf):,} bytes; prefetch stall "
-            f"{stall * 1e3:.1f} ms in the warm run")
-        log(f"[ooc] {q} warm run chunks: {chunk_lines(warm[1])}")
+            f"{stall * 1e3:.1f} ms")
+        log(f"[ooc] {q} chunks: {chunk_lines(qe)}")
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2331,10 +2397,10 @@ def ooc_faults(D, session, sf1_path, S, clean_q1) -> None:
         return qe
 
     q1 = lambda: session.sql(SQL_QUERIES["q1"])
-    run(session, q1, "stream_chunk:unavailable:2", clean_q1,
-        {"chunk_retry": 1}, f"SF{OOC_SF} q1 chunk replay")
-    run(session, q1, "ingest_prefetch:unavailable:1", clean_q1,
-        {"chunk_retry": 1}, f"SF{OOC_SF} q1 prefetch replay")
+    run(session, q1,
+        "stream_chunk:unavailable:2,ingest_prefetch:unavailable:1",
+        clean_q1, {"chunk_retry": 2},
+        f"SF{OOC_SF} q1 chunk and prefetch replays")
     sf1 = S.SparkTpuSession.builder().get_or_create()
     Q.register_tables(sf1, sf1_path)
     sf1_q1 = lambda: Q.QUERIES["q1"](sf1)
@@ -2390,10 +2456,10 @@ def ooc_faults(D, session, sf1_path, S, clean_q1) -> None:
 
 
 def ooc_cancel(session, clean_q1, warm_s, chunks) -> None:
-    """SF10 q1 under a deadline of half its warm time, then cancelled by
-    session.cancel from a timer thread at half its warm time: each stops
-    within dispatchPollMs plus one chunk, leaves no prefetch thread, and
-    a rerun gives the clean bytes."""
+    """SF10 q1 under a deadline of half its clean run's time, then
+    cancelled by session.cancel from a timer thread at the same point:
+    each stops within dispatchPollMs plus one chunk, leaves no prefetch
+    thread, and a rerun gives the clean bytes."""
     import threading
     import torch
     from spark_tpu_torch.execution import lifecycle
@@ -2677,12 +2743,19 @@ def phase_udf(D, S, path, launches, current, captured) -> dict:
             batches0 = metrics.counter("udf_batches").value
             del apply_s[:]
             label = f"udf {q}" if lane == "inprocess" else None
-            first, warm = first_and_warm(D, session, make, current, label)
+            # the worker lane runs once (its warm runs cut to fit the
+            # full run in its time limit)
+            first, warm = first_and_warm(
+                D, session, make, current, label,
+                runs=2 if lane == "inprocess" else 1)
             for run, r in (("first", first), ("warm", warm)):
+                if r is None:
+                    continue
                 check_udf(q, r[0], goldens[q])
                 require_kernels(f"{q} {lane} {run} run", kernels, r[3])
-            tables_match(f"{q} {lane} warm run against its first", warm[0],
-                         first[0])
+            if warm is not None:
+                tables_match(f"{q} {lane} warm run against its first",
+                             warm[0], first[0])
             if lane == "inprocess":
                 results[q] = first[0]
                 launches[label] = first[3]
@@ -2701,11 +2774,13 @@ def phase_udf(D, S, path, launches, current, captured) -> dict:
                    f"spawn ms {[round(h.spawn_ms, 1) for h in pool._idle]}"
                    if lane == "worker" else ""))
             log(f"[udf] {q} {lane} first run {udf_times(first[1])}")
-            log(f"[udf] {q} {lane} warm run {udf_times(warm[1])}")
+            if warm is not None:
+                log(f"[udf] {q} {lane} warm run {udf_times(warm[1])}")
             if apply_s:
                 log(f"[udf] {q} {lane} apply_in_pandas (5 groups, before "
-                    f"the aggregate's run): first run {apply_s[0]:.3f} s, "
-                    f"warm run {apply_s[1]:.3f} s; udf_batches "
+                    f"the aggregate's run): "
+                    f"{', '.join(f'{t:.3f} s' for t in apply_s)} (first"
+                    f"{'' if warm is None else ', warm'} run); udf_batches "
                     f"{metrics.counter('udf_batches').value - batches0}")
             if lane == "inprocess":
                 set_lane(session, lane)
@@ -3502,27 +3577,40 @@ def elastic_session(S, path, pinned: bool, confs=()):
     return session
 
 
-def elastic_chunk_lines(qe) -> str:
-    """Per chunk of a mesh stream: the host decode, the consumer's stall,
-    the host copy (Arrow to host tensors), the slowest shard's stripe
-    copy to its card, the update's host time and each shard's device
-    update time (CUDA events on its card)."""
-    parts = []
+def mesh_chunk_records(qe) -> list:
+    """Per chunk of the query's mesh streams, in this process, in ms: the
+    host decode, the consumer's stall, the host copy (Arrow to host
+    tensors), the slowest local shard's stripe copy to its card, the
+    update's host time, each local shard's device update (CUDA events on
+    its card) and the agreements' time (the drain request and, on a
+    cluster, the per-shard records' gather)."""
+    out = []
     for stream in qe.stream_stats:
         if stream["kind"] != "mesh":
             continue
-        for i, r in enumerate(stream["chunks"]):
-            dev = [ev[0].elapsed_time(ev[1])
-                   for ev in r.get("shard_events") or () if ev is not None]
-            parts.append(
-                f"chunk {i}: decode {r.get('decode_s', 0) * 1e3:.1f} ms, "
-                f"stall {stall_s(r) * 1e3:.1f} ms, host copy "
-                f"{r.get('copy_s', 0) * 1e3:.1f} ms, stripe copy "
-                f"{max(r['stripe_copy_s']) * 1e3:.1f} ms, update host "
-                f"{r['update_s'] * 1e3:.1f} ms"
-                + (f", device by shard {'/'.join(f'{x:.2f}' for x in dev)} "
-                   f"ms" if dev else ""))
-    return "; ".join(parts)
+        for r in stream["chunks"]:
+            out.append({
+                "decode": r.get("decode_s", 0.0) * 1e3,
+                "stall": stall_s(r) * 1e3,
+                "copy": r.get("copy_s", 0.0) * 1e3,
+                "stripe": max(r["stripe_copy_s"]) * 1e3,
+                "update": r["update_s"] * 1e3,
+                "device": [ev[0].elapsed_time(ev[1])
+                           for ev in r.get("shard_events") or ()
+                           if ev is not None],
+                "agree": r["agree_s"] * 1e3})
+    return out
+
+
+def elastic_chunk_lines(qe) -> str:
+    """`mesh_chunk_records` as text, without the agreements."""
+    return "; ".join(
+        f"chunk {i}: decode {c['decode']:.1f} ms, stall {c['stall']:.1f} "
+        f"ms, host copy {c['copy']:.1f} ms, stripe copy {c['stripe']:.1f} "
+        f"ms, update host {c['update']:.1f} ms"
+        + (f", device by shard {'/'.join(f'{x:.2f}' for x in c['device'])}"
+           f" ms" if c["device"] else "")
+        for i, c in enumerate(mesh_chunk_records(qe)))
 
 
 def compute_records(qe) -> list:
@@ -3566,12 +3654,11 @@ def run_q1(session, spec=""):
 
 def elastic_streams(D, S, path, ans, launches, current, pinned, cards):
     """Case 1: SQL Q1 and Q6 streamed per shard, a first and a warm run
-    each. Returns Q1's warm seconds."""
+    each. Returns Q1's warm seconds and its first run's result."""
     import torch
     from spark_tpu_torch.tpch.sql_queries import SQL_QUERIES
     where = "1 card" if pinned else f"{MESH_SHARDS} cards"
     session = elastic_session(S, path, pinned)
-    warm_q1 = None
     for q in ("q1", "q6"):
         label = f"elastic {where} {q}"
         for i in cards:
@@ -3605,11 +3692,11 @@ def elastic_streams(D, S, path, ans, launches, current, pinned, cards):
         log(f"[elastic] {label} warm run per-shard telemetry: "
             f"{shard_record_text(warm[1])}")
         if q == "q1":
-            warm_q1 = warm[2]
-    return warm_q1
+            q1_s, q1_got = warm[2], first[0]
+    return q1_s, q1_got
 
 
-def elastic_kill(D, S, path, ans, pinned, cards, warm_q1) -> None:
+def elastic_kill(D, S, path, ans, pinned, cards, clean_s) -> None:
     """Case 2: a shard lost at the 2nd snapshot, a checkpoint every
     chunk: one gang restart, no fallback, a resume on the mesh that
     replays at most one chunk."""
@@ -3631,7 +3718,7 @@ def elastic_kill(D, S, path, ans, pinned, cards, warm_q1) -> None:
         f"a chunk): restarted on the mesh, resumed at chunk "
         f"{restore[0]['cursor']} replaying {restore[0]['chunks_replayed']} "
         f"chunk(s); equals the golden; {seconds:.3f} s against the clean "
-        f"warm run's {warm_q1:.3f} s (+{seconds - warm_q1:.3f} s); "
+        f"warm run's {clean_s:.3f} s (+{seconds - clean_s:.3f} s); "
         f"fault_summary {fs}; launches {card_launches(D)}")
 
 
@@ -3736,18 +3823,34 @@ def elastic_straggler(S, path, ans, pinned) -> None:
         f" fault_summary {fs}")
 
 
-def phase_elastic(D, S, launches, current, sf10) -> None:
+def phase_elastic(D, S, launches, current, sf10, captured,
+                  cluster_stream) -> None:
     """Phase 16: the mesh stream and the elastic mesh on SF10 lineitem at
     mesh.size 4: pinned to cuda:0 on a one-card host, on cuda:0-3 on a
-    host with four cards."""
+    host with four cards. When phase 22 ran, its two-process streams'
+    results must equal the Q1 stream's first-run bytes, and that
+    stream's kernel inputs stand for a shard's chunk in the two
+    processes."""
     import torch
     path, ans = sf10.get("elastic")
     pinned = torch.cuda.device_count() < MESH_SHARDS
     cards = [0] if pinned else list(range(MESH_SHARDS))
     t0 = time.perf_counter()
-    warm_q1 = elastic_streams(D, S, path, ans, launches, current, pinned,
-                              cards)
-    elastic_kill(D, S, path, ans, pinned, cards, warm_q1)
+    q1_s, q1_got = elastic_streams(D, S, path, ans, launches, current,
+                                   pinned, cards)
+    if cluster_stream.get("results"):
+        where = "1 card" if pinned else f"{MESH_SHARDS} cards"
+        label = f"elastic {where} q1"
+        for i, got in enumerate(cluster_stream["results"]):
+            if not got.equals(q1_got):
+                raise AssertionError(f"phase 22's stream {i}: not the "
+                                     f"one-process stream's bytes")
+        captured[(CLUSTER_STREAM_LABEL, "dense_sums_smem")] = \
+            captured[(label, "dense_sums_smem")]
+        log(f"[elastic] phase 22's {len(cluster_stream['results'])} "
+            f"two-process SF{OOC_SF} q1 streams (one per rank and run) equal "
+            f"{label}'s run in bytes")
+    elastic_kill(D, S, path, ans, pinned, cards, q1_s)
     elastic_exhausted(S, path, ans, pinned)
     elastic_drain(D, S, path, ans, pinned, cards)
     elastic_straggler(S, path, ans, pinned)
@@ -6455,6 +6558,13 @@ CLUSTER_KILL_DELAY_S = 2.0
 CLUSTER_CARDS = ("0,1", "2,3")
 RESTART_KEY = "spark_tpu.execution.meshRestart.enabled"
 FALLBACK_KEY = "spark_tpu.execution.meshFallback.enabled"
+#: phase 22's SF10 stream cases: the position rank 1 drains, the one it
+#: slows at the `shard_chunk` seam (its own; the straggler's chunks are
+#: phase 16's, 2^22 rows), and the label of the one-process pinned stream
+#: whose kernel inputs stand for a shard's chunk in the two processes
+CLUSTER_DRAIN_POSITION = 3
+CLUSTER_SLOW_POSITION = 3
+CLUSTER_STREAM_LABEL = "cluster stream"
 
 
 def cluster_stats_snapshot() -> dict:
@@ -6498,10 +6608,12 @@ def cluster_child(session, proc):
     args["range"], and SF10 Q1/Q6 resident with args["sf10"], each at
     mesh.size MESH_SHARDS a first run (device cache and kept capacities
     emptied) and a warm run, which must give the first run's bytes and
-    take no recovery action. With args["faults"], then `mesh:fatal:1` in
-    rank 1 alone on Q1: with the gang restart on, and with both rungs
-    off. Returns each first run's result; the report holds each run's
-    wall, the bytes that crossed processes, the launches. With
+    take no recovery action. With
+    args["faults"], then `mesh:fatal:1` in rank 1 alone on Q1: with the
+    gang restart on, and with both rungs off. With args["stream"] (the
+    SF10 lineitem path), then `cluster_stream_cases`. Returns each first
+    run's result; the report holds each run's wall, the bytes that
+    crossed processes in the warm run, the launches. With
     args["kill"], last, rank 1 saves its report and sleeps at the `mesh`
     seam of SQL Q6, where the parent kills it; rank 0 waits at the
     query's first collective and must raise the named mesh failure."""
@@ -6514,16 +6626,7 @@ def cluster_child(session, proc):
     register_tables(session, args["path"])
     sf10_session = None
     if args.get("sf10"):
-        from spark_tpu_torch.io.sources import ParquetSource
-        builder = type(session).builder()
-        if session.device_pinned:
-            builder = builder.device(session.device)
-        for key in ("coordinator", "numProcesses", "processId"):
-            key = f"spark_tpu.sql.cluster.{key}"
-            builder = builder.config(key, session.conf.get(key))
-        sf10_session = builder.get_or_create()
-        sf10_session.register_table("lineitem",
-                                    ParquetSource(args["sf10"], "lineitem"))
+        sf10_session = cluster_sf10_session(session, args["sf10"])
     for s in (session, sf10_session):
         if s is not None:
             s.conf.set(MESH_KEY, MESH_SHARDS)
@@ -6583,6 +6686,9 @@ def cluster_child(session, proc):
             for k, _v in confs:
                 session.conf.unset(k)
     proc.report["runs"] = runs
+    if args.get("stream"):
+        results.update(cluster_stream_cases(D, session, proc,
+                                            args["stream"]))
     proc.report["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     if args.get("kill"):
         from spark_tpu_torch.testing import faults
@@ -6601,6 +6707,99 @@ def cluster_child(session, proc):
                 kill["message"] = str(e)[:200]
         kill["raised_at"] = time.time()
         proc.report["kill"] = kill
+    return results
+
+
+def cluster_sf10_session(session, path, confs=()):
+    """A session of this engine process, joined to its cluster (pinned
+    where `session` is), over SF10 lineitem at mesh.size MESH_SHARDS."""
+    from spark_tpu_torch.io.sources import ParquetSource
+    builder = type(session).builder()
+    if session.device_pinned:
+        builder = builder.device(session.device)
+    for key in ("coordinator", "numProcesses", "processId"):
+        key = f"spark_tpu.sql.cluster.{key}"
+        builder = builder.config(key, session.conf.get(key))
+    s = builder.get_or_create()
+    s.conf.set(MESH_KEY, MESH_SHARDS)
+    for key, value in confs:
+        s.conf.set(key, value)
+    s.register_table("lineitem", ParquetSource(path, "lineitem"))
+    return s
+
+
+def cluster_stream_cases(D, session, proc, path) -> dict:
+    """Phase 22's mesh stream in each engine process, SQL Q1 over SF10
+    lineitem at mesh.size MESH_SHARDS (the device cache at its default,
+    below the scan, so Q1 streams per shard; the per-shard telemetry on),
+    each case on a fresh session: the stream; then, in 2^22-row chunks
+    (a replay or a resume's skip covers less), a drain of
+    CLUSTER_DRAIN_POSITION requested from a listener in rank 1 alone
+    once chunk 1's records are posted; CLUSTER_SLOW_POSITION slowed
+    ELASTIC_SLOW_MS at the `shard_chunk` seam every chunk in rank 1
+    alone; and `mesh_checkpoint:fatal:2` in rank 1 alone with a
+    checkpoint every chunk. Returns each case's result;
+    `proc.report["stream"]` holds what the parent checks."""
+    from spark_tpu_torch.observability import QueryListener
+    counters = ("rec_chunks_replayed", "rebalance_rows",
+                "mesh_restart_attempts")
+    watched = {"chunk": None, "flags": []}
+
+    class Watcher(QueryListener):
+        drain = False
+
+        def on_shard_records(self, event):
+            watched["chunk"] = event.chunk
+            if self.drain and proc.rank == 1 and event.chunk >= 1:
+                self.drain = False
+                self.session.decommission_shards([CLUSTER_DRAIN_POSITION])
+
+        def on_straggler(self, event):
+            watched["flags"].append([event.shard, watched["chunk"]])
+
+    slow = ",".join(
+        f"shard_chunk:slow:{c * MESH_SHARDS + CLUSTER_SLOW_POSITION + 1}:"
+        f"{ELASTIC_SLOW_MS}" for c in range(64))
+    small = ((CHUNK_KEY, ELASTIC_SLOW_CHUNK_ROWS),)
+    cases = (("stream", (), ""),
+             ("drain", small, ""),
+             ("straggler", small, slow),
+             ("fault", small + ((CKPT_KEY, 1),), "mesh_checkpoint:fatal:2"))
+    results, report = {}, {}
+    for label, confs, spec in cases:
+        s = cluster_sf10_session(session, path,
+                                 ((SPANS_KEY, "on"),) + confs)
+        watcher = Watcher()
+        watcher.session = s
+        watcher.drain = label == "drain"
+        watched["flags"] = []
+        s.add_listener(watcher)
+        before = {k: s.metrics.counter(k).value for k in counters}
+        l0 = dict(D.LAUNCHES)
+        got, qe, seconds, fired = run_q1(s, spec if proc.rank == 1 else "")
+        results[f"stream {label}"] = got
+        report[label] = {
+            "wall_s": seconds, "fired": [list(f) for f in fired],
+            "faults": qe.fault_summary,
+            # each process jitters its own backoff
+            "events": [{k: v for k, v in ev.items()
+                        if k not in ("error", "backoff_ms")}
+                       for ev in qe.fault_events],
+            "delta": {k: s.metrics.counter(k).value - before[k]
+                      for k in counters},
+            "launches": {k: v - l0.get(k, 0) for k, v in D.LAUNCHES.items()},
+            # the last stream's chunks: a failed attempt's count depends on
+            # when each process saw the abort
+            "chunks": len(qe.stream_stats[-1]["chunks"]),
+            "folded": n_chunks(qe),
+            "spliced": qe.spliced_plan.tree_string(),
+            "flags": list(watched["flags"]),
+            "after": [int(s.conf.get(MESH_KEY)),
+                      str(s.conf.get("spark_tpu.sql.mesh.excludeDevices"))],
+            "chunk_records": mesh_chunk_records(qe)}
+        s.remove_listener(watcher)
+        del s, qe
+    proc.report["stream"] = report
     return results
 
 
@@ -6673,6 +6872,8 @@ def cluster_check_results(tag, res, G, path, refs, sf10_ans=None) -> None:
     bytes to the one-process result `refs` holds, where it holds one."""
     for r in res:
         for name, got in r.results.items():
+            if name.startswith("stream "):
+                continue  # cluster_stream_check's
             if name.startswith("fault "):
                 mesh_golden(G, path, "q1", got)
             elif name == "range":
@@ -6684,6 +6885,84 @@ def cluster_check_results(tag, res, G, path, refs, sf10_ans=None) -> None:
             if name in refs and not got.equals(refs[name]):
                 raise AssertionError(f"{tag} rank {r.rank} {name}: not the "
                                      f"one-process mesh's bytes")
+
+
+def cluster_stream_check(tag, res, ans, ref) -> None:
+    """Phase 22's SF10 stream cases in both ranks: each result at the
+    exact golden (and in bytes the one-process pinned stream's `ref`,
+    where given), the same outcome in both ranks (fault summary, events,
+    chunks, counter deltas, straggler flags, mesh.size and exclusions
+    after), dense_sums_smem launched in both for every local shard and
+    chunk of the stream. Prints per rank and chunk of the stream its
+    decode, stripe copy, update and agreement ms."""
+    reps = [r.report["stream"] for r in res]
+    local = MESH_SHARDS // CLUSTER_PROCESSES
+    for label in reps[0]:
+        a, b = (rep[label] for rep in reps)
+        for key in ("faults", "events", "chunks", "delta", "flags",
+                    "after"):
+            if a[key] != b[key]:
+                raise AssertionError(f"{tag} stream {label}: the ranks "
+                                     f"differ in {key}: {a[key]} / {b[key]}")
+        for r, rep in zip(res, reps):
+            got = r.results[f"stream {label}"]
+            check_q1_q6("q1", got, ans)
+            if ref is not None and not got.equals(ref):
+                raise AssertionError(f"{tag} rank {r.rank} stream {label}: "
+                                     f"not the one-process stream's bytes")
+            if "InputExec(streamed_partial_agg," not in \
+                    rep[label]["spliced"]:
+                raise AssertionError(f"{tag} stream {label} did not stream "
+                                     f"per shard: {rep[label]['spliced']}")
+            want = local * (rep[label]["chunks"] if label == "stream" else 1)
+            if rep[label]["launches"].get("dense_sums_smem", 0) < want:
+                raise AssertionError(
+                    f"{tag} rank {r.rank} stream {label}: dense_sums_smem "
+                    f"launched {rep[label]['launches']}, fewer than {want}")
+    st, dr, sg, ft = (reps[0][k] for k in ("stream", "drain", "straggler",
+                                           "fault"))
+    drained = [e for e in dr["events"] if e["action"] == "checkpoint_restore"]
+    restore = [e for e in ft["events"] if e["action"] == "checkpoint_restore"]
+    if st["faults"] or st["chunks"] < 2:
+        raise AssertionError(f"{tag} stream: {st['faults']}, "
+                             f"{st['chunks']} chunks")
+    if dr["faults"] != {"decommission": 1, "checkpoint_restore": 1} or \
+            dr["after"] != [MESH_SHARDS - 1, str(CLUSTER_DRAIN_POSITION)]:
+        raise AssertionError(f"{tag} drain: {dr['faults']}, mesh.size and "
+                             f"exclusions after {dr['after']}")
+    if sg["faults"] != {"shard_rebalance": 1} or \
+            sg["delta"]["rebalance_rows"] <= 0 or not sg["flags"] or \
+            any(f[0] != CLUSTER_SLOW_POSITION for f in sg["flags"]):
+        raise AssertionError(f"{tag} straggler: {sg['faults']}, "
+                             f"{sg['delta']}, flags {sg['flags']}")
+    if ft["faults"] != {"mesh_restart": 1, "checkpoint_restore": 1} or \
+            len(restore) != 1 or restore[0].get("driver") != "mesh" or \
+            restore[0]["chunks_replayed"] > 1:
+        raise AssertionError(f"{tag} fault: {ft['faults']}, {restore}")
+    for r, rep in zip(res, reps):
+        walls = ", ".join(f"{k} {v['wall_s']:.3f} s ({v['folded']} chunks, "
+                          f"dense_sums_smem "
+                          f"{v['launches'].get('dense_sums_smem', 0)})"
+                          for k, v in rep.items())
+        log(f"[cluster] {tag} rank {r.rank} SF{OOC_SF} q1 mesh-streamed: "
+            f"{walls}")
+        lines = "; ".join(
+            f"chunk {i}: decode {c['decode']:.1f}, stripe copy "
+            f"{c['stripe']:.1f}, update {c['update']:.1f} (device "
+            f"{'/'.join(f'{x:.2f}' for x in c['device'])}), agreement "
+            f"{c['agree']:.1f}"
+            for i, c in enumerate(rep["stream"]["chunk_records"]))
+        log(f"[cluster] {tag} rank {r.rank} stream chunks, ms: {lines}")
+    log(f"[cluster] {tag} SF{OOC_SF} q1 stream in both ranks at the exact "
+        f"golden{'' if ref is None else ' and the one-process bytes'}; "
+        f"drain of position {CLUSTER_DRAIN_POSITION} from rank 1 alone: "
+        f"both drained at chunk {drained[0]['cursor']}, mesh.size "
+        f"{dr['after'][0]}; straggler (position {CLUSTER_SLOW_POSITION} "
+        f"slowed {ELASTIC_SLOW_MS} ms a chunk in rank 1 alone): both flagged "
+        f"{sg['flags']} ([position, chunk]), rebalance_rows "
+        f"{sg['delta']['rebalance_rows']:,} in each; mesh_checkpoint:fatal:2 "
+        f"in rank 1 alone: both restarted at cursor {restore[0]['cursor']}, "
+        f"replaying {restore[0]['chunks_replayed']} chunk(s)")
 
 
 def cluster_faults(res) -> None:
@@ -6728,20 +7007,40 @@ def cluster_kill(res) -> None:
 
 
 def phase_cluster(D, S, G, path, launches, current, captured, sf10,
-                  mesh_refs) -> None:
+                  mesh_refs, cluster_stream, own_stream_ref) -> None:
     """Phase 22: the mesh across engine processes. On every run, two
     processes each pinned to cuda:0 with two shards (mesh.size 4, over
     gloo): SQL Q1, Q3, Q5, Q6 and the range group-by at SF1 against the
     goldens and the one-process pinned mesh-4 run's bytes (phase 14's
     first runs, `mesh_refs`, or this phase's own when phase 14 did not
-    run), a fault in one process and a killed process. With 4 cards, two
-    processes with two cards each (over NCCL): the 22 SQL queries and
-    SF10 Q1/Q6 resident, then the same fault and kill over NCCL."""
+    run), a fault in one process, SF10 Q1 mesh-streamed with a drain, a
+    straggler and a checkpointed restart (`cluster_stream_cases`), and a
+    killed process. With 4 cards, two processes with two cards each
+    (over NCCL): the 22 SQL queries and SF10 Q1/Q6 resident, the fault,
+    the stream cases and the kill over NCCL. The stream's results go to
+    `cluster_stream` for phase 16, which holds them to its one-process
+    pinned stream's bytes and lends its kernel inputs to the
+    CLUSTER_STREAM_LABEL row; with `own_stream_ref` (phase 16 does not
+    run) this phase runs that one-process stream itself."""
     import gc
     import os
     import torch
     from spark_tpu_torch.io.device_cache import CACHE
     t0 = time.perf_counter()
+    sf10_path, ans = sf10.get("cluster")
+    stream_ref = None
+    if own_stream_ref:
+        t1 = time.perf_counter()
+        session = elastic_session(S, sf10_path, pinned=True)
+        current[0] = CLUSTER_STREAM_LABEL
+        zero_launches(D)
+        stream_ref, _qe, seconds, _ = run_q1(session)
+        current[0] = None
+        check_q1_q6("q1", stream_ref, ans)
+        del session, _qe
+        log(f"[cluster] the one-process pinned mesh-{MESH_SHARDS} SF{OOC_SF} "
+            f"q1 stream: {seconds:.3f} s, launches {dict(D.LAUNCHES)}; "
+            f"{time.perf_counter() - t1:.1f} s")
     if not mesh_refs:
         session = mesh_session(S, path, pinned=True)
         for name, make in cluster_cases(session, CLUSTER_QUERIES, True):
@@ -6767,12 +7066,17 @@ def phase_cluster(D, S, G, path, launches, current, captured, sf10,
         res, wall = cluster_launch(
             "cluster_child", os.path.join(tmp, "one"),
             {"path": path, "queries": list(CLUSTER_QUERIES), "range": True,
-             "faults": True, "kill": True}, 600, device="cuda:0",
-            kill_at=(1, "kill", CLUSTER_KILL_DELAY_S))
+             "faults": True, "stream": sf10_path, "kill": True}, 900,
+            device="cuda:0", kill_at=(1, "kill", CLUSTER_KILL_DELAY_S))
         cluster_require(res, "gloo", killed=1)
         total = cluster_lines("one card", res, kernels)
         cluster_check_results("one card", res, G, path, refs)
         cluster_faults(res)
+        cluster_stream_check("one card", res, ans, stream_ref)
+        cluster_stream["results"] = [r.results["stream stream"] for r in res]
+        launches[CLUSTER_STREAM_LABEL] = {"dense_sums_smem": sum(
+            r.report["stream"]["stream"]["launches"]["dense_sums_smem"]
+            for r in res)}
         cluster_kill(res)
         log(f"[cluster] one card: {CLUSTER_PROCESSES} processes x "
             f"{MESH_SHARDS // CLUSTER_PROCESSES} shards on cuda:0 match the "
@@ -6796,12 +7100,11 @@ def phase_cluster(D, S, G, path, launches, current, captured, sf10,
                 f"{2 * CLUSTER_PROCESSES} cards (--phases cluster)")
             return
         t1 = time.perf_counter()
-        sf10_path, ans = sf10.get("cluster")
         res, wall = cluster_launch(
             "cluster_child", os.path.join(tmp, "cards"),
             {"path": path, "queries": list(SQL_KERNELS), "range": False,
              "sf10": sf10_path, "cache_bytes": MESH_CACHE_BYTES,
-             "faults": True, "kill": True}, 1500,
+             "faults": True, "stream": sf10_path, "kill": True}, 1500,
             visible_devices=CLUSTER_CARDS,
             kill_at=(1, "kill", CLUSTER_KILL_DELAY_S))
         cluster_require(res, "nccl", killed=1)
@@ -6811,12 +7114,17 @@ def phase_cluster(D, S, G, path, launches, current, captured, sf10,
         cluster_lines("4 cards", res, kernels)
         cluster_check_results("4 cards", res, G, path, {}, ans)
         cluster_faults(res)
+        cluster_stream_check("4 cards", res, ans, stream_ref)
+        cluster_stream["results"] += [r.results["stream stream"]
+                                      for r in res]
         cluster_kill(res)
         log(f"[cluster] 4 cards: {CLUSTER_PROCESSES} processes x 2 cards "
             f"(CUDA_VISIBLE_DEVICES {', '.join(CLUSTER_CARDS)}) over NCCL: "
             f"the 22 SQL queries and SF{OOC_SF} Q1/Q6 resident match the "
-            f"goldens, the fault and the kill end both alike; {wall:.1f} s "
-            f"with the starts; {time.perf_counter() - t1:.1f} s in all")
+            f"goldens, the fault, the SF{OOC_SF} stream with its drain, "
+            f"straggler and restart, and the kill end both alike; "
+            f"{wall:.1f} s with the starts; {time.perf_counter() - t1:.1f} "
+            f"s in all")
 
 
 def run_phases(D, phases):
@@ -6853,8 +7161,12 @@ def run_phases(D, phases):
 
     D.dense_groupby_sums = recording
     launches = {}
+    #: phase 22's SF10 stream results, phase 16 holds them to its own
+    cluster_stream = {}
     sf10_dir = tempfile.TemporaryDirectory()
     sf10 = Sf10(sf10_dir.name)
+    if {"ooc", "mesh", "elastic", "cluster"} & phases:
+        sf10.start()
     try:
         if {"main", "sql", "functions", "etl", "ooc", "udf", "mesh",
                 "obs", "stream", "analysis", "serve", "fleet",
@@ -6937,12 +7249,14 @@ def run_phases(D, phases):
                 if "cluster" in phases:
                     t0 = time.perf_counter()
                     phase_cluster(D, S, G, path, launches, current,
-                                  captured, sf10, mesh_refs)
+                                  captured, sf10, mesh_refs, cluster_stream,
+                                  own_stream_ref="elastic" not in phases)
                     log(f"[cluster] phase in "
                         f"{time.perf_counter() - t0:.1f} s")
         if "elastic" in phases:
             t0 = time.perf_counter()
-            phase_elastic(D, S, launches, current, sf10)
+            phase_elastic(D, S, launches, current, sf10, captured,
+                          cluster_stream)
             log(f"[elastic] phase in {time.perf_counter() - t0:.1f} s")
         if "main" in phases:
             phase_range(D, S, launches, current)
@@ -6970,6 +7284,7 @@ def run_phases(D, phases):
             log(f"[fuzz] phase in {time.perf_counter() - t0:.1f} s")
     finally:
         D.dense_groupby_sums = original
+        sf10.stop()
         sf10_dir.cleanup()
     return launches, captured
 
@@ -7317,6 +7632,9 @@ def parse_phases(argv) -> set:
 
 
 def main(argv) -> int:
+    if argv[:1] == [WRITE_LINEITEM_FLAG]:
+        write_lineitem(argv[1], float(argv[2]))
+        return 0
     t_start = time.perf_counter()
     phases = parse_phases(argv)
     #: only phases 3-4: the kernel shapes line, floats that differ between

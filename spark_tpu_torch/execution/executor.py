@@ -75,7 +75,10 @@ device (`execution.meshFallback.enabled`; `mesh_fallback` in
 fault_summary and `last_metrics`), whose stream resumes from the same
 checkpoint. A drain request (`session.decommission_shards`) surfaces at
 a chunk boundary; the executor excludes the drained device ids and runs
-on again over the smaller gang.
+on again over the smaller gang. On a mesh that spans engine processes
+the drain is agreed at the boundary, so every process records the same
+`decommission` and re-plans alike (no abort is written for it), and the
+whole ladder holds the cluster's run lock (`_execute_recover`).
 
 Static analysis (`analysis/`, the JAX package's): the optimizer runs
 under the plan-integrity validator and tracer
@@ -959,7 +962,27 @@ class QueryExecution:
     def _execute_recover(self) -> Batch:
         """Run `_execute_batch` under the failure taxonomy: each iteration
         returns, re-raises (FATAL, exhausted budgets, a cancel) or applies
-        one recovery action and runs again."""
+        one recovery action and runs again. On a mesh that spans
+        processes the whole ladder holds the cluster's run lock, so no
+        other execution of this process makes collectives between a
+        failed attempt and its recovery (a drain's re-execution, a gang
+        restart)."""
+        cl = self._cluster()
+        if cl is None:
+            return self._execute_ladder()
+        with cl.run_lock:
+            return self._execute_ladder()
+
+    def _cluster(self):
+        """This process's cluster when the conf meshes across processes
+        (joined on first use), else None."""
+        from ..parallel.cluster import cluster_spec, init
+        from ..parallel.mesh import RENDEZVOUS_TIMEOUT_S, mesh_size
+        if mesh_size(self._conf) > 1 and cluster_spec(self._conf):
+            return init(self._conf, RENDEZVOUS_TIMEOUT_S)
+        return None
+
+    def _execute_ladder(self) -> Batch:
         from . import lifecycle
         last: Optional[str] = None
         for _ in range(MAX_RECOVERY_ACTIONS):
@@ -1432,19 +1455,18 @@ class QueryExecution:
         error raised anywhere in it is broken to every process
         (`Cluster.abort`), which all raise the first error written and
         so take the same rung of the failure ladder."""
-        from ..parallel.cluster import cluster_spec, init
-        from ..parallel.mesh import RENDEZVOUS_TIMEOUT_S, mesh_size
-        cl = None
-        if mesh_size(self._conf) > 1 and cluster_spec(self._conf):
-            cl = init(self._conf, RENDEZVOUS_TIMEOUT_S)
+        from ..parallel.elastic import MeshDecommissionRequest
+        cl = self._cluster()
         if cl is None:
             return self._execute_once(None)
         with cl.run_lock:
             cl.begin_attempt()
             try:
                 return self._execute_once(cl)
-            except _ReplanRequest:
-                raise  # decided alike everywhere from agreed metrics
+            except (_ReplanRequest, MeshDecommissionRequest):
+                # decided alike everywhere: from agreed metrics, or from
+                # the drain request agreed at a chunk boundary
+                raise
             except BaseException as e:
                 agreed = cl.abort(e)
                 if agreed is e:
@@ -1508,10 +1530,14 @@ class QueryExecution:
         from ..observability.spans import (ShardStreamTelemetry,
                                            use_shard_telemetry)
         telem = None
-        if mesh is not None and self._shard_obs_on():
+        if mesh is not None and (self._shard_obs_on()
+                                 or mesh.cluster is not None):
+            # on a cluster the stream's gate agrees whether it records:
+            # any process's shardSpans setting turns it on in all
             telem = ShardStreamTelemetry(
                 recorder=self.spans, mesh=mesh, query_id=self.query_id,
                 bus=session.listeners)
+            telem.active = self._shard_obs_on()
         with use_shard_telemetry(telem):
             root = self._materialize_streaming(root0, mesh)
         self.spliced_plan = root

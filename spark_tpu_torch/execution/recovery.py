@@ -29,7 +29,12 @@ NSDI'12).
   single-device fallback (`resume_from_mesh_checkpoint`), instead of
   chunk 0. The `mesh_checkpoint` fault seam fires at each snapshot
   point. Checkpoints survive re-plans (they are host data under a
-  plan-independent key) and end with the execution.
+  plan-independent key) and end with the execution. On a mesh that
+  spans engine processes the snapshot gathers every process's partial
+  rows, so every process saves the same table at the same cursor under
+  the same key; a resume agrees the cursor and the consumed-chunk
+  watermark (`agree_progress`), so `rec_chunks_replayed` is equal in
+  every process.
 
 Recovery actions flow through the executor's `_record_fault`
 (`chunk_retry`, `stage_reuse`, `checkpoint_restore`) into
@@ -224,6 +229,12 @@ class RecoveryContext:
 
     def progress(self, key: str) -> int:
         return self._progress.get(key, 0)
+
+    def agree_progress(self, key: str, chunks: int) -> None:
+        """Set a stream's watermark to the one the processes of a cluster
+        agreed (the least they reached), so every process's restore
+        reports the same replay."""
+        self._progress[key] = int(chunks)
 
     def restore_replayed(self, key: str, cursor: int) -> int:
         """Chunks a resume at `cursor` covers again (the failed attempt

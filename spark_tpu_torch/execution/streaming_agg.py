@@ -222,8 +222,9 @@ class _ChunkClock:
     and copy when nothing prefetches), its host decode and copy, and the
     update's host time, with CUDA events around the update on a card.
     The mesh stream adds each shard's stripe copy seconds
-    (`stripe_copy_s`) and CUDA events around each shard's update
-    (`shard_events`)."""
+    (`stripe_copy_s`), CUDA events around each shard's update
+    (`shard_events`) and its agreements' seconds (`agree_s`: the drain
+    request and the per-shard records' gather, outside `update_s`)."""
 
     def __init__(self, recovery, kind: str, chunks=None):
         self.records = []
@@ -240,11 +241,15 @@ class _ChunkClock:
             ev[0].record()
         return time.perf_counter(), ev
 
-    def stop(self, token, wait_s: float, **extra) -> None:
+    def stop(self, token, wait_s: float, outside_s: float = 0.0,
+             **extra) -> None:
+        """`outside_s`: seconds since `start` that were not the update's
+        (a cluster's gathers, which the mesh stream records apart)."""
         t0, ev = token
         if ev is not None:
             ev[1].record()
-        rec = {"wait_s": wait_s, "update_s": time.perf_counter() - t0,
+        rec = {"wait_s": wait_s,
+               "update_s": time.perf_counter() - t0 - outside_s,
                "events": ev, **extra}
         i = len(self.records)
         for name in ("decode_s", "copy_s"):
@@ -651,7 +656,21 @@ def stream_scan_aggregate_mesh(agg: "P.HashAggregateExec", mesh, conf,
     resume, or None when the stream does not apply (the gate: a partial
     aggregate over a unary chain of a chunkable scan past the chunk size
     that does not stay resident). `device` is the session's, which the
-    residency gate reads."""
+    residency gate reads.
+
+    On a mesh that spans engine processes every process decodes every
+    chunk, as every JAX process hands the same host chunk to its sharded
+    placement, and copies only its own positions' stripes; the list
+    holds this process's positions' partials (None at the others'). What
+    a process decides alone is agreed: the gate (two processes on one
+    card see different free memory, so the scan streams unless every
+    process would keep it resident, and the per-shard telemetry runs
+    when any process's would), the resume cursor, a drain at each chunk
+    boundary (`elastic.pending_decommission`) and the straggler flags
+    (the telemetry gathers every process's waits). A checkpoint holds
+    the whole gang's partial rows, gathered, so every process saves the
+    same table at the same cursor. The chunk step makes no collective:
+    `ChunkRetrier` replays it in one process alone."""
     if agg.mode != "partial":
         return None
     if any(getattr(a.func, "positional", False) for a in agg.agg_exprs):
@@ -672,13 +691,21 @@ def stream_scan_aggregate_mesh(agg: "P.HashAggregateExec", mesh, conf,
     est = leaf.source.estimated_rows()
     if est is not None and est <= chunk_rows:
         return None
-    if _prefer_resident(leaf, conf, device):
-        return None
-    from ..parallel.elastic import refuse_on_cluster
-    refuse_on_cluster(conf, "the mesh stream (a chunked scan past "
-                            "streamingChunkRows on a mesh)")
 
     from ..observability.spans import current_shard_telemetry
+    telem = current_shard_telemetry()
+    resident = _prefer_resident(leaf, conf, device)
+    cl = mesh.cluster
+    if cl is not None:
+        votes = cl.all_gather_object(
+            (resident, telem is not None and telem.active), "stream gate")
+        resident = all(v[0] for v in votes)
+        if telem is not None:
+            telem.active = any(v[1] for v in votes)
+    if resident:
+        return None
+    if telem is not None and not telem.active:
+        telem = None
     needs_base = any(a.func.uses_row_base for a in agg.agg_exprs)
     every = int(conf.get(CHECKPOINT_EVERY_KEY))
     # position-packed aggregates take no checkpoint and no rebalance:
@@ -691,19 +718,36 @@ def stream_scan_aggregate_mesh(agg: "P.HashAggregateExec", mesh, conf,
     # rows at the end, so the recovery replays at most everyChunks
     # chunks on the mesh
     ck = recovery.get_checkpoint(ck_key) if ck_key is not None else None
+    if cl is not None and ck_key is not None:
+        ck = _agree_resume(cl, recovery, ck_key, ck)
     # chunks decode on the host; each shard copies its own stripe to its
     # device
     chunks = _open_chunks(leaf, conf, torch.device("cpu"), recovery)
     try:
         return _stream_scan_aggregate_mesh_inner(
-            agg, chain, mesh, conf, recovery, chunks,
-            current_shard_telemetry(), needs_base, every, ck_key, save_key,
-            ck)
+            agg, chain, mesh, conf, recovery, chunks, telem, needs_base,
+            every, ck_key, save_key, ck)
     finally:
         # join the prefetch worker on every exit: a mesh fault, a drain
         # or a cancel unwinding mid-stream must not leak it
         if hasattr(chunks, "close"):
             chunks.close()
+
+
+def _agree_resume(cl, recovery, ck_key: str, ck):
+    """The resume every process of a cluster takes: the checkpoint when
+    every process holds one at the same cursor (else none: the stream
+    starts again at chunk 0 everywhere), with the consumed-chunk
+    watermark the gang reached (the least of the processes'), so every
+    process reports the same replay."""
+    votes = cl.all_gather_object(
+        (None if ck is None else int(ck.cursor), recovery.progress(ck_key)),
+        "stream resume")
+    cursors = {c for c, _p in votes}
+    recovery.agree_progress(ck_key, min(p for _c, p in votes))
+    if ck is None or len(cursors) != 1:
+        return None
+    return ck
 
 
 def _stream_scan_aggregate_mesh_inner(agg, chain, mesh, conf, recovery,
@@ -716,6 +760,8 @@ def _stream_scan_aggregate_mesh_inner(agg, chain, mesh, conf, recovery,
     from ..parallel.shuffle import move_batch, shard_stripes
     from ..testing import faults
     n = mesh.size
+    local = mesh.local_positions
+    cl = mesh.cluster
     if ck is not None:
         if not hasattr(chunks, "skip_chunks") or \
                 chunks.skip_chunks(ck.cursor) < ck.cursor:
@@ -735,7 +781,7 @@ def _stream_scan_aggregate_mesh_inner(agg, chain, mesh, conf, recovery,
             # the resume landed at the end of the stream: the
             # checkpoint's partial rows are the stream's result
             record_restore()
-            return Batch.from_arrow(ck.table, mesh.devices[0])
+            return Batch.from_arrow(ck.table, mesh.local_devices[0])
         return None
     # the layout reads dtypes and dictionaries only: a few rows do
     prep = agg.prepare_direct(
@@ -743,9 +789,11 @@ def _stream_scan_aggregate_mesh_inner(agg, chain, mesh, conf, recovery,
                       _head_rows(first, 8)), conf)
     if prep is None:
         return None
-    # one layout per shard device: each shard keeps its tables on its own
-    preps = [dataclasses.replace(prep, device=d) for d in mesh.devices]
-    tables = [agg.direct_init_tables(p) for p in preps]
+    # one layout per local shard device: each shard keeps its tables on
+    # its own
+    preps = {i: dataclasses.replace(prep, device=mesh.devices[i])
+             for i in local}
+    tables = {i: agg.direct_init_tables(preps[i]) for i in local}
     check_dicts = _dict_growth_guard(agg, prep)
     chunk_base = 0
 
@@ -755,7 +803,7 @@ def _stream_scan_aggregate_mesh_inner(agg, chain, mesh, conf, recovery,
     rebal = EL.RebalanceState(n, conf, recovery=recovery) \
         if not needs_base else None
 
-    def step(tables, b, ci):
+    def step(tables, b):
         nonlocal chunk_base
         padded = EL.pad_chunk_for_shards(b, n, rebal)
         if needs_base and chunk_base + padded.capacity >= _ROW_BASE_BOUND:
@@ -768,53 +816,60 @@ def _stream_scan_aggregate_mesh_inner(agg, chain, mesh, conf, recovery,
         def shard(i, group):
             dev = mesh.devices[i]
             t0 = time.perf_counter()
-            local = move_batch(stripes[i], dev)
+            local_b = move_batch(stripes[i], dev)
             copy_s = time.perf_counter() - t0
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True)) \
                 if dev.type == "cuda" else None
             if ev is not None:
                 ev[0].record()
-            local = _replay_chain(chain, P.ExecContext(conf, dev), local)
+            local_b = _replay_chain(chain, P.ExecContext(conf, dev), local_b)
             # unique packed positions: chunks stride the padded chunk's
-            # capacity, shards the stripe's
+            # capacity, shards (by global position) the stripe's
             new = agg.direct_update_tables(
-                tables[i], local, preps[i], conf,
-                row_base=base + i * local.capacity)
+                tables[i], local_b, preps[i], conf,
+                row_base=base + i * local_b.capacity)
             if ev is not None:
                 ev[1].record()
             # this shard's live rows, left on its device (no sync): the
             # per-shard telemetry times readiness off it
-            live = local.selection_mask().sum(dtype=torch.int64)
+            live = local_b.selection_mask().sum(dtype=torch.int64)
             return new, live, copy_s, ev
 
         t_disp = time.perf_counter()
         results = run_on_shards(mesh, shard)
-        if telem is not None:
-            # the previous chunk's counts flush inside this call
-            telem.chunk_dispatched(ci, [r[1] for r in results],
-                                   _row_width(b), t_disp)
         chunk_base += padded.capacity
-        return ([r[0] for r in results],
-                {"stripe_copy_s": [r[2] for r in results],
-                 "shard_events": [r[3] for r in results]})
+        return ({i: results[i][0] for i in local},
+                {"stripe_copy_s": [results[i][2] for i in local],
+                 "shard_events": [results[i][3] for i in local]},
+                [None if r is None else r[1] for r in results], t_disp)
 
     def partials():
         overrides = dict(chunks.dictionaries) if hasattr(
             chunks, "dictionaries") else {}
-        return [_with_dict_overrides(agg.direct_partial_batch(t, p),
-                                     overrides)
-                for t, p in zip(tables, preps)]
+        return [_with_dict_overrides(
+            agg.direct_partial_batch(tables[i], preps[i]), overrides)
+            for i in local]
 
     def snapshot():
         # the accumulators to the host as partial rows (the shape a final
         # aggregate consumes), decoded against the dictionaries grown so
-        # far; a resumed stream's tables cover the chunks past the
+        # far, every position's in position order (a cluster gathers
+        # them); a resumed stream's tables cover the chunks past the
         # cursor only, so the seed checkpoint's rows go first
-        parts = ([ck.table] if ck is not None else []) + \
-            [b.to_arrow() for b in partials()]
+        mine = [b.to_arrow() for b in partials()]
+        parts = mine if cl is None else [
+            t for per in cl.all_gather_object(mine, "checkpoint")
+            for t in per]
+        if ck is not None:
+            parts = [ck.table] + parts
         return pa.concat_tables(parts, promote_options="permissive")
 
+    def gather_records(records):
+        return [r for per in cl.all_gather_object(records, "shard records")
+                for r in per]
+
+    gather = gather_records if cl is not None else None
     if ck is not None:
         # the cursor was skipped and the layout holds: the resume runs
         record_restore()
@@ -829,7 +884,9 @@ def _stream_scan_aggregate_mesh_inner(agg, chain, mesh, conf, recovery,
             # takes the mesh ladder), then a checkpoint at the cursor, so
             # the reduced gang resumes here; the request surfaces to the
             # executor on this thread
+            t_agree = time.perf_counter()
             drain, drain_ids = EL.pending_decommission(conf, mesh)
+            agree_s = time.perf_counter() - t_agree
             if drain:
                 faults.fire("decommission")
                 if save_key is not None and ci > 0:
@@ -841,9 +898,16 @@ def _stream_scan_aggregate_mesh_inner(agg, chain, mesh, conf, recovery,
                                      t_in0 + wait)
             check_dicts(b)
             tick = clock.start(torch.device("cpu"))
-            tables, extra = retrier.run(lambda bb=b: step(tables, bb, ci),
-                                        chunk=ci)
-            clock.stop(tick, wait, **extra)
+            tables, extra, lives, t_disp = retrier.run(
+                lambda bb=b: step(tables, bb), chunk=ci)
+            gather_s = 0.0
+            if telem is not None:
+                # the previous chunk's counts flush here, gathered across
+                # processes, after the step and never inside it
+                gather_s = telem.chunk_dispatched(ci, lives, _row_width(b),
+                                                  t_disp, gather)
+            clock.stop(tick, wait, outside_s=gather_s,
+                       agree_s=agree_s + gather_s, **extra)
             ci += 1
             if ck_key is not None:
                 # the consumed-chunk watermark bounds what a later
@@ -855,14 +919,15 @@ def _stream_scan_aggregate_mesh_inner(agg, chain, mesh, conf, recovery,
             b, wait = _next_chunk(chunks)  # ingest is not retried
 
     if telem is not None:
-        telem.finish()  # the last chunk's records
-    out = partials()
+        telem.finish(gather)  # the last chunk's records
     if ck is not None:
-        # the seed checkpoint's rows and the resumed tail's: the final
-        # aggregate above reduces both
-        return Batch.from_arrow(pa.concat_tables(
-            [ck.table] + [o.to_arrow() for o in out],
-            promote_options="permissive"), mesh.devices[0])
+        # the seed checkpoint's rows and the whole gang's resumed tails:
+        # the final aggregate above reduces both, and every process
+        # takes its own stripes of the same rows
+        return Batch.from_arrow(snapshot(), mesh.local_devices[0])
+    out = [None] * n
+    for i, part in zip(local, partials()):
+        out[i] = part
     return out
 
 

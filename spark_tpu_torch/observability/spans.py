@@ -184,6 +184,18 @@ class ShardStreamTelemetry:
     pinned to one card share its stream: the first shard's wait holds
     every shard's work and the others read back at once, so there a
     straggler is only what an injected `slow` fault makes.
+
+    On a mesh that spans engine processes a process times and records
+    its own positions (the seam still fires once per global position, so
+    the hit ordinals are the one-process mesh's), and each flush gathers
+    every process's records (`gather`, an `all_gather_object`) before
+    posting them, so every process's StragglerMonitor flags the same
+    shard at the same chunk. Every process enters that gather at every
+    flush the stream asks for, with its records or an empty list; it
+    sits outside the flush's failure isolation and never runs on an
+    unwind (`finish()` without `gather`). `active` is agreed by the
+    stream's gate: a process whose shardSpans setting keeps it off
+    still joins when a peer's is on.
     """
 
     def __init__(self, recorder: SpanRecorder, mesh, query_id: int,
@@ -198,6 +210,8 @@ class ShardStreamTelemetry:
         self.hosts = shard_hosts(mesh)
         #: (chunk, per-shard row counts, row_width, t_dispatch0)
         self._pending: Optional[tuple] = None
+        #: whether it records (set by the mesh stream's gate on a cluster)
+        self.active = True
 
     # -- driver-facing hooks (hot path: no device sync) ---------------------
 
@@ -213,9 +227,10 @@ class ShardStreamTelemetry:
             "dur_ms": round((t1 - t0) * 1e3, 3), "source": self.source}])
 
     def chunk_dispatched(self, chunk: int, shard_rows, row_width: int,
-                         t_dispatch: float) -> None:
+                         t_dispatch: float, gather=None) -> float:
         """Buffer one chunk's per-shard live-row counts (left on their
-        devices; no sync) after flushing the previous chunk's buffer."""
+        devices; no sync) after flushing the previous chunk's buffer.
+        Returns the seconds the flush's `gather` took."""
         if self._pending is not None and self._pending[0] == int(chunk):
             # retried attempt of the SAME chunk (ChunkRetrier replay):
             # discard the failed attempt's buffer — flushing it would
@@ -223,34 +238,53 @@ class ShardStreamTelemetry:
             # row totals, skewing straggler medians) off counts the
             # failed dispatch may have poisoned
             self._pending = None
-        self._flush_pending()
+        gather_s = self._flush_pending(gather)
         self._pending = (int(chunk), list(shard_rows), int(row_width),
                          t_dispatch)
+        return gather_s
 
-    def finish(self) -> None:
-        self._flush_pending()
+    def finish(self, gather=None) -> None:
+        """Flush the last chunk: with `gather` at a stream's normal end
+        (every process of a cluster reaches it), without it on an unwind
+        (this process's records alone)."""
+        self._flush_pending(gather)
 
     # -- flush (chunk boundary / stream end) --------------------------------
 
-    def _flush_pending(self) -> None:
-        """Flush the buffered chunk into records. The WHOLE flush is
+    def _flush_pending(self, gather=None) -> float:
+        """Flush the buffered chunk into records. The local flush is
         failure-isolated: a device error surfacing through the wait
         here must neither fail the query nor mask the stream's own
         exception (finish() runs on unwind paths) — the dispatch that
         owns the error re-raises it at the engine's own sync point,
         where the failure ladder classifies it. A raising fault
         injected at the shard_chunk seam is likewise swallowed: the
-        seam models a SLOW shard, not a dead one."""
-        if self._pending is None:
-            return
-        try:
-            self._flush_pending_inner()
-        except Exception as e:  # noqa: BLE001 — never fail the query
-            import warnings
-            warnings.warn(f"per-shard telemetry flush failed (records "
-                          f"dropped): {type(e).__name__}: {e}")
+        seam models a SLOW shard, not a dead one. The gather across
+        processes, when given, runs outside that isolation."""
+        chunk, records = None, []
+        if self._pending is not None:
+            chunk = self._pending[0]
+            try:
+                records = self._flush_pending_inner()
+            except Exception as e:  # noqa: BLE001 — never fail the query
+                import warnings
+                warnings.warn(f"per-shard telemetry flush failed (records "
+                              f"dropped): {type(e).__name__}: {e}")
+                if gather is None:
+                    chunk = None  # nothing to post
+        gather_s = 0.0
+        if gather is not None:
+            t0 = time.perf_counter()
+            records = gather(records)
+            gather_s = time.perf_counter() - t0
+        if chunk is not None and self.bus is not None:
+            from .listener import ShardChunkEvent
+            self.bus.post("on_shard_records", ShardChunkEvent(
+                query_id=self.query_id, ts=time.time(), chunk=chunk,
+                records=records))
+        return gather_s
 
-    def _flush_pending_inner(self) -> None:
+    def _flush_pending_inner(self) -> list:
         import torch
         from ..testing import faults
         chunk, counts, row_width, t0 = self._pending
@@ -280,8 +314,4 @@ class ShardStreamTelemetry:
             "wait_ms": round(waits[i], 3), "source": self.source,
         } for i in range(self.n) if rows[i] is not None]
         self.recorder.add_shard_records(records)
-        if self.bus is not None:
-            from .listener import ShardChunkEvent
-            self.bus.post("on_shard_records", ShardChunkEvent(
-                query_id=self.query_id, ts=time.time(), chunk=chunk,
-                records=records))
+        return records

@@ -385,6 +385,9 @@ class Cluster:
         self._lost: Optional[str] = None
         #: the backends this process has printed
         self.backends_used: List[str] = []
+        #: every process's device pool size, in rank order, as the last
+        #: mesh formed gathered them (None before the first)
+        self.pool_sizes: Optional[List[int]] = None
         #: one execution at a time in this process uses the groups, so
         #: the process's collectives keep the order every peer keeps
         #: (re-entrant: a scalar subquery runs inside its query)

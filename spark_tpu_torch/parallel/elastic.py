@@ -35,6 +35,18 @@ are no independent task attempts to relaunch).
   which shard folds a row); float sums may move in the last ulp, as
   any change of mesh size or chunk boundaries moves them.
 
+On a mesh that spans engine processes (`parallel/cluster.py`) the three
+run over the global mesh, and what each process decides alone is agreed:
+a drain request is the union of every process's at each chunk boundary
+(`pending_decommission`), the straggler monitor flags from every
+process's per-shard waits (`ShardStreamTelemetry` gathers them), so
+`RebalanceState` holds the same flags and weights at the same chunk in
+every process, and the gang restart re-meshes over the global pool
+(`healthy_device_count`). The `mesh_restart` fault seam is each
+process's own: a fault armed there in one process only sends that one to
+the single-device rung while its peers restart the gang and wait for it,
+so arm it in every process.
+
 All three reach `_record_fault` -> fault_summary -> the event log and
 history as the actions `mesh_restart`, `decommission` and
 `shard_rebalance`; the session's metrics count `mesh_restart_attempts`
@@ -129,35 +141,30 @@ def healthy_device_count(conf, device=None, pinned_pool: int = 0
                          ) -> Optional[int]:
     """Devices in the pool and not excluded — the pool a gang restart may
     re-mesh over: the visible cards, or a pinned session's virtual
-    devices (`mesh.device_pool`). None when the pool cannot be read (the
-    restart then keeps the configured size)."""
-    from .cluster import cluster_spec
+    devices (`mesh.device_pool`); on a cluster the global pool, from the
+    sizes the last mesh gathered (no collective here: the failure ladder
+    calls it). None when the pool cannot be read (the restart then keeps
+    the configured size)."""
+    from . import cluster
     from .mesh import device_pool, excluded_device_ids, mesh_size
     try:
-        if cluster_spec(conf) is not None:
-            return None  # the pool is every process's: the size stays
         excl = excluded_device_ids(conf)
+        if cluster.cluster_spec(conf) is not None:
+            cl = cluster.current()
+            if cl is None or cl.pool_sizes is None:
+                return None
+            return _cluster_healthy(cl.pool_sizes, excl)
         pool = device_pool(device, max(pinned_pool, mesh_size(conf)))
         return len([i for i in pool if i not in excl])
     except Exception:  # noqa: BLE001 — probing must never raise
         return None
 
 
-def refuse_on_cluster(conf, what: str) -> None:
-    """Raise AnalysisError when `conf` names a cluster: slice 14 runs a
-    mesh across engine processes as the gang it was formed, so the
-    drain, the straggler rebalancing and the mesh stream (which change
-    the gang or feed its shards chunk by chunk) wait for a later
-    slice."""
-    from ..expr import AnalysisError
-    from .cluster import COORDINATOR_KEY, cluster_spec
-    if cluster_spec(conf) is not None:
-        raise AnalysisError(
-            f"{what} is not ported to a mesh that spans engine processes "
-            f"({COORDINATOR_KEY} is set): slice 14, the multi-host mesh, "
-            f"keeps a cluster's gang as it was formed; decommission, "
-            f"straggler rebalancing and the mesh stream across processes "
-            f"are a later slice's")
+def _cluster_healthy(pool_sizes: Sequence[int], excluded) -> int:
+    """The cluster's global pool (every process's pool, in rank order)
+    less the excluded global ids that fall inside it."""
+    total = sum(pool_sizes)
+    return total - len([i for i in excluded if 0 <= i < total])
 
 
 # ---------------------------------------------------------------------------
@@ -183,16 +190,47 @@ def pending_decommission(conf, mesh) -> Tuple[Tuple[int, ...],
     """The drain request's (mesh positions, device ids) valid for this
     mesh; empty tuples when nothing is pending. Positions outside
     [0, n) are ignored (a request naming a drained position must not
-    fire forever)."""
+    fire forever).
+
+    On a mesh that spans processes the request is agreed: one
+    `all_gather_object` at every chunk boundary gives the union of every
+    process's pending positions, so a drain requested in one process
+    drains the same positions at the same chunk in all of them. A drain
+    that would leave a process without a position raises AnalysisError
+    in every process alike, before anything is excluded or cleared."""
     spec = str(conf.get(DECOMMISSION_KEY) or "").strip()
-    if not spec:
-        return (), ()
     # silent parse: this runs at every chunk boundary
-    requested = _parse_int_set(spec, warn=False)
+    requested = _parse_int_set(spec, warn=False) if spec else set()
     positions = sorted(p for p in requested if 0 <= p < mesh.size)
+    if mesh.cluster is not None:
+        agreed = mesh.cluster.all_gather_object(positions, "decommission")
+        positions = sorted(set().union(*agreed))
+        if positions:
+            _refuse_emptying_drain(conf, mesh, positions)
     if not positions:
         return (), ()
     return tuple(positions), tuple(mesh.ids[p] for p in positions)
+
+
+def _refuse_emptying_drain(conf, mesh, positions: Sequence[int]) -> None:
+    """Raise AnalysisError when draining `positions` would form a mesh
+    (as `apply_decommission` then `get_mesh` form it) that leaves some
+    process of the cluster without a position."""
+    from ..expr import AnalysisError
+    from .mesh import cluster_positions, excluded_device_ids, mesh_size
+    cl = mesh.cluster
+    excluded = excluded_device_ids(conf) | {mesh.ids[p] for p in positions}
+    healthy = _cluster_healthy(cl.pool_sizes, excluded)
+    chosen, ranks = cluster_positions(cl.pool_sizes,
+                                      min(mesh_size(conf), healthy), excluded)
+    left = sorted(set(range(cl.world)) - set(ranks)) \
+        if len(chosen) > 1 else list(range(cl.world))
+    if left:
+        raise AnalysisError(
+            f"decommission of mesh position(s) {list(positions)} refused: "
+            f"it would leave cluster process(es) {left} without a mesh "
+            f"position, and every engine process must drive a shard; "
+            f"nothing was excluded")
 
 
 def discard_stale_decommission(session_conf, mesh) -> None:
@@ -226,7 +264,6 @@ def apply_decommission(session_conf, device_ids: Sequence[int],
     surviving pool so planning (exchange sizes divide by n) agrees with
     the gang that runs, for this query's re-execution and every later
     one. `device` and `pinned_pool` name the pool as get_mesh does."""
-    refuse_on_cluster(session_conf, "a decommission")
     merged = _parse_int_set(session_conf.get(EXCLUDE_KEY)) \
         | set(int(i) for i in device_ids)
     session_conf.set(EXCLUDE_KEY, ",".join(str(i) for i in sorted(merged)))
@@ -244,7 +281,6 @@ def decommission_shards(session, shards: Sequence[int]) -> None:
     A running mesh stream drains at its next chunk boundary; otherwise
     the next mesh query applies it at its first. Merges with a request
     still pending, so back-to-back drains keep the earlier one."""
-    refuse_on_cluster(session.conf, "decommission_shards")
     pending = _parse_int_set(session.conf.get(DECOMMISSION_KEY))
     merged = pending | {int(s) for s in shards}
     session.conf.set(DECOMMISSION_KEY,

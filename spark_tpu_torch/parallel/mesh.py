@@ -52,7 +52,14 @@ devices ordered by process, then by local device, and the mesh takes its
 first mesh.size positions. A position another process owns carries no
 local device (`Mesh.devices[i]` is None); `run_on_shards` starts threads
 for this process's positions only, and the group's collectives cross
-processes through the cluster's process group.
+processes through the cluster's process group. A position's device id
+is then its index in that global list, so a drain and
+`spark_tpu.sql.mesh.excludeDevices` name the same device in every
+process: draining position 3 of two processes with two shards each
+excludes global id 3 everywhere, lowers mesh.size to 3 in every process
+and meshes over ids 0-2 (two positions in process 0, one in process 1).
+A drain that would leave a process without a position is refused
+(`elastic.pending_decommission`), as every process must drive a shard.
 """
 
 from __future__ import annotations
@@ -163,7 +170,10 @@ def device_pool(device=None, pinned_pool: int = 0) -> List[int]:
 def pinned_pool_size(conf) -> int:
     """The virtual devices a pinned session's process holds for a mesh
     of mesh.size: all of them in one process, its share
-    (ceil(mesh.size / processes)) on a cluster."""
+    (ceil(mesh.size / processes)) on a cluster. After a drain lowers
+    mesh.size the session keeps its larger pool (`session.mesh_pool`
+    holds the largest it ran), so the drained id stays in the global
+    list, excluded, and the others keep their ids."""
     from .cluster import cluster_spec
     n = mesh_size(conf)
     spec = cluster_spec(conf)
@@ -206,6 +216,16 @@ def _local_pool(conf, device, pinned_pool: int) -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(visible)]
 
 
+def cluster_positions(pool_sizes: Sequence[int], n: int,
+                      excluded: Set[int]) -> tuple:
+    """The mesh a cluster forms from every process's pool size (in rank
+    order): the global ids of its positions, the first n of the global
+    pool that are not excluded, and each one's rank."""
+    owner = [r for r, size in enumerate(pool_sizes) for _ in range(size)]
+    chosen = [g for g in range(len(owner)) if g not in excluded][:n]
+    return chosen, [owner[g] for g in chosen]
+
+
 def _cluster_mesh(conf, cl, device, pinned_pool: int) -> Optional[Mesh]:
     """get_mesh on a cluster: the global list is every process's pool,
     ordered by rank (a position's id is its index there), and the mesh
@@ -223,18 +243,19 @@ def _cluster_mesh(conf, cl, device, pinned_pool: int) -> Optional[Mesh]:
             f"cluster's {cl.world} processes ({[len(p) for p in pools]} "
             f"each); lower {MESH_KEY} or give the processes more cards")
     owner = [(r, k) for r, p in enumerate(pools) for k in range(len(p))]
-    excluded = excluded_device_ids(conf)
-    pool = [g for g in range(total) if g not in excluded]
-    n = min(n, len(pool))
-    if n <= 1:
+    # the global pool's sizes, which the failure ladder reads
+    # (`elastic.healthy_device_count`) with no collective of its own
+    cl.pool_sizes = [len(p) for p in pools]
+    chosen, ranks = cluster_positions(cl.pool_sizes, n,
+                                      excluded_device_ids(conf))
+    if len(chosen) <= 1:
         return None
-    chosen = pool[:n]
-    ranks = [owner[g][0] for g in chosen]
     missing = sorted(set(range(cl.world)) - set(ranks))
     if missing:
         raise RuntimeError(
-            f"mesh.size={n} leaves cluster process(es) {missing} without "
-            f"a mesh position: every process must drive a shard")
+            f"mesh.size={len(chosen)} leaves cluster process(es) "
+            f"{missing} without a mesh position: every process must drive "
+            f"a shard")
     devices = [local[owner[g][1]] if owner[g][0] == cl.rank else None
                for g in chosen]
     backend = choose_backend(pools)

@@ -8,7 +8,8 @@ on its virtual CPU devices (ints, strings and validity exactly, floats
 within a relative 1e-9, in the reference's row order). Also here: the
 port's twin of `tests/test_rules.py::test_init_distributed_mocked`, the
 bytes an all_to_all moves across processes, the per-rank event logs and
-metrics files, the named refusal of a decommission on a cluster, and
+metrics files, the named refusal of a drain that would leave a process
+without a mesh position, and
 failures armed in one process outside the `mesh` seam (a fatal fault
 at `stage_run`, a stage timeout only one process's conf sets), which
 both processes must leave alike within 30 s, and the loss of a peer
@@ -149,18 +150,34 @@ def test_event_log_and_metrics_are_per_rank(dryrun_cluster):
 
 
 def test_decommission_refused_on_a_cluster():
-    """A drain would change a cluster's gang: a named AnalysisError,
-    before any process joins."""
+    """On a cluster a drain is requested as in one process (each process
+    its own request, agreed at the next chunk boundary); the drain
+    refused is one that would leave a process without a mesh position:
+    a named AnalysisError, raised in every process alike from the agreed
+    request, with no conf changed."""
     from spark_tpu_torch import SparkTpuSession
     from spark_tpu_torch.expr import AnalysisError
     from spark_tpu_torch.parallel import elastic as EL
+
+    class Peer:
+        rank, world, pool_sizes = 0, 2, [2, 2]
+
+        def all_gather_object(self, obj, what=""):
+            return [obj, [1]]  # the peer asks for position 1
+
     s = SparkTpuSession.builder().device("cpu").get_or_create()
     s.conf.set("spark_tpu.sql.cluster.coordinator", "127.0.0.1:1")
     s.conf.set("spark_tpu.sql.cluster.numProcesses", 2)
-    with pytest.raises(AnalysisError, match="slice 14"):
-        s.decommission_shards([1])
-    with pytest.raises(AnalysisError, match="slice 14"):
-        EL.apply_decommission(s.conf, [1], "cpu", 4)
+    s.conf.set(MESH, N)
+    s.decommission_shards([0])
+    assert s.conf.get(EL.DECOMMISSION_KEY) == "0"
+    mesh = M.Mesh(["cpu", "cpu", None, None], [0, 1, 2, 3], [0, 0, 1, 1],
+                  cluster=Peer(), backend="gloo")
+    with pytest.raises(AnalysisError, match=r"\[0, 1\] refused: it would "
+                       r"leave cluster process\(es\) \[0\]"):
+        EL.pending_decommission(s.conf, mesh)
+    assert s.conf.get(EL.DECOMMISSION_KEY) == "0"
+    assert s.conf.get(EL.EXCLUDE_KEY) == "" and int(s.conf.get(MESH)) == N
 
 
 def test_failure_outside_the_mesh_seam_ends_both_alike(tmp_path):

@@ -9,8 +9,13 @@ executed plan as one process), and with the skew re-plan on both
 re-plan it to broadcast. A fault at the `mesh` seam in one process:
 both gang-restart to the right result, or with the rungs off both raise
 it, within 30 s. A peer killed with SIGKILL mid-query: the survivor
-raises `ClusterPeerLostError` within 30 s. The mesh stream on a cluster
-raises the named error."""
+raises `ClusterPeerLostError` within 30 s. The mesh stream on a cluster:
+Q1 and Q6 past streamingChunkRows (1,024-row chunks, the device cache
+off) stream per shard in both processes, each process's result
+byte-equal to the one-process mesh-4 stream and equal to the JAX
+package's mesh-4 stream. The drain, the straggler, the checkpointed
+restart and a peer killed mid-stream are in
+`test_torch_cluster_elastic.py`."""
 
 import pytest
 
@@ -25,7 +30,8 @@ from torch_cluster_parity import assert_close, run_cpu_cluster, run_ok
 from torch_sql_parity import write_data
 
 SF = 0.002
-NAMES = CP.TPCH_QUERIES + ("range", "skew_broadcast", "skew_grow")
+NAMES = CP.TPCH_QUERIES + ("range", "skew_broadcast", "skew_grow") \
+    + CP.STREAMED
 #: seconds within which every process leaves a failed cluster run
 BOUND_S = 30.0
 
@@ -39,11 +45,14 @@ def _programs(port: bool):
     progs["range"] = lambda s: CP.range_program(s, ns)
     progs["skew_grow"] = lambda s: CP.skew_program(s, ns)
     progs["skew_broadcast"] = lambda s: CP.skew_program(s, ns)
+    for name in CP.STREAMED:
+        progs[name] = progs[name.split("_")[1]]
     return progs
 
 
 CONFS = {"skew_grow": ((CP.BCAST, 0), (CP.SKEW_LIMIT, 1)),
-         "skew_broadcast": ((CP.BCAST, 0),)}
+         "skew_broadcast": ((CP.BCAST, 0),),
+         **{name: CP.STREAMING for name in CP.STREAMED}}
 
 
 def _run_local(session, name, build):
@@ -128,10 +137,18 @@ def test_overflow_grows_blocks_in_both_processes(tpch_cluster):
     assert all("strategy=broadcast" in p for p in bcast)
 
 
-def test_mesh_stream_refused_on_a_cluster(tpch_cluster):
-    for r in tpch_cluster:
-        msg = r.report["stream_refusal"]
-        assert msg.startswith("AnalysisError") and "slice 14" in msg, msg
+def test_mesh_stream_on_a_cluster(tpch_cluster, references):
+    """Q1 and Q6 stream per shard in both processes (the spliced
+    `InputExec(streamed_partial_agg,...)`), over as many chunks as the
+    one-process mesh-4 stream."""
+    for name in CP.STREAMED:
+        _one, qe, _want = references[name]
+        assert "InputExec(streamed_partial_agg," in \
+            qe.spliced_plan.tree_string()
+        for r in tpch_cluster:
+            plan = r.report["plans"][name]
+            assert plan["spliced"] == qe.spliced_plan.tree_string(), name
+            assert plan["chunks"] == CP.stream_chunks(qe) >= 1, name
 
 
 def test_fault_in_one_process_gives_both_the_same_outcome(

@@ -25,6 +25,28 @@ FALLBACK = "spark_tpu.execution.meshFallback.enabled"
 RANGE_ROWS = 50_000
 RANGE_MOD = 1024
 TPCH_QUERIES = ("q1", "q3", "q5", "q6")
+#: the mesh stream's conf (`tests/torch_ooc_parity.py` STREAMING): chunks
+#: of 1,024 rows, the device table cache off, millisecond backoffs
+STREAMING = (("spark_tpu.sql.execution.streamingChunkRows", 1024),
+             ("spark_tpu.sql.io.deviceCacheBytes", 0),
+             ("spark_tpu.execution.backoffMs", 1))
+STREAMED = ("stream_q1", "stream_q6")
+CKPT = "spark_tpu.execution.checkpoint.everyChunks"
+RESTART_MAX = "spark_tpu.execution.meshRestart.maxRestarts"
+DRAIN = "spark_tpu.execution.decommission.shards"
+EXCLUDE = "spark_tpu.sql.mesh.excludeDevices"
+SPANS = "spark_tpu.sql.observability.shardSpans"
+#: the straggler monitor's conf of `tests/test_torch_elastic.py`
+STRAGGLER = (("spark_tpu.sql.straggler.minChunks", 3),
+             ("spark_tpu.sql.straggler.factor", 4.0))
+#: the drained position, the slowed one, its wait a chunk (ms), and the
+#: chunks a Q1 stream at SF 0.002 can take at most
+DRAIN_POSITION = 3
+SLOW_POSITION = 3
+SLOW_MS = 60
+MAX_CHUNKS = 16
+COUNTERS = ("rec_chunks_replayed", "mesh_restart_attempts",
+            "rebalance_rows")
 
 
 def exchange_program(session):
@@ -112,6 +134,8 @@ def tpch(session, proc):
             qe = make()._qe()
             out[name] = qe.collect()
             plans[name] = {"plan": qe.executed_plan.tree_string(),
+                           "spliced": qe.spliced_plan.tree_string(),
+                           "chunks": stream_chunks(qe),
                            "attempts": qe.attempts,
                            "faults": qe.fault_summary,
                            "wall_s": time.perf_counter() - t0}
@@ -127,27 +151,11 @@ def tpch(session, proc):
     run("skew_broadcast", lambda: skew_program(session), ((BCAST, 0),))
     run("skew_grow", lambda: skew_program(session),
         ((BCAST, 0), (SKEW_LIMIT, 1)))
+    # the mesh stream: Q1 and Q6 past streamingChunkRows, cache off
+    for q in ("q1", "q6"):
+        run(f"stream_{q}", lambda q=q: QUERIES[q](session), STREAMING)
     proc.report["plans"] = plans
-    proc.report["stream_refusal"] = _stream_refusal(session)
     return out
-
-
-def _stream_refusal(session):
-    """Q1 past streamingChunkRows with the device cache off: the mesh
-    stream, which a cluster refuses with a named error."""
-    from spark_tpu_torch.tpch.queries import QUERIES
-    confs = (("spark_tpu.sql.execution.streamingChunkRows", 1024),
-             ("spark_tpu.sql.io.deviceCacheBytes", 0))
-    for k, v in confs:
-        session.conf.set(k, v)
-    try:
-        QUERIES["q1"](session).collect()
-    except Exception as e:  # noqa: BLE001 — the test reads it
-        return f"{type(e).__name__}: {e}"
-    finally:
-        for k, _v in confs:
-            session.conf.unset(k)
-    return None
 
 
 def faults(session, proc):
@@ -230,3 +238,189 @@ def seams(session, proc):
         runs[label]["wall_s"] = time.perf_counter() - t0
     proc.report["runs"] = runs
     return {"after": range_program(session).collect()}
+
+
+# -- the elastic mesh across processes -----------------------------------------
+
+def stream_chunks(qe) -> int:
+    """Chunks the query's mesh streams folded."""
+    return sum(len(st["chunks"]) for st in qe.stream_stats
+               if st["kind"] == "mesh")
+
+
+def stream_session(session, path, confs=()):
+    """A fresh session of this process (pinned to its device, joined to
+    its cluster) over the TPC-H tables at `path`, at mesh.size 4 under
+    the streaming conf and `confs`: each case starts from a gang of 4
+    with nothing drained."""
+    from spark_tpu_torch.tpch.queries import register_tables
+    builder = type(session).builder().device(session.device)
+    for k in CLUSTER_KEYS:
+        builder = builder.config(k, session.conf.get(k))
+    s = builder.get_or_create()
+    register_tables(s, path)
+    s.conf.set(MESH, N_SHARDS)
+    for k, v in STREAMING + tuple(confs):
+        s.conf.set(k, v)
+    return s
+
+
+def counters(session) -> dict:
+    return {k: session.metrics.counter(k).value for k in COUNTERS}
+
+
+def outcome(session, make, spec=""):
+    """One execution of `make(session)` under the fault spec (armed in
+    this process): (table or None, what the tests read of it)."""
+    from spark_tpu_torch.testing import faults as FT
+    before = counters(session)
+    t0 = time.perf_counter()
+    rec = {}
+    table = None
+    with FT.inject(session.conf, spec) as plan:
+        qe = make(session)._qe()
+        try:
+            table = qe.collect()
+        except Exception as e:  # noqa: BLE001 — the test reads it
+            rec["error"] = type(e).__name__
+            rec["message"] = str(e)[:400]
+        rec["fired"] = [list(f) for f in plan.fired_log] if plan else []
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["faults"] = qe.fault_summary
+    # each process jitters its own backoff
+    rec["events"] = [{k: v for k, v in ev.items()
+                      if k not in ("error", "backoff_ms")}
+                     for ev in qe.fault_events]
+    rec["delta"] = {k: v - before[k] for k, v in counters(session).items()}
+    # the last stream's chunks: a failed attempt's count depends on when
+    # each process saw the abort
+    rec["chunks"] = len(qe.stream_stats[-1]["chunks"]) \
+        if qe.stream_stats else 0
+    rec["shards_by_chunk"] = shards_by_chunk(qe)
+    rec["spliced"] = qe.spliced_plan.tree_string() \
+        if qe.spliced_plan is not None else None
+    return table, rec
+
+
+def shards_by_chunk(qe) -> dict:
+    """This process's compute records: chunk -> {position: live rows}."""
+    out = {}
+    for r in qe.spans.shard_records:
+        if r["phase"] == "compute":
+            out.setdefault(str(r["chunk"]), {})[str(r["shard"])] = r["rows"]
+    return out
+
+
+def q1(session):
+    from spark_tpu_torch.tpch.queries import QUERIES
+    return QUERIES["q1"](session)
+
+
+def q6(session):
+    from spark_tpu_torch.tpch.queries import QUERIES
+    return QUERIES["q6"](session)
+
+
+def drain(session, proc):
+    """(b) Position 3 drained mid-stream by a request rank 1 alone makes
+    (from a listener, once chunk 1's records are posted), then Q6 on the
+    drained gang; (c) a drain of positions 2 and 3, requested in rank 1
+    alone before the query, which would leave rank 1 without a
+    position."""
+    from spark_tpu_torch.observability import QueryListener
+    path = proc.args["path"]
+    s = stream_session(session, path, ((CKPT, 2), (SPANS, "on")))
+
+    class Drainer(QueryListener):
+        done = False
+
+        def on_shard_records(self, event):
+            if not self.done and event.chunk >= 1:
+                self.done = True
+                s.decommission_shards([DRAIN_POSITION])
+
+    if proc.rank == 1:
+        s.add_listener(Drainer())
+    out, runs = {}, {}
+    out["drain"], runs["drain"] = outcome(s, q1)
+    runs["drain"]["after"] = {k: str(s.conf.get(k))
+                              for k in (MESH, EXCLUDE, DRAIN)}
+    out["after"], runs["after"] = outcome(s, q6)
+    s2 = stream_session(session, path)
+    if proc.rank == 1:
+        s2.decommission_shards([2, 3])
+    _t, runs["refused"] = outcome(s2, q1)
+    runs["refused"]["after"] = {k: str(s2.conf.get(k))
+                                for k in (MESH, EXCLUDE, DRAIN)}
+    proc.report["runs"] = runs
+    return out
+
+
+def straggler(session, proc):
+    """(d) Position 3 slowed SLOW_MS at the `shard_chunk` seam every
+    chunk, armed in rank 1 alone: the monitor's flags and the chunk each
+    came at, from a listener."""
+    from spark_tpu_torch.observability import QueryListener
+    s = stream_session(session, proc.args["path"],
+                       ((SPANS, "on"),) + STRAGGLER)
+    seen = {"chunk": None, "flags": []}
+
+    class Watcher(QueryListener):
+        def on_shard_records(self, event):
+            seen["chunk"] = event.chunk
+
+        def on_straggler(self, event):
+            seen["flags"].append([event.shard, seen["chunk"]])
+
+    s.add_listener(Watcher())
+    spec = ",".join(f"shard_chunk:slow:{c * N_SHARDS + SLOW_POSITION + 1}:"
+                    f"{SLOW_MS}" for c in range(MAX_CHUNKS)) \
+        if proc.rank == 1 else ""
+    out, runs = {}, {}
+    out["straggler"], runs["straggler"] = outcome(s, q1, spec)
+    runs["straggler"]["flags"] = seen["flags"]
+    proc.report["runs"] = runs
+    return out
+
+
+def stream_faults(session, proc):
+    """(e) A shard lost at the 2nd checkpoint (`mesh_checkpoint:fatal:2`,
+    a checkpoint every 2 chunks) in rank 1 alone: with the gang restart,
+    then with its budget spent (maxRestarts 0)."""
+    path = proc.args["path"]
+    spec = "mesh_checkpoint:fatal:2" if proc.rank == 1 else ""
+    out, runs = {}, {}
+    s = stream_session(session, path, ((CKPT, 2),))
+    out["restart"], runs["restart"] = outcome(s, q1, spec)
+    s = stream_session(session, path, ((CKPT, 2), (RESTART_MAX, 0)))
+    out["spent"], runs["spent"] = outcome(s, q1, spec)
+    proc.report["runs"] = runs
+    return out
+
+
+def stream_killed(session, proc):
+    """(f) Rank 1 marks once chunk 1's records are posted, then sleeps
+    at chunk 3's `stream_chunk` seam, where the launcher kills it; rank
+    0, waiting at the next chunk boundary's agreement, raises."""
+    from spark_tpu_torch.observability import QueryListener
+    from spark_tpu_torch.testing import faults as FT
+    s = stream_session(session, proc.args["path"], ((SPANS, "on"),))
+
+    class Marker(QueryListener):
+        def on_shard_records(self, event):
+            if event.chunk == 1:
+                proc.mark("stream")
+
+    s.add_listener(Marker())
+    spec = "stream_chunk:slow:4:20000" if proc.rank == 1 else ""
+    with FT.inject(s.conf, spec):
+        t0 = time.time()
+        try:
+            q1(s).collect()
+            proc.report["outcome"] = "finished"
+        except Exception as e:  # noqa: BLE001 — the test reads it
+            proc.report["outcome"] = type(e).__name__
+            proc.report["message"] = str(e)[:300]
+        proc.report["raised_at"] = time.time()
+        proc.report["wait_s"] = time.time() - t0
+    return {}
