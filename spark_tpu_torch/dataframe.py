@@ -11,7 +11,7 @@ node; INTERSECT and EXCEPT are a tagged union plus a group-by
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import pyarrow as pa
 
@@ -27,6 +27,11 @@ def _expr(e) -> Expression:
 
 
 class DataFrame:
+    #: the perf_counter interval `session.sql` parsed this DataFrame's
+    #: statement in, until its first execution takes it as its `parse`
+    #: span
+    _parsed: Optional[Tuple[float, float]] = None
+
     def __init__(self, session, plan: L.LogicalPlan):
         self.session = session
         self.plan = plan
@@ -246,7 +251,8 @@ class DataFrame:
 
     def _qe(self):
         from .execution.executor import QueryExecution
-        return QueryExecution(self.session, self.plan)
+        parsed, self._parsed = self._parsed, None
+        return QueryExecution(self.session, self.plan, parsed=parsed)
 
     def collect(self) -> pa.Table:
         return self._qe().collect()

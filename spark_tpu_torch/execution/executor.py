@@ -91,9 +91,15 @@ once as `on_analysis` before the first launch, and under
 `AnalysisFindingError` with no device work done.
 
 Observability (`observability/`, the JAX package's spine): each
-execution records spans (`self.spans`: analysis, optimize, plan,
-analyze, streaming, ingest, one dispatch per attempt, egress; marks for
-`aqe_replan`, `aqe_overflow`, `retry:<action>` and `cancelled`) and
+execution records spans (`self.spans`: parse for a SQL statement,
+analysis, optimize, plan, analyze, ingest, one dispatch per attempt
+holding an `op:<PhysicalClass>` span a computed node, egress; the host
+work between them: admit, begin, start_event, caps_lookup, predict,
+python_udfs, streaming (when a streamed aggregate ran; streamed chunks
+record no operator spans), execution, stage_completed, grow_caps,
+readback, caps_store, end_event; marks for
+`aqe_replan`, `aqe_overflow`, `retry:<action>` and `cancelled`), each a
+`spark_tpu/<span>` profiler range while a torch.profiler is active, and
 posts its lifecycle on `session.listeners`: `on_query_start`,
 `on_analysis`, `on_stage_completed` per attempt, `on_fault` per recovery action and
 `on_query_end` with status ok, error, cancelled or deadline_exceeded and
@@ -115,7 +121,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import pyarrow as pa
 import torch
@@ -205,14 +211,17 @@ def run_plan(root: P.PhysicalPlan, ctx: P.ExecContext,
     share it. `loaded` maps node ids to batches computed already (the
     scans `load_scans` loaded), which are not computed again.
     `visit(node, compute)` wraps each node's computation when given (a
-    profiler's seam). Under `spark_tpu.sql.metrics.enabled` each node it
-    computes (not the loaded scans, which the JAX package feeds in as
-    inputs) keeps its live output rows as the metric `rows_<op_tag>`
-    (the SQLMetrics analog), counted inside the computation `visit`
-    times."""
+    profiler's seam). Each node it computes is the span
+    `op:<PhysicalClass>` (attribute `op_tag` where the node has one) on
+    the query's recorder, `ctx.spans`, when there is one. Under
+    `spark_tpu.sql.metrics.enabled` each node it computes (not the loaded
+    scans, which the JAX package feeds in as inputs) keeps its live
+    output rows as the metric `rows_<op_tag>` (the SQLMetrics analog),
+    counted inside the computation `visit` times."""
     memo: Dict[int, Batch] = dict(loaded or {})
 
     per_op = bool(ctx.conf.get("spark_tpu.sql.metrics.enabled"))
+    spans = ctx.spans
 
     def compute(node: P.PhysicalPlan, inputs: List[Batch]) -> Batch:
         out = node.compute(ctx, inputs)
@@ -222,12 +231,22 @@ def run_plan(root: P.PhysicalPlan, ctx: P.ExecContext,
                            else out.selection.sum())
         return out
 
+    def computed(node: P.PhysicalPlan, inputs: List[Batch]) -> Batch:
+        if visit is None:
+            return compute(node, inputs)
+        return visit(node, lambda: compute(node, inputs))
+
     def run(node: P.PhysicalPlan) -> Batch:
         out = memo.get(id(node))
         if out is None:
             inputs = [run(c) for c in node.children]
-            out = compute(node, inputs) if visit is None else \
-                visit(node, lambda: compute(node, inputs))
+            if spans is None:
+                out = computed(node, inputs)
+            else:
+                tag = getattr(node, "op_tag", None)
+                with spans.span("op:" + type(node).__name__,
+                                **({"op_tag": tag} if tag else {})):
+                    out = computed(node, inputs)
             memo[id(node)] = out
         return out
 
@@ -435,13 +454,16 @@ def shrink_caps_from_rtf(root: P.PhysicalPlan,
 
 
 class QueryExecution:
-    def __init__(self, session, logical: L.LogicalPlan):
+    def __init__(self, session, logical: L.LogicalPlan,
+                 parsed: Optional[Tuple[float, float]] = None):
+        """`parsed` is the perf_counter interval in which `session.sql`
+        parsed and lowered the statement, the query's `parse` span and
+        phase time; None for a plan built otherwise."""
         self.session = session
         self.logical = logical
         self._analyzed: Optional[L.LogicalPlan] = None
         self._optimized: Optional[L.LogicalPlan] = None
         self._executed: Optional[P.PhysicalPlan] = None
-        self.phase_times: Dict[str, float] = {}
         self.last_metrics: Dict[str, object] = {}
         #: runs the last execute_batch took (1 + re-plans)
         self.attempts = 0
@@ -480,7 +502,12 @@ class QueryExecution:
             max_spans=int(session.conf.get(
                 "spark_tpu.sql.observability.maxSpans")),
             max_shard_records=int(session.conf.get(
-                "spark_tpu.sql.observability.maxShardRecords")))
+                "spark_tpu.sql.observability.maxShardRecords")),
+            t_origin=parsed[0] if parsed is not None else None)
+        #: seconds by phase, kept by the recorder's spans
+        self.phase_times: Dict[str, float] = self.spans.phase_times
+        if parsed is not None:
+            self.spans.record("parse", *parsed, phase="parse")
         #: stage key -> its last attempt's device-memory cost record
         self.stage_costs: Dict[str, Dict] = {}
         # set per execute_batch: False keeps event construction off the
@@ -538,13 +565,11 @@ class QueryExecution:
     @property
     def analyzed(self) -> L.LogicalPlan:
         if self._analyzed is None:
-            t0 = time.perf_counter()
-            self._activate_conf()
-            self.logical.schema()  # eager name/type resolution raises here
-            self._analyzed = self.logical
-            t1 = time.perf_counter()
-            self.phase_times["analysis"] = t1 - t0
-            self.spans.record("analysis", t0, t1)
+            with self.spans.span("analysis", phase="analysis"):
+                self._activate_conf()
+                # eager name/type resolution raises here
+                self.logical.schema()
+                self._analyzed = self.logical
         return self._analyzed
 
     def _apply_cache(self, plan: L.LogicalPlan) -> L.LogicalPlan:
@@ -614,40 +639,36 @@ class QueryExecution:
     @property
     def optimized_plan(self) -> L.LogicalPlan:
         if self._optimized is None:
-            t0 = time.perf_counter()
-            plan = self._resolve_scalar_subqueries(
-                self._apply_cache(self.analyzed))
-            log: List[Dict] = []
-            from ..analysis.plan_integrity import (PlanChangeTracer,
-                                                   PlanIntegrityValidator)
-            mode = str(self._conf.get(
-                "spark_tpu.sql.planChangeValidation"))
-            validator = PlanIntegrityValidator(mode) \
-                if mode in ("lite", "full") else None
-            tracer = PlanChangeTracer(diffs=bool(self._conf.get(
-                "spark_tpu.sql.planChangeLog")))
-            self._optimized = default_optimizer(
-                self.session.conf, reorder_log=log, validator=validator,
-                tracer=tracer).execute(plan)
-            self.rule_trace = tracer.records
-            if validator is not None:
-                self._integrity_findings = validator.findings
-            self.reorder_decisions = log
-            t1 = time.perf_counter()
-            self.phase_times["optimization"] = t1 - t0
-            self.spans.record("optimize", t0, t1)
+            with self.spans.span("optimize", phase="optimization"):
+                self._optimize()
         return self._optimized
+
+    def _optimize(self) -> None:
+        plan = self._resolve_scalar_subqueries(
+            self._apply_cache(self.analyzed))
+        log: List[Dict] = []
+        from ..analysis.plan_integrity import (PlanChangeTracer,
+                                               PlanIntegrityValidator)
+        mode = str(self._conf.get("spark_tpu.sql.planChangeValidation"))
+        validator = PlanIntegrityValidator(mode) \
+            if mode in ("lite", "full") else None
+        tracer = PlanChangeTracer(diffs=bool(self._conf.get(
+            "spark_tpu.sql.planChangeLog")))
+        self._optimized = default_optimizer(
+            self.session.conf, reorder_log=log, validator=validator,
+            tracer=tracer).execute(plan)
+        self.rule_trace = tracer.records
+        if validator is not None:
+            self._integrity_findings = validator.findings
+        self.reorder_decisions = log
 
     @property
     def executed_plan(self) -> P.PhysicalPlan:
         if self._executed is None:
-            t0 = time.perf_counter()
-            self._executed = plan_physical(
-                self.optimized_plan, self._conf,
-                join_strategy_overrides=self._join_overrides or None)
-            t1 = time.perf_counter()
-            self.phase_times["planning"] = t1 - t0
-            self.spans.record("plan", t0, t1)
+            with self.spans.span("plan", phase="planning"):
+                self._executed = plan_physical(
+                    self.optimized_plan, self._conf,
+                    join_strategy_overrides=self._join_overrides or None)
         return self._executed
 
     def explain(self, extended: bool = False, runtime: bool = False,
@@ -781,35 +802,39 @@ class QueryExecution:
         from ..service import arbiter as res_arbiter
         from . import lifecycle
         session = self.session
-        self._activate_conf()
-        # every execution starts optimistic: a plan built under an
-        # earlier execution's degraded overlay is rebuilt
-        if self._exec_conf is not None or self._mesh_fallback:
-            self._executed = None
-        self._exec_conf = None
-        self._mesh_fallback = False
-        lc_scope = lifecycle.enter_query_scope(session.app_id,
-                                               self.query_id, session.conf)
-        # the service arbiter's lease scope (service/arbiter.py): scans
-        # this execution keeps resident lease from the shared pool, and
-        # all of it is released when the execution ends; None when no
-        # arbiter is installed
-        arb_token = res_arbiter.enter_query(
-            f"{session.app_id}:q{self.query_id}", session.device)
-        self.udf_summary = None
-        # _analysis_posted stays: it is per QueryExecution, so an
-        # external collect that falls through to here (or a re-executed
-        # qe) posts on_analysis once
-        self.analysis_findings = None
-        for key in [k for k in self.phase_times if k.startswith("udf_")]:
-            del self.phase_times[key]  # python_eval's per-run sums
-        self._begin_recovery()
-        self._observe_events = self._events_enabled()
+        # the execution's scopes, lease and failure state
+        with self.spans.span("begin"):
+            self._activate_conf()
+            # every execution starts optimistic: a plan built under an
+            # earlier execution's degraded overlay is rebuilt
+            if self._exec_conf is not None or self._mesh_fallback:
+                self._executed = None
+            self._exec_conf = None
+            self._mesh_fallback = False
+            lc_scope = lifecycle.enter_query_scope(
+                session.app_id, self.query_id, session.conf)
+            # the service arbiter's lease scope (service/arbiter.py):
+            # scans this execution keeps resident lease from the shared
+            # pool, and all of it is released when the execution ends;
+            # None when no arbiter is installed
+            arb_token = res_arbiter.enter_query(
+                f"{session.app_id}:q{self.query_id}", session.device)
+            self.udf_summary = None
+            # _analysis_posted stays: it is per QueryExecution, so an
+            # external collect that falls through to here (or a
+            # re-executed qe) posts on_analysis once
+            self.analysis_findings = None
+            for key in [k for k in self.phase_times
+                        if k.startswith("udf_")]:
+                del self.phase_times[key]  # python_eval's per-run sums
+            self._begin_recovery()
+            self._observe_events = self._events_enabled()
         if self._observe_events:
             from ..observability.listener import QueryStartEvent
-            session.listeners.post("on_query_start", QueryStartEvent(
-                query_id=self.query_id, ts=time.time(),
-                plan=self.logical.tree_string()))
+            with self.spans.span("start_event"):
+                session.listeners.post("on_query_start", QueryStartEvent(
+                    query_id=self.query_id, ts=time.time(),
+                    plan=self.logical.tree_string()))
         session._exec_depth += 1
         try:
             for _replan in range(4):
@@ -1494,11 +1519,12 @@ class QueryExecution:
         adaptive = bool(conf.get("spark_tpu.sql.adaptive.enabled"))
         # seed the capacities an earlier execution of this plan over the
         # same data converged on: repeated queries skip the re-plans
-        aqe_key = self._aqe_cache_key(mesh)
-        saved_caps = session._aqe_caps.get(aqe_key) \
-            if aqe_key is not None else None
-        if saved_caps:
-            apply_saved_caps(root0, saved_caps)
+        with self.spans.span("caps_lookup"):
+            aqe_key = self._aqe_cache_key(mesh)
+            saved_caps = session._aqe_caps.get(aqe_key) \
+                if aqe_key is not None else None
+            if saved_caps:
+                apply_saved_caps(root0, saved_caps)
         # static analysis: after planning (with the kept capacities
         # applied -- they are part of the key the recompile check
         # audits), before any UDF stage, stream, ingest or launch.
@@ -1508,8 +1534,9 @@ class QueryExecution:
         # graded after the run against the observed metrics
         try:
             from ..analysis.predictions import predict_plan
-            self.plan_predictions = predict_plan(
-                root0, conf, mesh.size if mesh is not None else 1)
+            with self.spans.span("predict"):
+                self.plan_predictions = predict_plan(
+                    root0, conf, mesh.size if mesh is not None else 1)
         except Exception as e:  # noqa: BLE001 — predictions are advisory
             import warnings
             warnings.warn(f"plan prediction walk failed (skipped): "
@@ -1519,12 +1546,11 @@ class QueryExecution:
         # and comes back with the UDF columns as an InputExec
         from .python_eval import extract_python_udfs, plan_has_udfs
         if plan_has_udfs(root0):
-            t0 = time.perf_counter()
-            root0 = extract_python_udfs(root0, conf, session.device, qe=self)
-            self.phase_times["python_udfs"] = time.perf_counter() - t0
+            with self.spans.span("python_udfs", phase="python_udfs"):
+                root0 = extract_python_udfs(root0, conf, session.device,
+                                            qe=self)
         if mesh is not None:
             root0 = self._materialize_generates(root0)
-        t0 = time.perf_counter()
         self.spilled_partial_rows = None
         # the mesh stream finds its per-shard telemetry in the context
         from ..observability.spans import (ShardStreamTelemetry,
@@ -1538,114 +1564,37 @@ class QueryExecution:
                 recorder=self.spans, mesh=mesh, query_id=self.query_id,
                 bus=session.listeners)
             telem.active = self._shard_obs_on()
-        with use_shard_telemetry(telem):
+        # the streamable aggregates run chunk by chunk and splice in
+        # (chunked ingest and the chunks' compute): the `streaming` span
+        # and phase when any did (the range covers the walk either way)
+        with self.spans.span("streaming", phase="streaming") as sp, \
+                use_shard_telemetry(telem):
             root = self._materialize_streaming(root0, mesh)
+            sp.keep = root is not root0
         self.spliced_plan = root
-        if root is not root0:
-            # chunked ingest and the chunks' compute run in the splice
-            t1 = time.perf_counter()
-            self.phase_times["streaming"] = t1 - t0
-            self.spans.record("streaming", t0, t1)
         # cooperative boundary before the scans load
         lifecycle.checkpoint("scan")
-        t0 = time.perf_counter()
-        if mesh is None:
-            loaded = load_scans(root, conf, session.device)
-        else:
-            loaded = load_shards(root, conf, mesh)
-        session.result_cache_hits += self._cache_hits
-        if self._cache_hits:
-            # the JAX package's counter: a pooled session's hits land in
-            # the service's shared registry
-            session.metrics.counter("result_cache_hits").inc(
-                self._cache_hits)
-        t1 = time.perf_counter()
-        self.phase_times["ingest"] = t1 - t0
-        self.spans.record("ingest", t0, t1, scans=len(
-            plan_nodes(root, P.ScanExec)))
+        with self.spans.span("ingest", phase="ingest") as sp:
+            if mesh is None:
+                loaded = load_scans(root, conf, session.device)
+            else:
+                loaded = load_shards(root, conf, mesh)
+            session.result_cache_hits += self._cache_hits
+            if self._cache_hits:
+                # the JAX package's counter: a pooled session's hits land
+                # in the service's shared registry
+                session.metrics.counter("result_cache_hits").inc(
+                    self._cache_hits)
+            sp.attrs["scans"] = len(plan_nodes(root, P.ScanExec))
         # publish the findings on the bus before the first launch (the
         # seat of the JAX package's jaxpr phase, which the port has not)
         enabled, strict = self._analysis_conf()
         if enabled:
             self._post_analysis(strict)
-        t0 = time.perf_counter()
-        timeout_ms = int(conf.get("spark_tpu.execution.stageTimeoutMs"))
-        observe_cost = self._observe_cost()
-        arg_bytes = self._loaded_bytes(loaded) if observe_cost else 0
-        profile_dir = str(conf.get("spark_tpu.sql.profile.dir"))
-        overflow: List[str] = []
-        with self._profiler(profile_dir, mesh) as prof:
-            for attempt in range(MAX_ATTEMPTS):
-                t_att = time.perf_counter()
-                faults.fire("stage_run")  # fault seam: before each run
-                # the peak statistics are the card's: reset them before
-                # any shard thread starts
-                cost = AttemptCost(mesh.local_devices if mesh is not None
-                                   else (session.device,)) \
-                    if observe_cost else None
-                if mesh is None:
-                    ctx = P.ExecContext(conf, session.device)
-                    out = run_plan(root, ctx, loaded=loaded)
-                    # the wait for the device is cancellable
-                    # (dispatchPollMs)
-                    _sync_dispatched(stage_events(ctx.device), conf)
-                    flags = ctx.flags
-                    metrics = ctx.metrics
-                else:
-                    faults.fire("mesh")  # fault seam: each mesh run
-                    out, flags, metrics = self._run_mesh(
-                        root, conf, mesh, loaded, t_att, timeout_ms)
-                self.spans.record("dispatch", t_att, time.perf_counter(),
-                                  attempt=attempt)
-                key = self._stage_key(root, mesh) \
-                    if cost is not None or self._observe_events else None
-                if cost is not None:
-                    self._record_stage_cost(
-                        key, cost.finish(arg_bytes, batch_bytes(out)))
-                # the deadline before the stage timeout: an attempt past
-                # the end-to-end budget stops the ladder, never retries
-                lifecycle.checkpoint("post_dispatch")
-                # (a cluster agreed its verdict inside _run_mesh)
-                if timeout_ms > 0 and (mesh is None or mesh.cluster is None):
-                    att_ms = (time.perf_counter() - t_att) * 1e3
-                    if att_ms > timeout_ms:
-                        raise StageTimeoutError(
-                            f"stage attempt took {att_ms:.0f}ms > "
-                            f"stageTimeoutMs={timeout_ms}: "
-                            f"{root.simple_string()}")
-                overflow = [k for k, v in flags.items()
-                            if k.startswith(_REPLAN_FLAGS) and bool(v)]
-                self._post_stage_completed(key, attempt, t_att, metrics,
-                                           overflow)
-                if not overflow:
-                    break
-                self.spans.mark("aqe_overflow", flags=overflow[:8])
-                # unique-build / hash-saturation fallbacks are correctness
-                # re-plans, not capacity growth — never gated by the conf
-                if not adaptive and any(
-                        not k.startswith(("join_nonunique_",
-                                          "join_hashsat_"))
-                        for k in overflow):
-                    raise RuntimeError(
-                        f"capacity overflow in {overflow} with adaptive "
-                        f"re-planning disabled "
-                        f"(spark_tpu.sql.adaptive.enabled=false)")
-                metrics = host_metrics(metrics)
-                for k in overflow:
-                    if k.startswith("exch_overflow_") and \
-                            self._maybe_skew_replan(
-                                root, k[len("exch_overflow_"):], metrics,
-                                mesh):
-                        raise _ReplanRequest()
-                apply_flags(root, overflow, metrics)
-            else:
-                raise RuntimeError(f"capacity retries did not converge; "
-                                   f"still overflowing: {overflow}")
-        if prof is not None:
-            self._export_profile(prof, profile_dir)
-        self.attempts = attempt + 1
-        self.last_metrics = host_metrics(metrics)
-        self.phase_times["execution"] = time.perf_counter() - t0
+        with self.spans.span("execution", phase="execution"):
+            out, metrics = self._run_attempts(root, loaded, mesh, adaptive)
+            with self.spans.span("readback"):
+                self.last_metrics = host_metrics(metrics)
         if mesh is not None and self._shard_obs_on():
             # each exchange's per-shard rows and bytes become
             # transfer-phase records; they never enter last_metrics
@@ -1658,34 +1607,126 @@ class QueryExecution:
         fp = session._plan_fingerprint(self.logical) \
             if session._cache_requests else None
         if fp in session._cache_requests and fp not in session._data_cache:
-            t0 = time.perf_counter()
-            self._filled = out.to_arrow()
-            t1 = time.perf_counter()
-            self.phase_times["egress"] = t1 - t0
-            self.spans.record("egress", t0, t1)
+            with self.spans.span("egress", phase="egress"):
+                self._filled = out.to_arrow()
         if cl is not None:
             # the last agreement: every process got past every point
             # where it could fail, so none keeps state below that a peer
             # that failed (and will retry) did not keep
             cl.all_gather_object(None, "done")
-        if adaptive:
-            shrink_caps_from_rtf(root, self.last_metrics,
-                                 mesh.size if mesh is not None else 1)
-        if aqe_key is not None:
-            # harvest from the unspliced plan too (a streamed aggregate's
-            # joins learned their capacities there); merge, as the JAX
-            # package does, and bound the store
-            converged = collect_caps(root0)
-            converged.update(collect_caps(root))
-            if converged:
-                store = session._aqe_caps
-                store.setdefault(aqe_key, {}).update(converged)
-                while len(store) > MAX_SAVED_PLANS:
-                    store.pop(next(iter(store)))
+        with self.spans.span("caps_store"):
+            if adaptive:
+                shrink_caps_from_rtf(root, self.last_metrics,
+                                     mesh.size if mesh is not None else 1)
+            if aqe_key is not None:
+                # harvest from the unspliced plan too (a streamed
+                # aggregate's joins learned their capacities there);
+                # merge, as the JAX package does, and bound the store
+                converged = collect_caps(root0)
+                converged.update(collect_caps(root))
+                if converged:
+                    store = session._aqe_caps
+                    store.setdefault(aqe_key, {}).update(converged)
+                    while len(store) > MAX_SAVED_PLANS:
+                        store.pop(next(iter(store)))
         if self._filled is not None:
             session._data_cache[fp] = self._filled
         self._end_root = root
         return out
+
+    def _run_attempts(self, root: P.PhysicalPlan, loaded, mesh,
+                      adaptive: bool) -> Tuple[Batch, Dict[str, object]]:
+        """The re-plan loop of one execution: run the plan (the
+        `dispatch` span of each attempt), then grow the capacities that
+        overflowed and run again, until nothing overflows. Returns the
+        output and the last attempt's metrics (device tensors)."""
+        from ..testing import faults
+        from . import lifecycle
+        conf = self._conf
+        session = self.session
+        timeout_ms = int(conf.get("spark_tpu.execution.stageTimeoutMs"))
+        observe_cost = self._observe_cost()
+        arg_bytes = self._loaded_bytes(loaded) if observe_cost else 0
+        profile_dir = str(conf.get("spark_tpu.sql.profile.dir"))
+        overflow: List[str] = []
+        with self._profiler(profile_dir, mesh) as prof:
+            for attempt in range(MAX_ATTEMPTS):
+                with self.spans.span("dispatch", attempt=attempt):
+                    t_att = time.perf_counter()
+                    faults.fire("stage_run")  # fault seam: before each run
+                    # the peak statistics are the card's: reset them
+                    # before any shard thread starts
+                    cost = AttemptCost(
+                        mesh.local_devices if mesh is not None
+                        else (session.device,)) if observe_cost else None
+                    if mesh is None:
+                        ctx = P.ExecContext(conf, session.device,
+                                            spans=self.spans)
+                        out = run_plan(root, ctx, loaded=loaded)
+                        # the wait for the device is cancellable
+                        # (dispatchPollMs)
+                        _sync_dispatched(stage_events(ctx.device), conf)
+                        flags = ctx.flags
+                        metrics = ctx.metrics
+                    else:
+                        faults.fire("mesh")  # fault seam: each mesh run
+                        out, flags, metrics = self._run_mesh(
+                            root, conf, mesh, loaded, t_att, timeout_ms)
+                with self.spans.span("stage_completed"):
+                    key = self._stage_key(root, mesh) \
+                        if cost is not None or self._observe_events \
+                        else None
+                    if cost is not None:
+                        self._record_stage_cost(
+                            key, cost.finish(arg_bytes, batch_bytes(out)))
+                    # the deadline before the stage timeout: an attempt
+                    # past the end-to-end budget stops the ladder, never
+                    # retries
+                    lifecycle.checkpoint("post_dispatch")
+                    # (a cluster agreed its verdict inside _run_mesh)
+                    if timeout_ms > 0 and (mesh is None
+                                           or mesh.cluster is None):
+                        att_ms = (time.perf_counter() - t_att) * 1e3
+                        if att_ms > timeout_ms:
+                            raise StageTimeoutError(
+                                f"stage attempt took {att_ms:.0f}ms > "
+                                f"stageTimeoutMs={timeout_ms}: "
+                                f"{root.simple_string()}")
+                    overflow = [k for k, v in flags.items()
+                                if k.startswith(_REPLAN_FLAGS) and bool(v)]
+                    self._post_stage_completed(key, attempt, t_att,
+                                               metrics, overflow)
+                if not overflow:
+                    break
+                self.spans.mark("aqe_overflow", flags=overflow[:8])
+                with self.spans.span("grow_caps"):
+                    # unique-build / hash-saturation fallbacks are
+                    # correctness re-plans, not capacity growth — never
+                    # gated by the conf
+                    if not adaptive and any(
+                            not k.startswith(("join_nonunique_",
+                                              "join_hashsat_"))
+                            for k in overflow):
+                        raise RuntimeError(
+                            f"capacity overflow in {overflow} with "
+                            f"adaptive re-planning disabled "
+                            f"(spark_tpu.sql.adaptive.enabled=false)")
+                    metrics = host_metrics(metrics)
+                    for k in overflow:
+                        if k.startswith("exch_overflow_") and \
+                                self._maybe_skew_replan(
+                                    root, k[len("exch_overflow_"):],
+                                    metrics, mesh):
+                            raise _ReplanRequest()
+                    apply_flags(root, overflow, metrics)
+            else:
+                raise RuntimeError(f"capacity retries did not converge; "
+                                   f"still overflowing: {overflow}")
+        if prof is not None:
+            with self.spans.span("profile_export"):
+                self._export_profile(prof, profile_dir)
+        self.attempts = attempt + 1
+        return out, metrics
 
     def collect(self) -> pa.Table:
         """The query's Arrow result: through the chunked host-egress path
@@ -1697,10 +1738,12 @@ class QueryExecution:
         nests onto this one)."""
         from ..service import arbiter as res_arbiter
         from . import lifecycle
-        arb_token = res_arbiter.enter_query(
-            f"{self.session.app_id}:q{self.query_id}", self.session.device)
-        lc_scope = lifecycle.enter_query_scope(
-            self.session.app_id, self.query_id, self.session.conf)
+        with self.spans.span("admit"):
+            arb_token = res_arbiter.enter_query(
+                f"{self.session.app_id}:q{self.query_id}",
+                self.session.device)
+            lc_scope = lifecycle.enter_query_scope(
+                self.session.app_id, self.query_id, self.session.conf)
         try:
             try:
                 ext = self._try_external_collect()
@@ -1719,16 +1762,13 @@ class QueryExecution:
                 # already egressed into the data cache
                 self._post_query_end(self._end_root)
                 return self._filled
-            t0 = time.perf_counter()
             try:
-                table = batch.to_arrow()
+                with self.spans.span("egress", phase="egress"):
+                    table = batch.to_arrow()
             except Exception as e:  # noqa: BLE001 — observe, then surface
                 self._post_query_end(None, status="error", error=e)
                 self._flightrec_dump(e)
                 raise
-            t1 = time.perf_counter()
-            self.phase_times["egress"] = t1 - t0
-            self.spans.record("egress", t0, t1)
             self._post_query_end(self._end_root)
             return table
         finally:
@@ -1743,7 +1783,6 @@ class QueryExecution:
         spends a chunk's retry budget restarts the whole stream through
         the ladder's transient rung (`_retry_transient`)."""
         from ..io.device_cache import out_of_core_active
-        from .external import try_external_collect
         from .python_eval import plan_has_udfs
         conf = self.session.conf
         if not out_of_core_active(conf):
@@ -1759,26 +1798,29 @@ class QueryExecution:
         self._analyze_plan_phase()
         self._post_analysis(self._analysis_conf()[1])
         self._begin_recovery()
-        t0 = time.perf_counter()
         try:
-            while True:
-                try:
-                    out = try_external_collect(
-                        self.session, self.executed_plan, conf,
-                        self._recovery)
-                    break
-                except Exception as e:  # noqa: BLE001 — classified below
-                    cls = classify(e)
-                    if cls not in (FailureClass.TRANSIENT,
-                                   FailureClass.TIMEOUT):
-                        raise
-                    self._retry_transient(e, cls)  # raises when spent
+            with self.spans.span("external") as sp:
+                out = self._external_collect(conf)
+                if out is not None:
+                    sp.phase = "external"
         finally:
             self.stream_stats = self._recovery.chunk_stats
             self._recovery.release()
-        if out is not None:
-            self.phase_times["external"] = time.perf_counter() - t0
         return out
+
+    def _external_collect(self, conf) -> Optional[pa.Table]:
+        """`try_external_collect` under the transient rung's retries."""
+        from .external import try_external_collect
+        while True:
+            try:
+                return try_external_collect(
+                    self.session, self.executed_plan, conf, self._recovery)
+            except Exception as e:  # noqa: BLE001 — classified below
+                cls = classify(e)
+                if cls not in (FailureClass.TRANSIENT,
+                               FailureClass.TIMEOUT):
+                    raise
+                self._retry_transient(e, cls)  # raises when spent
 
     # -- static analysis (analysis/) ----------------------------------------
 
@@ -1820,16 +1862,15 @@ class QueryExecution:
                 self._post_analysis(strict=False)
             return
         from ..analysis import analyze_plan
-        t0 = time.perf_counter()
-        mesh_n = max(1, int(self._conf.get("spark_tpu.sql.mesh.size")))
-        # lite-mode plan-integrity findings (collected while the
-        # optimizer ran, triggered through executed_plan) join the
-        # analyzer's in the same flow
-        self.analysis_findings = analyze_plan(self.executed_plan,
-                                              self._conf, mesh_n) \
-            + list(self._integrity_findings)
-        self.spans.record("analyze", t0, time.perf_counter(),
-                          findings=len(self.analysis_findings))
+        with self.spans.span("analyze") as sp:
+            mesh_n = max(1, int(self._conf.get("spark_tpu.sql.mesh.size")))
+            # lite-mode plan-integrity findings (collected while the
+            # optimizer ran, triggered through executed_plan) join the
+            # analyzer's in the same flow
+            self.analysis_findings = analyze_plan(self.executed_plan,
+                                                  self._conf, mesh_n) \
+                + list(self._integrity_findings)
+            sp.attrs["findings"] = len(self.analysis_findings)
         if strict:
             self._post_analysis(strict)
 
@@ -2061,7 +2102,8 @@ class QueryExecution:
             return
         from ..observability.listener import QueryEndEvent
         try:
-            event = self._build_event(root, status, error)
+            with self.spans.span("end_event"):
+                event = self._build_event(root, status, error)
         except Exception as e:  # noqa: BLE001 — observability only
             import warnings
             warnings.warn(f"event build failed: {e}")

@@ -319,15 +319,15 @@ def _eval_udfs_worker(udfs: List[PythonUDF], batch: Batch,
             payload = protocol.encode_eval(
                 {"kind": "batch", "base": base, "udfs": spec_udfs,
                  "n_rows": ln}, sl)
-            t0 = time.perf_counter()
-            try:
-                ftype, pl = h.eval(payload, timeout_s, _poll_cancel)
-            except (UdfWorkerLost, StageTimeoutError):
-                # dead or wedged: kill + release the slot so the
-                # replay (and concurrent queries) get a fresh worker
-                _kill_held()
-                raise
-            t1 = time.perf_counter()
+            with qe.spans.span("udf_batch", chunk=ci, rows=ln) as sp:
+                try:
+                    ftype, pl = h.eval(payload, timeout_s, _poll_cancel)
+                except (UdfWorkerLost, StageTimeoutError):
+                    # dead or wedged: kill + release the slot so the
+                    # replay (and concurrent queries) get a fresh worker
+                    _kill_held()
+                    raise
+            t0, t1 = sp.t0, sp.t1
             if ftype == protocol.FRAME_ERROR:
                 err = protocol.decode_error(pl)
                 raise UdfError(", ".join(u["name"] for u in spec_udfs),
@@ -344,7 +344,6 @@ def _eval_udfs_worker(udfs: List[PythonUDF], batch: Batch,
             metrics.counter("udf_batches").inc()
             metrics.counter("udf_rows").inc(ln)
             metrics.counter("udf_exec_ms").inc(int((t1 - t0) * 1e3))
-            qe.spans.record("udf_batch", t0, t1, chunk=ci, rows=ln)
             return out
         return step
 

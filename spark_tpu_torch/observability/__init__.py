@@ -17,10 +17,13 @@ two packages' logs are read by the same tools:
   ``StageCompiledEvent`` is posted; the static analyzer
   (``analysis/``) posts ``on_analysis`` once per execution with
   findings.
-- ``spans``: per-stage spans (analysis -> optimize -> plan -> ingest ->
-  dispatch -> egress, marks for AQE re-plans, retries and cancels)
-  with a wall-clock anchor, exportable as Chrome trace-event JSON
-  (Perfetto-loadable); the mesh stream's per-shard telemetry.
+- ``spans``: per-stage spans (parse -> analysis -> optimize -> plan ->
+  ingest -> dispatch -> egress, an ``op:<PhysicalClass>`` span an
+  operator, marks for AQE re-plans, retries and cancels), each a
+  ``spark_tpu/`` torch.profiler range while a profiler is active, with
+  one wall-clock anchor for the process, exportable as Chrome
+  trace-event JSON (Perfetto-loadable); the mesh stream's per-shard
+  telemetry.
 - ``device_cost``: the counterpart of the JAX package's ``xla_cost``:
   the peak device memory an executed attempt allocated, its argument
   and output bytes, and the card's capacity.

@@ -2,13 +2,19 @@
 `spark_tpu/observability/spans.py`).
 
 Each QueryExecution records named spans over its lifecycle phases
-(analysis -> optimize -> plan -> ingest -> dispatch -> egress, with
-instant marks for AQE re-plans, overflows, retries and cancels). Eager
-torch compiles no stage, so there is no `compile` span; `egress`, the
-copy of the result to Arrow, is the port's own. Spans use
-`time.perf_counter` internally (cheap, monotonic) with a wall-clock
-anchor captured at recorder creation, so export maps to epoch microseconds — the Chrome trace-event "X"
-(complete-event) format, loadable in Perfetto / chrome://tracing.
+(parse -> analysis -> optimize -> plan -> ingest -> dispatch -> egress,
+the host work between them, one `op:<PhysicalClass>` span per operator
+a dispatch computes, and instant marks for AQE re-plans, overflows,
+retries and cancels). Eager torch compiles no stage, so there is no
+`compile` span; `egress`, the copy of the result to Arrow, is the
+port's own. A phase is timed one way, `SpanRecorder.span(...)`: it
+records the span, the phase time when it names one, and, while a
+torch.profiler is active, a profiler range over the same interval named
+`spark_tpu/<span>`, so spans and kernels share the profiler's clock.
+Spans use `time.perf_counter` internally (cheap, monotonic); one
+wall-clock anchor for the whole process maps them to epoch microseconds
+— the Chrome trace-event "X" (complete-event) format, loadable in
+Perfetto / chrome://tracing.
 """
 
 from __future__ import annotations
@@ -19,6 +25,66 @@ import time
 from contextvars import ContextVar
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
+
+import torch
+
+#: the prefix of every program range in a torch.profiler trace, which
+#: tells them from torch's own ops
+RANGE_PREFIX = "spark_tpu/"
+
+#: the process's one (epoch, perf_counter) anchor: every recorder maps
+#: its spans onto the epoch clock through it, so the spans of different
+#: queries line up in one trace
+_ANCHOR_WALL, _ANCHOR_PERF = time.time(), time.perf_counter()
+
+
+def _range(name: str):
+    """A profiler range over a block: torch's C++ fast range (about a
+    microsecond under a profiler, where `record_function` takes several
+    and more under CUDA tracing)."""
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
+class _Timed:
+    """The context `SpanRecorder.span` and `program_range` return: the two
+    clock reads of the span around a profiler range (the range only while
+    a profiler is active: entering one with none active costs more than
+    the span itself). `phase` and `attrs` may change inside the block;
+    the span and phase time are recorded at its end when the block did
+    not raise and `keep` is still true (the range closes either way)."""
+
+    __slots__ = ("rec", "name", "phase", "attrs", "keep", "t0", "t1",
+                 "_range")
+
+    def __init__(self, rec: Optional["SpanRecorder"], name: str,
+                 phase: Optional[str], attrs: Dict):
+        self.rec, self.name, self.phase, self.attrs = rec, name, phase, attrs
+        self.keep = True
+        self.t1 = None
+
+    def __enter__(self) -> "_Timed":
+        self.t0 = time.perf_counter()
+        self._range = None
+        if torch.autograd._profiler_enabled():
+            self._range = _range(RANGE_PREFIX + self.name)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        self.t1 = time.perf_counter()
+        if self.rec is not None and exc_type is None and self.keep:
+            self.rec.record(self.name, self.t0, self.t1, phase=self.phase,
+                            **self.attrs)
+        return False
+
+
+def program_range(name: str) -> _Timed:
+    """Time a block that runs before any recorder exists (`session.sql`'s
+    parse): the profiler range while it runs, then `t0`/`t1` on the
+    context for the recorder that takes the span later."""
+    return _Timed(None, name, None, {})
 
 
 @dataclass
@@ -34,13 +100,20 @@ class Span:
 
 
 class SpanRecorder:
-    """Bounded span list for one QueryExecution (query_id = trace tid)."""
+    """Bounded span list and phase times for one QueryExecution
+    (query_id = trace tid). `t_origin`, the perf_counter time the
+    event log's relative `t0_ms` count from, defaults to the recorder's
+    construction; a query parsed before its execution existed starts
+    there."""
 
     def __init__(self, query_id: int, max_spans: int = 1000,
-                 max_shard_records: int = 4096):
+                 max_shard_records: int = 4096,
+                 t_origin: Optional[float] = None):
         self.query_id = query_id
         self.max_spans = max_spans
         self.spans: List[Span] = []
+        #: seconds by phase (the event log's `phase_times_s`)
+        self.phase_times: Dict[str, float] = {}
         #: spans dropped past the bound (surfaced so truncation is
         #: visible, never silent)
         self.dropped = 0
@@ -50,8 +123,8 @@ class SpanRecorder:
         self.shard_records: List[Dict] = []
         self.max_shard_records = max_shard_records
         self.shard_dropped = 0
-        self._anchor_wall = time.time()
-        self._anchor_perf = time.perf_counter()
+        self._origin = time.perf_counter() if t_origin is None \
+            else t_origin
 
     def add_shard_records(self, records: List[Dict]) -> None:
         room = self.max_shard_records - len(self.shard_records)
@@ -63,23 +136,27 @@ class SpanRecorder:
     def rel_ms(self, t_perf: float) -> float:
         """Perf-counter time as milliseconds since the recorder anchor
         (the shared origin of span t0_ms and shard-record t0_ms)."""
-        return round((t_perf - self._anchor_perf) * 1e3, 3)
+        return round((t_perf - self._origin) * 1e3, 3)
 
     def record(self, name: str, t0: float, t1: Optional[float] = None,
-               **attrs) -> None:
+               phase: Optional[str] = None, **attrs) -> None:
+        """A span timed already (a block with no range of its own:
+        `span` is the way to time one); `phase` also keeps its seconds
+        as that phase's time."""
+        if phase is not None:
+            self.phase_times[phase] = t1 - t0
         if len(self.spans) >= self.max_spans:
             self.dropped += 1
             return
         self.spans.append(Span(name, t0, t1 if t1 is not None else t0,
                                attrs))
 
-    @contextlib.contextmanager
-    def span(self, name: str, **attrs):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.record(name, t0, time.perf_counter(), **attrs)
+    def span(self, name: str, phase: Optional[str] = None,
+             **attrs) -> _Timed:
+        """Time a block as the span `name` (and the phase time `phase`
+        when given), under a profiler range of the same name while a
+        profiler is active."""
+        return _Timed(self, name, phase, attrs)
 
     def mark(self, name: str, **attrs) -> None:
         """Zero-duration span (exported as a Chrome instant event)."""
@@ -87,15 +164,16 @@ class SpanRecorder:
         self.record(name, t, t, **attrs)
 
     def wall(self, t_perf: float) -> float:
-        """Map a perf_counter time onto the epoch clock."""
-        return self._anchor_wall + (t_perf - self._anchor_perf)
+        """Map a perf_counter time onto the epoch clock (the process's
+        one anchor)."""
+        return _ANCHOR_WALL + (t_perf - _ANCHOR_PERF)
 
     def to_dicts(self) -> List[Dict]:
         """Event-log form: relative start + duration in milliseconds."""
         out = []
         for s in self.spans:
             d = {"name": s.name,
-                 "t0_ms": round((s.t0 - self._anchor_perf) * 1e3, 3),
+                 "t0_ms": self.rel_ms(s.t0),
                  "dur_ms": round(s.dur_ms, 3)}
             if s.attrs:
                 d["attrs"] = s.attrs

@@ -156,11 +156,17 @@ class ExecContext:
     and `group` is the rendezvous of its mesh (`parallel/mesh.py`): the
     methods below are the counterparts of `lax.axis_index`, `psum`,
     `pmax`, `pmin` and `all_gather`. Every shard must call the same
-    collectives in the same order, as under `shard_map`."""
+    collectives in the same order, as under `shard_map`.
+
+    `spans` is the query's `SpanRecorder`, in which `run_plan` records an
+    `op:<PhysicalClass>` span a node; None (no query, or a mesh shard's
+    thread, which does not own the recorder) records nothing."""
 
     def __init__(self, conf: Conf, device, axis_name: Optional[str] = None,
-                 n_shards: int = 1, shard_index: int = 0, group=None):
+                 n_shards: int = 1, shard_index: int = 0, group=None,
+                 spans=None):
         self.conf = conf
+        self.spans = spans
         self.device = torch.device(device)
         self.axis_name = axis_name
         self.n_shards = n_shards

@@ -403,9 +403,16 @@ class SparkTpuSession(metaclass=_ActiveSessionMeta):
 
     def sql(self, query: str) -> DataFrame:
         """Parse and lower one SQL statement against the catalog (the
-        reference's `SparkSession.sql:613`)."""
+        reference's `SparkSession.sql:613`). The parse is the `parse`
+        span and phase time of the DataFrame's first execution (and a
+        profiler range while it runs)."""
+        from .observability.spans import program_range
         from .sql.parser import parse_sql
-        return DataFrame(self, parse_sql(query, self))
+        with program_range("parse") as parse:
+            plan = parse_sql(query, self)
+        df = DataFrame(self, plan)
+        df._parsed = (parse.t0, parse.t1)
+        return df
 
 
 class Accumulator:

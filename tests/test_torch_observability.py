@@ -63,6 +63,17 @@ NO_ANALYZER = (("spark_tpu.sql.analysis.enabled", False),)
 #: the reference's spans without a port counterpart: its stage compile
 #: and its analyzer's walks (the jaxpr walk has no port counterpart)
 REF_ONLY_SPANS = {"compile", "analyze", "analyze_jaxpr"}
+#: the port's spans without a reference counterpart: the egress to
+#: Arrow, the SQL parse, the host work between the phases, and one
+#: `op:<PhysicalClass>` span an operator computes
+PORT_ONLY_SPANS = {"egress", "parse", "admit", "begin", "start_event",
+                   "caps_lookup", "predict", "python_udfs", "execution",
+                   "stage_completed", "grow_caps", "profile_export",
+                   "readback", "caps_store", "external", "end_event"}
+
+
+def port_only(name: str) -> bool:
+    return name in PORT_ONLY_SPANS or name.startswith("op:")
 
 #: the 21 keys of the slice: key -> a value other than the default
 OBSERVABILITY_KEYS = {
@@ -293,8 +304,8 @@ def _union_us(spans) -> float:
 
 def test_chrome_trace_parity(tmp_path):
     """Each package writes a valid Chrome trace whose span names are the
-    reference's (less its compile and analyzer spans; the port adds
-    egress). The port's complete events nest (plan contains optimize,
+    reference's (less its compile and analyzer spans; the port adds its
+    own, `PORT_ONLY_SPANS` and the operators'). The port's complete events nest (plan contains optimize,
     which contains analysis): any two are disjoint or one contains the
     other, and their union covers at most the wall time."""
     port, ref = sessions()
@@ -325,7 +336,7 @@ def test_chrome_trace_parity(tmp_path):
     assert {"analysis", "optimize", "plan", "ingest",
             "dispatch"} <= names[0]
     assert names[1] - REF_ONLY_SPANS <= names[0]
-    assert names[0] - names[1] <= {"egress"}
+    assert not [n for n in names[0] - names[1] if not port_only(n)]
 
 
 def test_spans_in_event_log(tmp_path):
@@ -343,7 +354,7 @@ def test_spans_in_event_log(tmp_path):
                                            "t0_ms", "dur_ms", "attrs"]
             assert (spans["dur_ms"] >= 0).all()
         rows.append([n for n in spans["span"]
-                     if n not in REF_ONLY_SPANS | {"egress"}])
+                     if n not in REF_ONLY_SPANS and not port_only(n)])
     assert rows[0] == rows[1]
 
 
@@ -565,6 +576,205 @@ def test_profile_dir_writes_a_torch_trace(tmp_path):
     with open(os.path.join(d, name)) as f:
         trace = json.load(f)
     assert trace["traceEvents"]
+
+
+# -- operator spans and the profiler's ranges --------------------------------
+
+SQL_JOIN = ("select u.g, sum(t.v) as s from obs_t t join obs_u u "
+            "on t.k = u.k where t.v > 3 group by u.g order by u.g")
+#: a plain query's phase times before operator spans and the parse span
+PHASES = {"analysis", "optimization", "planning", "ingest", "execution",
+          "egress"}
+
+
+def sql_session():
+    """A port session on the CPU with two small tables."""
+    import pyarrow as pa
+    s = SparkTpuSession.builder().device("cpu").get_or_create()
+    rng = np.random.default_rng(5)
+    s.register_table("obs_t", pa.table({
+        "k": rng.integers(0, 50, 2000), "v": rng.integers(0, 100, 2000)}))
+    s.register_table("obs_u", pa.table({
+        "k": np.arange(50), "g": np.arange(50) % 4}))
+    return s
+
+
+def computed_nodes(root):
+    """The class names of the nodes `run_plan` computes: each node once,
+    the loaded scans left out."""
+    from spark_tpu_torch.plan import physical as PP
+    seen, out = set(), []
+
+    def walk(node):
+        if id(node) in seen:
+            return
+        seen.add(id(node))
+        for c in node.children:
+            walk(c)
+        if not isinstance(node, PP.ScanExec):
+            out.append(type(node).__name__)
+
+    walk(root)
+    return out
+
+
+def test_sql_query_records_parse_phases_and_operator_spans():
+    """A SQL query's spans start with `parse` and hold every phase; each
+    dispatch holds one `op:<PhysicalClass>` span a computed node."""
+    qe = sql_session().sql(SQL_JOIN)._qe()
+    qe.collect()
+    spans = qe.spans.spans
+    names = [sp.name for sp in spans]
+    assert names[0] == "parse"
+    assert {"parse", "analysis", "optimize", "plan", "ingest", "dispatch",
+            "egress"} <= set(names)
+    assert qe.phase_times["parse"] == spans[0].t1 - spans[0].t0 > 0
+    dispatches = [sp for sp in spans if sp.name == "dispatch"]
+    ops = [sp for sp in spans if sp.name.startswith("op:")]
+    assert len(dispatches) == qe.attempts >= 1
+    for d in dispatches:
+        inside = [sp.name[3:] for sp in ops
+                  if d.t0 <= sp.t0 and sp.t1 <= d.t1]
+        assert sorted(inside) == sorted(computed_nodes(qe.spliced_plan))
+    assert len(ops) == len(dispatches) * len(computed_nodes(qe.spliced_plan))
+    assert {"op:JoinExec", "op:HashAggregateExec"} <= {sp.name for sp in ops}
+
+
+def test_a_shared_node_is_one_operator_span():
+    from spark_tpu_torch.execution.executor import load_scans, run_plan
+    from spark_tpu_torch.observability import SpanRecorder
+    from spark_tpu_torch.plan import physical as PP
+    s = sql_session()
+    qe = s.sql("select k, v + 1 as w from obs_t where v > 50")._qe()
+    qe.collect()
+    child = qe.spliced_plan
+    root = PP.UnionExec(child, child, child.schema())
+    rec = SpanRecorder(0)
+    out = run_plan(root, ExecContext(s.conf, s.device, spans=rec),
+                   loaded=load_scans(root, s.conf, s.device))
+    names = [sp.name for sp in rec.spans]
+    assert sorted(names) == sorted("op:" + n for n in computed_nodes(root))
+    assert names.count("op:UnionExec") == 1 and "op:ScanExec" not in names
+    assert len(names) < 2 * len(computed_nodes(child))
+    assert out.to_arrow().num_rows == 2 * qe.collect().num_rows
+
+
+def _shape(items):
+    """(name, depth) of nested (start, end, name) intervals in start
+    order."""
+    out, ends = [], []
+    for a, b, name in sorted(items, key=lambda x: (x[0], -x[1])):
+        while ends and ends[-1] <= a:
+            ends.pop()
+        out.append((name, len(ends)))
+        ends.append(b)
+    return out
+
+
+def test_every_span_is_a_profiler_range_with_its_nesting():
+    """Under a torch.profiler every span of a query is a `spark_tpu/`
+    range of the same name, in the same order and nesting."""
+    from torch.profiler import ProfilerActivity, profile
+    s = sql_session()
+    s.sql(SQL_JOIN).collect()  # the capacities converge
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        qe = s.sql(SQL_JOIN)._qe()
+        qe.collect()
+    prefix = "spark_tpu/"
+    ranges = [(e.start_ns(), e.start_ns() + e.duration_ns(),
+               e.name()[len(prefix):])
+              for e in prof.profiler.kineto_results.events()
+              if e.name().startswith(prefix)]
+    spans = [(sp.t0, sp.t1, sp.name) for sp in qe.spans.spans
+             if sp.t1 > sp.t0]
+    assert any(n.startswith("op:") for _, _, n in spans)
+    # the walk for streamable aggregates is a range either way, and a
+    # span only when one streamed (none does here)
+    assert [n for _, _, n in ranges].count("streaming") == 1
+    assert "streaming" not in [n for _, _, n in spans]
+    ranges = [r for r in ranges if r[2] != "streaming"]
+    assert _shape(ranges) == _shape(spans)
+
+
+def test_no_range_is_entered_without_a_profiler(monkeypatch):
+    from torch.profiler import ProfilerActivity, profile
+    from spark_tpu_torch.observability import spans as spans_mod
+    entered = []
+    real = spans_mod._range
+
+    def entry(name):
+        entered.append(name)
+        return real(name)
+
+    monkeypatch.setattr(spans_mod, "_range", entry)
+    s = sql_session()
+    qe = s.sql(SQL_JOIN)._qe()
+    qe.collect()
+    assert any(sp.name.startswith("op:") for sp in qe.spans.spans)
+    assert entered == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        qe = s.sql(SQL_JOIN)._qe()
+        qe.collect()
+    assert sorted(entered) == sorted(
+        ["spark_tpu/" + sp.name for sp in qe.spans.spans]
+        + ["spark_tpu/streaming"])
+
+
+def test_streaming_span_only_when_an_aggregate_streamed():
+    """The `streaming` span and phase mark a streamed aggregate, and a
+    query that streams nothing has neither (the strict analyzer's checks
+    read the span's absence)."""
+    s = sql_session()
+
+    def agg():
+        return (s.range(1 << 12)
+                .select(PF.pmod(PF.col("id"), 50).alias("k"))
+                .group_by(PF.col("k")).agg(PF.sum(PF.col("k")).alias("s")))
+
+    qe = agg()._qe()
+    qe.collect()
+    assert "streaming" not in [sp.name for sp in qe.spans.spans]
+    assert "streaming" not in qe.phase_times
+    s.conf.set("spark_tpu.sql.execution.streamingChunkRows", 1 << 10)
+    qe = agg()._qe()
+    got = qe.collect()
+    assert "InputExec(streamed_agg" in qe.spliced_plan.tree_string()
+    names = [sp.name for sp in qe.spans.spans]
+    assert names.count("streaming") == 1
+    assert names.index("streaming") < names.index("ingest")
+    stream = qe.spans.spans[names.index("streaming")]
+    assert qe.phase_times["streaming"] == stream.t1 - stream.t0 > 0
+    assert got.num_rows == 50
+
+
+def test_end_event_phase_keys_are_the_phases_and_parse():
+    """The end event's phase times keep their keys; a SQL query adds
+    `parse`."""
+    s = sql_session()
+    got = []
+
+    class Keys(QueryListener):
+        def on_query_end(self, e):
+            got.append(set(e.event["phase_times_s"]))
+
+    s.add_listener(Keys())
+    s.range(50).agg(PF.sum(PF.col("id")).alias("s")).collect()
+    s.sql("select k, sum(v) as s from obs_t group by k").collect()
+    assert got == [PHASES, PHASES | {"parse"}]
+
+
+def test_recorders_share_one_clock_origin():
+    """Spans of different queries map onto the epoch clock through one
+    anchor, so their Chrome-trace times line up."""
+    import time
+    from spark_tpu_torch.observability import SpanRecorder, to_chrome_trace
+    a, b = SpanRecorder(1), SpanRecorder(2)
+    t = time.perf_counter()
+    a.record("x", t, t + 0.001)
+    b.record("x", t, t + 0.001)
+    assert a.wall(t) == b.wall(t)
+    assert to_chrome_trace(a)["traceEvents"][0]["ts"] == \
+        to_chrome_trace(b)["traceEvents"][0]["ts"]
 
 
 # -- the UDF stage's spans ---------------------------------------------------
