@@ -7,7 +7,11 @@ expansion (the port of `spark_tpu/execution/join.py`; reference:
   (`torch.searchsorted` left/right), so duplicate build keys are handled;
 - output rows come from a prefix-sum expansion into an output of fixed
   capacity: output row r maps back to probe row p and to build row
-  lo[p] + (r - off[p]).
+  lo[p] + (r - off[p]). p comes from a cumulative sum over the run
+  starts, which ranks r among the runs, and a probe-sized table of the
+  emitting probe rows by rank, where the JAX package forward-fills with
+  a running maximum: `torch.cummax` on a 1-D tensor is a scan on one
+  block of the card, where `torch.cumsum` scans with the whole card.
 
 `torch.searchsorted` needs one dtype on both sides and has no NaN
 ordering of its own, so both sides search on an order image: an int64
@@ -30,6 +34,7 @@ import torch
 from .. import types as T
 from ..columnar import Batch, Column
 from ..expr import Vec
+from .window import _flag_positions_by_rank
 
 
 def canon_key_data(data):
@@ -185,39 +190,38 @@ def expand(lo, cnt_key, cnt_eff, perm, out_cap: int):
                    checks it against out_cap and runs again on overflow)
     """
     cap = cnt_eff.shape[0]
-    assert cap < (1 << 30) and perm.shape[0] < (1 << 30), \
-        "expand packs (probe idx, lo) into one int64"
     dev = cnt_eff.device
     cnt_eff = cnt_eff.to(torch.int64)
     off = torch.cumsum(cnt_eff, 0) - cnt_eff  # exclusive prefix sum
     total = off[-1] + cnt_eff[-1]
     r = torch.arange(out_cap, dtype=torch.int64, device=dev)
     # Each emitting probe row owns a contiguous run of output rows
-    # starting at off[p]; probe indices increase across runs. Pack
-    # (probe idx, lo, cnt_key==0) into one int64, scatter it at each
-    # run start (the starts never collide) and forward-fill with a
-    # running max. Slot out_cap catches the rows that emit nothing or
-    # start past the capacity.
+    # starting at off[p]; probe indices increase across runs. Flag each
+    # run start in output space (the starts never collide; slot out_cap
+    # catches the rows that emit nothing or start past the capacity):
+    # rank[r] counts the runs begun at or before r, and the table of
+    # emitting probe rows by rank, led by 0 for rank 0, gives r's probe
+    # row. Rows past the total keep the last emitting row's p.
     emitting = (cnt_eff > 0) & (off < out_cap)
-    pidx = torch.arange(cap, dtype=torch.int64, device=dev)
-    zflag = (cnt_key == 0).to(torch.int64)
-    pack = (pidx << 32) | (lo.to(torch.int64) << 1) | zflag
     tgt = torch.where(emitting, off, torch.full_like(off, out_cap))
-    packs = torch.zeros((out_cap + 1,), dtype=torch.int64, device=dev)
-    packs[tgt] = pack
-    offm = torch.zeros((out_cap + 1,), dtype=torch.int64, device=dev)
-    offm[tgt] = off
-    fill = torch.cummax(packs[:out_cap], 0).values
-    off_run = torch.cummax(offm[:out_cap], 0).values  # start of r's run
-    p = fill >> 32
-    lo_p = (fill >> 1) & 0x3FFFFFFF
-    j = r - off_run
-    # j < cnt_key[p] <=> the run emits pairs (cnt_eff==cnt_key) and not
-    # the cnt_key==0 null-extension run (cnt_eff=1, one row with j=0)
-    is_pair = (fill & 1) == 0
-    build_pos = (lo_p + j).clamp(0, perm.shape[0] - 1)
+    start = torch.zeros((out_cap + 1,), dtype=torch.bool, device=dev)
+    start[tgt] = True
+    # the scan takes the spare slot too: PyTorch's CUDA cumsum (2.11)
+    # faults at lengths 2^31, 3 * 2^30 and 2^32, and capacities are
+    # powers of two
+    rank = torch.cumsum(start, 0)[:out_cap]
+    _, table = _flag_positions_by_rank(emitting, cap, 0)
+    p = torch.cat([table.new_zeros((1,)), table])[rank]
+    # The rest comes from probe-sized arrays gathered at p: r's build
+    # row is lo[p] + (r - off[p]), and r is a key-matched pair unless
+    # its run is a cnt_key == 0 null extension (cnt_eff 1, one row).
+    # The first emitting row starts at 0, so rank is 0 only where
+    # nothing emits: there p is 0 and its run has lo 0 and off 0.
+    shift = torch.where(total > 0, lo.to(torch.int64) - off, 0)
+    build_pos = (r + shift[p]).clamp_(0, perm.shape[0] - 1)
     build_idx = perm[build_pos]
     valid = r < total
+    is_pair = (cnt_key != 0)[p]
     return p, build_idx, is_pair & valid, valid, total
 
 

@@ -8,8 +8,8 @@ against the reference's: ints, decimals, strings and validity exactly
 compare the executed plan after the run, so the node state the re-plan
 loop leaves behind (grown capacities, the unique-build and hash
 fallbacks, grown group estimates) matches too. The last cases hold the
-Bloom filter's bits and the runtime filter's keep mask against the
-reference's.
+join expansion's outputs, the Bloom filter's bits and the runtime
+filter's keep mask against the reference's.
 """
 
 import itertools
@@ -292,6 +292,67 @@ def test_sort_aggregate_overflow_grows_the_estimate(groups_table):
     assert 256 < got.num_rows <= 400
     assert pqe.attempts == 2
     assert "est=512" in pqe.executed_plan.tree_string()
+
+
+def _expansion_inputs(case: str):
+    """(lo, cnt_key, cnt_eff, perm, out_cap) of one expansion case, from
+    a numpy seed: probe rows' build match ranges over a shuffled build
+    side, as `match_ranges` gives them."""
+    rs = np.random.RandomState(sum(map(ord, case)))
+    n_build = 64
+    cap = 1 if case == "probe_capacity_1" else 200
+    if case == "fk_single":
+        cnt = (rs.rand(cap) < 0.7).astype(np.int64)
+    elif case == "no_emitting_row":
+        cnt = np.zeros(cap, dtype=np.int64)
+    else:
+        cnt = rs.choice([0, 0, 1, 2, 3, 5, 9], cap).astype(np.int64)
+    if case == "zero_rows_at_both_ends":
+        cnt[:7] = 0
+        cnt[-9:] = 0
+    if case in ("unselected_rows", "outer_null_extension"):
+        cnt[rs.rand(cap) < 0.3] = 0  # the probe selection's zeros
+    lo = np.array([rs.randint(0, n_build - c + 1) for c in cnt],
+                  dtype=np.int64)
+    eff = cnt.copy()
+    if case == "outer_null_extension":
+        selected = rs.rand(cap) < 0.85
+        eff = np.where(selected, np.maximum(cnt, 1), 0)
+        cnt = np.where(selected, cnt, 0)
+    perm = rs.permutation(n_build).astype(np.int64)
+    total = int(eff.sum())
+    out_cap = {"out_cap_above_total": total + 37,
+               "out_cap_below_total": max(1, total // 3),
+               "no_emitting_row": 16}.get(case, max(1, total))
+    return lo, cnt, eff, perm, out_cap
+
+
+@pytest.mark.parametrize("case", [
+    "many_to_many", "fk_single", "outer_null_extension", "no_emitting_row",
+    "zero_rows_at_both_ends", "unselected_rows", "out_cap_above_total",
+    "out_cap_below_total", "probe_capacity_1"])
+def test_expansion_matches_reference(case):
+    """The port's `expand` and the JAX package's give the same probe row,
+    build row, pair and valid flags for every output row, and the same
+    total, as integers (the JAX package's p is int32)."""
+    import jax.numpy as jnp
+    from spark_tpu.execution import join as RJ
+    from spark_tpu_torch.execution import join as PJ
+    lo, cnt, eff, perm, out_cap = _expansion_inputs(case)
+    got = PJ.expand(*(torch.from_numpy(a) for a in (lo, cnt, eff, perm)),
+                    out_cap)
+    want = RJ.expand(*(jnp.asarray(a) for a in (lo, cnt, eff, perm)),
+                     out_cap)
+    for name, g, w in zip(["p", "build_idx", "is_pair", "valid", "total"],
+                          got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape, name
+        assert np.array_equal(g.numpy().astype(np.int64),
+                              w.astype(np.int64)), name
+    total = int(got[4])
+    assert total == int(eff.sum())
+    assert (total > out_cap) == (case == "out_cap_below_total")
+    assert (total == 0) == (case == "no_emitting_row")
 
 
 def test_mix64_and_bloom_bits_match_reference():
