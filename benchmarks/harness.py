@@ -10,6 +10,15 @@ Everything a cell is made of is found by name under this directory:
 query's byte bound) and `metrics/<metric>.py` (one reader a per-layer
 metric). The metric lists come from `BENCHMARK.json` at the checkout
 root.
+
+A cell's `chips` is the number of cards it runs on. At 1 the session is
+pinned to the device `run` is given (`cuda:0` from `run.py`). At N > 1
+the configuration sets `spark_tpu.sql.mesh.size` to N and `run.py`
+builds the session without a device, so the port's mesh places its
+shards on cuda:0 to cuda:N-1; every card is synchronised and its peak
+read, and the traced readings are reduced per card (`tracing.py`). A
+device given to `run` (the CPU tests' "cpu") still pins every shard of
+such a mesh to it.
 """
 
 from __future__ import annotations
@@ -29,6 +38,8 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 #: top-level modules that no run may load: JAX and the JAX package
 FORBIDDEN = ("jax", "jaxlib", "flax", "spark_tpu")
+#: the port's conf key for the number of shards of a query's mesh
+MESH_KEY = "spark_tpu.sql.mesh.size"
 
 
 def load_json(path: Path) -> dict:
@@ -61,6 +72,12 @@ class Cell:
         spec = load_json(HERE / "cells" / f"{name}.json")
         self.chips = int(spec["chips"])
         self.config = load_json(HERE / "configs" / f"{spec['config']}.json")
+        mesh = int(self.config.get("conf", {}).get(MESH_KEY, 1))
+        if mesh != self.chips:
+            raise ValueError(
+                f"cell {name} asks for {self.chips} chips but its "
+                f"configuration {spec['config']} sets {MESH_KEY} to {mesh}: "
+                f"a cell runs one shard a card")
         self.mix = load_json(HERE / "mixes" / f"{spec['mix']}.json")
         self.queries: List[str] = list(self.mix["queries"])
         self.texts = {q: (HERE / "queries" / f"{q}.sql").read_text()
@@ -117,30 +134,47 @@ class Timeline:
         return _Listener()
 
 
-def _sync(device) -> None:
+def _sync(cards) -> None:
+    """Wait for every card of the run."""
     import torch
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    for card in cards:
+        if card.type == "cuda":
+            torch.cuda.synchronize(card)
 
 
-def _peak(device) -> int:
-    """The allocator's peak since the last call, then reset: the peak of
-    one stage of the run."""
+def _peak(cards) -> List[int]:
+    """Each card's allocator peak since the last call, then reset: the
+    peaks of one stage of the run."""
     import torch
-    if device.type != "cuda":
-        return 0
-    peak = torch.cuda.max_memory_allocated(device)
-    torch.cuda.reset_peak_memory_stats(device)
-    return peak
+    peaks = []
+    for card in cards:
+        if card.type != "cuda":
+            peaks.append(0)
+            continue
+        peaks.append(torch.cuda.max_memory_allocated(card))
+        torch.cuda.reset_peak_memory_stats(card)
+    return peaks
+
+
+def _cards(session, chips: int):
+    """The devices the run's shards sit on: the session's own where it
+    was built with one (every shard of a pinned mesh on it), else the
+    cards cuda:0 to cuda:chips-1 of the port's mesh."""
+    import torch
+    if session.device_pinned or chips == 1:
+        return [session.device]
+    return [torch.device("cuda", i) for i in range(chips)]
 
 
 def run(cell_name: str, seed: int, seconds: float, trace: bool,
-        device: str = "cuda", scale: Optional[float] = None,
+        device: Optional[str] = "cuda", scale: Optional[float] = None,
         workers: Optional[int] = None, t_start: Optional[float] = None
         ) -> dict:
-    """One run of a cell; returns the result line as a dict. `scale`
-    overrides the configuration's scale factor (the CPU tests' tiny
-    runs), `workers` the generator's threads."""
+    """One run of a cell; returns the result line as a dict. `device`
+    pins the session (and every shard of a mesh) to one device; None
+    leaves a mesh cell's shards on cuda:0 to cuda:N-1. `scale` overrides
+    the configuration's scale factor (the CPU tests' tiny runs),
+    `workers` the generator's threads."""
     t_start = t_start if t_start is not None else time.perf_counter()
     cell = Cell(cell_name)
     sf = float(scale if scale is not None else cell.config["scale_factor"])
@@ -168,13 +202,17 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
     builder = SparkTpuSession.builder()
     for key, value in cell.config.get("conf", {}).items():
         builder = builder.config(key, value)
-    session = builder.device(device).get_or_create()
+    if device is not None:
+        builder = builder.device(device)
+    session = builder.get_or_create()
     dev = session.device
-    torch.zeros(1, device=dev)
-    _sync(dev)
+    cards = _cards(session, cell.chips)
+    for card in cards:
+        torch.zeros(1, device=card)
+    _sync(cards)
     cuda_s = time.perf_counter() - t_gen
     session.warmup()
-    _sync(dev)
+    _sync(cards)
     library_s = time.perf_counter() - t_gen - cuda_s
     gen.join()
     if "error" in box:
@@ -197,16 +235,16 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
     t0 = time.perf_counter()
     for q in cell.queries:
         keep(q, session.sql(sqls[q]).collect())
-        _sync(dev)
+        _sync(cards)
     cold_pass_s = time.perf_counter() - t0
-    peaks = {"cold": _peak(dev)}
+    peaks = {"cold": _peak(cards)}
     t0 = time.perf_counter()
     for q in cell.queries:
         keep(q, session.sql(sqls[q]).collect())
-        _sync(dev)
+        _sync(cards)
     warm_s = time.perf_counter() - t0
     setup_s = time.perf_counter() - t_start
-    peaks["warm"] = _peak(dev)
+    peaks["warm"] = _peak(cards)
 
     timeline = Timeline() if trace else None
     if trace:
@@ -234,10 +272,10 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
                 from torch.profiler import record_function
                 with record_function(f"bench:{i}:{q}"):
                     table = session.sql(sqls[q]).collect()
-                    _sync(dev)
+                    _sync(cards)
             else:
                 table = session.sql(sqls[q]).collect()
-                _sync(dev)
+                _sync(cards)
         except Exception as e:  # noqa: BLE001 — a failed query is counted
             failed += 1
             errors.append(f"{q}: {type(e).__name__}: {e}"[:300])
@@ -249,11 +287,16 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
             keep(q, table)
         i += 1
     window_s = time.perf_counter() - t_win
+    # seconds of each step that reads the trace, after the window
+    trace_steps: Dict[str, float] = {}
     if prof is not None:
         prof.__exit__(None, None, None)
+        trace_steps["profiler stop"] = time.perf_counter() - t_win - window_s
     cache1 = CACHE.stats()
-    peaks["window"] = _peak(dev)
-    peak = max(peaks.values())
+    peaks["window"] = _peak(cards)
+    # each card's peak over the stages; the run's is the fullest card's
+    by_card = [max(p) for p in zip(*peaks.values())]
+    peak = max(by_card)
 
     done = [r for r in records if r["ok"]]
     lat_ms = sorted((r["t1"] - r["t0"]) * 1e3 for r in records)
@@ -265,17 +308,40 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
     ctx = {"records": records, "cold_pass_s": cold_pass_s,
            "cache": (cache0, cache1), "timeline": timeline}
     if trace:
+        import program_ranges
         import tracing
-        ctx.update(tracing.reduce_profile(prof, records, anchor, timeline))
+        t0 = time.perf_counter()
+        evs = tracing.events(prof)
         del prof
-        ctx["operators"] = tracing.operator_times(session, sqls, dev)
+        trace_steps["reading events"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ctx.update(tracing.reduce_events(
+            evs, records, anchor, timeline, [c.index or 0 for c in cards]))
+        trace_steps["device reduction"] = time.perf_counter() - t0
+        # the program's own ranges, under a key of their own: their
+        # window and busy time must not replace the per-card ones above
+        t0 = time.perf_counter()
+        ctx["ranges"] = program_ranges.reduce_events(
+            evs, records,
+            program_ranges.dispatch_starts(records, anchor, timeline))
+        del evs
+        trace_steps["program ranges"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if cell.chips > 1:
+            ctx["operators"], ctx["exchanges"] = \
+                tracing.mesh_operator_times(session, sqls)
+        else:
+            ctx["operators"] = tracing.operator_times(session, sqls, dev)
+        trace_steps["operator pass"] = time.perf_counter() - t0
 
     # free the program's state before the reference runs
     CACHE.clear()
     del session
     gc.collect()
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    for card in cards:
+        if card.type == "cuda":
+            with torch.cuda.device(card):
+                torch.cuda.empty_cache()
 
     from yardstick import Tables, Widths, to_rows, wrong_values
     t_ref = time.perf_counter()
@@ -318,10 +384,31 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
           f"registering {register_s:.3f}; cold pass {cold_pass_s:.3f}; "
           f"warm pass {warm_s:.3f}); window {window_s:.3f} s, {len(done)} of "
           f"{attempted} queries; reference {ref_s:.3f} s; device peak GiB "
-          f"cold pass {peaks['cold'] / 2**30:.3f}, warm pass "
-          f"{peaks['warm'] / 2**30:.3f}, window "
-          f"{peaks['window'] / 2**30:.3f}; params "
+          f"cold pass {max(peaks['cold']) / 2**30:.3f}, warm pass "
+          f"{max(peaks['warm']) / 2**30:.3f}, window "
+          f"{max(peaks['window']) / 2**30:.3f}; params "
           f"{json.dumps(params, sort_keys=True)}", file=sys.stderr)
+    if trace_steps:
+        print("trace read after the window, s: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in trace_steps.items()), file=sys.stderr)
+    if len(cards) > 1:
+        print("device peak GiB by card: " + ", ".join(
+            f"{c} {p / 2**30:.3f}" for c, p in zip(cards, by_card)),
+            file=sys.stderr)
+    if trace and cell.chips > 1:
+        print("busy s by card: " + ", ".join(
+            f"{c} {b:.4f}" for c, b in zip(cards, ctx["busy_s_by_card"]))
+            + f" of {ctx['traced_window_s']:.4f}", file=sys.stderr)
+        for q in cell.queries:
+            ops = ", ".join(f"{n} {s * 1e3:.3f}" for n, s in sorted(
+                ctx["operators"][q].items(), key=lambda x: -x[1]))
+            moved = ", ".join(
+                f"{tag} {x['bytes']} B" + (f" {x['seconds'] * 1e3:.3f} ms"
+                                           if x["seconds"] is not None
+                                           else "")
+                for tag, x in ctx["exchanges"][q].items())
+            print(f"{q} operators ms (slowest shard): {ops}; exchanges: "
+                  f"{moved or 'none'}", file=sys.stderr)
     for name, c in checks.items():
         print(f"check {name} = {c['value']} (limit {c['limit']})",
               file=sys.stderr)
@@ -332,9 +419,13 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
                       "kind": torch.cuda.get_device_name(dev)
                       if dev.type == "cuda" else "cpu",
                       "count": cell.chips, "memory_peak_bytes": peak}}
+    if len(cards) > 1:
+        out["device"]["memory_peak_bytes_by_card"] = by_card
     if trace:
         out["device"]["busy_s"] = ctx["busy_s"]
         out["device"]["window_s"] = ctx["traced_window_s"]
+        if len(cards) > 1:
+            out["device"]["busy_s_by_card"] = ctx["busy_s_by_card"]
         if breakdown:
             out["breakdown"] = breakdown
     out["checks"] = checks

@@ -12,13 +12,13 @@ innermost program range that encloses the CPU call that launched it, on
 the launching thread: the torch op its linked correlation id names, or
 else the CUDA runtime call with its correlation id. The GPU-side
 annotation events Kineto writes for each range are never device work.
-Busy time is the union of intervals, as `tracing.reduce_profile` counts
-it.
+Busy time is the union of intervals, as `tracing.reduce_events` counts
+it on one card; on a mesh this is the union over every card.
 
-`reduce(prof, records, anchor, timeline)` takes the arguments
-`tracing.reduce_profile` takes and returns the figures by name; it
-finds nothing, and returns no figure, in a trace without the program's
-ranges.
+`reduce_events(evs, records, dispatch_starts(...))` takes the events
+`tracing.events` read once for both reductions and returns the figures
+by name; it finds nothing, and returns no figure, in a trace without
+the program's ranges.
 """
 
 from __future__ import annotations
@@ -26,10 +26,9 @@ from __future__ import annotations
 import bisect
 import collections
 import statistics
-from dataclasses import dataclass
 from typing import Dict, Iterable, List, Optional, Tuple
 
-from tracing import PREFIX as BENCH, _covered, _merge, _ns, raw_events
+from tracing import PREFIX as BENCH, Ev, _covered, _merge
 
 RANGE = "spark_tpu/"
 #: operators whose attributed device time the join and aggregate
@@ -39,41 +38,6 @@ AGG_OPS = ("op:HashAggregateExec",)
 #: CUDA runtime calls that make the host wait for the card
 SYNCS = ("cudaStreamSynchronize", "cudaEventSynchronize",
          "cudaDeviceSynchronize")
-_ANNOTATION = ("user_annotation", "gpu_user_annotation")
-
-
-@dataclass
-class Ev:
-    """One profiler event, in the fields these reductions read."""
-    name: str
-    device: bool            # on the card (else on the host)
-    start: int              # ns, the profiler's clock
-    end: int
-    tid: int
-    kind: str               # Kineto's activity type, where it gives one
-    corr: int = 0
-    linked: int = 0
-    annotation: bool = False
-
-
-def events(prof) -> List[Ev]:
-    """The profiler's raw events as `Ev`s."""
-    import torch
-    cuda = torch.autograd.DeviceType.CUDA
-    out = []
-    for ev in raw_events(prof):
-        start = _ns(ev, "start")
-        kind = str(getattr(ev, "activity_type", lambda: "")())
-        out.append(Ev(
-            name=ev.name(), device=ev.device_type() == cuda, start=start,
-            end=start + _ns(ev, "duration"),
-            tid=int(getattr(ev, "start_thread_id", lambda: 0)()),
-            kind=kind, corr=int(ev.correlation_id()),
-            linked=int(ev.linked_correlation_id()),
-            annotation=bool(getattr(ev, "is_user_annotation",
-                                    lambda: False)())
-            or kind in _ANNOTATION))
-    return out
 
 
 def is_runtime(ev: Ev) -> bool:
@@ -298,15 +262,14 @@ def reduce_events(evs: List[Ev], records: List[dict],
     return out
 
 
-def reduce(prof, records: List[dict], anchor: Tuple[int, float],
-           timeline) -> dict:
-    """`reduce_events` of a profile, with each window query's `dispatch`
-    spans from the program's end events mapped through the harness's
-    anchor."""
+def dispatch_starts(records: List[dict], anchor: Tuple[int, float],
+                    timeline) -> Optional[List[List[int]]]:
+    """Each window query's `dispatch` span starts from the program's end
+    events, mapped through the harness's anchor (ns); None without a
+    timeline."""
+    if timeline is None:
+        return None
     anchor_ns, anchor_perf = anchor
-    starts = None
-    if timeline is not None:
-        starts = [[anchor_ns + int((t0 - anchor_perf) * 1e9)
-                   for name, t0, _ in ev["spans"] if name == "dispatch"]
-                  for ev in timeline.events[:len(records)]]
-    return reduce_events(events(prof), records, starts)
+    return [[anchor_ns + int((t0 - anchor_perf) * 1e9)
+             for name, t0, _ in ev["spans"] if name == "dispatch"]
+            for ev in timeline.events[:len(records)]]

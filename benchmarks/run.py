@@ -5,9 +5,10 @@
 
 Prints the result as one JSON object on the last line of standard
 output, and the numbers compared with their limits as the last lines of
-standard error. Exits non-zero, printing no result, when CUDA is missing,
-when the cell needs more cards than there are, or when JAX or the JAX
-package was loaded.
+standard error. Exits non-zero, printing no result, when the cell's
+configuration does not set a mesh of one shard a card, when CUDA is
+missing, when the cell needs more cards than there are, or when JAX or
+the JAX package was loaded.
 """
 
 import time
@@ -33,7 +34,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import harness
-    cell = harness.Cell(args.workload)
+    try:
+        cell = harness.Cell(args.workload)
+    except ValueError as e:
+        print(e, file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("no CUDA device: this benchmark measures the card",
@@ -43,8 +48,11 @@ def main(argv=None) -> int:
         print(f"{args.workload} needs {cell.chips} cards, "
               f"{torch.cuda.device_count()} visible", file=sys.stderr)
         return 2
+    # one card: the session pinned to it; more: the port's mesh takes
+    # cuda:0 to cuda:N-1
     result = harness.run(args.workload, args.seed, args.seconds,
-                         bool(args.trace), device="cuda:0",
+                         bool(args.trace),
+                         device="cuda:0" if cell.chips == 1 else None,
                          t_start=T_START)
     found = harness.forbidden_modules()
     if found:

@@ -117,12 +117,44 @@ class _Raw:
     def is_user_annotation(self):
         return self.ev.annotation
 
+    def correlation_id(self):
+        return self.ev.corr
+
+    def start_thread_id(self):
+        return self.ev.tid
+
+    def activity_type(self):
+        return self.ev.kind
+
+    def linked_correlation_id(self):
+        return self.ev.linked
+
+    def device_index(self):
+        return 0
+
 
 class _Prof:
     def __init__(self, evs):
         results = type("R", (), {"events": lambda _self: [
             _Raw(e) for e in evs]})()
         self.profiler = type("P", (), {"kineto_results": results})()
+
+
+def test_events_read_from_the_profile_reduce_as_the_trace_does():
+    """`tracing.events` keeps every event a reduction reads: the figures
+    from the raw profile equal those from the trace's events as they
+    are, with an op that launched nothing and a foreign range dropped."""
+    evs = synthetic() + [cpu("aten::empty", 220, 230, corr=13),
+                         cpu("other range", 0, 1000,
+                             kind="user_annotation")]
+    read = tracing.events(_Prof(evs))
+    assert {e.name for e in read} == \
+        {e.name for e in evs} - {"aten::empty", "other range"}
+    records = [{"q": "q3", "t0": 0.0, "t1": 1e-6, "ok": True}]
+    assert program_ranges.reduce_events(read, records, [[100]]) == \
+        program_ranges.reduce_events(evs, records, [[100]])
+    assert tracing.reduce_events(read, records, (0, 0.0), None) == \
+        tracing.reduce_events(evs, records, (0, 0.0), None)
 
 
 @pytest.mark.parametrize("with_ranges", [False, True])

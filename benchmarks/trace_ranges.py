@@ -1,8 +1,9 @@
-"""Run one cell traced, as `run.py --trace 1` does, and reduce the
-program's own ranges in the same profile (`program_ranges.py`): the
-device time of each operator class, the idle inside `dispatch`, the idle
-by the innermost range, host syncs, and the offsets between the spans
-as the harness's anchor maps them and the same ranges on the trace.
+"""Run one cell traced, as `run.py --trace 1` does, and print what the
+harness reduced from the program's own ranges in the profile
+(`program_ranges.py`): the device time of each operator class, the idle
+inside `dispatch`, the idle by the innermost range, host syncs, and the
+offsets between the spans as the harness's anchor maps them and the
+same ranges on the trace.
 
     python benchmarks/trace_ranges.py --workload <cell> --seed <n> \
         --seconds <s> [--out <file.json>]
@@ -27,25 +28,34 @@ sys.path.insert(1, str(HERE.parent))
 
 
 def run_traced(cell: str, seed: int, seconds: float, **kwargs):
-    """`harness.run` traced, with `program_ranges.reduce` applied to the
-    profile while it is alive. Returns (result line, reductions)."""
+    """`harness.run` traced, keeping what its call of
+    `program_ranges.reduce_events` returned and the busy time its call
+    of `tracing.reduce_events` found. Returns (result line,
+    reductions)."""
     import harness
     import program_ranges
     import tracing
     found: dict = {}
-    plain = tracing.reduce_profile
+    plain_device, plain_ranges = tracing.reduce_events, \
+        program_ranges.reduce_events
 
-    def reduce_profile(prof, records, anchor, timeline):
-        out = plain(prof, records, anchor, timeline)
-        found.update(program_ranges.reduce(prof, records, anchor, timeline))
+    def reduce_device(*args):
+        out = plain_device(*args)
         found["reduce_profile_busy_s"] = out["busy_s"]
         return out
 
-    tracing.reduce_profile = reduce_profile
+    def reduce_ranges(*args):
+        out = plain_ranges(*args)
+        found.update(out)
+        return out
+
+    tracing.reduce_events = reduce_device
+    program_ranges.reduce_events = reduce_ranges
     try:
         result = harness.run(cell, seed, seconds, True, **kwargs)
     finally:
-        tracing.reduce_profile = plain
+        tracing.reduce_events = plain_device
+        program_ranges.reduce_events = plain_ranges
     return result, found
 
 
